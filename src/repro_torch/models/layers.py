@@ -1,0 +1,165 @@
+"""Shared neural building blocks for the model zoo (PyTorch port).
+
+Counterpart of ``repro/models/layers.py``: plain functions on tensors that
+keep the JAX package's layouts, so that the parity tests compare like with
+like.  Self-attention over a full sequence goes through the flash-attention
+kernel (``repro_torch.kernels.flash_attention``), whose plain version is
+:func:`attention` here.
+
+Conventions:
+  * activations compute in ``cfg.dtype``, norms and softmax in float32,
+  * weights are cast to the activation dtype at use (:func:`dense`),
+  * q/k/v are ``(B, S, heads, Dh)``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+_QBLOCK = 512          # query-block rows for long plain attention
+_PLAIN_ATTN_MAX = 2048  # up to this many query rows, one block
+
+
+# ---------------------------------------------------------------------------
+# Elementary ops
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps)
+    return (x * (1.0 + w.float())).to(dt)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor):
+    """x @ w with the weight cast to the activation dtype."""
+    return x @ w.to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0):
+    """Half-split rotary embedding. x: (..., S, H, Dh); positions: (..., S)."""
+    dh = x.shape[-1]
+    half = dh // 2
+    freq = torch.exp(-math.log(theta) * torch.arange(
+        half, dtype=torch.float32, device=x.device) / half)
+    ang = positions[..., :, None].float() * freq          # (..., S, half)
+    ang = ang[..., :, None, :]                            # (..., S, 1, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _relu2(x):
+    return torch.square(F.relu(x))
+
+
+def _gelu_tanh(x):
+    # jax.nn.gelu defaults to the tanh approximation; torch's to the exact form
+    return F.gelu(x, approximate="tanh")
+
+
+_ACTS = {"swiglu": F.silu, "geglu": _gelu_tanh, "gelu": _gelu_tanh,
+         "relu2": _relu2}
+
+
+def act_fn(name: str):
+    return _ACTS[name]
+
+
+def is_gated_act(name: str) -> bool:
+    return name in ("swiglu", "geglu")
+
+
+def gated_mlp(x, p, act: str):
+    """MLP: gated (SwiGLU/GeGLU: w1, w3, w2) or plain (gelu/relu2: w1, w2)."""
+    h = act_fn(act)(dense(x, p["w1"]))
+    if "w3" in p:
+        h = h * dense(x, p["w3"])
+    return dense(h, p["w2"])
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA, causal / sliding-window), plain version
+# ---------------------------------------------------------------------------
+
+def attention(q, k, v, *, causal: bool, window: int = 0, q_offset: int = 0,
+              kv_len: Optional[int] = None):
+    """Grouped-query attention, exact softmax.
+
+    q: (B, S_q, H, Dh); k, v: (B, S_k, KH, Dh).  H = KH * G.
+    ``q_offset``: absolute position of q[0] relative to k[0] (decode/prefill).
+    ``window`` > 0 restricts attention to the last ``window`` key positions.
+    ``kv_len``: number of valid key slots (decode caches).
+    Scores are formed in the input dtype and then upcast, as the JAX
+    reference does.  Returns (B, S_q, H, Dh).
+    """
+    B, Sq, H, Dh = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    scale = 1.0 / math.sqrt(Dh)
+    qg = q.reshape(B, Sq, KH, G, Dh)
+    k_pos = torch.arange(Sk, device=q.device)
+    ct = torch.promote_types(q.dtype, k.dtype)   # jnp.einsum promotes too
+
+    def block_out(q_blk, q_pos):
+        # q_blk: (B, bq, KH, G, Dh); q_pos: (bq,) absolute positions
+        s = torch.einsum("bqkgd,bskd->bkgqs", q_blk.to(ct), k.to(ct))
+        s = (s * scale).float()
+        mask = torch.ones((q_pos.shape[0], Sk), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= q_pos[:, None] >= k_pos[None, :]
+        if window:
+            mask &= q_pos[:, None] - k_pos[None, :] < window
+        if kv_len is not None:
+            mask &= (k_pos < kv_len)[None, :]
+        s = s.masked_fill(~mask, -1e30)
+        p = torch.softmax(s, dim=-1).to(v.dtype)
+        return torch.einsum("bkgqs,bskd->bqkgd", p, v)
+
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    if Sq <= _PLAIN_ATTN_MAX:
+        out = block_out(qg, q_pos)
+    else:   # bound the (bq, S_k) score block; rows are independent
+        out = torch.cat([block_out(qg[:, i:i + _QBLOCK], q_pos[i:i + _QBLOCK])
+                         for i in range(0, Sq, _QBLOCK)], dim=1)
+    return out.reshape(B, Sq, H, Dh)
+
+
+# ---------------------------------------------------------------------------
+# Decode-path attention with a KV ring-buffer cache
+# ---------------------------------------------------------------------------
+
+def decode_attention_block(x, p, cfg, cache, pos: int, *, window: int = 0):
+    """One-token self-attention against a cache.
+
+    cache: {"k","v": (B, S_cache, KH, Dh)}; pos: absolute position (int).
+    For windowed attention S_cache == window and writes wrap (ring buffer):
+    RoPE is applied pre-insertion so rotated keys stay valid under wrap.
+    Without a window a position past the cache writes its last slot, as
+    ``lax.dynamic_update_slice`` clamps in the reference.  The cache
+    tensors are updated in place (no copy of the cache per token) and
+    returned.
+    """
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    B = h.shape[0]
+    H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = dense(h, p["wq"]).reshape(B, 1, H, Dh)
+    k = dense(h, p["wk"]).reshape(B, 1, KH, Dh)
+    v = dense(h, p["wv"]).reshape(B, 1, KH, Dh)
+    posv = torch.full((1,), pos, device=x.device)
+    q = rope(q, posv, cfg.rope_theta)
+    k = rope(k, posv, cfg.rope_theta)
+    ck, cv = cache["k"], cache["v"]
+    S_cache = ck.shape[1]
+    slot = pos % S_cache if window else min(max(pos, 0), S_cache - 1)
+    ck[:, slot] = k[:, 0].to(ck.dtype)
+    cv[:, slot] = v[:, 0].to(cv.dtype)
+    kv_len = min(pos + 1, S_cache)
+    o = attention(q, ck, cv, causal=False, kv_len=kv_len)
+    o = dense(o.reshape(B, 1, H * Dh), p["wo"])
+    return x + o, {"k": ck, "v": cv}

@@ -1,0 +1,83 @@
+"""The port stands alone: no module of ``src/repro_torch`` and not
+``chip_smoke.py`` imports JAX or the JAX package, and the smoke script
+refuses to run without a GPU."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                    "import_module", "__import__") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            yield node.args[0].value
+
+
+def _forbidden(name):
+    root = name.split(".")[0]
+    return root in ("jax", "jaxlib", "repro", "flax", "optax")
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_no_jax_and_nothing_of_repro(path):
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_files_were_found():
+    names = {p.name for p in PORT_FILES}
+    assert {"transformer.py", "ops.py", "serve.py", "chip_smoke.py"} <= names
+
+
+def _env(**extra):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    env.update(extra)
+    return env
+
+
+def test_importing_the_whole_port_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('modules', sum(m.startswith('repro_torch') for m in sys.modules))\n")
+    res = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) >= 20
+
+
+@pytest.mark.parametrize("where", ["checkout", "alone"])
+def test_chip_smoke_fails_without_a_gpu(where, tmp_path):
+    script = ROOT / "chip_smoke.py"
+    if where == "alone":              # a directory with the script only
+        (tmp_path / "chip_smoke.py").write_text(script.read_text())
+        script = tmp_path / "chip_smoke.py"
+    env = _env(CUDA_VISIBLE_DEVICES="")
+    env.pop("PYTHONPATH")
+    res = subprocess.run([sys.executable, str(script)], env=env,
+                         cwd=script.parent, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
