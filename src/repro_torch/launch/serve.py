@@ -5,6 +5,8 @@
         --requests 8 --prompt-len 64 --gen 32            # on the GPU
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch minicpm-2b-smoke --device cpu              # reduced, on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch granite-moe-3b-a800m --moe-dispatch gather  # MoE, on the GPU
 
 Static-batch synchronous decode (all slots advance one position per step).
 Requests are packed into fixed slots; finished slots are refilled from the
@@ -39,18 +41,24 @@ class Request:
 
 
 def serve(cfg, requests: List[Request], *, slots: int = 4,
-          ctx_len: int = 512, seed: int = 0, params=None, device=None):
+          ctx_len: int = 512, seed: int = 0, params=None,
+          moe_dispatch: str = "einsum", device=None):
     """Serve ``requests`` greedily; returns them in completion order.
 
     ``params`` defaults to ``init_params(cfg, seed)`` on ``device``; a test
     hands in weights converted from the JAX package instead.
+    ``moe_dispatch`` goes to both steps: "gather" runs MoE layers through
+    the grouped expert-FFN kernel, "einsum" (the reference's default)
+    through one-hot dispatch.
     """
     device = resolve_device(device)
     with torch.inference_mode():
         if params is None:
             params = R.init_params(cfg, seed, device=device)
-        prefill = make_prefill_step(cfg, cache_len=ctx_len, device=device)
-        decode = make_serve_step(cfg, device=device)
+        prefill = make_prefill_step(cfg, cache_len=ctx_len,
+                                    moe_dispatch=moe_dispatch, device=device)
+        decode = make_serve_step(cfg, moe_dispatch=moe_dispatch,
+                                 device=device)
 
         queue = list(requests)
         active: List[Optional[Request]] = [None] * slots
@@ -100,6 +108,9 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--moe-dispatch", default="einsum",
+                    choices=["einsum", "gather"],
+                    help="MoE dispatch; gather runs the moe_gmm kernel")
     ap.add_argument("--device", default=None,
                     help="torch device; default cuda (raises without a GPU)")
     args = ap.parse_args(argv)
@@ -118,7 +129,7 @@ def main(argv=None):
             for i in range(args.requests)]
     done = serve(cfg, reqs, slots=args.slots,
                  ctx_len=args.prompt_len + args.gen, seed=args.seed,
-                 device=device)
+                 moe_dispatch=args.moe_dispatch, device=device)
     wall = time.time() - t0
     n_tok = sum(len(r.generated) for r in done)
     print(f"[serve] arch={cfg.name} device={device} requests={len(done)} "

@@ -6,6 +6,8 @@ cannot drift from it and allocate nothing even for full-size configs.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ArchConfig
 
@@ -17,14 +19,23 @@ decode_step = tf.decode_step
 init_cache = tf.init_cache
 
 
-def _numel(tree) -> int:
+def _numel(tree, cfg: ArchConfig, active_only: bool,
+           path: Tuple[str, ...] = ()) -> int:
     if isinstance(tree, dict):
-        return sum(_numel(v) for v in tree.values())
+        return sum(_numel(v, cfg, active_only, path + (k,))
+                   for k, v in tree.items())
     if isinstance(tree, (list, tuple)):
-        return sum(_numel(v) for v in tree)
-    return tree.numel()
+        return sum(_numel(v, cfg, active_only, path) for v in tree)
+    n = tree.numel()
+    if active_only and cfg.is_moe and "ffn" in path and \
+            path[-1] in ("w1", "w2", "w3"):
+        n = n * cfg.top_k // cfg.n_experts      # the per-token active share
+    return n
 
 
-def count_params_analytic(cfg: ArchConfig) -> int:
-    """Exact parameter count, from init shapes on the meta device."""
-    return _numel(tf.init_params(cfg, device="meta"))
+def count_params_analytic(cfg: ArchConfig, active_only: bool = False) -> int:
+    """Exact parameter count, from init shapes on the meta device.
+
+    ``active_only`` scales MoE expert tensors by top_k / E (the share of
+    them each token runs through)."""
+    return _numel(tf.init_params(cfg, device="meta"), cfg, active_only)

@@ -1,10 +1,10 @@
-"""Dense decoder stack of the model zoo (PyTorch port of
+"""Decoder stack of the model zoo (PyTorch port of
 ``repro/models/transformer.py``).
 
-This slice covers the dense block kinds: ATTN / SWA / LOCAL self-attention
-with a gated (or plain) MLP.  MoE, RG-LRU, mLSTM, sLSTM, cross-attention
-and the audio encoder raise ``NotImplementedError`` naming the slice that
-ports them.
+The port covers ATTN / SWA / LOCAL self-attention with a gated (or plain)
+MLP or a mixture of experts (``repro_torch.models.moe``).  RG-LRU, mLSTM,
+sLSTM, cross-attention and the audio encoder raise ``NotImplementedError``
+naming the slice that ports them.
 
 Layouts differ from the JAX package in one way: where JAX stacks the layers
 of each pattern position under ``params["blocks"]`` (leading
@@ -13,11 +13,14 @@ keeps one dict per layer in depth order, ``params["layers"][n]``, of kind
 ``block_pattern[n % pattern_period]``.  ``repro_torch.convert`` maps
 between the two.  The decode cache follows the same per-layer layout.
 
-Public API:
+Public API (``moe_dispatch`` is "einsum" or "gather", as in the reference;
+it is read only by MoE layers):
   init_params(cfg, seed, device=)                  -> params
-  forward_logits(params, cfg, batch, device=)      -> (B, S, V) logits
-  prefill(params, cfg, batch, cache_len=, device=) -> (last_logits, cache)
-  decode_step(params, cfg, tokens, pos, cache, device=) -> (logits, cache)
+  forward_logits(params, cfg, batch, moe_dispatch=, device=) -> (B, S, V)
+  prefill(params, cfg, batch, cache_len=, moe_dispatch=, device=)
+                                                   -> (last_logits, cache)
+  decode_step(params, cfg, tokens, pos, cache, moe_dispatch=, device=)
+                                                   -> (logits, cache)
   init_cache(cfg, B, ctx_len, device=)             -> cache (zeros)
 """
 from __future__ import annotations
@@ -35,6 +38,7 @@ from repro_torch.models.config import (ATTN, SWA, LOCAL, CROSS, MLSTM, SLSTM,
 from repro_torch.models.layers import (decode_attention_block, dense,
                                        gated_mlp, is_gated_act, rms_norm,
                                        rope)
+from repro_torch.models.moe import moe_block
 
 _SELF_ATTN = (ATTN, SWA, LOCAL)
 _LATER_SLICE = {
@@ -50,10 +54,6 @@ def check_supported(cfg: ArchConfig) -> None:
     if cfg.modality == "audio" or cfg.encoder_only:
         raise NotImplementedError(
             f"{cfg.name}: the audio encoder is ported in a later slice")
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are ported in the MoE slice "
-            f"(moe_gmm kernel)")
     for kind in cfg.block_pattern:
         if kind not in _SELF_ATTN:
             raise NotImplementedError(
@@ -83,9 +83,11 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
     Drawn in float32 from a ``torch.Generator`` seeded with ``seed`` on the
     target device, then stored in ``cfg.dtype`` (the reference keeps
     float32 weights and casts them at use; full-width serving reads half
-    the bytes this way).  The numbers differ from ``jax.random``'s; parity
-    tests convert JAX params instead.  On the ``meta`` device nothing is
-    drawn or allocated.
+    the bytes this way).  The MoE router stays float32: routing casts it
+    to float32 anyway, and a rounded router routes differently from the
+    reference's.  The numbers differ from ``jax.random``'s; parity tests
+    convert JAX params instead.  On the ``meta`` device nothing is drawn
+    or allocated.
     """
     check_supported(cfg)
     device = resolve_device(device)
@@ -93,10 +95,10 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
     gen = None if device.type == "meta" else \
         torch.Generator(device=device).manual_seed(seed)
 
-    def normal(shape, std):
+    def normal(shape, std, dtype=dt):
         w = torch.randn(shape, generator=gen, device=device,
                         dtype=torch.float32)
-        return (w * std).to(dt)
+        return (w * std).to(dtype)
 
     def lin(m, n, scale=1.0):
         return normal((m, n), scale / math.sqrt(m))
@@ -108,11 +110,21 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
                        cfg.head_dim, cfg.d_ff)
     out_scale = 1.0 / math.sqrt(2 * cfg.n_layers)
 
+    def moe():
+        E = cfg.n_experts
+        return {"ln": zeros(d),
+                "router": normal((d, E), d ** -0.5, torch.float32),
+                "w1": normal((E, d, f), d ** -0.5),
+                "w3": normal((E, d, f), d ** -0.5),
+                "w2": normal((E, f, d), f ** -0.5 * out_scale)}
+
     def layer():
         p = {"mix": {"ln": zeros(d), "wq": lin(d, H * Dh),
                      "wk": lin(d, KH * Dh), "wv": lin(d, KH * Dh),
                      "wo": lin(H * Dh, d, out_scale)}}
-        if f > 0:
+        if cfg.is_moe:
+            p["ffn"] = moe()
+        elif f > 0:
             p["ffn"] = {"ln": zeros(d), "w1": lin(d, f),
                         "w2": lin(f, d, out_scale)}
             if is_gated_act(cfg.act):
@@ -148,12 +160,17 @@ def _self_attn(x, p, cfg, *, positions, window):
     return x + dense(o.reshape(B, S, H * Dh), p["wo"]), (k, v)
 
 
-def _apply_ffn(x, p, cfg):
+def _apply_ffn(x, p, cfg, moe_dispatch):
+    if cfg.is_moe:
+        # the aux loss is for training, which this port does not run yet
+        x, _ = moe_block(x, p, cfg, dispatch=moe_dispatch)
+        return x
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     return x + gated_mlp(h, p, cfg.act)
 
 
-def _stack_forward(params, cfg, x, positions, *, collect_kv: bool = False):
+def _stack_forward(params, cfg, x, positions, moe_dispatch, *,
+                   collect_kv: bool = False):
     """Runs every layer in depth order. Returns (x, [(k, v)] or None)."""
     kvs: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = \
         [] if collect_kv else None
@@ -164,7 +181,7 @@ def _stack_forward(params, cfg, x, positions, *, collect_kv: bool = False):
         if kvs is not None:
             kvs.append(kv)
         if "ffn" in layer:
-            x = _apply_ffn(x, layer["ffn"], cfg)
+            x = _apply_ffn(x, layer["ffn"], cfg, moe_dispatch)
     return x, kvs
 
 
@@ -202,12 +219,13 @@ def _prepare(params, cfg, tokens, device):
 # Public entry points
 # ---------------------------------------------------------------------------
 
-def forward_logits(params, cfg: ArchConfig, batch, *, device=None):
+def forward_logits(params, cfg: ArchConfig, batch, *,
+                   moe_dispatch: str = "einsum", device=None):
     """Full-sequence logits (no cache) — used by eval / tests."""
     tokens = _prepare(params, cfg, batch["tokens"], device)
     x = _embed(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, _ = _stack_forward(params, cfg, x, positions)
+    x, _ = _stack_forward(params, cfg, x, positions, moe_dispatch)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     return _unembed(x, params, cfg)
 
@@ -237,7 +255,7 @@ def init_cache(cfg: ArchConfig, B: int, ctx_len: int, *, device=None):
 
 
 def decode_step(params, cfg: ArchConfig, tokens, pos: int, cache, *,
-                device=None):
+                moe_dispatch: str = "einsum", device=None):
     """One new token against the cache.  tokens: (B, 1); pos: int.
 
     Returns (logits: (B, V), cache).  The cache's tensors are updated in
@@ -253,13 +271,14 @@ def decode_step(params, cfg: ArchConfig, tokens, pos: int, cache, *,
                                         cache["layers"][n], pos, window=w)
         layers.append(new)
         if "ffn" in layer:
-            x = _apply_ffn(x, layer["ffn"], cfg)
+            x = _apply_ffn(x, layer["ffn"], cfg, moe_dispatch)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     return _unembed(x, params, cfg)[:, 0], {"layers": layers}
 
 
 def prefill(params, cfg: ArchConfig, batch, *,
-            cache_len: Optional[int] = None, device=None):
+            cache_len: Optional[int] = None, moe_dispatch: str = "einsum",
+            device=None):
     """Full-context forward that also materialises the decode cache.
 
     Returns (last_token_logits: (B, V), cache).  Each layer's cache is sized
@@ -270,7 +289,8 @@ def prefill(params, cfg: ArchConfig, batch, *,
     x = _embed(params, cfg, tokens)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
-    x, kvs = _stack_forward(params, cfg, x, positions, collect_kv=True)
+    x, kvs = _stack_forward(params, cfg, x, positions, moe_dispatch,
+                            collect_kv=True)
     x = rms_norm(x[:, -1], params["final_ln"], cfg.norm_eps)
     logits = _unembed(x, params, cfg)
 

@@ -36,7 +36,8 @@ def _jax_tree(jc):
 
 
 @pytest.mark.parametrize("case", ["minicpm-2b", "h2o-danube-3-4b",
-                                  "attn-swa-tail"])
+                                  "attn-swa-tail", "granite-moe-3b-a800m",
+                                  "mixtral-8x7b"])
 def test_round_trip_is_exact_and_covers_every_key(case):
     jc, tc = _pair(case)
     tree = _jax_tree(jc)
@@ -107,3 +108,19 @@ def test_cache_to_jax_matches_the_jax_cache_layout():
                                                            device="cpu")))
     assert {k: v.shape for k, v in got.items()} == \
         {k: v.shape for k, v in want.items()}
+
+
+@pytest.mark.parametrize("case", ["granite-moe-3b-a800m", "mixtral-8x7b"])
+def test_moe_leaves_carry_router_and_experts_per_layer(case):
+    jc, tc = _pair(case)
+    tree = _jax_tree(jc)
+    params = params_from_jax(tc, tree)
+    E, d, f = tc.n_experts, tc.d_model, tc.d_ff
+    for n, layer in enumerate(params["layers"]):
+        ffn = layer["ffn"]
+        assert set(ffn) == {"ln", "router", "w1", "w3", "w2"}
+        assert tuple(ffn["router"].shape) == (d, E)
+        assert tuple(ffn["w1"].shape) == tuple(ffn["w3"].shape) == (E, d, f)
+        assert tuple(ffn["w2"].shape) == (E, f, d)
+        np.testing.assert_array_equal(
+            ffn["w2"].numpy(), tree["blocks"]["l0"]["ffn"]["w2"][n])

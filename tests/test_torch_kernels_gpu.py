@@ -14,6 +14,9 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.kernels.flash_attention import kernel, ops, ref
+from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
+from repro_torch.kernels.moe_gmm import ops as gmm_ops
+from repro_torch.kernels.moe_gmm import ref as gmm_ref
 from repro_torch.models import registry as R
 
 pytestmark = pytest.mark.gpu
@@ -22,6 +25,10 @@ pytestmark = pytest.mark.gpu
 # inputs: half an ulp of |o| < 8 is <= 7.8e-3.  float32 vs float32 (no
 # TF32): summation order only.
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+# moe_gmm, relative to the plain version's max |y|: bf16 rounds h and y to
+# bf16 (2**-9 of the value each); float32 differs in summation order only.
+GMM_RTOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
 
 def _need_cuda():
@@ -93,4 +100,93 @@ def test_model_on_gpu_matches_plain_on_cpu():
     on = R.forward_logits(params_gpu, cfg, {"tokens": toks}, device="cuda")
     assert kernel.LAUNCHES == before + cfg.n_layers
     off = R.forward_logits(params, cfg, {"tokens": toks}, device="cpu")
+    assert float((on.cpu() - off).abs().max()) < 1e-3
+
+
+def _gmm_inputs(E, C, d, f, gated, dtype, pad=0, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xe = torch.randn((E, C, d), generator=g, device="cuda")
+    xe[:, C - pad:] = 0.0                       # zero pad rows, as in buckets
+    p = {"w1": torch.randn((E, d, f), generator=g, device="cuda") / d ** 0.5,
+         "w2": torch.randn((E, f, d), generator=g, device="cuda") / f ** 0.5}
+    if gated:
+        p["w3"] = torch.randn((E, d, f), generator=g, device="cuda") / d ** 0.5
+    return xe.to(dtype), {k: w.to(dtype) for k, w in p.items()}
+
+
+@pytest.mark.parametrize("E,C,d,f,act,gated,pad", [
+    (40, 1000, 1536, 512, "swiglu", True, 0),    # granite-moe prefill
+    (40, 8, 1536, 512, "swiglu", True, 7),       # granite-moe decode
+    (4, 1, 256, 512, "swiglu", True, 0),
+    (4, 136, 256, 512, "swiglu", True, 17),
+    (3, 100, 211, 333, "swiglu", True, 9),       # no tile divides d or f
+    (4, 136, 256, 512, "geglu", True, 0),
+    (2, 70, 128, 96, "gelu", False, 0),
+    (4, 136, 256, 512, "relu2", False, 17),
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_moe_gmm_kernel_matches_plain(E, C, d, f, act, gated, pad, dtype):
+    _need_cuda()
+    xe, p = _gmm_inputs(E, C, d, f, gated, dtype, pad)
+    before = gmm_kernel.LAUNCHES
+    out = gmm_ops.expert_ffn(xe, p, act)
+    torch.cuda.synchronize()
+    assert gmm_kernel.LAUNCHES == before + 1
+    assert out.dtype == dtype and out.shape == xe.shape
+    want = gmm_ref.reference_expert_ffn(
+        xe.float(), {k: w.float() for k, w in p.items()}, act)
+    rel = float((out.float() - want).abs().max() / want.abs().max())
+    assert rel <= GMM_RTOL[dtype], rel
+    if pad:
+        assert not out[:, C - pad:].any()       # act(0) * 0 = 0 for pad rows
+
+
+def test_moe_gmm_casts_weights_to_the_input_dtype():
+    _need_cuda()
+    xe, p = _gmm_inputs(2, 16, 64, 64, True, torch.float32)
+    out = gmm_ops.expert_ffn(xe.bfloat16(), p, "swiglu")
+    assert out.dtype == torch.bfloat16
+    want = gmm_ref.reference_expert_ffn(
+        xe.bfloat16().float(),
+        {k: w.bfloat16().float() for k, w in p.items()}, "swiglu")
+    rel = float((out.float() - want).abs().max() / want.abs().max())
+    assert rel <= GMM_RTOL[torch.bfloat16], rel
+
+
+def test_moe_gmm_rejects_what_it_does_not_take():
+    _need_cuda()
+    xe, p = _gmm_inputs(2, 16, 64, 64, True, torch.float32)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        gmm_ops.expert_ffn(xe.half(), p, "swiglu")
+    with pytest.raises(ValueError, match="contiguous"):
+        gmm_ops.expert_ffn(xe.transpose(0, 1).contiguous().transpose(0, 1),
+                           p, "swiglu")
+    with pytest.raises(ValueError, match="one CUDA device"):
+        gmm_ops.expert_ffn(xe, {**p, "w2": p["w2"].cpu()}, "swiglu")
+    with pytest.raises(ValueError, match="unknown act"):
+        gmm_ops.expert_ffn(xe, p, "tanh")
+    with pytest.raises(ValueError, match="w2"):
+        gmm_ops.expert_ffn(xe, {**p, "w2": p["w1"][:, :, :32]}, "swiglu")
+
+
+def test_moe_model_on_gpu_matches_plain_on_cpu():
+    """granite-moe reduced through both kernels (CUDA) against the plain
+    versions on the CPU, with the gather dispatch."""
+    _need_cuda()
+    cfg = dataclasses.replace(get_arch("granite-moe-3b-a800m").reduced(),
+                              n_kv_heads=2, head_dim=64, dtype="float32")
+    params = R.init_params(cfg, 0, device="cpu")
+    params_gpu = {k: ([{g: {n: w.cuda() for n, w in sub.items()}
+                        for g, sub in lay.items()} for lay in v]
+                      if k == "layers" else v.cuda())
+                  for k, v in params.items()}
+    toks = torch.randint(0, cfg.vocab_size, (2, 150),
+                         generator=torch.Generator().manual_seed(0))
+    before = gmm_kernel.LAUNCHES, kernel.LAUNCHES
+    on = R.forward_logits(params_gpu, cfg, {"tokens": toks},
+                          moe_dispatch="gather", device="cuda")
+    assert (gmm_kernel.LAUNCHES, kernel.LAUNCHES) == \
+        (before[0] + cfg.n_layers, before[1] + cfg.n_layers)
+    off = R.forward_logits(params, cfg, {"tokens": toks},
+                           moe_dispatch="gather", device="cpu")
     assert float((on.cpu() - off).abs().max()) < 1e-3

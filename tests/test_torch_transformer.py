@@ -49,6 +49,8 @@ _jax_decode = jax.jit(JR.decode_step, static_argnums=1)
 def _configs(case, dtype):
     if case == "attn-swa-tail":
         j, t = JaxArchConfig(**_TAIL), TC.ArchConfig(**_TAIL)
+    elif case not in CASES:            # an arch's reduced config as it is
+        j, t = jax_arch(case).reduced(), torch_arch(case).reduced()
     else:
         j, t = CASES[case](jax_arch), CASES[case](torch_arch)
     return (dataclasses.replace(j, dtype=dtype),
@@ -144,15 +146,20 @@ def test_decode_matches_forward_and_catches_position_and_slot_faults(case):
         10 * TOL["float32"]
 
 
-@pytest.mark.parametrize("arch", ["minicpm-2b", "h2o-danube-3-4b"])
+@pytest.mark.parametrize("arch", ["minicpm-2b", "h2o-danube-3-4b",
+                                  "granite-moe-3b-a800m", "mixtral-8x7b"])
 def test_param_count_matches_jax(arch):
     assert R.count_params_analytic(torch_arch(arch)) == \
         JR.count_params_analytic(jax_arch(arch))
     assert torch_arch(arch).param_count() == \
         JR.count_params_analytic(jax_arch(arch))
+    assert R.count_params_analytic(torch_arch(arch), active_only=True) == \
+        JR.count_params_analytic(jax_arch(arch), active_only=True)
 
 
-@pytest.mark.parametrize("case", list(CASES) + ["attn-swa-tail"])
+@pytest.mark.parametrize("case", list(CASES) + ["attn-swa-tail",
+                                                 "granite-moe-3b-a800m",
+                                                 "mixtral-8x7b"])
 def test_init_matches_jax_shapes_and_scales(case):
     jc, tc = _configs(case, "float32")
     jp, _ = JR.init_params(jax.random.key(0), jc)
@@ -178,6 +185,15 @@ def test_init_is_seeded_and_in_cfg_dtype():
     assert not torch.equal(a["embed"], c["embed"])
 
 
+def test_moe_init_keeps_the_router_in_float32():
+    cfg = torch_arch("granite-moe-3b-a800m").reduced()
+    assert cfg.dtype == "bfloat16"
+    ffn = R.init_params(cfg, 0, device="cpu")["layers"][0]["ffn"]
+    assert ffn["router"].dtype == torch.float32
+    assert ffn["w1"].dtype == ffn["w3"].dtype == ffn["w2"].dtype == \
+        torch.bfloat16
+
+
 def test_init_cache_sizes_windowed_layers_to_the_window():
     jc, tc = _configs("attn-swa-tail", "float32")
     cache = R.init_cache(tc, 2, 40, device="cpu")
@@ -191,7 +207,6 @@ def test_init_cache_sizes_windowed_layers_to_the_window():
 
 
 @pytest.mark.parametrize("arch,slice_name", [
-    ("mixtral-8x7b", "MoE"), ("granite-moe-3b-a800m", "MoE"),
     ("recurrentgemma-9b", "Griffin"), ("xlstm-1.3b", "xLSTM"),
     ("llama-3.2-vision-11b", "cross-attention"), ("hubert-xlarge", "audio"),
 ])
