@@ -12,11 +12,12 @@ a non-zero exit:
 2. build        every CUDA kernel of the port built from ``csrc/`` into
                 ``build/repro_torch/``; ptxas's register, shared-memory and
                 spill lines and the build's seconds
-3. kernel       each kernel (flash_attention, moe_gmm) against its plain
-                PyTorch version on the card, bf16 and float32, within the
-                stated tolerances; at the serving shape also kernel, plain
-                and library (or yardstick) times and the card's bound for
-                the same work
+3. kernel       each kernel (flash_attention, moe_gmm, rglru_scan) against
+                its plain PyTorch version on the card, bf16 and float32,
+                within the stated tolerances; at the serving shapes also
+                kernel, plain and library (or yardstick) times and the
+                card's bound for the same work (flash attention at
+                minicpm's and at recurrentgemma's prefill shape)
 4. serve        full-width minicpm-2b (40 layers, bf16, random weights from a
                 seed) serves 8 requests of 1000 prompt tokens through
                 ``repro_torch.launch.serve.serve``; every prefill layer must
@@ -31,6 +32,12 @@ a non-zero exit:
                 flash kernel
 7. consistency  the same for granite-moe in float32, at a capacity where no
                 (token, expert) pair is dropped
+8. serve        the same for full-width recurrentgemma-9b (38 layers: 26
+                RG-LRU, 12 LOCAL attention with MQA at head dim 256): every
+                RG-LRU layer of every prefill must have launched rglru_scan,
+                every LOCAL layer the flash kernel
+9. consistency  the same for recurrentgemma-9b in float32, under its own
+                bar (its decode state rounds the conv lag buffer to bf16)
 
 It then prints one JSON line of kernel numbers, the card line, and as its
 last line ``{"ok": true, "device": {...}}``.
@@ -83,8 +90,27 @@ GMM_RTOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # logits by ~2e-3 of it, so the bar sits between the two, 20x from each.
 CONSISTENCY_RTOL = 1e-4
 
+# recurrentgemma-9b: the reference rounds the RG-LRU conv lag buffer to bf16
+# in a float32 model too, and the port mirrors it, so its prefill + decode
+# differs from forward_logits by that rounding.  At full width and depth on
+# an H100 the gap is 9.0e-4 of the logits' scale and an off-by-one position
+# gives 2.0e-2; the bar sits between the two, about 5x from each.
+GRIFFIN_CONSISTENCY_RTOL = 4e-3
+
+# rglru_scan against its plain version, relative to the plain version's
+# max |y|: both compute in float32 from the same inputs and the kernel does
+# not round its output, for either input type; they differ by the last bits
+# of exp / expm1 / sqrt and a fused multiply-add per step, which the
+# recurrence (a < 1) does not amplify.
+RGLRU_RTOL = 1e-5
+# operations per (b, t, d) element: two sigmoids (3 each), the rate
+# product, exp, the doubling, expm1, negation, sqrt, two products and the
+# recurrence's multiply-add (2)
+RGLRU_OPS_PER_ELEM = 16
+
 ARCH = "minicpm-2b"
 MOE_ARCH = "granite-moe-3b-a800m"
+GRIFFIN_ARCH = "recurrentgemma-9b"
 SERVE_REQUESTS, SERVE_SLOTS, PROMPT_LEN, GEN = 8, 4, 1000, 16
 
 
@@ -197,22 +223,27 @@ def phase_build() -> None:
         for dh in ops.SUPPORTED_HEAD_DIMS), flush=True)
 
 
-# (name, B, S, H, KH, Dh, causal, window); the first is the serving shape
+# (name, B, S, H, KH, Dh, causal, window); the cases in TIMED_CASES are
+# serving shapes, timed in bf16
 KERNEL_CASES = [
     ("minicpm-prefill", 4, 1000, 36, 36, 64, True, 0),
+    ("griffin-prefill", 4, 1000, 16, 1, 256, True, 2048),
+    ("griffin-window", 1, 2304, 16, 1, 256, True, 2048),
     ("h2o-danube-swa", 2, 1000, 32, 8, 120, True, 256),
     ("single-token", 2, 1, 8, 2, 128, True, 0),
     ("ragged-136", 2, 136, 8, 2, 128, True, 0),
     ("ragged-136-window", 2, 136, 8, 2, 64, True, 100),
     ("non-causal-136", 2, 136, 4, 4, 120, False, 0),
 ]
+TIMED_CASES = ("minicpm-prefill", "griffin-prefill")
 
 
 def phase_kernel():
+    """Returns {timed case name: timing} of the flash kernel."""
     from repro_torch.kernels.flash_attention import ops, ref
     phase("kernel")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    result = None
+    result = {}
     for name, B, S, H, KH, Dh, causal, window in KERNEL_CASES:
         q32 = torch.randn((B, S, H, Dh), generator=gen, device="cuda")
         k32 = torch.randn((B, S, KH, Dh), generator=gen, device="cuda")
@@ -230,8 +261,8 @@ def phase_kernel():
                   f"max_abs_err={err:.3e} tol={tol:.0e}", flush=True)
             check(math.isfinite(err) and err <= tol,
                   f"flash_attention {name} {dtype}: error {err} > {tol}")
-            if result is None and dtype == torch.bfloat16:
-                result = time_kernel(q, k, v, causal, window, err)
+            if name in TIMED_CASES and dtype == torch.bfloat16:
+                result[name] = time_kernel(q, k, v, causal, window, err)
     return result
 
 
@@ -252,7 +283,8 @@ def time_kernel(q, k, v, causal, window, err):
         qt, kt, vt, is_causal=causal, enable_gqa=H != KH))
     bound_ms, bound_by, flops, nbytes = attention_bound(
         B, S, H, KH, Dh, causal, window, q.dtype)
-    print(f"  timing at B={B} S={S} H={H} Dh={Dh} {q.dtype}: kernel "
+    print(f"  timing at B={B} S={S} H={H} KH={KH} Dh={Dh} window={window} "
+          f"{q.dtype}: kernel "
           f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
           f"{library_ms:.4f} ms; bound {bound_ms * 1e3:.2f} us by {bound_by} "
           f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)", flush=True)
@@ -358,12 +390,106 @@ def time_moe_kernel(xe, p, act, err):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def rglru_bound(B, S, D, x_dtype, g_dtype, with_h0):
+    """(bound_ms, bound_by, flops, bytes) of one RG-LRU scan on the card.
+
+    Bytes count x, ga, gx, lam (and h0) read once and y, h_last written
+    once; operations are RGLRU_OPS_PER_ELEM float32 operations per
+    (b, t, d) element."""
+    size = {torch.float32: 4, torch.bfloat16: 2}
+    n = B * S * D
+    nbytes = (n * (size[x_dtype] + 2 * size[g_dtype] + 4) + 4 * D
+              + 4 * B * D * (2 if with_h0 else 1))
+    flops = float(RGLRU_OPS_PER_ELEM * n)
+    t_ops = flops / PEAK_FLOPS[torch.float32]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations"), flops, nbytes
+
+
+# (name, B, S, D, x dtype, gate dtype, with h0); the first is the serving
+# shape (bf16 x and float32 gates, as the bf16 model hands them over)
+RGLRU_CASES = [
+    ("griffin-prefill", 4, 1000, 4096, torch.bfloat16, torch.float32, False),
+    ("griffin-prefill-f32", 4, 1000, 4096, torch.float32, torch.float32,
+     False),
+    ("ragged-136", 2, 136, 128, torch.bfloat16, torch.float32, False),
+    ("d-640", 2, 128, 640, torch.bfloat16, torch.float32, False),
+    ("b-12", 12, 64, 128, torch.float32, torch.float32, False),
+    ("single-step", 3, 1, 256, torch.bfloat16, torch.float32, False),
+    ("odd-d", 3, 77, 200, torch.float32, torch.float32, False),
+    ("with-h0", 3, 77, 200, torch.bfloat16, torch.float32, True),
+    ("bf16-gates", 2, 136, 128, torch.bfloat16, torch.bfloat16, True),
+]
+
+
+def phase_kernel_rglru():
+    from repro_torch.kernels.rglru_scan import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    result = None
+    for name, B, S, D, x_dt, g_dt, with_h0 in RGLRU_CASES:
+        u = 0.9 + 0.099 * torch.rand((D,), generator=gen, device="cuda")
+        lam = torch.log(torch.expm1(-torch.log(u) / ref.RGLRU_C))
+        x = torch.randn((B, S, D), generator=gen, device="cuda").to(x_dt)
+        ga = torch.randn((B, S, D), generator=gen, device="cuda").to(g_dt)
+        gx = torch.randn((B, S, D), generator=gen, device="cuda").to(g_dt)
+        h0 = torch.randn((B, D), generator=gen, device="cuda") \
+            if with_h0 else None
+        y, h = ops.rglru(x, lam, ga, gx, h0)
+        torch.cuda.synchronize()
+        # the plain version computes in float32 from the same inputs
+        wy, wh = ref.reference_rglru(x, lam, ga, gx, h0)
+        scale = float(wy.abs().max())
+        err = max(float((y - wy).abs().max()), float((h - wh).abs().max()))
+        rel = err / scale if scale > 0 else err
+        bound_ms, bound_by, _, _ = rglru_bound(B, S, D, x_dt, g_dt, with_h0)
+        print(f"  {name:19s} x {str(x_dt):14s} gates {str(g_dt):14s} "
+              f"B={B} S={S} D={D} h0={with_h0}: max_abs_err={err:.3e} "
+              f"max|y|={scale:.3e} rel={rel:.3e} tol={RGLRU_RTOL:.0e}; "
+              f"bound {bound_ms * 1e3:.2f} us by {bound_by}", flush=True)
+        check(math.isfinite(rel) and rel <= RGLRU_RTOL,
+              f"rglru_scan {name}: relative error {rel} > {RGLRU_RTOL}")
+        if result is None:
+            result = time_rglru_kernel(x, lam, ga, gx, err)
+        del x, ga, gx, y, wy
+    torch.cuda.empty_cache()
+    return result
+
+
+def time_rglru_kernel(x, lam, ga, gx, err):
+    """Kernel and plain times at the serving shape; no single PyTorch call
+    computes this function, so there is no library time."""
+    from repro_torch.kernels.rglru_scan import ops, ref
+    B, S, D = x.shape
+    kernel_ms = cuda_ms(lambda: ops.rglru(x, lam, ga, gx))
+    plain_ms = cuda_ms(lambda: ref.reference_rglru(x, lam, ga, gx), iters=3,
+                       warmup=1)
+    bound_ms, bound_by, flops, nbytes = rglru_bound(B, S, D, x.dtype,
+                                                    ga.dtype, False)
+    print(f"  timing at B={B} S={S} D={D} x {x.dtype} gates {ga.dtype}: "
+          f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library: "
+          f"none; bound {bound_ms * 1e3:.2f} us by {bound_by} "
+          f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)", flush=True)
+    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def layer_counts(cfg) -> dict:
+    """{block kind: number of layers} of a config's pattern."""
+    counts: dict = {}
+    for n in range(cfg.n_layers):
+        kind = cfg.block_pattern[n % cfg.pattern_period]
+        counts[kind] = counts.get(kind, 0) + 1
+    return counts
+
+
 def phase_serve(arch: str, moe_dispatch: str = "einsum"):
     """Serve SERVE_REQUESTS requests of ``arch`` at full width through
     ``serve()``; returns (cfg, params, launches of each kernel)."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
+    from repro_torch.kernels.rglru_scan import kernel as rg_kernel
     from repro_torch.launch.serve import Request, serve
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import registry as R
@@ -387,13 +513,15 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum"):
     torch.cuda.reset_peak_memory_stats()
     fa_kernel.LAUNCHES = 0
     gmm_kernel.LAUNCHES = 0
+    rg_kernel.LAUNCHES = 0
     t0 = time.perf_counter()
     done = serve(cfg, reqs, slots=SERVE_SLOTS, ctx_len=ctx_len,
                  params=params, moe_dispatch=moe_dispatch, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"flash_attention": fa_kernel.LAUNCHES,
-                "moe_gmm": gmm_kernel.LAUNCHES}
+                "moe_gmm": gmm_kernel.LAUNCHES,
+                "rglru_scan": rg_kernel.LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
 
     n_prefill = math.ceil(SERVE_REQUESTS / SERVE_SLOTS)
@@ -406,19 +534,27 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum"):
               f"request {r.rid} got {len(r.generated)} tokens")
         check(all(0 <= t < cfg.vocab_size for t in r.generated),
               f"request {r.rid}: token outside the vocab")
-    want = {"flash_attention": cfg.n_layers * n_prefill,
+    kinds = layer_counts(cfg)
+    n_attn = sum(kinds.get(k, 0) for k in ("attn", "swa", "local"))
+    n_rglru = kinds.get("rglru", 0)
+    want = {"flash_attention": n_attn * n_prefill,
             "moe_gmm": cfg.n_layers * (n_prefill + n_decode)
-            if cfg.is_moe and moe_dispatch == "gather" else 0}
+            if cfg.is_moe and moe_dispatch == "gather" else 0,
+            "rglru_scan": n_rglru * n_prefill}
     for name, n in want.items():
         check(launches[name] == n,
               f"{name} launched {launches[name]} times, expected {n}")
     n_tok = sum(len(r.generated) for r in done)
     print(f"  served {len(done)} requests, {n_tok} new tokens in "
           f"{wall:.3f} s ({n_tok / wall:.1f} tok/s); flash_attention "
-          f"launches {launches['flash_attention']} = {cfg.n_layers} x "
-          f"{n_prefill} prefills; moe_gmm launches {launches['moe_gmm']}"
+          f"launches {launches['flash_attention']} = {n_attn} attention "
+          f"layers x {n_prefill} prefills; moe_gmm launches "
+          f"{launches['moe_gmm']}"
           + (f" = {cfg.n_layers} x ({n_prefill} prefills + {n_decode} "
              f"decode steps)" if want["moe_gmm"] else "")
+          + f"; rglru_scan launches {launches['rglru_scan']}"
+          + (f" = {n_rglru} RG-LRU layers x {n_prefill} prefills"
+             if want["rglru_scan"] else "")
           + f"; peak memory {peak / 2**30:.2f} GiB", flush=True)
     print(f"  req{done[0].rid}: {done[0].generated}", flush=True)
 
@@ -476,7 +612,8 @@ def count_drops(drops: list):
     return restore
 
 
-def phase_consistency(cfg, params, moe_dispatch: str = "einsum"):
+def phase_consistency(cfg, params, moe_dispatch: str = "einsum",
+                      tol: float = CONSISTENCY_RTOL):
     from repro_torch.models import registry as R
     phase(f"consistency {cfg.name}")
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -529,10 +666,9 @@ def phase_consistency(cfg, params, moe_dispatch: str = "einsum"):
     rel_bad = run(1)
     print(f"  B={B} S={S}: prefill({S - 4}) + 3 decode steps vs "
           f"forward_logits, float32: max rel err {rel:.3e} "
-          f"(tol {CONSISTENCY_RTOL:.0e}); off-by-one pos: {rel_bad:.3e}",
-          flush=True)
-    check(rel <= CONSISTENCY_RTOL, f"decode disagrees with forward: {rel}")
-    check(rel_bad > CONSISTENCY_RTOL,
+          f"(tol {tol:.0e}); off-by-one pos: {rel_bad:.3e}", flush=True)
+    check(rel <= tol, f"decode disagrees with forward: {rel}")
+    check(rel_bad > tol,
           f"an off-by-one position passes the tolerance ({rel_bad})")
 
 
@@ -546,25 +682,43 @@ def main() -> int:
     phase_build()
     fa_timing = phase_kernel()
     gmm_timing = phase_kernel_moe()
+    rg_timing = phase_kernel_rglru()
     cfg, params, dense_launches = phase_serve(ARCH)
     phase_consistency(cfg, params)
     del params
     torch.cuda.empty_cache()
     cfg, params, moe_launches = phase_serve(MOE_ARCH, moe_dispatch="gather")
     phase_consistency(cfg, params, moe_dispatch="gather")
+    del params
+    torch.cuda.empty_cache()
+    cfg, params, griffin_launches = phase_serve(GRIFFIN_ARCH)
+    phase_consistency(cfg, params, tol=GRIFFIN_CONSISTENCY_RTOL)
+    del params
+    torch.cuda.empty_cache()
 
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:72",
-         # launches on its own path (minicpm-2b serving); the granite-moe
-         # run's count is checked in its serve phase
-         "launches": dense_launches["flash_attention"], **fa_timing},
+         # launches and times on its first path (minicpm-2b serving); the
+         # other paths' counts, each checked in its serve phase, and the
+         # times at recurrentgemma's prefill shape (head dim 256, MQA)
+         "launches": dense_launches["flash_attention"],
+         **fa_timing["minicpm-prefill"],
+         "launches_by_path": {
+             ARCH: dense_launches["flash_attention"],
+             MOE_ARCH: moe_launches["flash_attention"],
+             GRIFFIN_ARCH: griffin_launches["flash_attention"]},
+         "at_griffin_shape": fa_timing["griffin-prefill"]},
         {"name": "moe_gmm", "route": "cuda",
          "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
          "replaces": "src/repro/kernels/moe_gmm/kernel.py:55",
          "launches": moe_launches["moe_gmm"], **gmm_timing},
+        {"name": "rglru_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+         "replaces": "src/repro/kernels/rglru_scan/kernel.py:55",
+         "launches": griffin_launches["rglru_scan"], **rg_timing},
     ]
     for k in kernels:
         # the same numbers again under short names (bound in microseconds)

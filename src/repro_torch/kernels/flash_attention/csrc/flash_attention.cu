@@ -10,7 +10,7 @@
 //
 // What bounds it on the H100: per (query, key) pair it does 4*Dh FLOPs
 // while reading q, k, v and writing o once.  At the serving shapes
-// (S ~ 1e3, Dh 64..128) the tensor-core bound (989 TFLOP/s bf16) and the
+// (S ~ 1e3, Dh 64..256) the tensor-core bound (989 TFLOP/s bf16) and the
 // memory bound (3.35 TB/s) are of the same order, tens of microseconds.
 // This first version does neither: it computes with scalar float32 FMAs
 // out of shared memory, so the FMA and shared-memory issue rate bounds it.
@@ -31,13 +31,16 @@
 //  * Any S works: q rows and k columns past S are masked, and K/V rows
 //    past S are loaded as zeros.  No reference fallback.
 //  * float32 and bf16 inputs (template T); float32 computes in float32.
-//    Dh is a template parameter: 64, 120 and 128.
+//    Dh is a template parameter: 64, 120, 128 and 256.
 //
-// Thread layout (128 threads, 64 query rows x 64 keys per tile): thread t
-// owns rows 4*(t/8) .. 4*(t/8)+3, keys (t%8) + 8*j and output columns
-// (t%8) + 8*n.  The eight threads of a row group are neighbouring lanes of
-// one warp, so row max and row sum are three xor-shuffles and the P tile is
-// shared within the warp.
+// Thread layout (64 query rows x 64 keys per tile): a row group of L lanes
+// owns 4 rows; lane c of row group g owns rows 4g .. 4g+3, keys c + L*j and
+// output columns c + L*n.  L is 8 up to Dh 128 (128 threads) and 16 at
+// Dh 256 (256 threads), so a thread keeps 4 x Dh/L <= 64 accumulators in
+// registers at every Dh.  The L lanes of a row group are neighbouring
+// lanes of one warp, so row max and row sum are log2(L) xor-shuffles and
+// the P tile is shared within the warp.  At Dh 256 the tiles take 213,760 B
+// of shared memory, so one block runs per SM.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -46,9 +49,7 @@ namespace {
 
 constexpr int BQ = 64;   // query rows per block
 constexpr int BK = 64;   // keys per k-tile
-constexpr int NT = 128;  // threads per block
 constexpr int RPT = 4;   // rows per thread
-constexpr int KPT = 8;   // keys per thread (stride 8)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -64,25 +65,41 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's .to()
 }
 
-// Shared-memory tiles, float32, rows padded where lanes read down a column.
+// Thread layout and shared-memory tiles (float32, rows padded where lanes
+// read down a column) of one head dim.
 template <int DH>
 struct Tiles {
+  static constexpr int LANES = DH > 128 ? 16 : 8;  // per row group
+  static constexpr int NT = BQ / RPT * LANES;  // threads per block
+  static constexpr int KPT = BK / LANES;  // keys per thread (stride LANES)
+  static constexpr int NC = DH / LANES;   // output columns per thread
   static constexpr int QS = DH + 1;  // Q: lanes read 4 rows, same column
-  static constexpr int KS = DH + 1;  // K: lanes read 8 rows, same column
+  static constexpr int KS = DH + 1;  // K: lanes read LANES rows, same column
   static constexpr int VS = DH;      // V: lanes read along a row
   static constexpr int PS = BK + 1;  // P: lanes read 4 rows, same column
   static constexpr size_t bytes =
       sizeof(float) * (BQ * QS + BK * KS + BK * VS + BQ * PS);
 };
 
+// max (or sum) over the lanes of a row group, by xor-shuffles
+template <int LANES, bool MAX>
+__device__ __forceinline__ float group_reduce(float v) {
+#pragma unroll
+  for (int off = 1; off < LANES; off <<= 1) {
+    const float o = __shfl_xor_sync(0xffffffffu, v, off);
+    v = MAX ? fmaxf(v, o) : v + o;
+  }
+  return v;
+}
+
 template <typename T, int DH>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(Tiles<DH>::NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int S, int H,
                  int KH, int causal, int window, float scale) {
-  static_assert(DH % 8 == 0, "Dh must split over the 8 lanes of a row group");
-  constexpr int NC = DH / 8;  // output columns per thread
   using L = Tiles<DH>;
+  constexpr int NT = L::NT, KPT = L::KPT, NC = L::NC, LN = L::LANES;
+  static_assert(DH % LN == 0, "Dh must split over the lanes of a row group");
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + BQ * L::QS;
@@ -90,8 +107,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Ps = Vs + BK * L::VS;
 
   const int tid = threadIdx.x;
-  const int tr = tid >> 3;  // row group
-  const int tc = tid & 7;   // lane within the row group
+  const int tr = tid / LN;  // row group
+  const int tc = tid % LN;  // lane within the row group
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
   const int kh = h / (H / KH);
@@ -147,7 +164,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < RPT; ++i) qv[i] = Qs[(tr * RPT + i) * L::QS + d];
 #pragma unroll
-      for (int j = 0; j < KPT; ++j) kv[j] = Ks[(tc + 8 * j) * L::KS + d];
+      for (int j = 0; j < KPT; ++j) kv[j] = Ks[(tc + LN * j) * L::KS + d];
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
 #pragma unroll
@@ -160,15 +177,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < KPT; ++j) {
-        const int kp = k0 + tc + 8 * j;
+        const int kp = k0 + tc + LN * j;
         const bool valid = kp < S && (!causal || kp <= qp) &&
                            (window <= 0 || qp - kp < window);
         sc[i][j] = valid ? sc[i][j] * scale : -INFINITY;
         mx = fmaxf(mx, sc[i][j]);
       }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      mx = group_reduce<LN, true>(mx);
       const float m_new = fmaxf(m[i], mx);
       // all keys so far masked: keep p = 0 and acc = 0 (exp(-inf) = 0)
       const float m_use = m_new == -INFINITY ? 0.f : m_new;
@@ -179,16 +194,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         sc[i][j] = expf(sc[i][j] - m_use);
         rs += sc[i][j];
       }
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 4);
+      rs = group_reduce<LN, false>(rs);
       l[i] = l[i] * corr + rs;
       m[i] = m_new;
 #pragma unroll
       for (int n = 0; n < NC; ++n) acc[i][n] *= corr;
 #pragma unroll
       for (int j = 0; j < KPT; ++j)
-        Ps[(tr * RPT + i) * L::PS + tc + 8 * j] = sc[i][j];
+        Ps[(tr * RPT + i) * L::PS + tc + LN * j] = sc[i][j];
     }
     __syncwarp();  // a row group's P rows are written and read in one warp
 
@@ -198,7 +211,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < RPT; ++i) pv[i] = Ps[(tr * RPT + i) * L::PS + c];
 #pragma unroll
-      for (int n = 0; n < NC; ++n) vv[n] = Vs[c * L::VS + tc + 8 * n];
+      for (int n = 0; n < NC; ++n) vv[n] = Vs[c * L::VS + tc + LN * n];
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
 #pragma unroll
@@ -214,7 +227,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
 #pragma unroll
       for (int n = 0; n < NC; ++n)
-        ob[s * q_stride + tc + 8 * n] = from_f32<T>(acc[i][n] * inv);
+        ob[s * q_stride + tc + LN * n] = from_f32<T>(acc[i][n] * inv);
     }
   }
 }
@@ -229,7 +242,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<T, DH><<<grid, NT, smem, stream>>>(
+  flash_fwd_kernel<T, DH><<<grid, Tiles<DH>::NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), S, H, KH, causal, window,
       scale);
@@ -250,6 +263,9 @@ cudaError_t dispatch_dh(const void* q, const void* k, const void* v, void* o,
     case 128:
       return launch<T, 128>(q, k, v, o, B, S, H, KH, causal, window, scale,
                             stream);
+    case 256:
+      return launch<T, 256>(q, k, v, o, B, S, H, KH, causal, window, scale,
+                            stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -263,6 +279,7 @@ extern "C" int repro_flash_attention_smem_bytes(int Dh) {
     case 64: return (int)Tiles<64>::bytes;
     case 120: return (int)Tiles<120>::bytes;
     case 128: return (int)Tiles<128>::bytes;
+    case 256: return (int)Tiles<256>::bytes;
     default: return 0;
   }
 }

@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import kernel, ref
 
-SUPPORTED_HEAD_DIMS = (64, 120, 128)
+SUPPORTED_HEAD_DIMS = (64, 120, 128, 256)
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 _MAX_BATCH_HEADS = 65535    # the kernel's grid.y
 

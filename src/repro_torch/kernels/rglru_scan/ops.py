@@ -1,0 +1,66 @@
+"""Public RG-LRU wrapper, with the contract of the JAX package's
+``models.rglru.rglru``: x, ga, gx (B, S, D); lam (D,); h0 (B, D) or None.
+Returns (y (B, S, D) float32, h_last (B, D) float32).
+
+On tensors that lie on the CPU it computes the plain version (``ref``).  On
+CUDA tensors it launches the CUDA kernel or raises: there is no fallback,
+for any shape, for ``h0`` or for a build failure.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.rglru_scan import kernel, ref
+
+SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_shapes(x, lam, ga, gx, h0) -> None:
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B, S, D), got {tuple(x.shape)}")
+    B, S, D = x.shape
+    if ga.shape != x.shape or gx.shape != x.shape:
+        raise ValueError(f"ga {tuple(ga.shape)} and gx {tuple(gx.shape)} do "
+                         f"not match x {tuple(x.shape)}")
+    if tuple(lam.shape) != (D,):
+        raise ValueError(f"lam {tuple(lam.shape)} is not ({D},)")
+    if h0 is not None and tuple(h0.shape) != (B, D):
+        raise ValueError(f"h0 {tuple(h0.shape)} is not {(B, D)}")
+    if min(B, S, D) == 0:
+        raise ValueError(f"empty RG-LRU input {tuple(x.shape)}")
+
+
+def check_kernel_args(x, lam, ga, gx, h0) -> None:
+    """Raise on anything the CUDA kernel does not take."""
+    ts = [t for t in (x, lam, ga, gx, h0) if t is not None]
+    devices = {t.device for t in ts}
+    if len(devices) != 1 or x.device.type != "cuda":
+        raise ValueError(f"the kernel takes x, lam, ga, gx and h0 on one "
+                         f"CUDA device, got {sorted(map(str, devices))}")
+    if x.dtype not in SUPPORTED_DTYPES or ga.dtype not in SUPPORTED_DTYPES \
+            or gx.dtype != ga.dtype:
+        raise ValueError(f"the kernel takes float32 or bfloat16 x, and "
+                         f"float32 or bfloat16 ga and gx of one dtype, got "
+                         f"{x.dtype}, {ga.dtype}, {gx.dtype}")
+    if lam.dtype != torch.float32 or (h0 is not None and
+                                      h0.dtype != torch.float32):
+        raise ValueError("the kernel takes float32 lam and h0")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("the kernel takes contiguous x, lam, ga, gx, h0")
+
+
+def rglru(x, lam, ga, gx, h0=None):
+    """RG-LRU gates and recurrence; see ``ref.reference_rglru``."""
+    _check_shapes(x, lam, ga, gx, h0)
+    if all(t.device.type == "cpu"
+           for t in (x, lam, ga, gx, h0) if t is not None):
+        return ref.reference_rglru(x, lam, ga, gx, h0)
+    # lam and h0 are read in float32, as the reference casts them
+    lam = lam.float()
+    h0 = None if h0 is None else h0.float()
+    check_kernel_args(x, lam, ga, gx, h0)
+    B, S, D = x.shape
+    y = torch.empty((B, S, D), dtype=torch.float32, device=x.device)
+    h_last = torch.empty((B, D), dtype=torch.float32, device=x.device)
+    kernel.launch(x, lam, ga, gx, h0, y, h_last)
+    return y, h_last

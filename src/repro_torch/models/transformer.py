@@ -1,8 +1,9 @@
 """Decoder stack of the model zoo (PyTorch port of
 ``repro/models/transformer.py``).
 
-The port covers ATTN / SWA / LOCAL self-attention with a gated (or plain)
-MLP or a mixture of experts (``repro_torch.models.moe``).  RG-LRU, mLSTM,
+The port covers ATTN / SWA / LOCAL self-attention and the Griffin RG-LRU
+recurrent block (``repro_torch.models.rglru``), each with a gated (or
+plain) MLP or a mixture of experts (``repro_torch.models.moe``).  mLSTM,
 sLSTM, cross-attention and the audio encoder raise ``NotImplementedError``
 naming the slice that ports them.
 
@@ -11,7 +12,8 @@ of each pattern position under ``params["blocks"]`` (leading
 ``n_scan_blocks`` dim, for ``lax.scan``) plus a ``tail`` list, the port
 keeps one dict per layer in depth order, ``params["layers"][n]``, of kind
 ``block_pattern[n % pattern_period]``.  ``repro_torch.convert`` maps
-between the two.  The decode cache follows the same per-layer layout.
+between the two.  The decode cache follows the same per-layer layout:
+{"k", "v"} for an attention layer, {"h", "conv"} for an RG-LRU layer.
 
 Public API (``moe_dispatch`` is "einsum" or "gather", as in the reference;
 it is read only by MoE layers):
@@ -26,7 +28,7 @@ it is read only by MoE layers):
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -39,13 +41,16 @@ from repro_torch.models.layers import (decode_attention_block, dense,
                                        gated_mlp, is_gated_act, rms_norm,
                                        rope)
 from repro_torch.models.moe import moe_block
+from repro_torch.models.rglru import (RGLRU_C, apply_rglru, d_rnn,
+                                      decode_rglru, init_state_rglru)
+from repro_torch.models.xlstm import CONV_K
 
 _SELF_ATTN = (ATTN, SWA, LOCAL)
+_SUPPORTED = _SELF_ATTN + (RGLRU,)
 _LATER_SLICE = {
     CROSS: "the cross-attention (vision) slice",
     MLSTM: "the xLSTM slice (mlstm_scan kernel)",
     SLSTM: "the xLSTM slice",
-    RGLRU: "the Griffin slice (rglru_scan kernel)",
 }
 
 
@@ -55,7 +60,7 @@ def check_supported(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the audio encoder is ported in a later slice")
     for kind in cfg.block_pattern:
-        if kind not in _SELF_ATTN:
+        if kind not in _SUPPORTED:
             raise NotImplementedError(
                 f"{cfg.name}: {kind!r} blocks are ported in "
                 f"{_LATER_SLICE.get(kind, 'a later slice')}")
@@ -85,9 +90,10 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
     float32 weights and casts them at use; full-width serving reads half
     the bytes this way).  The MoE router stays float32: routing casts it
     to float32 anyway, and a rounded router routes differently from the
-    reference's.  The numbers differ from ``jax.random``'s; parity tests
-    convert JAX params instead.  On the ``meta`` device nothing is drawn
-    or allocated.
+    reference's.  So do the RG-LRU's ``lam``, ``b_a`` and ``b_i``: the
+    reference's gates are float32 sums in a bf16 model too.  The numbers
+    differ from ``jax.random``'s; parity tests convert JAX params instead.
+    On the ``meta`` device nothing is drawn or allocated.
     """
     check_supported(cfg)
     device = resolve_device(device)
@@ -103,8 +109,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
     def lin(m, n, scale=1.0):
         return normal((m, n), scale / math.sqrt(m))
 
-    def zeros(*shape):
-        return torch.zeros(shape, device=device, dtype=dt)
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, device=device, dtype=dtype)
 
     d, H, KH, Dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                        cfg.head_dim, cfg.d_ff)
@@ -118,10 +124,28 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
                 "w3": normal((E, d, f), d ** -0.5),
                 "w2": normal((E, f, d), f ** -0.5 * out_scale)}
 
-    def layer():
-        p = {"mix": {"ln": zeros(d), "wq": lin(d, H * Dh),
-                     "wk": lin(d, KH * Dh), "wv": lin(d, KH * Dh),
-                     "wo": lin(H * Dh, d, out_scale)}}
+    def rglru():
+        dr = d_rnn(cfg)
+        # a = exp(-c softplus(lam)) starts in [0.9, 0.999]: lam is the
+        # inverse softplus of -log(u) / c for u ~ U(0.9, 0.999)
+        u = 0.9 + 0.099 * torch.rand((dr,), generator=gen, device=device,
+                                     dtype=torch.float32)
+        lam = torch.log(torch.expm1(-torch.log(u) / RGLRU_C))
+        f32 = torch.float32
+        return {"ln": zeros(d), "w_x": lin(d, dr), "w_g": lin(d, dr),
+                "conv_w": normal((CONV_K, dr), 0.1),
+                "conv_b": zeros(dr), "lam": lam,
+                "w_a": lin(dr, dr, 0.1), "b_a": zeros(dr, dtype=f32),
+                "w_i": lin(dr, dr, 0.1), "b_i": zeros(dr, dtype=f32),
+                "w_out": lin(dr, d)}
+
+    def layer(kind):
+        if kind == RGLRU:
+            p = {"mix": rglru()}
+        else:
+            p = {"mix": {"ln": zeros(d), "wq": lin(d, H * Dh),
+                         "wk": lin(d, KH * Dh), "wv": lin(d, KH * Dh),
+                         "wo": lin(H * Dh, d, out_scale)}}
         if cfg.is_moe:
             p["ffn"] = moe()
         elif f > 0:
@@ -135,7 +159,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
     # head then produces O(1) logits (MiniCPM-style mup scaling)
     params: Dict[str, Any] = {
         "embed": normal((cfg.vocab_size, d), d ** -0.5)}
-    params["layers"] = [layer() for _ in range(cfg.n_layers)]
+    params["layers"] = [layer(layer_kind(cfg, n))
+                        for n in range(cfg.n_layers)]
     params["final_ln"] = zeros(d)
     if not cfg.tie_embeddings:
         params["head"] = lin(d, cfg.vocab_size)
@@ -171,13 +196,18 @@ def _apply_ffn(x, p, cfg, moe_dispatch):
 
 def _stack_forward(params, cfg, x, positions, moe_dispatch, *,
                    collect_kv: bool = False):
-    """Runs every layer in depth order. Returns (x, [(k, v)] or None)."""
-    kvs: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = \
-        [] if collect_kv else None
+    """Runs every layer in depth order.
+
+    Returns (x, per-layer [(k, v) or RG-LRU state] or None)."""
+    kvs: Optional[List[Any]] = [] if collect_kv else None
     for n, layer in enumerate(params["layers"]):
         kind = layer_kind(cfg, n)
-        x, kv = _self_attn(x, layer["mix"], cfg, positions=positions,
-                           window=_window_for(kind, cfg))
+        if kind == RGLRU:
+            out = apply_rglru(x, layer["mix"], cfg, return_state=collect_kv)
+            x, kv = out if collect_kv else (out, None)
+        else:
+            x, kv = _self_attn(x, layer["mix"], cfg, positions=positions,
+                               window=_window_for(kind, cfg))
         if kvs is not None:
             kvs.append(kv)
         if "ffn" in layer:
@@ -236,16 +266,21 @@ def _cache_len(kind: str, cfg: ArchConfig, ctx_len: int) -> int:
 
 
 def init_cache(cfg: ArchConfig, B: int, ctx_len: int, *, device=None):
-    """Zeroed decode cache: {"layers": [{"k", "v": (B, L, KH, Dh)}, ...]}.
+    """Zeroed decode cache: {"layers": [{"k", "v": (B, L, KH, Dh)} or
+    {"h": (B, D) float32, "conv": (B, CONV_K - 1, D)}, ...]}.
 
-    bf16 whatever ``cfg.dtype`` is, as in the reference; ``prefill`` makes
-    its cache in ``cfg.dtype``."""
+    k, v and conv are bf16 whatever ``cfg.dtype`` is, as in the reference;
+    ``prefill`` makes k and v in ``cfg.dtype`` (conv stays bf16)."""
     check_supported(cfg)
     device = resolve_device(device)
     KH, Dh = cfg.n_kv_heads, cfg.head_dim
     layers = []
     for n in range(cfg.n_layers):
-        L = _cache_len(layer_kind(cfg, n), cfg, ctx_len)
+        kind = layer_kind(cfg, n)
+        if kind == RGLRU:
+            layers.append(init_state_rglru(cfg, B, device=device))
+            continue
+        L = _cache_len(kind, cfg, ctx_len)
         layers.append({
             "k": torch.zeros((B, L, KH, Dh), dtype=torch.bfloat16,
                              device=device),
@@ -258,17 +293,22 @@ def decode_step(params, cfg: ArchConfig, tokens, pos: int, cache, *,
                 moe_dispatch: str = "einsum", device=None):
     """One new token against the cache.  tokens: (B, 1); pos: int.
 
-    Returns (logits: (B, V), cache).  The cache's tensors are updated in
-    place; the returned cache holds the same tensors.
+    Returns (logits: (B, V), cache).  The cache's tensors, attention k/v
+    and RG-LRU state alike, are updated in place; the returned cache holds
+    the same tensors.
     """
     tokens = _prepare(params, cfg, tokens, device)
     pos = int(pos)
     x = _embed(params, cfg, tokens)
     layers = []
     for n, layer in enumerate(params["layers"]):
-        w = _window_for(layer_kind(cfg, n), cfg)
-        x, new = decode_attention_block(x, layer["mix"], cfg,
-                                        cache["layers"][n], pos, window=w)
+        kind = layer_kind(cfg, n)
+        if kind == RGLRU:
+            x, new = decode_rglru(x, layer["mix"], cfg, cache["layers"][n])
+        else:
+            x, new = decode_attention_block(
+                x, layer["mix"], cfg, cache["layers"][n], pos,
+                window=_window_for(kind, cfg))
         layers.append(new)
         if "ffn" in layer:
             x = _apply_ffn(x, layer["ffn"], cfg, moe_dispatch)
@@ -281,9 +321,11 @@ def prefill(params, cfg: ArchConfig, batch, *,
             device=None):
     """Full-context forward that also materialises the decode cache.
 
-    Returns (last_token_logits: (B, V), cache).  Each layer's cache is sized
-    ``cache_len`` (default: context length), or its window when smaller, and
-    holds the (windowed, ring-rotated) keys/values in ``cfg.dtype``.
+    Returns (last_token_logits: (B, V), cache).  Each attention layer's
+    cache is sized ``cache_len`` (default: context length), or its window
+    when smaller, and holds the (windowed, ring-rotated) keys/values in
+    ``cfg.dtype``; an RG-LRU layer's is its state after the last token, as
+    the reference keeps it.
     """
     tokens = _prepare(params, cfg, batch["tokens"], device)
     x = _embed(params, cfg, tokens)
@@ -307,7 +349,11 @@ def prefill(params, cfg: ArchConfig, batch, *,
         return arr.to(dt).contiguous()
 
     layers = []
-    for n, (k, v) in enumerate(kvs):
-        L = _cache_len(layer_kind(cfg, n), cfg, L_default)
-        layers.append({"k": fit(k, L), "v": fit(v, L)})
+    for n, kv in enumerate(kvs):
+        kind = layer_kind(cfg, n)
+        if kind == RGLRU:
+            layers.append(kv)           # recurrent state dict, verbatim
+            continue
+        L = _cache_len(kind, cfg, L_default)
+        layers.append({"k": fit(kv[0], L), "v": fit(kv[1], L)})
     return logits, {"layers": layers}

@@ -41,6 +41,20 @@ def test_cpu_wrapper_matches_jax_kernel(S, window):
     np.testing.assert_allclose(got.numpy(), want, **F32)
 
 
+@pytest.mark.parametrize("window", [128, 0])
+def test_cpu_wrapper_matches_jax_kernel_at_griffins_head_dim(window):
+    """recurrentgemma's LOCAL layers: MQA (one KV head for 4 query heads)
+    at head dim 256, which the CUDA kernel now takes too."""
+    assert 256 in ops.SUPPORTED_HEAD_DIMS
+    q, k, v = _qkv(1, 256, 4, 1, 256, seed=1)
+    want = np.asarray(jax_ops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        window=window, interpret=True))
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=True, window=window)
+    np.testing.assert_allclose(got.numpy(), want, **F32)
+
+
 @pytest.mark.parametrize("shapes,msg", [
     (((1, 8, 4, 64), (1, 8, 3, 64), (1, 8, 3, 64)), "do not group"),
     (((1, 8, 4, 64), (1, 9, 2, 64), (1, 9, 2, 64)), "do not match"),
@@ -78,7 +92,8 @@ def test_kernel_source_instantiates_the_supported_head_dims():
 
 def test_build_sources_are_every_csrc_file():
     names = [p.name for p in build.sources()]
-    assert "flash_attention.cu" in names and "cuda_errors.cu" in names
+    assert {"flash_attention.cu", "cuda_errors.cu", "moe_gmm.cu",
+            "rglru_scan.cu"} <= set(names)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -17,6 +17,9 @@ from repro_torch.kernels.flash_attention import kernel, ops, ref
 from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.kernels.moe_gmm import ref as gmm_ref
+from repro_torch.kernels.rglru_scan import kernel as rg_kernel
+from repro_torch.kernels.rglru_scan import ops as rg_ops
+from repro_torch.kernels.rglru_scan import ref as rg_ref
 from repro_torch.models import registry as R
 
 pytestmark = pytest.mark.gpu
@@ -29,6 +32,12 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # moe_gmm, relative to the plain version's max |y|: bf16 rounds h and y to
 # bf16 (2**-9 of the value each); float32 differs in summation order only.
 GMM_RTOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+# rglru_scan, relative to the plain version's max |y|: both compute in
+# float32 from the same inputs and the kernel does not round its output;
+# they differ by the last bits of exp/expm1/sqrt and a fused multiply-add
+# per step, which the recurrence (a < 1) does not amplify.
+RGLRU_RTOL = 1e-5
 
 
 def _need_cuda():
@@ -52,6 +61,9 @@ def _qkv(B, S, H, KH, Dh, dtype, seed=0):
     (2, 136, 4, 4, 120, False, 0),
     (1, 130, 4, 2, 128, False, 50),
     (3, 64, 6, 3, 64, True, 64),
+    (4, 1000, 16, 1, 256, True, 2048),   # recurrentgemma-9b LOCAL prefill
+    (1, 2304, 16, 1, 256, True, 2048),   # MQA, the window bites
+    (2, 136, 4, 1, 256, True, 0),
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_kernel_matches_plain(B, S, H, KH, Dh, causal, window, dtype):
@@ -190,3 +202,90 @@ def test_moe_model_on_gpu_matches_plain_on_cpu():
     off = R.forward_logits(params, cfg, {"tokens": toks},
                            moe_dispatch="gather", device="cpu")
     assert float((on.cpu() - off).abs().max()) < 1e-3
+
+
+def _scan_inputs(B, S, D, x_dtype, g_dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    u = 0.9 + 0.099 * torch.rand((D,), generator=g, device="cuda")
+    lam = torch.log(torch.expm1(-torch.log(u) / rg_ref.RGLRU_C))
+    x, ga, gx = (torch.randn((B, S, D), generator=g, device="cuda")
+                 for _ in range(3))
+    h0 = torch.randn((B, D), generator=g, device="cuda")
+    return x.to(x_dtype), lam, ga.to(g_dtype), gx.to(g_dtype), h0
+
+
+@pytest.mark.parametrize("B,S,D,with_h0", [
+    (4, 1000, 4096, False),    # recurrentgemma-9b prefill
+    (2, 136, 128, False),      # shapes the Pallas grid drops (ROADMAP C2)
+    (2, 128, 640, False),
+    (12, 64, 128, False),
+    (3, 1, 256, False),        # a single step
+    (3, 77, 200, False),       # odd S and D
+    (3, 77, 200, True),        # with an initial state
+])
+@pytest.mark.parametrize("x_dtype,g_dtype", [
+    (torch.bfloat16, torch.float32), (torch.float32, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
+def test_rglru_kernel_matches_plain(B, S, D, with_h0, x_dtype, g_dtype):
+    _need_cuda()
+    x, lam, ga, gx, h0 = _scan_inputs(B, S, D, x_dtype, g_dtype)
+    h0 = h0 if with_h0 else None
+    before = rg_kernel.LAUNCHES
+    y, h = rg_ops.rglru(x, lam, ga, gx, h0)
+    torch.cuda.synchronize()
+    assert rg_kernel.LAUNCHES == before + 1
+    assert y.dtype == h.dtype == torch.float32
+    assert y.shape == x.shape and h.shape == (B, D)
+    wy, wh = rg_ref.reference_rglru(x, lam, ga, gx, h0)
+    scale = float(wy.abs().max())
+    assert float((y - wy).abs().max()) <= RGLRU_RTOL * scale
+    assert float((h - wh).abs().max()) <= RGLRU_RTOL * scale
+
+
+def test_rglru_kernel_rejects_what_it_does_not_take():
+    _need_cuda()
+    x, lam, ga, gx, h0 = _scan_inputs(2, 16, 64, torch.float32,
+                                      torch.float32)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        rg_ops.rglru(x.half(), lam, ga, gx)
+    with pytest.raises(ValueError, match="one dtype"):
+        rg_ops.rglru(x, lam, ga, gx.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        rg_ops.rglru(x.transpose(0, 1).contiguous().transpose(0, 1), lam,
+                     ga, gx)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        rg_ops.rglru(x, lam, ga.cpu(), gx)
+
+
+def test_griffin_model_on_gpu_matches_plain_on_cpu():
+    """recurrentgemma-9b reduced at head dim 64 through both kernels (CUDA)
+    against the plain versions on the CPU: forward, prefill and decode."""
+    _need_cuda()
+    cfg = dataclasses.replace(get_arch("recurrentgemma-9b").reduced(),
+                              head_dim=64, dtype="float32")
+    params = R.init_params(cfg, 0, device="cpu")
+    params_gpu = {k: ([{g: {n: w.cuda() for n, w in sub.items()}
+                        for g, sub in lay.items()} for lay in v]
+                      if k == "layers" else v.cuda())
+                  for k, v in params.items()}
+    toks = torch.randint(0, cfg.vocab_size, (2, 150),
+                         generator=torch.Generator().manual_seed(0))
+    n_rglru = sum(k == "rglru" for k in
+                  (cfg.block_pattern[n % cfg.pattern_period]
+                   for n in range(cfg.n_layers)))
+    before = rg_kernel.LAUNCHES, kernel.LAUNCHES
+    on = R.forward_logits(params_gpu, cfg, {"tokens": toks}, device="cuda")
+    assert (rg_kernel.LAUNCHES, kernel.LAUNCHES) == \
+        (before[0] + n_rglru, before[1] + cfg.n_layers - n_rglru)
+    off = R.forward_logits(params, cfg, {"tokens": toks}, device="cpu")
+    assert float((on.cpu() - off).abs().max()) < 1e-3
+    lg_on, c_on = R.prefill(params_gpu, cfg, {"tokens": toks[:, :140]},
+                            cache_len=150, device="cuda")
+    lg_off, c_off = R.prefill(params, cfg, {"tokens": toks[:, :140]},
+                              cache_len=150, device="cpu")
+    for t in range(140, 143):
+        lg_on, c_on = R.decode_step(params_gpu, cfg, toks[:, t:t + 1], t,
+                                    c_on, device="cuda")
+        lg_off, c_off = R.decode_step(params, cfg, toks[:, t:t + 1], t,
+                                      c_off, device="cpu")
+        assert float((lg_on.cpu() - lg_off).abs().max()) < 1e-3

@@ -147,7 +147,8 @@ def test_decode_matches_forward_and_catches_position_and_slot_faults(case):
 
 
 @pytest.mark.parametrize("arch", ["minicpm-2b", "h2o-danube-3-4b",
-                                  "granite-moe-3b-a800m", "mixtral-8x7b"])
+                                  "granite-moe-3b-a800m", "mixtral-8x7b",
+                                  "recurrentgemma-9b"])
 def test_param_count_matches_jax(arch):
     assert R.count_params_analytic(torch_arch(arch)) == \
         JR.count_params_analytic(jax_arch(arch))
@@ -159,7 +160,8 @@ def test_param_count_matches_jax(arch):
 
 @pytest.mark.parametrize("case", list(CASES) + ["attn-swa-tail",
                                                  "granite-moe-3b-a800m",
-                                                 "mixtral-8x7b"])
+                                                 "mixtral-8x7b",
+                                                 "recurrentgemma-9b"])
 def test_init_matches_jax_shapes_and_scales(case):
     jc, tc = _configs(case, "float32")
     jp, _ = JR.init_params(jax.random.key(0), jc)
@@ -194,6 +196,19 @@ def test_moe_init_keeps_the_router_in_float32():
         torch.bfloat16
 
 
+def test_rglru_init_keeps_lam_and_gate_biases_in_float32():
+    cfg = torch_arch("recurrentgemma-9b").reduced()
+    assert cfg.dtype == "bfloat16"
+    mix = R.init_params(cfg, 0, device="cpu")["layers"][0]["mix"]
+    assert mix["lam"].dtype == mix["b_a"].dtype == mix["b_i"].dtype == \
+        torch.float32
+    assert mix["w_x"].dtype == mix["w_a"].dtype == mix["w_out"].dtype == \
+        mix["conv_w"].dtype == torch.bfloat16
+    # a = exp(-c softplus(lam)) starts in [0.9, 0.999]
+    a = torch.exp(-8.0 * torch.nn.functional.softplus(mix["lam"]))
+    assert float(a.min()) >= 0.9 - 1e-6 and float(a.max()) <= 0.999 + 1e-6
+
+
 def test_init_cache_sizes_windowed_layers_to_the_window():
     jc, tc = _configs("attn-swa-tail", "float32")
     cache = R.init_cache(tc, 2, 40, device="cpu")
@@ -207,7 +222,7 @@ def test_init_cache_sizes_windowed_layers_to_the_window():
 
 
 @pytest.mark.parametrize("arch,slice_name", [
-    ("recurrentgemma-9b", "Griffin"), ("xlstm-1.3b", "xLSTM"),
+    ("xlstm-1.3b", "xLSTM"),
     ("llama-3.2-vision-11b", "cross-attention"), ("hubert-xlarge", "audio"),
 ])
 def test_later_slices_raise_not_implemented(arch, slice_name):
