@@ -12,12 +12,14 @@ a non-zero exit:
 2. build        every CUDA kernel of the port built from ``csrc/`` into
                 ``build/repro_torch/``; ptxas's register, shared-memory and
                 spill lines and the build's seconds
-3. kernel       each kernel (flash_attention, moe_gmm, rglru_scan) against
-                its plain PyTorch version on the card, bf16 and float32,
-                within the stated tolerances; at the serving shapes also
-                kernel, plain and library (or yardstick) times and the
-                card's bound for the same work (flash attention at
-                minicpm's and at recurrentgemma's prefill shape)
+3. kernel       each kernel (flash_attention, moe_gmm, rglru_scan,
+                mlstm_scan) against its plain PyTorch version on the card,
+                bf16 and float32, within the stated tolerances; at the
+                serving shapes also kernel, plain and library (or yardstick)
+                times and the card's bound for the same work (flash
+                attention at minicpm's and at recurrentgemma's prefill
+                shape); mlstm_scan also under stress with random keys,
+                against the recurrence in float64
 4. serve        full-width minicpm-2b (40 layers, bf16, random weights from a
                 seed) serves 8 requests of 1000 prompt tokens through
                 ``repro_torch.launch.serve.serve``; every prefill layer must
@@ -38,6 +40,19 @@ a non-zero exit:
                 every LOCAL layer the flash kernel
 9. consistency  the same for recurrentgemma-9b in float32, under its own
                 bar (its decode state rounds the conv lag buffer to bf16)
+10. serve       the same for full-width xlstm-1.3b (48 layers: 24 mLSTM, 24
+                sLSTM, d 2048, 4 heads, mLSTM head dim 1024): every mLSTM
+                layer of every prefill must have launched mlstm_scan, and no
+                other kernel runs; its prefill is profiled at 200 prompt
+                tokens (the sLSTM's loop over time makes a 1000-token trace
+                some 480,000 launches long)
+11. consistency the same for xlstm-1.3b in float32, under its own bar (both
+                blocks round their conv lag buffers to bf16); xLSTM reads no
+                position, so its negative control feeds each decode step the
+                previous token instead
+
+Earlier paths run at full depth; if the run outgrows its time, their depth
+is what gets cut first.
 
 It then prints one JSON line of kernel numbers, the card line, and as its
 last line ``{"ok": true, "device": {...}}``.
@@ -97,6 +112,14 @@ CONSISTENCY_RTOL = 1e-4
 # gives 2.0e-2; the bar sits between the two, about 5x from each.
 GRIFFIN_CONSISTENCY_RTOL = 4e-3
 
+# xlstm-1.3b: both blocks round their conv lag buffers to bf16 in a float32
+# model too (as the reference does), so prefill + decode differs from
+# forward_logits by that rounding.  At full width and depth on an H100 the
+# gap is 1.2e-3 of the logits' scale, and feeding each decode step the
+# previous token (the control: xLSTM reads no position) gives 0.56; the bar,
+# written before that run, sits 8x above the gap and 56x below the control.
+XLSTM_CONSISTENCY_RTOL = 1e-2
+
 # rglru_scan against its plain version, relative to the plain version's
 # max |y|: both compute in float32 from the same inputs and the kernel does
 # not round its output, for either input type; they differ by the last bits
@@ -108,9 +131,18 @@ RGLRU_RTOL = 1e-5
 # recurrence's multiply-add (2)
 RGLRU_OPS_PER_ELEM = 16
 
+# mlstm_scan against its plain version, relative to the plain version's max
+# |h| (and max |C|, |n|, |m| for the state): both compute in float32 from the
+# same inputs, in another order (chunks of 64 steps against the reference's
+# 8 at S = 1000; sums over Dh = 1024 and up to 1000 steps); errors are
+# ~1e-6 of the scale, 1e-4 is the bar.
+MLSTM_RTOL = 1e-4
+
 ARCH = "minicpm-2b"
 MOE_ARCH = "granite-moe-3b-a800m"
 GRIFFIN_ARCH = "recurrentgemma-9b"
+XLSTM_ARCH = "xlstm-1.3b"
+XLSTM_PROFILE_LEN = 200     # prompt tokens of the profiled xLSTM prefill
 SERVE_REQUESTS, SERVE_SLOTS, PROMPT_LEN, GEN = 8, 4, 1000, 16
 
 
@@ -221,6 +253,14 @@ def phase_build() -> None:
     print("  flash_attention dynamic shared memory per block: " + ", ".join(
         f"Dh={dh}: {kernel.shared_memory_bytes(dh)} B"
         for dh in ops.SUPPORTED_HEAD_DIMS), flush=True)
+    from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
+    sizes = []
+    for dh in (32, 512, 1024, 1300):
+        nbytes, in_smem = ml_kernel.shared_memory_bytes(dh)
+        sizes.append(f"Dh={dh}: {nbytes} B (C in "
+                     f"{'shared' if in_smem else 'device'} memory)")
+    print(f"  mlstm_scan chunk {ml_kernel.chunk()}; state-kernel dynamic "
+          f"shared memory per block: " + ", ".join(sizes), flush=True)
 
 
 # (name, B, S, H, KH, Dh, causal, window); the cases in TIMED_CASES are
@@ -474,6 +514,183 @@ def time_rglru_kernel(x, lam, ga, gx, err):
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def mlstm_bound(B, S, H, Dh, dtype, with_init):
+    """(bound_ms, bound_by, flops, bytes) of one chunkwise mLSTM on the card.
+
+    Bytes count q, k, v, ig, fg (and an initial state) read once and h, C,
+    n, m written once.  FLOPs count the least work of the function, whatever
+    chunk an evaluation takes: per (b, h), q C and the state update
+    (k g)^T v, 4 S Dh^2 at any chunk, plus the intra-chunk q k^T and W v
+    over the (query, key) pairs the causal mask leaves, 2 S (T + 1) Dh at
+    chunk T, least at T = 1 (the sequential form: 4 S Dh); at the peak rate
+    of the input type, as the other kernels' bounds."""
+    size = {torch.float32: 4, torch.bfloat16: 2}
+    n = B * S * H * Dh
+    state = 4 * (B * H * Dh * Dh + B * H * Dh + B * H)
+    nbytes = (3 * n * size[dtype] + 4 * n + 2 * 4 * B * S * H
+              + state * (2 if with_init else 1))
+    flops = 4.0 * B * H * S * Dh * (Dh + 1)
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations"), flops, nbytes
+
+
+# (name, B, S, H, Dh, q/k/v dtype, with init_state, stress); the first is
+# xlstm-1.3b's prefill shape (bf16 q, k, v and float32 gates, as the bf16
+# model hands them over) and is timed.  A stress case has strongly negative
+# forget gates (the chunk's forget sum underflows exp) and input gates near
+# 90 (exp overflows float32), which only the stabiliser m keeps finite.
+# With input gates that large the floor exp(-m) of the denominator is a
+# float32 denormal, so where q . n cancels toward 0, h is ill-conditioned
+# for any float32 evaluation.  Here the keys lie near their queries
+# ("near-keys"), which keeps q . n from 0, so the plain version is a fair
+# yardstick at 1e-4; MLSTM_ORACLE_CASE takes random keys.
+MLSTM_CASES = [
+    ("xlstm-prefill", 4, 1000, 4, 1024, torch.bfloat16, False, None),
+    ("xlstm-prefill-f32", 4, 1000, 4, 1024, torch.float32, False, None),
+    ("ragged-37", 2, 37, 4, 512, torch.bfloat16, False, None),
+    ("single-step", 3, 1, 4, 1024, torch.bfloat16, False, None),
+    ("dh-32", 2, 200, 4, 32, torch.float32, False, None),
+    ("one-head", 1, 1000, 1, 1024, torch.bfloat16, False, None),
+    ("with-init", 2, 136, 4, 512, torch.float32, True, None),
+    ("stress", 2, 1000, 4, 1024, torch.bfloat16, False, "near-keys"),
+    ("dh-1300", 1, 100, 2, 1300, torch.float32, False, None),
+]
+MLSTM_PLAIN_CHUNK = 256     # the block's chunk, halved until it divides S
+
+# The stress gates with random keys, where q . n may cancel toward the
+# vanishing floor: the kernel, and the plain version at chunks 8 and 64
+# (S = 1024 takes both unhalved), are each held against the recurrence
+# step by step in float64.  A float32 evaluation of h then misses the
+# truth by more than 1e-4 of max |h|: on an H100 the plain version's h by
+# 1.33e-4 at both chunks (which differ from each other by 1.3e-5) and the
+# kernel's by 1.15e-4; C and n by 1.4e-5 at chunk 64, 4e-8 at chunk 8 and
+# in the kernel.  So the kernel's bar for each of h, C, n and m is
+# MLSTM_RTOL or, where larger, twice the plain version's own worst error
+# against the truth at either chunk (as a bf16 model is held at twice the
+# reference's own bf16 error).
+MLSTM_ORACLE_CASE = ("stress-random-keys", 2, 1024, 4, 1024, torch.bfloat16)
+MLSTM_ORACLE_CHUNKS = (8, 64)
+
+
+def mlstm_inputs(B, S, H, Dh, dtype, with_init, stress, gen):
+    """(q, k, v, ig, fg) and init_state or None, on the card; ``stress``
+    None, "near-keys" or "random-keys"."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    q, k, v = randn(B, S, H, Dh), randn(B, S, H, Dh), randn(B, S, H, Dh)
+    ig, fg = randn(B, S, H), 3.0 + randn(B, S, H)   # forget bias 3 to 6
+    if stress:
+        ig, fg = ig + 90.0, fg - 12.0
+    if stress == "near-keys":
+        k = q + 0.5 * k
+    init = (randn(B, H, Dh, Dh), randn(B, H, Dh), randn(B, H)) \
+        if with_init else None
+    return (q.to(dtype), k.to(dtype), v.to(dtype), ig, fg), init
+
+
+def rel_errs(got, want) -> dict:
+    """{leaf: max |got - want| / max |want|} over h, C, n, m, in
+    want's dtype."""
+    rels = {}
+    for what, g, w in zip("hCnm", got, want):
+        scale = float(w.abs().max())
+        err = float((g.to(w.dtype) - w).abs().max())
+        rels[what] = err / scale if scale > 0 else err
+    return rels
+
+
+def phase_kernel_mlstm():
+    from repro_torch.kernels.mlstm_scan import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    result = None
+    for name, B, S, H, Dh, dtype, with_init, stress in MLSTM_CASES:
+        xs, init = mlstm_inputs(B, S, H, Dh, dtype, with_init, stress, gen)
+        h, state = ops.mlstm_chunkwise(*xs, chunk=MLSTM_PLAIN_CHUNK,
+                                       init_state=init)
+        torch.cuda.synchronize()
+        # the plain version computes in float32 from the same inputs
+        wh, wstate = ref.reference_mlstm(*xs, chunk=MLSTM_PLAIN_CHUNK,
+                                         init_state=init)
+        rels = rel_errs((h,) + state, (wh,) + wstate)
+        h_err = float((h - wh).abs().max())
+        bound_ms, bound_by, _, _ = mlstm_bound(B, S, H, Dh, dtype, with_init)
+        print(f"  {name:17s} {str(dtype):15s} B={B} S={S} H={H} Dh={Dh} "
+              f"init={with_init}: max_abs_err(h)={h_err:.3e} "
+              f"max|h|={float(wh.abs().max()):.3e} rel " + " ".join(
+                  f"{k}={r:.3e}" for k, r in rels.items())
+              + f" tol={MLSTM_RTOL:.0e}; bound {bound_ms * 1e3:.2f} us by "
+              f"{bound_by}", flush=True)
+        for what, r in rels.items():
+            check(math.isfinite(r) and r <= MLSTM_RTOL,
+                  f"mlstm_scan {name} {what}: relative error {r} > "
+                  f"{MLSTM_RTOL}")
+        if result is None:
+            result = time_mlstm_kernel(xs, h_err)
+        del xs, init, h, state, wh, wstate
+        torch.cuda.empty_cache()
+    check_mlstm_against_oracle(gen)
+    return result
+
+
+def check_mlstm_against_oracle(gen):
+    """MLSTM_ORACLE_CASE: kernel and plain version against the float64
+    recurrence, the kernel within MLSTM_RTOL or twice the plain version's
+    worst error, for each of h, C, n and m."""
+    from repro_torch.kernels.mlstm_scan import ops, ref
+    name, B, S, H, Dh, dtype = MLSTM_ORACLE_CASE
+    xs, _ = mlstm_inputs(B, S, H, Dh, dtype, False, "random-keys", gen)
+    h, state = ops.mlstm_chunkwise(*xs, chunk=MLSTM_PLAIN_CHUNK)
+    torch.cuda.synchronize()
+    wh, wstate = ref.sequential_oracle(*xs, dtype=torch.float64)
+    truth = (wh,) + wstate
+    plains = {}
+    for c in MLSTM_ORACLE_CHUNKS:
+        ph, pstate = ref.reference_mlstm(*xs, chunk=c)
+        plains[c] = (ph,) + pstate
+    plain_rels = {c: rel_errs(o, truth) for c, o in plains.items()}
+    got = rel_errs((h,) + state, truth)
+    c0, c1 = MLSTM_ORACLE_CHUNKS
+    between = rel_errs(plains[c0], plains[c1])
+
+    def fmt(rels):
+        return " ".join(f"{k}={r:.3e}" for k, r in rels.items())
+    print(f"  {name} {dtype} B={B} S={S} H={H} Dh={Dh}, against the float64 "
+          f"recurrence (max|h| {float(wh.abs().max()):.3e}): kernel "
+          f"{fmt(got)}; " + "; ".join(f"plain at chunk {c} {fmt(r)}"
+                                      for c, r in plain_rels.items())
+          + f"; plain at chunk {c0} against chunk {c1} {fmt(between)}",
+          flush=True)
+    for what, r in got.items():
+        bar = max(MLSTM_RTOL,
+                  2 * max(pr[what] for pr in plain_rels.values()))
+        check(math.isfinite(r) and r <= bar,
+              f"mlstm_scan {name} {what}: error {r} against the float64 "
+              f"recurrence > {bar}")
+    del xs, h, state, wh, wstate, truth, plains
+    torch.cuda.empty_cache()
+
+
+def time_mlstm_kernel(xs, err):
+    """Kernel and plain times at the serving shape; no PyTorch call
+    computes this function, so there is no library time."""
+    from repro_torch.kernels.mlstm_scan import ops, ref
+    B, S, H, Dh = xs[0].shape
+    kernel_ms = cuda_ms(lambda: ops.mlstm_chunkwise(
+        *xs, chunk=MLSTM_PLAIN_CHUNK))
+    plain_ms = cuda_ms(lambda: ref.reference_mlstm(
+        *xs, chunk=MLSTM_PLAIN_CHUNK), iters=3, warmup=1)
+    bound_ms, bound_by, flops, nbytes = mlstm_bound(B, S, H, Dh,
+                                                    xs[0].dtype, False)
+    print(f"  timing at B={B} S={S} H={H} Dh={Dh} q/k/v {xs[0].dtype} gates "
+          f"{xs[3].dtype}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, library: none; bound {bound_ms * 1e3:.2f} us by {bound_by} "
+          f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)", flush=True)
+    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def layer_counts(cfg) -> dict:
     """{block kind: number of layers} of a config's pattern."""
     counts: dict = {}
@@ -483,11 +700,14 @@ def layer_counts(cfg) -> dict:
     return counts
 
 
-def phase_serve(arch: str, moe_dispatch: str = "einsum"):
+def phase_serve(arch: str, moe_dispatch: str = "einsum",
+                profile_len: int = PROMPT_LEN):
     """Serve SERVE_REQUESTS requests of ``arch`` at full width through
-    ``serve()``; returns (cfg, params, launches of each kernel)."""
+    ``serve()``; returns (cfg, params, launches of each kernel).  The
+    profiled prefill takes the first ``profile_len`` prompt tokens."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
     from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
     from repro_torch.kernels.rglru_scan import kernel as rg_kernel
     from repro_torch.launch.serve import Request, serve
@@ -514,6 +734,7 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum"):
     fa_kernel.LAUNCHES = 0
     gmm_kernel.LAUNCHES = 0
     rg_kernel.LAUNCHES = 0
+    ml_kernel.LAUNCHES = 0
     t0 = time.perf_counter()
     done = serve(cfg, reqs, slots=SERVE_SLOTS, ctx_len=ctx_len,
                  params=params, moe_dispatch=moe_dispatch, device="cuda")
@@ -521,7 +742,8 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum"):
     wall = time.perf_counter() - t0
     launches = {"flash_attention": fa_kernel.LAUNCHES,
                 "moe_gmm": gmm_kernel.LAUNCHES,
-                "rglru_scan": rg_kernel.LAUNCHES}
+                "rglru_scan": rg_kernel.LAUNCHES,
+                "mlstm_scan": ml_kernel.LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
 
     n_prefill = math.ceil(SERVE_REQUESTS / SERVE_SLOTS)
@@ -537,10 +759,12 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum"):
     kinds = layer_counts(cfg)
     n_attn = sum(kinds.get(k, 0) for k in ("attn", "swa", "local"))
     n_rglru = kinds.get("rglru", 0)
+    n_mlstm = kinds.get("mlstm", 0)
     want = {"flash_attention": n_attn * n_prefill,
             "moe_gmm": cfg.n_layers * (n_prefill + n_decode)
             if cfg.is_moe and moe_dispatch == "gather" else 0,
-            "rglru_scan": n_rglru * n_prefill}
+            "rglru_scan": n_rglru * n_prefill,
+            "mlstm_scan": n_mlstm * n_prefill}
     for name, n in want.items():
         check(launches[name] == n,
               f"{name} launched {launches[name]} times, expected {n}")
@@ -555,6 +779,9 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum"):
           + f"; rglru_scan launches {launches['rglru_scan']}"
           + (f" = {n_rglru} RG-LRU layers x {n_prefill} prefills"
              if want["rglru_scan"] else "")
+          + f"; mlstm_scan launches {launches['mlstm_scan']}"
+          + (f" = {n_mlstm} mLSTM layers x {n_prefill} prefills"
+             if want["mlstm_scan"] else "")
           + f"; peak memory {peak / 2**30:.2f} GiB", flush=True)
     print(f"  req{done[0].rid}: {done[0].generated}", flush=True)
 
@@ -583,8 +810,8 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum"):
               f"(median of 3); decode: {decode_ms:.3f} ms/step at batch "
               f"{SERVE_SLOTS}", flush=True)
         # where the time goes: one prefill batch and one decode step
-        print_profile(f"prefill {SERVE_SLOTS}x{PROMPT_LEN}", *profile_ms(
-            lambda: prefill(params, {"tokens": toks})))
+        print_profile(f"prefill {SERVE_SLOTS}x{profile_len}", *profile_ms(
+            lambda: prefill(params, {"tokens": toks[:, :profile_len]})))
         print_profile(f"decode step at batch {SERVE_SLOTS}", *profile_ms(
             lambda: decode(params, nxt, ctx_len - 1, cache)))
     return cfg, params, launches
@@ -614,8 +841,15 @@ def count_drops(drops: list):
 
 def phase_consistency(cfg, params, moe_dispatch: str = "einsum",
                       tol: float = CONSISTENCY_RTOL):
+    """prefill + decode_step against forward_logits in float32; the
+    negative control decodes at a position off by one, or, in a model with
+    no attention layer (it reads no position), feeds each decode step the
+    previous token."""
     from repro_torch.models import registry as R
     phase(f"consistency {cfg.name}")
+    kinds = layer_counts(cfg)
+    control = "position" if any(kinds.get(k) for k in ("attn", "swa",
+                                                        "local")) else "token"
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     B, S = 2, 200
     if cfg.is_moe:
@@ -633,7 +867,9 @@ def phase_consistency(cfg, params, moe_dispatch: str = "einsum",
     toks = rng.integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
     drops: list = []
 
-    def run(pos_shift: int) -> float:
+    def run(shift: int) -> float:
+        pos_shift, tok_shift = (shift, 0) if control == "position" else \
+            (0, shift)
         with torch.inference_mode():
             full = R.forward_logits(p32, cfg32, {"tokens": toks},
                                     moe_dispatch=moe_dispatch, device="cuda")
@@ -642,7 +878,8 @@ def phase_consistency(cfg, params, moe_dispatch: str = "einsum",
                                       device="cuda")
             err = float((logits - full[:, S - 5]).abs().max())
             for t in range(S - 4, S - 1):
-                logits, cache = R.decode_step(p32, cfg32, toks[:, t:t + 1],
+                tok = toks[:, t - tok_shift:t - tok_shift + 1]
+                logits, cache = R.decode_step(p32, cfg32, tok,
                                               t + pos_shift, cache,
                                               moe_dispatch=moe_dispatch,
                                               device="cuda")
@@ -666,10 +903,11 @@ def phase_consistency(cfg, params, moe_dispatch: str = "einsum",
     rel_bad = run(1)
     print(f"  B={B} S={S}: prefill({S - 4}) + 3 decode steps vs "
           f"forward_logits, float32: max rel err {rel:.3e} "
-          f"(tol {tol:.0e}); off-by-one pos: {rel_bad:.3e}", flush=True)
+          f"(tol {tol:.0e}); off-by-one {control}: {rel_bad:.3e}",
+          flush=True)
     check(rel <= tol, f"decode disagrees with forward: {rel}")
     check(rel_bad > tol,
-          f"an off-by-one position passes the tolerance ({rel_bad})")
+          f"an off-by-one {control} passes the tolerance ({rel_bad})")
 
 
 def main() -> int:
@@ -683,6 +921,7 @@ def main() -> int:
     fa_timing = phase_kernel()
     gmm_timing = phase_kernel_moe()
     rg_timing = phase_kernel_rglru()
+    ml_timing = phase_kernel_mlstm()
     cfg, params, dense_launches = phase_serve(ARCH)
     phase_consistency(cfg, params)
     del params
@@ -693,6 +932,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     cfg, params, griffin_launches = phase_serve(GRIFFIN_ARCH)
     phase_consistency(cfg, params, tol=GRIFFIN_CONSISTENCY_RTOL)
+    del params
+    torch.cuda.empty_cache()
+    cfg, params, xlstm_launches = phase_serve(XLSTM_ARCH,
+                                              profile_len=XLSTM_PROFILE_LEN)
+    phase_consistency(cfg, params, tol=XLSTM_CONSISTENCY_RTOL)
     del params
     torch.cuda.empty_cache()
 
@@ -709,7 +953,8 @@ def main() -> int:
          "launches_by_path": {
              ARCH: dense_launches["flash_attention"],
              MOE_ARCH: moe_launches["flash_attention"],
-             GRIFFIN_ARCH: griffin_launches["flash_attention"]},
+             GRIFFIN_ARCH: griffin_launches["flash_attention"],
+             XLSTM_ARCH: xlstm_launches["flash_attention"]},
          "at_griffin_shape": fa_timing["griffin-prefill"]},
         {"name": "moe_gmm", "route": "cuda",
          "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
@@ -719,6 +964,10 @@ def main() -> int:
          "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan/kernel.py:55",
          "launches": griffin_launches["rglru_scan"], **rg_timing},
+        {"name": "mlstm_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/mlstm_scan/csrc/mlstm_scan.cu",
+         "replaces": "src/repro/kernels/mlstm_scan/kernel.py:85",
+         "launches": xlstm_launches["mlstm_scan"], **ml_timing},
     ]
     for k in kernels:
         # the same numbers again under short names (bound in microseconds)

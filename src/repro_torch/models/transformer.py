@@ -3,9 +3,10 @@
 
 The port covers ATTN / SWA / LOCAL self-attention and the Griffin RG-LRU
 recurrent block (``repro_torch.models.rglru``), each with a gated (or
-plain) MLP or a mixture of experts (``repro_torch.models.moe``).  mLSTM,
-sLSTM, cross-attention and the audio encoder raise ``NotImplementedError``
-naming the slice that ports them.
+plain) MLP or a mixture of experts (``repro_torch.models.moe``), and the
+xLSTM mLSTM and sLSTM blocks (``repro_torch.models.xlstm``), which have no
+separate FFN.  Cross-attention and the audio encoder raise
+``NotImplementedError`` naming the slice that ports them.
 
 Layouts differ from the JAX package in one way: where JAX stacks the layers
 of each pattern position under ``params["blocks"]`` (leading
@@ -13,7 +14,9 @@ of each pattern position under ``params["blocks"]`` (leading
 keeps one dict per layer in depth order, ``params["layers"][n]``, of kind
 ``block_pattern[n % pattern_period]``.  ``repro_torch.convert`` maps
 between the two.  The decode cache follows the same per-layer layout:
-{"k", "v"} for an attention layer, {"h", "conv"} for an RG-LRU layer.
+{"k", "v"} for an attention layer, {"h", "conv"} for an RG-LRU layer,
+{"C", "n", "m", "conv"} for an mLSTM and {"h", "c", "n", "m", "conv"} for an
+sLSTM layer.
 
 Public API (``moe_dispatch`` is "einsum" or "gather", as in the reference;
 it is read only by MoE layers):
@@ -43,15 +46,15 @@ from repro_torch.models.layers import (decode_attention_block, dense,
 from repro_torch.models.moe import moe_block
 from repro_torch.models.rglru import (RGLRU_C, apply_rglru, d_rnn,
                                       decode_rglru, init_state_rglru)
-from repro_torch.models.xlstm import CONV_K
+from repro_torch.models.xlstm import (CONV_K, apply_mlstm, apply_slstm,
+                                      decode_mlstm, decode_slstm,
+                                      init_state_mlstm, init_state_slstm,
+                                      mlstm_dims, slstm_dims)
 
 _SELF_ATTN = (ATTN, SWA, LOCAL)
-_SUPPORTED = _SELF_ATTN + (RGLRU,)
-_LATER_SLICE = {
-    CROSS: "the cross-attention (vision) slice",
-    MLSTM: "the xLSTM slice (mlstm_scan kernel)",
-    SLSTM: "the xLSTM slice",
-}
+_RECURRENT = (RGLRU, MLSTM, SLSTM)
+_SUPPORTED = _SELF_ATTN + _RECURRENT
+_LATER_SLICE = {CROSS: "the cross-attention (vision) slice"}
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -90,9 +93,11 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
     float32 weights and casts them at use; full-width serving reads half
     the bytes this way).  The MoE router stays float32: routing casts it
     to float32 anyway, and a rounded router routes differently from the
-    reference's.  So do the RG-LRU's ``lam``, ``b_a`` and ``b_i``: the
-    reference's gates are float32 sums in a bf16 model too.  The numbers
-    differ from ``jax.random``'s; parity tests convert JAX params instead.
+    reference's.  So do the RG-LRU's ``lam``, ``b_a`` and ``b_i`` and the
+    xLSTM gate biases (the reference's gates are float32 sums in a bf16
+    model too), and the sLSTM's recurrent ``r_*``, which the reference
+    reads in float32.  The numbers differ from ``jax.random``'s; parity
+    tests convert JAX params instead.
     On the ``meta`` device nothing is drawn or allocated.
     """
     check_supported(cfg)
@@ -139,7 +144,45 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
                 "w_i": lin(dr, dr, 0.1), "b_i": zeros(dr, dtype=f32),
                 "w_out": lin(dr, d)}
 
+    def mlstm():
+        H, Dh, inner = mlstm_dims(cfg)
+        f32 = torch.float32
+        return {"ln": zeros(d), "w_up": lin(d, 2 * inner),
+                "conv_w": normal((CONV_K, inner), 0.1),
+                "conv_b": zeros(inner),
+                # block-diagonal per-head projections
+                "wq": normal((H, Dh, Dh), Dh ** -0.5),
+                "wk": normal((H, Dh, Dh), Dh ** -0.5),
+                "wv": normal((H, Dh, Dh), Dh ** -0.5),
+                "w_ig": lin(inner, H, 0.1), "b_ig": zeros(H, dtype=f32),
+                "w_fg": lin(inner, H, 0.1),
+                # forget bias in [3, 6]: sigmoid(f) ~ 1 early
+                "b_fg": torch.linspace(3.0, 6.0, H, device=device,
+                                       dtype=f32),
+                "skip": torch.ones((inner,), device=device, dtype=dt),
+                "gn": zeros(inner), "w_down": lin(inner, d)}
+
+    def slstm():
+        H, Dh, ff = slstm_dims(cfg)
+        f32 = torch.float32
+
+        def rec():
+            return normal((H, Dh, Dh), Dh ** -0.5, f32)
+        p = {"ln": zeros(d), "conv_w": normal((CONV_K, d), 0.1),
+             "conv_b": zeros(d)}
+        for g in ("z", "i", "f", "o"):
+            p[f"w_{g}"] = lin(d, d)
+            p[f"r_{g}"] = rec()
+            p[f"b_{g}"] = zeros(d, dtype=f32)
+        p["b_f"] = torch.full((d,), 4.0, device=device, dtype=f32)
+        p.update({"gn": zeros(d), "mlp_ln": zeros(d), "w1": lin(d, ff),
+                  "w3": lin(d, ff), "w2": lin(ff, d)})
+        return p
+
     def layer(kind):
+        if kind in (MLSTM, SLSTM):
+            # no separate FFN: the gates and the post-MLP live in the block
+            return {"mix": mlstm() if kind == MLSTM else slstm()}
         if kind == RGLRU:
             p = {"mix": rglru()}
         else:
@@ -198,12 +241,13 @@ def _stack_forward(params, cfg, x, positions, moe_dispatch, *,
                    collect_kv: bool = False):
     """Runs every layer in depth order.
 
-    Returns (x, per-layer [(k, v) or RG-LRU state] or None)."""
+    Returns (x, per-layer [(k, v) or recurrent state] or None)."""
     kvs: Optional[List[Any]] = [] if collect_kv else None
     for n, layer in enumerate(params["layers"]):
         kind = layer_kind(cfg, n)
-        if kind == RGLRU:
-            out = apply_rglru(x, layer["mix"], cfg, return_state=collect_kv)
+        if kind in _RECURRENT:
+            apply = _APPLY_RECURRENT[kind]
+            out = apply(x, layer["mix"], cfg, return_state=collect_kv)
             x, kv = out if collect_kv else (out, None)
         else:
             x, kv = _self_attn(x, layer["mix"], cfg, positions=positions,
@@ -213,6 +257,14 @@ def _stack_forward(params, cfg, x, positions, moe_dispatch, *,
         if "ffn" in layer:
             x = _apply_ffn(x, layer["ffn"], cfg, moe_dispatch)
     return x, kvs
+
+
+_APPLY_RECURRENT = {RGLRU: apply_rglru, MLSTM: apply_mlstm,
+                    SLSTM: apply_slstm}
+_DECODE_RECURRENT = {RGLRU: decode_rglru, MLSTM: decode_mlstm,
+                     SLSTM: decode_slstm}
+_INIT_RECURRENT = {RGLRU: init_state_rglru, MLSTM: init_state_mlstm,
+                   SLSTM: init_state_slstm}
 
 
 # ---------------------------------------------------------------------------
@@ -266,8 +318,10 @@ def _cache_len(kind: str, cfg: ArchConfig, ctx_len: int) -> int:
 
 
 def init_cache(cfg: ArchConfig, B: int, ctx_len: int, *, device=None):
-    """Zeroed decode cache: {"layers": [{"k", "v": (B, L, KH, Dh)} or
-    {"h": (B, D) float32, "conv": (B, CONV_K - 1, D)}, ...]}.
+    """Zeroed decode cache: {"layers": [{"k", "v": (B, L, KH, Dh)} or a
+    recurrent layer's state, ...]}: RG-LRU {"h": (B, D) float32, "conv":
+    (B, CONV_K - 1, D)}, mLSTM {"C", "n", "m" float32, "conv"}, sLSTM
+    {"h", "c", "n", "m" float32, "conv"} (``repro_torch.models.xlstm``).
 
     k, v and conv are bf16 whatever ``cfg.dtype`` is, as in the reference;
     ``prefill`` makes k and v in ``cfg.dtype`` (conv stays bf16)."""
@@ -277,8 +331,8 @@ def init_cache(cfg: ArchConfig, B: int, ctx_len: int, *, device=None):
     layers = []
     for n in range(cfg.n_layers):
         kind = layer_kind(cfg, n)
-        if kind == RGLRU:
-            layers.append(init_state_rglru(cfg, B, device=device))
+        if kind in _RECURRENT:
+            layers.append(_INIT_RECURRENT[kind](cfg, B, device=device))
             continue
         L = _cache_len(kind, cfg, ctx_len)
         layers.append({
@@ -294,8 +348,8 @@ def decode_step(params, cfg: ArchConfig, tokens, pos: int, cache, *,
     """One new token against the cache.  tokens: (B, 1); pos: int.
 
     Returns (logits: (B, V), cache).  The cache's tensors, attention k/v
-    and RG-LRU state alike, are updated in place; the returned cache holds
-    the same tensors.
+    and recurrent state alike, are updated in place; the returned cache
+    holds the same tensors.
     """
     tokens = _prepare(params, cfg, tokens, device)
     pos = int(pos)
@@ -303,8 +357,9 @@ def decode_step(params, cfg: ArchConfig, tokens, pos: int, cache, *,
     layers = []
     for n, layer in enumerate(params["layers"]):
         kind = layer_kind(cfg, n)
-        if kind == RGLRU:
-            x, new = decode_rglru(x, layer["mix"], cfg, cache["layers"][n])
+        if kind in _RECURRENT:
+            x, new = _DECODE_RECURRENT[kind](x, layer["mix"], cfg,
+                                             cache["layers"][n])
         else:
             x, new = decode_attention_block(
                 x, layer["mix"], cfg, cache["layers"][n], pos,
@@ -324,8 +379,8 @@ def prefill(params, cfg: ArchConfig, batch, *,
     Returns (last_token_logits: (B, V), cache).  Each attention layer's
     cache is sized ``cache_len`` (default: context length), or its window
     when smaller, and holds the (windowed, ring-rotated) keys/values in
-    ``cfg.dtype``; an RG-LRU layer's is its state after the last token, as
-    the reference keeps it.
+    ``cfg.dtype``; a recurrent layer's is its state after the last token,
+    as the reference keeps it.
     """
     tokens = _prepare(params, cfg, batch["tokens"], device)
     x = _embed(params, cfg, tokens)
@@ -351,7 +406,7 @@ def prefill(params, cfg: ArchConfig, batch, *,
     layers = []
     for n, kv in enumerate(kvs):
         kind = layer_kind(cfg, n)
-        if kind == RGLRU:
+        if kind in _RECURRENT:
             layers.append(kv)           # recurrent state dict, verbatim
             continue
         L = _cache_len(kind, cfg, L_default)

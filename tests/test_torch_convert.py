@@ -37,7 +37,8 @@ def _jax_tree(jc):
 
 @pytest.mark.parametrize("case", ["minicpm-2b", "h2o-danube-3-4b",
                                   "attn-swa-tail", "granite-moe-3b-a800m",
-                                  "mixtral-8x7b", "recurrentgemma-9b"])
+                                  "mixtral-8x7b", "recurrentgemma-9b",
+                                  "xlstm-1.3b"])
 def test_round_trip_is_exact_and_covers_every_key(case):
     jc, tc = _pair(case)
     tree = _jax_tree(jc)

@@ -14,6 +14,9 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.kernels.flash_attention import kernel, ops, ref
+from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
+from repro_torch.kernels.mlstm_scan import ops as ml_ops
+from repro_torch.kernels.mlstm_scan import ref as ml_ref
 from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.kernels.moe_gmm import ref as gmm_ref
@@ -38,6 +41,11 @@ GMM_RTOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # they differ by the last bits of exp/expm1/sqrt and a fused multiply-add
 # per step, which the recurrence (a < 1) does not amplify.
 RGLRU_RTOL = 1e-5
+
+# mlstm_scan, relative to the plain version's max |h| (and max |C|, |n|,
+# |m|): both compute in float32 from the same inputs, in another order
+# (chunks of 64 against the reference's, sums over Dh and S).
+MLSTM_RTOL = 1e-4
 
 
 def _need_cuda():
@@ -283,6 +291,94 @@ def test_griffin_model_on_gpu_matches_plain_on_cpu():
                             cache_len=150, device="cuda")
     lg_off, c_off = R.prefill(params, cfg, {"tokens": toks[:, :140]},
                               cache_len=150, device="cpu")
+    for t in range(140, 143):
+        lg_on, c_on = R.decode_step(params_gpu, cfg, toks[:, t:t + 1], t,
+                                    c_on, device="cuda")
+        lg_off, c_off = R.decode_step(params, cfg, toks[:, t:t + 1], t,
+                                      c_off, device="cpu")
+        assert float((lg_on.cpu() - lg_off).abs().max()) < 1e-3
+
+
+def _mlstm_inputs(B, S, H, Dh, dtype, with_init=False, stress=False, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    q, k, v = randn(B, S, H, Dh), randn(B, S, H, Dh), randn(B, S, H, Dh)
+    ig, fg = randn(B, S, H), 3.0 + randn(B, S, H)
+    if stress:      # as chip_smoke.py's stress case, keys near their queries
+        ig, fg, k = ig + 90.0, fg - 12.0, q + 0.5 * k
+    init = (randn(B, H, Dh, Dh), randn(B, H, Dh), randn(B, H)) \
+        if with_init else None
+    return (q.to(dtype), k.to(dtype), v.to(dtype), ig, fg), init
+
+
+@pytest.mark.parametrize("B,S,H,Dh,with_init,stress", [
+    (4, 1000, 4, 1024, False, False),  # xlstm-1.3b prefill
+    (2, 37, 4, 512, False, False),     # S not a multiple of the chunk
+    (3, 1, 4, 1024, False, False),     # a single step
+    (2, 200, 4, 32, False, False),     # xlstm-1.3b reduced's head dim
+    (1, 1000, 1, 1024, False, False),  # one head
+    (2, 136, 4, 512, True, False),     # from an initial state
+    (2, 1000, 4, 1024, False, True),   # the stabiliser under stress
+    (1, 100, 2, 1300, False, False),   # C past shared memory
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mlstm_kernel_matches_plain(B, S, H, Dh, with_init, stress, dtype):
+    _need_cuda()
+    xs, init = _mlstm_inputs(B, S, H, Dh, dtype, with_init, stress)
+    before = ml_kernel.LAUNCHES
+    h, state = ml_ops.mlstm_chunkwise(*xs, chunk=256, init_state=init)
+    torch.cuda.synchronize()
+    assert ml_kernel.LAUNCHES == before + 1
+    assert h.dtype == torch.float32 and h.shape == xs[0].shape
+    wh, wstate = ml_ref.reference_mlstm(*xs, chunk=256, init_state=init)
+    for name, got, want in zip("hCnm", (h,) + state, (wh,) + wstate):
+        assert got.dtype == torch.float32 and got.shape == want.shape, name
+        rel = float((got - want).abs().max() / want.abs().max())
+        assert rel <= MLSTM_RTOL, (name, rel)
+
+
+def test_mlstm_kernel_rejects_what_it_does_not_take():
+    _need_cuda()
+    (q, k, v, ig, fg), init = _mlstm_inputs(2, 16, 2, 64, torch.float32,
+                                            with_init=True)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ml_ops.mlstm_chunkwise(q.half(), k.half(), v.half(), ig, fg)
+    with pytest.raises(ValueError, match="one dtype"):
+        ml_ops.mlstm_chunkwise(q, k.bfloat16(), v, ig, fg)
+    with pytest.raises(ValueError, match="contiguous"):
+        ml_ops.mlstm_chunkwise(q.transpose(1, 2).contiguous().transpose(1, 2),
+                               k, v, ig, fg)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ml_ops.mlstm_chunkwise(q, k, v, ig, fg,
+                               init_state=(init[0].cpu(),) + init[1:])
+
+
+def test_xlstm_model_on_gpu_matches_plain_on_cpu():
+    """xlstm-1.3b reduced through mlstm_scan (CUDA) against the plain
+    version on the CPU: forward, prefill and decode."""
+    _need_cuda()
+    cfg = dataclasses.replace(get_arch("xlstm-1.3b").reduced(),
+                              dtype="float32")
+    params = R.init_params(cfg, 0, device="cpu")
+    params_gpu = {k: ([{g: {n: w.cuda() for n, w in sub.items()}
+                        for g, sub in lay.items()} for lay in v]
+                      if k == "layers" else v.cuda())
+                  for k, v in params.items()}
+    toks = torch.randint(0, cfg.vocab_size, (2, 150),
+                         generator=torch.Generator().manual_seed(0))
+    n_mlstm = cfg.n_layers // 2
+    before = ml_kernel.LAUNCHES, kernel.LAUNCHES
+    on = R.forward_logits(params_gpu, cfg, {"tokens": toks}, device="cuda")
+    assert (ml_kernel.LAUNCHES, kernel.LAUNCHES) == \
+        (before[0] + n_mlstm, before[1])
+    off = R.forward_logits(params, cfg, {"tokens": toks}, device="cpu")
+    assert float((on.cpu() - off).abs().max()) < 1e-3
+    lg_on, c_on = R.prefill(params_gpu, cfg, {"tokens": toks[:, :140]},
+                            device="cuda")
+    lg_off, c_off = R.prefill(params, cfg, {"tokens": toks[:, :140]},
+                              device="cpu")
     for t in range(140, 143):
         lg_on, c_on = R.decode_step(params_gpu, cfg, toks[:, t:t + 1], t,
                                     c_on, device="cuda")

@@ -148,7 +148,7 @@ def test_decode_matches_forward_and_catches_position_and_slot_faults(case):
 
 @pytest.mark.parametrize("arch", ["minicpm-2b", "h2o-danube-3-4b",
                                   "granite-moe-3b-a800m", "mixtral-8x7b",
-                                  "recurrentgemma-9b"])
+                                  "recurrentgemma-9b", "xlstm-1.3b"])
 def test_param_count_matches_jax(arch):
     assert R.count_params_analytic(torch_arch(arch)) == \
         JR.count_params_analytic(jax_arch(arch))
@@ -161,7 +161,8 @@ def test_param_count_matches_jax(arch):
 @pytest.mark.parametrize("case", list(CASES) + ["attn-swa-tail",
                                                  "granite-moe-3b-a800m",
                                                  "mixtral-8x7b",
-                                                 "recurrentgemma-9b"])
+                                                 "recurrentgemma-9b",
+                                                 "xlstm-1.3b"])
 def test_init_matches_jax_shapes_and_scales(case):
     jc, tc = _configs(case, "float32")
     jp, _ = JR.init_params(jax.random.key(0), jc)
@@ -222,7 +223,6 @@ def test_init_cache_sizes_windowed_layers_to_the_window():
 
 
 @pytest.mark.parametrize("arch,slice_name", [
-    ("xlstm-1.3b", "xLSTM"),
     ("llama-3.2-vision-11b", "cross-attention"), ("hubert-xlarge", "audio"),
 ])
 def test_later_slices_raise_not_implemented(arch, slice_name):
