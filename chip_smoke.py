@@ -10,20 +10,24 @@ a non-zero exit:
 
 1. device       the card's name and power limit, as nvidia-smi reports them
 2. build        every CUDA kernel of the port built from ``csrc/`` into
-                ``build/repro_torch/``; ptxas's register, shared-memory and
-                spill lines and the build's seconds
+                ``build/repro_torch/``; ptxas's register, shared-memory,
+                spill and wgmma lines, the build's seconds, and each
+                flash-attention route's shared memory per block
 3. kernel       each kernel (flash_attention, moe_gmm, rglru_scan,
                 mlstm_scan) against its plain PyTorch version on the card,
                 bf16 and float32, within the stated tolerances; at the
                 serving shapes also kernel, plain and library (or yardstick)
                 times and the card's bound for the same work (flash
-                attention at minicpm's and at recurrentgemma's prefill
-                shape); mlstm_scan also under stress with random keys,
-                against the recurrence in float64
+                attention at minicpm's, granite-moe's and recurrentgemma's
+                prefill shapes, with kernel / SDPA as a factor); bf16 flash
+                attention runs on the wgmma route, float32 on the scalar
+                one; mlstm_scan also under stress with random keys, against
+                the recurrence in float64
 4. serve        full-width minicpm-2b (40 layers, bf16, random weights from a
                 seed) serves 8 requests of 1000 prompt tokens through
                 ``repro_torch.launch.serve.serve``; every prefill layer must
-                have launched the flash-attention kernel
+                have launched the flash-attention kernel, on its wgmma route
+                (the launches per route are printed after each serve)
 5. consistency  prefill + decode_step against forward_logits at full width in
                 float32, with a negative control (an off-by-one position must
                 fail the same tolerance)
@@ -170,8 +174,14 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+# the port's kernels, by the prefix of their CUDA function names
+PORT_KERNELS = {"flash_attention": "flash_fwd", "moe_gmm": "gmm_",
+                "rglru_scan": "rglru_scan", "mlstm_scan": "mlstm_"}
+
+
 def profile_ms(fn):
-    """(wall ms, device-busy ms, top kernels) of one call, by torch.profiler.
+    """(wall ms, device-busy ms, top kernels, {port kernel: (ms, launches)})
+    of one call, by torch.profiler.
 
     Device-busy is the sum of the kernels' device times; the profiler's own
     overhead inflates the wall time, so read the share, not the wall."""
@@ -187,11 +197,17 @@ def profile_ms(fn):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    port = {}
+    for name, prefix in PORT_KERNELS.items():
+        mine = [e for e in kernels if prefix in e.key]
+        if mine:
+            port[name] = (sum(e.self_device_time_total for e in mine) / 1e3,
+                          sum(e.count for e in mine))
     return wall, busy, [(e.self_device_time_total / 1e3, e.count, e.key)
-                        for e in top]
+                        for e in top], port
 
 
-def print_profile(label, wall, busy, top):
+def print_profile(label, wall, busy, top, port):
     if busy <= 0:
         print(f"  profile {label}: device time not measured (the profiler "
               f"saw no kernels)", flush=True)
@@ -200,6 +216,9 @@ def print_profile(label, wall, busy, top):
           f"busy {busy:.2f} ms ({busy / wall:.1%}); top kernels:", flush=True)
     for ms, n, name in top:
         print(f"    {ms:9.3f} ms {n:6d}x  {name[:90]}", flush=True)
+    for name, (ms, n) in port.items():
+        print(f"    port kernel {name}: {ms:.3f} ms over {n} launches, "
+              f"{ms / busy:.1%} of device busy", flush=True)
 
 
 def attention_bound(B, S, H, KH, Dh, causal, window, dtype):
@@ -245,14 +264,16 @@ def phase_build() -> None:
     info = build.build()
     for line in info.log.splitlines():
         if any(w in line for w in ("registers", "spill", "Function properties",
-                                   "Compiling entry")):
+                                   "Compiling entry", "wgmma", "setmaxnreg",
+                                   "warning")):
             print("  " + line.strip())
     print(f"built {info.path.relative_to(ROOT)} in {info.seconds:.3f} s"
           f"{' (cached)' if info.cached else ''}", flush=True)
     from repro_torch.kernels.flash_attention import kernel, ops
-    print("  flash_attention dynamic shared memory per block: " + ", ".join(
-        f"Dh={dh}: {kernel.shared_memory_bytes(dh)} B"
-        for dh in ops.SUPPORTED_HEAD_DIMS), flush=True)
+    for dtype, (_, route) in kernel.ROUTES.items():
+        print(f"  flash_attention {route} dynamic shared memory per block: "
+              + ", ".join(f"Dh={dh}: {kernel.shared_memory_bytes(dh, dtype)} B"
+                          for dh in ops.SUPPORTED_HEAD_DIMS), flush=True)
     from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
     sizes = []
     for dh in (32, 512, 1024, 1300):
@@ -267,6 +288,7 @@ def phase_build() -> None:
 # serving shapes, timed in bf16
 KERNEL_CASES = [
     ("minicpm-prefill", 4, 1000, 36, 36, 64, True, 0),
+    ("granite-prefill", 4, 1000, 24, 8, 64, True, 0),
     ("griffin-prefill", 4, 1000, 16, 1, 256, True, 2048),
     ("griffin-window", 1, 2304, 16, 1, 256, True, 2048),
     ("h2o-danube-swa", 2, 1000, 32, 8, 120, True, 256),
@@ -275,12 +297,12 @@ KERNEL_CASES = [
     ("ragged-136-window", 2, 136, 8, 2, 64, True, 100),
     ("non-causal-136", 2, 136, 4, 4, 120, False, 0),
 ]
-TIMED_CASES = ("minicpm-prefill", "griffin-prefill")
+TIMED_CASES = ("minicpm-prefill", "granite-prefill", "griffin-prefill")
 
 
 def phase_kernel():
     """Returns {timed case name: timing} of the flash kernel."""
-    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.kernels.flash_attention import kernel, ops, ref
     phase("kernel")
     gen = torch.Generator(device="cuda").manual_seed(0)
     result = {}
@@ -290,14 +312,18 @@ def phase_kernel():
         v32 = torch.randn((B, S, KH, Dh), generator=gen, device="cuda")
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+            route = kernel.ROUTES[dtype][1]
+            before = kernel.LAUNCHES_BY_ROUTE[route]
             out = ops.flash_attention(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
+            check(kernel.LAUNCHES_BY_ROUTE[route] == before + 1,
+                  f"flash_attention {name} {dtype} did not run on {route}")
             want = ref.reference_attention(q.float(), k.float(), v.float(),
                                            causal=causal, window=window)
             err = float((out.float() - want).abs().max())
             tol = KERNEL_TOL[dtype]
             print(f"  {name:18s} {str(dtype):15s} B={B} S={S} H={H} KH={KH} "
-                  f"Dh={Dh} causal={causal} window={window}: "
+                  f"Dh={Dh} causal={causal} window={window} ({route}): "
                   f"max_abs_err={err:.3e} tol={tol:.0e}", flush=True)
             check(math.isfinite(err) and err <= tol,
                   f"flash_attention {name} {dtype}: error {err} > {tol}")
@@ -326,7 +352,8 @@ def time_kernel(q, k, v, causal, window, err):
     print(f"  timing at B={B} S={S} H={H} KH={KH} Dh={Dh} window={window} "
           f"{q.dtype}: kernel "
           f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-          f"{library_ms:.4f} ms; bound {bound_ms * 1e3:.2f} us by {bound_by} "
+          f"{library_ms:.4f} ms, kernel / sdpa {kernel_ms / library_ms:.2f}x; "
+          f"bound {bound_ms * 1e3:.2f} us by {bound_by} "
           f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)", flush=True)
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
@@ -703,8 +730,9 @@ def layer_counts(cfg) -> dict:
 def phase_serve(arch: str, moe_dispatch: str = "einsum",
                 profile_len: int = PROMPT_LEN):
     """Serve SERVE_REQUESTS requests of ``arch`` at full width through
-    ``serve()``; returns (cfg, params, launches of each kernel).  The
-    profiled prefill takes the first ``profile_len`` prompt tokens."""
+    ``serve()``; returns (cfg, params, launches of each kernel, flash
+    attention's launches by route).  The profiled prefill takes the first
+    ``profile_len`` prompt tokens."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
@@ -731,7 +759,7 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum",
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa_kernel.LAUNCHES = 0
+    fa_kernel.reset_launches()
     gmm_kernel.LAUNCHES = 0
     rg_kernel.LAUNCHES = 0
     ml_kernel.LAUNCHES = 0
@@ -744,6 +772,7 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum",
                 "moe_gmm": gmm_kernel.LAUNCHES,
                 "rglru_scan": rg_kernel.LAUNCHES,
                 "mlstm_scan": ml_kernel.LAUNCHES}
+    fa_routes = dict(fa_kernel.LAUNCHES_BY_ROUTE)
     peak = torch.cuda.max_memory_allocated()
 
     n_prefill = math.ceil(SERVE_REQUESTS / SERVE_SLOTS)
@@ -768,6 +797,12 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum",
     for name, n in want.items():
         check(launches[name] == n,
               f"{name} launched {launches[name]} times, expected {n}")
+    # a bf16 model's attention runs on the wgmma route only
+    fa_route = fa_kernel.ROUTES[getattr(torch, cfg.dtype)][1]
+    check(fa_routes == {r: launches["flash_attention"] if r == fa_route else 0
+                        for r in fa_routes},
+          f"flash_attention launches by route {fa_routes}: a {cfg.dtype} "
+          f"model must take {fa_route} only")
     n_tok = sum(len(r.generated) for r in done)
     print(f"  served {len(done)} requests, {n_tok} new tokens in "
           f"{wall:.3f} s ({n_tok / wall:.1f} tok/s); flash_attention "
@@ -783,6 +818,7 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum",
           + (f" = {n_mlstm} mLSTM layers x {n_prefill} prefills"
              if want["mlstm_scan"] else "")
           + f"; peak memory {peak / 2**30:.2f} GiB", flush=True)
+    print(f"  flash_attention launches by route: {fa_routes}", flush=True)
     print(f"  req{done[0].rid}: {done[0].generated}", flush=True)
 
     # per-step times at the same shapes, through the same step functions
@@ -814,7 +850,7 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum",
             lambda: prefill(params, {"tokens": toks[:, :profile_len]})))
         print_profile(f"decode step at batch {SERVE_SLOTS}", *profile_ms(
             lambda: decode(params, nxt, ctx_len - 1, cache)))
-    return cfg, params, launches
+    return cfg, params, launches, fa_routes
 
 
 def count_drops(drops: list):
@@ -922,20 +958,23 @@ def main() -> int:
     gmm_timing = phase_kernel_moe()
     rg_timing = phase_kernel_rglru()
     ml_timing = phase_kernel_mlstm()
-    cfg, params, dense_launches = phase_serve(ARCH)
+    fa_launches = {}
+    cfg, params, dense_launches, fa_launches[ARCH] = phase_serve(ARCH)
     phase_consistency(cfg, params)
     del params
     torch.cuda.empty_cache()
-    cfg, params, moe_launches = phase_serve(MOE_ARCH, moe_dispatch="gather")
+    cfg, params, moe_launches, fa_launches[MOE_ARCH] = phase_serve(
+        MOE_ARCH, moe_dispatch="gather")
     phase_consistency(cfg, params, moe_dispatch="gather")
     del params
     torch.cuda.empty_cache()
-    cfg, params, griffin_launches = phase_serve(GRIFFIN_ARCH)
+    cfg, params, griffin_launches, fa_launches[GRIFFIN_ARCH] = phase_serve(
+        GRIFFIN_ARCH)
     phase_consistency(cfg, params, tol=GRIFFIN_CONSISTENCY_RTOL)
     del params
     torch.cuda.empty_cache()
-    cfg, params, xlstm_launches = phase_serve(XLSTM_ARCH,
-                                              profile_len=XLSTM_PROFILE_LEN)
+    cfg, params, xlstm_launches, fa_launches[XLSTM_ARCH] = phase_serve(
+        XLSTM_ARCH, profile_len=XLSTM_PROFILE_LEN)
     phase_consistency(cfg, params, tol=XLSTM_CONSISTENCY_RTOL)
     del params
     torch.cuda.empty_cache()
@@ -946,8 +985,9 @@ def main() -> int:
                    "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:72",
          # launches and times on its first path (minicpm-2b serving); the
-         # other paths' counts, each checked in its serve phase, and the
-         # times at recurrentgemma's prefill shape (head dim 256, MQA)
+         # other paths' counts, each checked in its serve phase, the counts
+         # by route (bf16 on wgmma_bf16), and the times at granite-moe's
+         # (GQA) and recurrentgemma's (head dim 256, MQA) prefill shapes
          "launches": dense_launches["flash_attention"],
          **fa_timing["minicpm-prefill"],
          "launches_by_path": {
@@ -955,6 +995,8 @@ def main() -> int:
              MOE_ARCH: moe_launches["flash_attention"],
              GRIFFIN_ARCH: griffin_launches["flash_attention"],
              XLSTM_ARCH: xlstm_launches["flash_attention"]},
+         "launches_by_route": fa_launches,
+         "at_granite_shape": fa_timing["granite-prefill"],
          "at_griffin_shape": fa_timing["griffin-prefill"]},
         {"name": "moe_gmm", "route": "cuda",
          "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",

@@ -12,15 +12,22 @@
 // while reading q, k, v and writing o once.  At the serving shapes
 // (S ~ 1e3, Dh 64..256) the tensor-core bound (989 TFLOP/s bf16) and the
 // memory bound (3.35 TB/s) are of the same order, tens of microseconds.
-// This first version does neither: it computes with scalar float32 FMAs
-// out of shared memory, so the FMA and shared-memory issue rate bounds it.
-// `wgmma` on bf16 tiles fed by TMA is the step that moves it toward the
-// bound.
 //
-// Design:
-//  * Grid (q-tiles, B*H).  The TPU grid's sequential k dimension is a loop
-//    inside one thread block; the running (m, l, acc) state lives in
-//    registers.  Query head h reads KV head h / (H / KH).
+// Two routes, chosen by dtype in `repro_flash_attention_fwd` (a dispatch,
+// not a fallback: a bf16 input the first route cannot take is refused):
+//  * bf16: `flash_fwd_bf16`, S = Q K^T and O += P V on `wgmma`, tiles
+//    brought into shared memory by TMA under mbarriers, the online softmax
+//    in registers.  Tensor cores are the only way to the bf16 rate.
+//  * float32: `flash_fwd_f32`, scalar float32 FMAs out of shared memory.
+//    TF32 would keep ~3 decimal digits, and the float32 model's decode is
+//    held against its forward at 1e-4 of the logits' scale through this
+//    kernel, so float32 stays off the tensor cores.
+//
+// Common to both:
+//  * One block per (q-tile, b*h).  The TPU grid's sequential k dimension is
+//    a loop inside the block; the running (m, l, acc) state lives in
+//    registers.  Query head h reads KV head h / (H / KH).  The last q-tiles
+//    have the most keys under a causal mask and start first.
 //  * q, k, v, o are read and written in their (B, S, heads, Dh) layout by
 //    stride, so the wrapper transposes nothing.
 //  * Only k-tiles that can hold an unmasked key are visited: up to the
@@ -29,9 +36,18 @@
 //    keeps p = 0 and acc = 0, so no exp(0) garbage from a fully masked
 //    tile ever enters the sum.
 //  * Any S works: q rows and k columns past S are masked, and K/V rows
-//    past S are loaded as zeros.  No reference fallback.
-//  * float32 and bf16 inputs (template T); float32 computes in float32.
-//    Dh is a template parameter: 64, 120, 128 and 256.
+//    past S are loaded as zeros.  Dh is a template parameter: 64, 120, 128
+//    and 256.
+#include <cuda.h>  // CUtensorMap; its encoder is fetched through the runtime
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+// ------------------------------------------------------------------------
+// float32 route: scalar FMAs
 //
 // Thread layout (64 query rows x 64 keys per tile): a row group of L lanes
 // owns 4 rows; lane c of row group g owns rows 4g .. 4g+3, keys c + L*j and
@@ -41,29 +57,11 @@
 // lanes of one warp, so row max and row sum are log2(L) xor-shuffles and
 // the P tile is shared within the warp.  At Dh 256 the tiles take 213,760 B
 // of shared memory, so one block runs per SM.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-
-namespace {
+// ------------------------------------------------------------------------
 
 constexpr int BQ = 64;   // query rows per block
 constexpr int BK = 64;   // keys per k-tile
 constexpr int RPT = 4;   // rows per thread
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to()
-}
 
 // Thread layout and shared-memory tiles (float32, rows padded where lanes
 // read down a column) of one head dim.
@@ -92,11 +90,11 @@ __device__ __forceinline__ float group_reduce(float v) {
   return v;
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(Tiles<DH>::NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int S, int H,
-                 int KH, int causal, int window, float scale) {
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, int S,
+              int H, int KH, int causal, int window, float scale) {
   using L = Tiles<DH>;
   constexpr int NT = L::NT, KPT = L::KPT, NC = L::NC, LN = L::LANES;
   static_assert(DH % LN == 0, "Dh must split over the lanes of a row group");
@@ -117,15 +115,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const long long q_stride = (long long)H * DH;    // between positions
   const long long kv_stride = (long long)KH * DH;
-  const T* qb = q + (long long)b * S * q_stride + (long long)h * DH;
-  const T* kb = k + (long long)b * S * kv_stride + (long long)kh * DH;
-  const T* vb = v + (long long)b * S * kv_stride + (long long)kh * DH;
-  T* ob = o + (long long)b * S * q_stride + (long long)h * DH;
+  const float* qb = q + (long long)b * S * q_stride + (long long)h * DH;
+  const float* kb = k + (long long)b * S * kv_stride + (long long)kh * DH;
+  const float* vb = v + (long long)b * S * kv_stride + (long long)kh * DH;
+  float* ob = o + (long long)b * S * q_stride + (long long)h * DH;
 
   for (int i = tid; i < BQ * DH; i += NT) {
     const int r = i / DH, d = i % DH;
     const int s = q0 + r;
-    Qs[r * L::QS + d] = s < S ? to_f32(qb[s * q_stride + d]) : 0.f;
+    Qs[r * L::QS + d] = s < S ? qb[s * q_stride + d] : 0.f;
   }
 
   float m[RPT], l[RPT], acc[RPT][NC];
@@ -147,8 +145,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = i / DH, d = i % DH;
       const int s = k0 + c;
       const bool in = s < S;
-      Ks[c * L::KS + d] = in ? to_f32(kb[s * kv_stride + d]) : 0.f;
-      Vs[c * L::VS + d] = in ? to_f32(vb[s * kv_stride + d]) : 0.f;
+      Ks[c * L::KS + d] = in ? kb[s * kv_stride + d] : 0.f;
+      Vs[c * L::VS + d] = in ? vb[s * kv_stride + d] : 0.f;
     }
     __syncthreads();
 
@@ -227,80 +225,782 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
 #pragma unroll
       for (int n = 0; n < NC; ++n)
-        ob[s * q_stride + tc + LN * n] = from_f32<T>(acc[i][n] * inv);
+        ob[s * q_stride + tc + LN * n] = acc[i][n] * inv;
     }
   }
 }
 
-template <typename T, int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int H, int KH, int causal, int window,
-                   float scale, cudaStream_t stream) {
+template <int DH>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       int B, int S, int H, int KH, int causal, int window,
+                       float scale, cudaStream_t stream) {
   const size_t smem = Tiles<DH>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_f32<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<T, DH><<<grid, Tiles<DH>::NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, KH, causal, window,
-      scale);
+  flash_fwd_f32<DH><<<grid, Tiles<DH>::NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, H, KH, causal,
+      window, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_dh(const void* q, const void* k, const void* v, void* o,
-                        int B, int S, int H, int KH, int Dh, int causal,
-                        int window, float scale, cudaStream_t stream) {
-  switch (Dh) {
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, S, H, KH, causal, window, scale,
-                           stream);
-    case 120:
-      return launch<T, 120>(q, k, v, o, B, S, H, KH, causal, window, scale,
-                            stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, S, H, KH, causal, window, scale,
-                            stream);
-    case 256:
-      return launch<T, 256>(q, k, v, o, B, S, H, KH, causal, window, scale,
-                            stream);
-    default:
-      return cudaErrorInvalidValue;
+// ------------------------------------------------------------------------
+// bf16 route: wgmma on tiles fed by TMA
+//
+// Hopper primitives.  These small functions hold all of the route's inline
+// PTX, so that the kernel's indexing, masking and softmax can be checked
+// against stand-ins that compute the same products in the same fragment
+// layouts.
+// ------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// makes the initialised barriers visible to the async proxy (TMA)
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// one arrival that also announces `bytes` of TMA traffic to wait for
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// returns once the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
   }
+}
+
+// one box of a 4-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// one box of shared memory into a 4-D tensor map; the parts of the box
+// outside the tensor are not written
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// returns once the stores issued so far have read their shared memory
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// orders this thread's shared-memory writes before later TMA reads of them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// barrier `id` (1..15) among `count` threads
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// keeps the compiler from moving accesses to a wgmma register across the
+// asynchronous product that reads or writes it
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// D (64 x 64, float32) += A (64 x 16, K-major) * B (16 x 64, K-major),
+// both bf16 in shared memory through descriptors; D is overwritten when
+// accumulate is 0.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 128, float32) += A (64 x 16, K-major) * B (16 x 128, K-major),
+// both bf16 in shared memory through descriptors; D is overwritten when
+// accumulate is 0.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 64, float32) += A (64 x 16, bf16 in registers, the
+// accumulator's fragment layout) * B (16 x 64, MN-major in shared memory).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, float32) += A (64 x 16, bf16 in registers, the
+// accumulator's fragment layout) * B (16 x 128, MN-major in shared memory).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 256, float32) += A (64 x 16, bf16 in registers, the
+// accumulator's fragment layout) * B (16 x 256, MN-major in shared memory).
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// ------------------------------------------------------------------------
+// bf16 route: the kernel
+//
+//  * One CTA per (BQ query rows, b*h): consumer warpgroups of 64 rows each
+//    (three at Dh 64, two above) and one producer warpgroup, of which one
+//    thread issues the TMA loads: Q once, then K and V tiles of BK keys
+//    into a ring of STAGES stages, each stage with a full barrier for K,
+//    one for V and an empty barrier that every consumer warp arrives on.
+//    `setmaxnreg` moves registers from the producer (40, or 24 beside
+//    three consumers) to the consumers (232, or 160).  The consumer
+//    warpgroups overlap each other's products and softmax.
+//  * Shared memory holds every tile as panels of 64 columns (128 bytes a
+//    row, the widest the 128-byte swizzle takes), one TMA box each, with
+//    the 128-byte swizzle that `wgmma` reads without bank conflicts.  Dh
+//    120 is loaded as two 64-column boxes over a tensor map whose inner
+//    extent is 120, so TMA fills columns 120-127 with zeros: they add
+//    nothing to Q K^T and give zero output columns, which the store clips.
+//  * S = Q K^T: `wgmma` m64nBKk16, A = Q and B = K both K-major.  Thread t
+//    of warp w of a consumer holds rows 16w + t/4 and 16w + t/4 + 8 and
+//    columns 8j + 2(t%4) + {0, 1} of S; row max and row sum are two
+//    xor-shuffles within the quad.  scale*log2(e) is folded into exp2f.
+//  * O += P V: P rounded to bf16 in registers, where S's accumulator
+//    layout is already the A-operand layout; V is B, MN-major (its rows
+//    are Dh-contiguous).  O stays float32 in registers.
+//  * Grid (B*H, q-tiles): blocks start in the order of blockIdx.x first,
+//    so the heaviest q-tile of every head starts before any lighter one.
+//  * Epilogue: O / l rounded to bf16 (round to nearest even) into the
+//    warpgroup's own Q rows in shared memory, then TMA stores, which clip
+//    rows past S and columns past Dh.
+//  * The tensor maps are 4-D over (Dh, heads, S, B), so TMA reads and
+//    writes the (B, S, heads, Dh) layout by stride and fills rows past S
+//    with zeros; their base addresses must be 16-byte aligned (checked by
+//    the wrapper and again here).
+//  * BK is 128 keys up to Dh 128 with three stages, and 64 at Dh 256 with
+//    two, where a consumer thread already holds 128 float32 accumulators
+//    of O and the tiles take 192 KiB of shared memory.  One CTA per SM.
+//  * Within a warpgroup the tiles run in order: Q K^T, softmax, P V.
+// ------------------------------------------------------------------------
+
+constexpr int WG = 128;          // threads of a warpgroup
+constexpr int PANEL = 64;        // bf16 columns of one 128-byte swizzled row
+constexpr int ROW_BYTES = 128;
+
+template <int DH>
+struct WgTiles {
+  static constexpr int DHP = (DH + PANEL - 1) / PANEL * PANEL;  // 120 -> 128
+  static constexpr int NP = DHP / PANEL;      // panels of a row
+  static constexpr int BKEYS = DHP > 128 ? 64 : 128;
+  // warpgroups of 64 query rows: three at Dh 64, where a thread's tiles
+  // fit in 160 registers, two above (tools/flash_variants.py times both)
+  static constexpr int CONSUMERS = DHP == 64 ? 3 : 2;
+  static constexpr int BQ = 64 * CONSUMERS;   // query rows per CTA
+  static constexpr int STAGES = DHP > 128 ? 2 : 3;  // K/V tiles in the ring
+  static constexpr int PRODUCER_REGS = CONSUMERS == 2 ? 40 : 24;
+  static constexpr int CONSUMER_REGS = CONSUMERS == 2 ? 232 : 160;
+  static constexpr int Q_PANEL = BQ * ROW_BYTES;
+  static constexpr int KV_PANEL = BKEYS * ROW_BYTES;
+  static constexpr int Q_BYTES = NP * Q_PANEL;
+  static constexpr int KV_BYTES = NP * KV_PANEL;  // one K or V stage
+  static constexpr int BAR_OFFSET = Q_BYTES + 2 * STAGES * KV_BYTES;
+  static constexpr int N_BARS = 1 + 3 * STAGES;
+  // + 1024: the base is rounded up to the swizzle's 1024-byte period
+  static constexpr size_t bytes = 1024 + BAR_OFFSET + 8 * N_BARS;
+  static constexpr int NT = (CONSUMERS + 1) * WG;
+};
+
+// wgmma descriptor of a 128-byte-swizzled tile in shared memory: 8-row
+// groups 1024 bytes apart; `lead_bytes` is the distance between 64-column
+// panels along M/N of an MN-major operand (unused for K-major).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p,
+                                               uint32_t lead_bytes) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         (uint64_t)((lead_bytes >> 4) & 0x3FFF) << 16 |
+         (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // nearest even
+  uint32_t bits;
+  memcpy(&bits, &v, sizeof(bits));
+  return bits;
+}
+
+template <int DH>
+__global__ void __launch_bounds__(WgTiles<DH>::NT, 1)
+flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               const __grid_constant__ CUtensorMap to, int S, int H, int KH,
+               int causal, int window, float scale) {
+  using T = WgTiles<DH>;
+  constexpr int DHP = T::DHP, NP = T::NP, BKEYS = T::BKEYS;
+  constexpr int STAGES = T::STAGES, CONSUMERS = T::CONSUMERS, BQ = T::BQ;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* Qs = smem;
+  uint8_t* Ks = Qs + T::Q_BYTES;
+  uint8_t* Vs = Ks + STAGES * T::KV_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + T::BAR_OFFSET);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* empty = v_full + STAGES;
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int kh = h / (H / KH);
+  // the last q-tiles have the most keys under a causal mask: start them
+  // first, for every head (blocks start in the order of blockIdx.x, then y)
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  // k-tiles that can hold an unmasked key for some row of this q-tile
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) / BKEYS * BKEYS : 0;
+  const int k_hi = causal ? min(S, q0 + BQ) : S;
+  const int n_tiles = (k_hi - k_lo + BKEYS - 1) / BKEYS;
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(empty + s, CONSUMERS * WG / 32);  // every consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    // producer: one thread keeps the ring full
+    setmaxnreg_dec<T::PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMERS * WG) {
+      mbar_expect_tx(q_full, T::Q_BYTES);
+      for (int p = 0; p < NP; ++p)
+        tma_load_4d(Qs + p * T::Q_PANEL, &tq, q_full, p * PANEL, h, q0, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % STAGES;
+        const int k0 = k_lo + it * BKEYS;
+        // the consumers have released this stage's previous tile
+        mbar_wait(empty + s, ((it / STAGES) & 1) ^ 1);
+        mbar_expect_tx(k_full + s, T::KV_BYTES);
+        for (int p = 0; p < NP; ++p)
+          tma_load_4d(Ks + s * T::KV_BYTES + p * T::KV_PANEL, &tk, k_full + s,
+                      p * PANEL, kh, k0, b);
+        mbar_expect_tx(v_full + s, T::KV_BYTES);
+        for (int p = 0; p < NP; ++p)
+          tma_load_4d(Vs + s * T::KV_BYTES + p * T::KV_PANEL, &tv, v_full + s,
+                      p * PANEL, kh, k0, b);
+      }
+    }
+  } else {
+    // consumer warpgroup `wg`: query rows row0 .. row0 + 63
+    setmaxnreg_inc<T::CONSUMER_REGS>();
+    const int t = threadIdx.x % WG;
+    const int warp = t / 32, lane = t % 32;
+    const int row0 = q0 + wg * 64;
+    const int my_row = row0 + warp * 16 + lane / 4;  // and my_row + 8
+    const int my_col = 2 * (lane % 4);                // within each 8 columns
+    const float scale_log2 = scale * 1.4426950408889634f;
+    uint8_t* Qw = Qs + wg * 64 * ROW_BYTES;  // this warpgroup's Q rows
+
+    float o[DHP / 2];
+#pragma unroll
+    for (int i = 0; i < DHP / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};  // running max of s * scale_log2
+    float l[2] = {0.f, 0.f};  // this thread's part of the running sum
+    float sc[BKEYS / 2];      // S of one tile, then its p
+    uint32_t pf[BKEYS / 4];   // p in bf16, the A operand of P V
+    float corr[2];
+
+    // S = Q K^T of tile `it` into sc, issued and committed
+    auto issue_qk = [&](int it) {
+      const uint8_t* Kt = Ks + (it % STAGES) * T::KV_BYTES;
+      mbar_wait(k_full + it % STAGES, (it / STAGES) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DHP / 16; ++kk) {
+        const int off = (kk % 4) * 32;  // 16 columns = 32 bytes
+        wgmma_ss(sc, sw128_desc(Qw + (kk / 4) * T::Q_PANEL + off, 16),
+                 sw128_desc(Kt + (kk / 4) * T::KV_PANEL + off, 16), kk > 0);
+      }
+      wgmma_commit();
+    };
+    // masks tile `it`'s scores in sc and turns them into p, updating m and
+    // l; corr is the factor by which O must be rescaled before P V
+    auto softmax = [&](int it) {
+      const int k0 = k_lo + it * BKEYS;
+      // the tile crosses S, the causal diagonal or the window's edge
+      const bool partial = k0 + BKEYS > S ||
+                           (causal && k0 + BKEYS - 1 > row0) ||
+                           (window > 0 && row0 + 63 - k0 >= window);
+      if (partial) {
+#pragma unroll
+        for (int i = 0; i < BKEYS / 2; ++i) {
+          const int qp = my_row + 8 * ((i / 2) % 2);
+          const int kp = k0 + 8 * (i / 4) + my_col + i % 2;
+          const bool valid = kp < S && (!causal || kp <= qp) &&
+                             (window <= 0 || qp - kp < window);
+          if (!valid) sc[i] = -INFINITY;
+        }
+      }
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int i = 2 * hr; i < BKEYS / 2; i += 4)
+          mx = fmaxf(mx, fmaxf(sc[i], sc[i + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[hr], mx * scale_log2);
+        // all keys so far masked: keep p = 0 and acc = 0 (exp2(-inf) = 0)
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        corr[hr] = exp2f(m[hr] - m_use);
+        float rs = 0.f;
+#pragma unroll
+        for (int i = 2 * hr; i < BKEYS / 2; i += 4) {
+          sc[i] = exp2f(fmaf(sc[i], scale_log2, -m_use));
+          sc[i + 1] = exp2f(fmaf(sc[i + 1], scale_log2, -m_use));
+          rs += sc[i] + sc[i + 1];
+        }
+        l[hr] = l[hr] * corr[hr] + rs;
+        m[hr] = m_new;
+      }
+    };
+    // O += P V of tile `it`, issued and committed
+    auto issue_pv = [&](int it) {
+      const uint8_t* Vt = Vs + (it % STAGES) * T::KV_BYTES;
+      mbar_wait(v_full + it % STAGES, (it / STAGES) & 1);
+      reg_fence(o);
+      reg_fence(pf);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BKEYS / 16; ++kk) {
+        const uint32_t a[4] = {pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2],
+                               pf[4 * kk + 3]};
+        wgmma_rs(o, a, sw128_desc(Vt + kk * 16 * ROW_BYTES, T::KV_PANEL));
+      }
+      wgmma_commit();
+    };
+    auto rescale = [&]() {
+#pragma unroll
+      for (int i = 0; i < DHP / 2; ++i) o[i] *= corr[(i / 2) % 2];
+    };
+    auto to_bf16 = [&]() {
+#pragma unroll
+      for (int i = 0; i < BKEYS / 4; ++i)
+        pf[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+    };
+    // this warp is done with tile `it`'s stage: it has seen both full
+    // barriers of the round and its products have completed.  Every warp
+    // arrives, so that no warp (in a tile a warpgroup skips, nothing ties
+    // its warps together) can still be waiting on this round's full
+    // barriers when the next round completes them again.
+    auto release = [&](int it) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + it % STAGES);
+    };
+    auto skip = [&](int it) {
+      mbar_wait(k_full + it % STAGES, (it / STAGES) & 1);
+      mbar_wait(v_full + it % STAGES, (it / STAGES) & 1);
+      release(it);
+    };
+
+    // The tiles [it_lo, it_hi) hold a valid key for some row of this
+    // warpgroup: before them a window keeps every key out of reach, after
+    // them the causal mask.  The others are only waited for and released.
+    int it_lo = 0, it_hi = row0 < S ? n_tiles : 0;
+    if (causal) it_hi = min(it_hi, (row0 + 63 - k_lo) / BKEYS + 1);
+    if (window > 0) it_lo = max(0, row0 - window + 1 - k_lo) / BKEYS;
+    it_lo = min(it_lo, it_hi);
+
+    mbar_wait(q_full, 0);
+    for (int it = 0; it < it_lo; ++it) skip(it);
+    for (int it = it_lo; it < it_hi; ++it) {
+      issue_qk(it);
+      wgmma_wait0();
+      reg_fence(sc);
+      softmax(it);
+      rescale();
+      to_bf16();
+      issue_pv(it);
+      wgmma_wait0();
+      reg_fence(o);
+      release(it);
+    }
+    for (int it = max(it_lo, it_hi); it < n_tiles; ++it) skip(it);
+
+    if (row0 < S) {
+      float inv[2];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float sum = l[hr];
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        // a row with no valid key (only past S) is never stored
+        inv[hr] = sum > 0.f ? 1.f / sum : 0.f;
+      }
+      // O in bf16 into this warpgroup's Q rows, in the swizzled layout the
+      // tensor map stores from; the products that read Q have completed
+#pragma unroll
+      for (int i = 0; i < DHP / 2; i += 2) {
+        const int hr = (i / 2) % 2;
+        const int r = warp * 16 + lane / 4 + 8 * hr;  // row in the 64
+        const int c = 8 * (i / 4) + my_col;
+        const int cc = c % PANEL;
+        uint8_t* dst = Qw + (c / PANEL) * T::Q_PANEL + r * ROW_BYTES +
+                       (((cc / 8) ^ (r % 8)) * 16) + (cc % 8) * 2;
+        *reinterpret_cast<uint32_t*>(dst) =
+            pack_bf16(o[i] * inv[hr], o[i + 1] * inv[hr]);
+      }
+      fence_proxy_async();
+      named_barrier(1 + wg, WG);
+      if (t == 0) {
+        for (int p = 0; p < NP; ++p)
+          tma_store_4d(&to, Qw + p * T::Q_PANEL, p * PANEL, h, row0, b);
+        tma_store_wait();
+      }
+    }
+  }
+}
+
+// 4-D bf16 tensor map over a contiguous (B, S, heads, Dh) tensor with a box
+// of (64 columns, 1 head, `rows`, 1 batch) and the 128-byte swizzle; cells
+// outside the tensor read as zeros and are not written.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+bool make_map(CUtensorMap* map, const void* base, int B, int S, int heads,
+              int Dh, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)Dh, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)Dh * 2,
+                                 (cuuint64_t)heads * Dh * 2,
+                                 (cuuint64_t)S * heads * Dh * 2};
+  const cuuint32_t box[4] = {PANEL, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const EncodeTiled encode = encode_tiled();
+  return encode != nullptr &&
+         encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DH>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
+                        int B, int S, int H, int KH, int causal, int window,
+                        float scale, cudaStream_t stream) {
+  using T = WgTiles<DH>;
+  for (const void* p : {q, k, v, (const void*)o})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      return cudaErrorMisalignedAddress;
+  CUtensorMap tq, tk, tv, to;
+  if (!make_map(&tq, q, B, S, H, DH, T::BQ) ||
+      !make_map(&tk, k, B, S, KH, DH, T::BKEYS) ||
+      !make_map(&tv, v, B, S, KH, DH, T::BKEYS) ||
+      !make_map(&to, o, B, S, H, DH, 64))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_bf16<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)T::bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (S + T::BQ - 1) / T::BQ);
+  flash_fwd_bf16<DH><<<grid, T::NT, T::bytes, stream>>>(
+      tq, tk, tv, to, S, H, KH, causal, window, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Dynamic shared memory one block of the kernel requests (0: Dh unsupported).
-extern "C" int repro_flash_attention_smem_bytes(int Dh) {
+// Dynamic shared memory one block of a route requests (0: Dh unsupported).
+// dtype: 0 float32 (scalar route), 1 bf16 (wgmma route).
+extern "C" int repro_flash_attention_smem_bytes(int Dh, int dtype) {
   switch (Dh) {
-    case 64: return (int)Tiles<64>::bytes;
-    case 120: return (int)Tiles<120>::bytes;
-    case 128: return (int)Tiles<128>::bytes;
-    case 256: return (int)Tiles<256>::bytes;
+    case 64: return (int)(dtype ? WgTiles<64>::bytes : Tiles<64>::bytes);
+    case 120: return (int)(dtype ? WgTiles<120>::bytes : Tiles<120>::bytes);
+    case 128: return (int)(dtype ? WgTiles<128>::bytes : Tiles<128>::bytes);
+    case 256: return (int)(dtype ? WgTiles<256>::bytes : Tiles<256>::bytes);
     default: return 0;
   }
 }
 
 // q: (B, S, H, Dh), k and v: (B, S, KH, Dh), o: (B, S, H, Dh), all
-// contiguous, on the current device.  dtype: 0 float32, 1 bf16.  Launches on
-// `stream` and returns cudaGetLastError() after the launch (0 on success).
+// contiguous, on the current device.  dtype picks the route: 0 float32 (the
+// scalar kernel), 1 bf16 (the wgmma kernel, which takes 16-byte aligned
+// tensors only).  Launches on `stream` and returns cudaGetLastError() after
+// the launch (0 on success), or the error that refused it.
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
                                          const void* v, void* o, int B, int S,
                                          int H, int KH, int Dh, int causal,
                                          int window, int dtype, float scale,
                                          void* stream) {
   if (B <= 0 || S <= 0 || KH <= 0 || H <= 0 || H % KH != 0 ||
-      (long long)B * H > 65535 || window < 0)
+      (long long)B * H > 65535 || window < 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch_dh<float>(q, k, v, o, B, S, H, KH, Dh, causal,
-                                   window, scale, st);
-  if (dtype == 1)
-    return (int)dispatch_dh<__nv_bfloat16>(q, k, v, o, B, S, H, KH, Dh,
-                                           causal, window, scale, st);
-  return (int)cudaErrorInvalidValue;
+  const bool bf16 = dtype == 1;
+  switch (Dh) {
+    case 64:
+      return (int)(bf16 ? launch_bf16<64>(q, k, v, o, B, S, H, KH, causal,
+                                          window, scale, st)
+                        : launch_f32<64>(q, k, v, o, B, S, H, KH, causal,
+                                         window, scale, st));
+    case 120:
+      return (int)(bf16 ? launch_bf16<120>(q, k, v, o, B, S, H, KH, causal,
+                                           window, scale, st)
+                        : launch_f32<120>(q, k, v, o, B, S, H, KH, causal,
+                                          window, scale, st));
+    case 128:
+      return (int)(bf16 ? launch_bf16<128>(q, k, v, o, B, S, H, KH, causal,
+                                           window, scale, st)
+                        : launch_f32<128>(q, k, v, o, B, S, H, KH, causal,
+                                          window, scale, st));
+    case 256:
+      return (int)(bf16 ? launch_bf16<256>(q, k, v, o, B, S, H, KH, causal,
+                                           window, scale, st)
+                        : launch_f32<256>(q, k, v, o, B, S, H, KH, causal,
+                                          window, scale, st));
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

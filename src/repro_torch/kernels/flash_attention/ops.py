@@ -3,7 +3,9 @@
 
 On tensors that lie on the CPU it computes the plain version (``ref``).  On
 CUDA tensors it launches the CUDA kernel or raises: there is no fallback,
-and any sequence length runs on the kernel.
+and any sequence length runs on the kernel.  The kernel's route follows the
+dtype: bf16 runs on tensor cores (``wgmma`` on tiles that TMA loads, which
+needs 16-byte aligned tensors), float32 on scalar FMAs.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ from repro_torch.kernels.flash_attention import kernel, ref
 
 SUPPORTED_HEAD_DIMS = (64, 120, 128, 256)
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
-_MAX_BATCH_HEADS = 65535    # the kernel's grid.y
+_MAX_BATCH_HEADS = 65535    # the scalar kernel's grid.y
 
 
 def _check_shapes(q, k, v, window: int) -> None:
@@ -28,6 +30,15 @@ def _check_shapes(q, k, v, window: int) -> None:
                          f"{k.shape[2]} KV heads")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+
+
+def check_alignment(q, k, v) -> None:
+    """Raise on bf16 q, k, v that TMA cannot address: their data must start
+    on a 16-byte boundary.  The float32 route has no such need."""
+    offsets = [t.data_ptr() % 16 for t in (q, k, v)]
+    if q.dtype == torch.bfloat16 and any(offsets):
+        raise ValueError(f"the bf16 kernel takes q, k, v whose data start on "
+                         f"a 16-byte boundary, got offsets {offsets}")
 
 
 def check_kernel_args(q, k, v) -> None:
@@ -45,6 +56,7 @@ def check_kernel_args(q, k, v) -> None:
                          f"(supported: {SUPPORTED_HEAD_DIMS})")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("the kernel takes contiguous q, k, v")
+    check_alignment(q, k, v)
     if q.shape[0] * q.shape[2] > _MAX_BATCH_HEADS:
         raise ValueError(f"B * H = {q.shape[0] * q.shape[2]} exceeds "
                          f"{_MAX_BATCH_HEADS}")

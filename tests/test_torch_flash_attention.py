@@ -3,7 +3,9 @@ Pallas kernel in interpret mode (and its reference fallback), plus the
 wrapper's checks and the build's error path.  The CUDA kernel itself is
 held against the plain version on the card (tests/test_torch_kernels_gpu.py).
 """
+import contextlib
 import re
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -84,10 +86,72 @@ def test_non_cpu_tensor_goes_to_the_kernel_checks_never_the_plain_path():
 
 
 def test_kernel_source_instantiates_the_supported_head_dims():
+    """Each supported head dim has a case in the dispatch, which launches the
+    wgmma route for bf16 and the scalar route for float32."""
     src = (build.KERNELS_DIR / "flash_attention" / "csrc" /
            "flash_attention.cu").read_text()
     cases = sorted({int(c) for c in re.findall(r"case (\d+):", src)})
     assert tuple(cases) == ops.SUPPORTED_HEAD_DIMS
+    dispatch = src[src.index('extern "C" int repro_flash_attention_fwd'):]
+    for dh in ops.SUPPORTED_HEAD_DIMS:
+        case = re.search(rf"case {dh}:(.*?)(?=case |default:)", dispatch,
+                         re.S).group(1)
+        assert re.search(rf"bf16 \? launch_bf16<{dh}>\(.*: launch_f32<{dh}>\(",
+                         case, re.S), case
+    assert kernel.ROUTES == {torch.bfloat16: (1, "wgmma_bf16"),
+                             torch.float32: (0, "scalar_f32")}
+
+
+def test_bf16_alignment_check_needs_16_byte_boundaries():
+    """TMA addresses the bf16 route's tensors only from 16-byte boundaries;
+    the check raises on a view one element into its storage, and the scalar
+    float32 route takes such a view."""
+    shape = (1, 8, 2, 64)
+    storage = torch.zeros(int(np.prod(shape)) + 8, dtype=torch.bfloat16)
+    aligned = storage[:-8].view(shape)
+    assert aligned.data_ptr() % 16 == 0
+    misaligned = storage[1:-7].view(shape)
+    assert misaligned.is_contiguous() and misaligned.data_ptr() % 16 == 2
+    ops.check_alignment(aligned, aligned, aligned)
+    for args in ((misaligned, aligned, aligned), (aligned, aligned,
+                                                  misaligned)):
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            ops.check_alignment(*args)
+    f32 = torch.zeros(int(np.prod(shape)) + 1)[1:].view(shape)
+    assert f32.data_ptr() % 16 == 4
+    ops.check_alignment(f32, f32, f32)
+
+
+def test_launch_counts_each_dtype_on_its_route(monkeypatch):
+    """``kernel.launch`` hands the C function its route's dtype code and
+    counts the launch under that route; a stand-in takes the C function's
+    place, so nothing is launched."""
+    calls = []
+
+    def fake_fwd(*args):
+        calls.append(args)
+        return 0
+    monkeypatch.setattr(kernel, "_kernel_fn", lambda: fake_fwd)
+    monkeypatch.setattr(kernel.torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(kernel.torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(kernel, "LAUNCHES", 5)
+    monkeypatch.setattr(kernel, "LAUNCHES_BY_ROUTE",
+                        {"wgmma_bf16": 2, "scalar_f32": 3})
+    for dtype, n in ((torch.bfloat16, 2), (torch.float32, 1)):
+        q = torch.zeros(1, 8, 4, 64, dtype=dtype)
+        kv = torch.zeros(1, 8, 2, 64, dtype=dtype)
+        for _ in range(n):
+            kernel.launch(q, kv, kv, torch.empty_like(q), causal=True,
+                          window=16)
+    assert [c[11] for c in calls] == [1, 1, 0]    # the dtype code
+    assert [c[4:11] for c in calls] == [(1, 8, 4, 2, 64, 1, 16)] * 3
+    assert kernel.LAUNCHES == 8
+    assert kernel.LAUNCHES_BY_ROUTE == {"wgmma_bf16": 4, "scalar_f32": 4}
+    kernel.reset_launches()
+    assert kernel.LAUNCHES == 0
+    assert kernel.LAUNCHES_BY_ROUTE == {"wgmma_bf16": 0, "scalar_f32": 0}
 
 
 def test_build_sources_are_every_csrc_file():

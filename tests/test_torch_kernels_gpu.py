@@ -88,6 +88,72 @@ def test_flash_kernel_matches_plain(B, S, H, KH, Dh, causal, window, dtype):
     assert err <= TOL[dtype], err
 
 
+# the edges of the bf16 kernel's tiles (192 query rows a block at Dh 64 and
+# 128 above; k-tiles of 128 keys up to Dh 128 and 64 at Dh 256) and of the
+# scalar kernel's (64)
+@pytest.mark.parametrize("B,S,H,KH,Dh,causal,window", [
+    (1, 1, 4, 1, 64, True, 0),
+    (2, 63, 4, 4, 64, True, 0),
+    (1, 64, 4, 1, 128, True, 0),
+    (2, 65, 4, 2, 64, True, 0),
+    (1, 127, 4, 4, 128, False, 0),
+    (2, 128, 4, 1, 64, True, 0),
+    (1, 129, 4, 2, 128, True, 0),
+    (1, 257, 4, 1, 64, True, 0),
+    (1, 257, 4, 4, 256, True, 0),
+    (1, 300, 4, 1, 64, True, 1),        # each row sees only itself
+    (1, 300, 4, 4, 256, True, 1),
+    (2, 400, 4, 2, 64, True, 100),      # a window no tile size divides
+    (1, 400, 4, 1, 256, True, 77),
+    (1, 300, 4, 4, 128, False, 100),    # non-causal window
+    (1, 330, 4, 1, 64, False, 0),       # rows past S in the last tile
+    (2, 193, 4, 2, 64, True, 0),
+    (1, 385, 4, 1, 64, False, 0),
+    (2, 201, 4, 2, 120, True, 0),       # Dh 120 with a ragged S
+    (1, 129, 4, 1, 120, False, 50),
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_at_tile_edges(B, S, H, KH, Dh, causal, window, dtype):
+    _need_cuda()
+    q, k, v = _qkv(B, S, H, KH, Dh, dtype, seed=S)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    want = ref.reference_attention(q.float(), k.float(), v.float(),
+                                   causal=causal, window=window)
+    err = float((out.float() - want).abs().max())
+    assert err <= TOL[dtype], err
+
+
+def test_flash_kernel_counts_bf16_on_wgmma_and_float32_on_scalar():
+    _need_cuda()
+    for dtype, route in ((torch.bfloat16, "wgmma_bf16"),
+                         (torch.float32, "scalar_f32")):
+        q, k, v = _qkv(1, 200, 4, 2, 64, dtype)
+        before = dict(kernel.LAUNCHES_BY_ROUTE), kernel.LAUNCHES
+        ops.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert kernel.LAUNCHES == before[1] + 1
+        assert kernel.LAUNCHES_BY_ROUTE == {
+            r: n + (r == route) for r, n in before[0].items()}
+
+
+def test_flash_kernel_refuses_a_misaligned_bf16_view():
+    """TMA needs 16-byte aligned tensors: a contiguous bf16 view one element
+    into its storage raises before any launch."""
+    _need_cuda()
+    shape = (1, 64, 4, 64)
+    storage = torch.randn(4 * 64 * 64 + 1, device="cuda").to(torch.bfloat16)
+    q = storage[1:].view(shape)
+    assert q.is_contiguous() and q.data_ptr() % 16 == 2
+    _, k, v = _qkv(1, 64, 4, 4, 64, torch.bfloat16)
+    before = kernel.LAUNCHES
+    for args in ((q, k, v), (k, q, v), (k, v, q)):
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            ops.flash_attention(*args)
+    assert kernel.LAUNCHES == before
+
+
 def test_flash_kernel_rejects_what_it_does_not_take():
     _need_cuda()
     q, k, v = _qkv(1, 16, 2, 2, 96, torch.float32)
