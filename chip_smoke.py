@@ -12,7 +12,8 @@ a non-zero exit:
 2. build        every CUDA kernel of the port built from ``csrc/`` into
                 ``build/repro_torch/``; ptxas's register, shared-memory,
                 spill and wgmma lines, the build's seconds, and each
-                flash-attention route's shared memory per block
+                flash-attention and mlstm_scan route's shared memory per
+                block (and mlstm_scan's chunk and workspace per route)
 3. kernel       each kernel (flash_attention, moe_gmm, rglru_scan,
                 mlstm_scan) against its plain PyTorch version on the card,
                 bf16 and float32, within the stated tolerances; at the
@@ -21,8 +22,12 @@ a non-zero exit:
                 attention at minicpm's, granite-moe's and recurrentgemma's
                 prefill shapes, with kernel / SDPA as a factor); bf16 flash
                 attention runs on the wgmma route, float32 on the scalar
-                one; mlstm_scan also under stress with random keys, against
-                the recurrence in float64
+                one; mlstm_scan likewise (bf16 that TMA cannot address on
+                its scalar bf16 route), each case on the route its dtype
+                and shape pick, with each pass of the wgmma route timed at
+                the serving shape beside the scalar bf16 kernel, and also
+                under stress with random keys, against the recurrence in
+                float64
 4. serve        full-width minicpm-2b (40 layers, bf16, random weights from a
                 seed) serves 8 requests of 1000 prompt tokens through
                 ``repro_torch.launch.serve.serve``; every prefill layer must
@@ -46,8 +51,9 @@ a non-zero exit:
                 bar (its decode state rounds the conv lag buffer to bf16)
 10. serve       the same for full-width xlstm-1.3b (48 layers: 24 mLSTM, 24
                 sLSTM, d 2048, 4 heads, mLSTM head dim 1024): every mLSTM
-                layer of every prefill must have launched mlstm_scan, and no
-                other kernel runs; its prefill is profiled at 200 prompt
+                layer of every prefill must have launched mlstm_scan, on its
+                wgmma route, and no other kernel runs; its prefill is
+                profiled at 200 prompt
                 tokens (the sLSTM's loop over time makes a 1000-token trace
                 some 480,000 launches long)
 11. consistency the same for xlstm-1.3b in float32, under its own bar (both
@@ -275,13 +281,23 @@ def phase_build() -> None:
               + ", ".join(f"Dh={dh}: {kernel.shared_memory_bytes(dh, dtype)} B"
                           for dh in ops.SUPPORTED_HEAD_DIMS), flush=True)
     from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
-    sizes = []
-    for dh in (32, 512, 1024, 1300):
-        nbytes, in_smem = ml_kernel.shared_memory_bytes(dh)
-        sizes.append(f"Dh={dh}: {nbytes} B (C in "
-                     f"{'shared' if in_smem else 'device'} memory)")
-    print(f"  mlstm_scan chunk {ml_kernel.chunk()}; state-kernel dynamic "
-          f"shared memory per block: " + ", ".join(sizes), flush=True)
+    B, S, H, Dh = MLSTM_CASES[0][1:5]
+    for route in ml_kernel.ROUTES:
+        sizes = []
+        for dh in (32, 512, 1024, 1300):
+            if route == "wgmma_bf16" and dh % 8:
+                continue
+            smem = ml_kernel.shared_memory_bytes(dh, route)
+            where = ""
+            if route != "wgmma_bf16":
+                in_smem = ml_kernel.state_in_shared_memory(dh)
+                where = f" (C in {'shared' if in_smem else 'device'} memory)"
+            sizes.append(f"Dh={dh}: " + ", ".join(
+                f"{k} {v} B" for k, v in smem.items()) + where)
+        print(f"  mlstm_scan {route}: chunk {ml_kernel.chunk(route)}; "
+              f"workspace at B={B} S={S} H={H} Dh={Dh} "
+              f"{ml_kernel.workspace_bytes(B, S, H, Dh, route)} B; dynamic "
+              f"shared memory per block: " + "; ".join(sizes), flush=True)
 
 
 # (name, B, S, H, KH, Dh, causal, window); the cases in TIMED_CASES are
@@ -583,6 +599,18 @@ MLSTM_CASES = [
     ("with-init", 2, 136, 4, 512, torch.float32, True, None),
     ("stress", 2, 1000, 4, 1024, torch.bfloat16, False, "near-keys"),
     ("dh-1300", 1, 100, 2, 1300, torch.float32, False, None),
+    # the wgmma route's chunk (128) and its edges, a Dh that is not a
+    # multiple of 64, and a bf16 input that TMA cannot address (H * Dh odd:
+    # its rows are not 16-byte strided), which takes the scalar bf16 route
+    ("chunk-127", 2, 127, 4, 1024, torch.bfloat16, False, None),
+    ("chunk-128", 2, 128, 4, 1024, torch.bfloat16, True, None),
+    ("chunk-129", 2, 129, 4, 512, torch.bfloat16, False, None),
+    ("chunk-257", 2, 257, 2, 1024, torch.bfloat16, True, None),
+    ("dh-96", 2, 300, 4, 96, torch.bfloat16, True, None),
+    ("tma-refused", 2, 150, 1, 37, torch.bfloat16, True, None),
+    # 21 chunks of 64 MiB of state: two segments of the wgmma route's
+    # bounded workspace, the second starting from the first one's state
+    ("segments", 1, 2600, 16, 1024, torch.bfloat16, True, None),
 ]
 MLSTM_PLAIN_CHUNK = 256     # the block's chunk, halved until it divides S
 
@@ -628,15 +656,31 @@ def rel_errs(got, want) -> dict:
     return rels
 
 
+def mlstm_route(dtype, Dh) -> str:
+    """The route of mlstm_scan a contiguous fresh input takes (ops.py's
+    rule): float32 on the scalar kernels, bf16 on wgmma where TMA can
+    address it (Dh a multiple of 8), else on the scalar bf16 kernels."""
+    if dtype == torch.float32:
+        return "scalar_f32"
+    return "wgmma_bf16" if Dh % 8 == 0 else "scalar_bf16"
+
+
 def phase_kernel_mlstm():
-    from repro_torch.kernels.mlstm_scan import ops, ref
+    from repro_torch.kernels.mlstm_scan import kernel, ops, ref
     gen = torch.Generator(device="cuda").manual_seed(3)
     result = None
     for name, B, S, H, Dh, dtype, with_init, stress in MLSTM_CASES:
         xs, init = mlstm_inputs(B, S, H, Dh, dtype, with_init, stress, gen)
+        route = mlstm_route(dtype, Dh)
+        check(ops.kernel_route(*xs[:3]) == route,
+              f"mlstm_scan {name}: route {ops.kernel_route(*xs[:3])}, "
+              f"expected {route}")
+        before = kernel.LAUNCHES_BY_ROUTE[route]
         h, state = ops.mlstm_chunkwise(*xs, chunk=MLSTM_PLAIN_CHUNK,
                                        init_state=init)
         torch.cuda.synchronize()
+        check(kernel.LAUNCHES_BY_ROUTE[route] == before + 1,
+              f"mlstm_scan {name} did not run on {route}")
         # the plain version computes in float32 from the same inputs
         wh, wstate = ref.reference_mlstm(*xs, chunk=MLSTM_PLAIN_CHUNK,
                                          init_state=init)
@@ -644,7 +688,7 @@ def phase_kernel_mlstm():
         h_err = float((h - wh).abs().max())
         bound_ms, bound_by, _, _ = mlstm_bound(B, S, H, Dh, dtype, with_init)
         print(f"  {name:17s} {str(dtype):15s} B={B} S={S} H={H} Dh={Dh} "
-              f"init={with_init}: max_abs_err(h)={h_err:.3e} "
+              f"init={with_init} ({route}): max_abs_err(h)={h_err:.3e} "
               f"max|h|={float(wh.abs().max()):.3e} rel " + " ".join(
                   f"{k}={r:.3e}" for k, r in rels.items())
               + f" tol={MLSTM_RTOL:.0e}; bound {bound_ms * 1e3:.2f} us by "
@@ -701,21 +745,55 @@ def check_mlstm_against_oracle(gen):
 
 def time_mlstm_kernel(xs, err):
     """Kernel and plain times at the serving shape; no PyTorch call
-    computes this function, so there is no library time."""
-    from repro_torch.kernels.mlstm_scan import ops, ref
+    computes this function, so there is no library time.  Also the time of
+    each kernel the call launches (by the profiler, over the same calls)
+    and, beside it, the scalar bf16 kernels on the same inputs."""
+    from repro_torch.kernels.mlstm_scan import kernel, ops, ref
+    from torch.profiler import ProfilerActivity, profile
     B, S, H, Dh = xs[0].shape
+    route = ops.kernel_route(*xs[:3])
     kernel_ms = cuda_ms(lambda: ops.mlstm_chunkwise(
         *xs, chunk=MLSTM_PLAIN_CHUNK))
     plain_ms = cuda_ms(lambda: ref.reference_mlstm(
         *xs, chunk=MLSTM_PLAIN_CHUNK), iters=3, warmup=1)
+    f32 = dict(dtype=torch.float32, device="cuda")
+    outs = (torch.empty((B, S, H, Dh), **f32),
+            torch.empty((B, H, Dh, Dh), **f32), torch.empty((B, H, Dh), **f32),
+            torch.empty((B, H), **f32))
+    scalar_ms = cuda_ms(lambda: kernel.launch(*xs, None, *outs,
+                                              "scalar_bf16"), iters=5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            ops.mlstm_chunkwise(*xs, chunk=MLSTM_PLAIN_CHUNK)
+        torch.cuda.synchronize()
+    passes = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                "mlstm_" in e.key and e.count:
+            name = e.key.split("::")[-1].split("(")[0]
+            passes[name] = e.self_device_time_total / e.count / 1e3
+    ws = kernel.workspace_bytes(B, S, H, Dh, route)
     bound_ms, bound_by, flops, nbytes = mlstm_bound(B, S, H, Dh,
                                                     xs[0].dtype, False)
     print(f"  timing at B={B} S={S} H={H} Dh={Dh} q/k/v {xs[0].dtype} gates "
-          f"{xs[3].dtype}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} "
-          f"ms, library: none; bound {bound_ms * 1e3:.2f} us by {bound_by} "
-          f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)", flush=True)
+          f"{xs[3].dtype} ({route}): kernel {kernel_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library: none, scalar_bf16 kernels "
+          f"{scalar_ms:.4f} ms; bound {bound_ms * 1e3:.2f} us by {bound_by} "
+          f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); workspace "
+          f"{ws} B", flush=True)
+    if passes:
+        print("  passes of one call (profiler, mean of 10 calls): "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in passes.items()),
+              flush=True)
+    else:
+        print("  passes of one call: not measured (the profiler saw no "
+              "kernels)", flush=True)
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "kernel_route": route, "passes_ms": passes,
+            "workspace_bytes": ws, "scalar_bf16_ms": scalar_ms}
 
 
 def layer_counts(cfg) -> dict:
@@ -731,8 +809,8 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum",
                 profile_len: int = PROMPT_LEN):
     """Serve SERVE_REQUESTS requests of ``arch`` at full width through
     ``serve()``; returns (cfg, params, launches of each kernel, flash
-    attention's launches by route).  The profiled prefill takes the first
-    ``profile_len`` prompt tokens."""
+    attention's and mlstm_scan's launches by route).  The profiled prefill
+    takes the first ``profile_len`` prompt tokens."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
@@ -762,7 +840,7 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum",
     fa_kernel.reset_launches()
     gmm_kernel.LAUNCHES = 0
     rg_kernel.LAUNCHES = 0
-    ml_kernel.LAUNCHES = 0
+    ml_kernel.reset_launches()
     t0 = time.perf_counter()
     done = serve(cfg, reqs, slots=SERVE_SLOTS, ctx_len=ctx_len,
                  params=params, moe_dispatch=moe_dispatch, device="cuda")
@@ -773,6 +851,7 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum",
                 "rglru_scan": rg_kernel.LAUNCHES,
                 "mlstm_scan": ml_kernel.LAUNCHES}
     fa_routes = dict(fa_kernel.LAUNCHES_BY_ROUTE)
+    ml_routes = dict(ml_kernel.LAUNCHES_BY_ROUTE)
     peak = torch.cuda.max_memory_allocated()
 
     n_prefill = math.ceil(SERVE_REQUESTS / SERVE_SLOTS)
@@ -803,6 +882,12 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum",
                         for r in fa_routes},
           f"flash_attention launches by route {fa_routes}: a {cfg.dtype} "
           f"model must take {fa_route} only")
+    # and its mLSTM layers the wgmma route (contiguous fresh q, k, v)
+    check(cfg.dtype == "bfloat16", f"served in {cfg.dtype}")
+    check(ml_routes == {r: launches["mlstm_scan"] if r == "wgmma_bf16" else 0
+                        for r in ml_routes},
+          f"mlstm_scan launches by route {ml_routes}: a bfloat16 model must "
+          f"take wgmma_bf16 only")
     n_tok = sum(len(r.generated) for r in done)
     print(f"  served {len(done)} requests, {n_tok} new tokens in "
           f"{wall:.3f} s ({n_tok / wall:.1f} tok/s); flash_attention "
@@ -818,7 +903,8 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum",
           + (f" = {n_mlstm} mLSTM layers x {n_prefill} prefills"
              if want["mlstm_scan"] else "")
           + f"; peak memory {peak / 2**30:.2f} GiB", flush=True)
-    print(f"  flash_attention launches by route: {fa_routes}", flush=True)
+    print(f"  flash_attention launches by route: {fa_routes}; mlstm_scan "
+          f"launches by route: {ml_routes}", flush=True)
     print(f"  req{done[0].rid}: {done[0].generated}", flush=True)
 
     # per-step times at the same shapes, through the same step functions
@@ -850,7 +936,7 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum",
             lambda: prefill(params, {"tokens": toks[:, :profile_len]})))
         print_profile(f"decode step at batch {SERVE_SLOTS}", *profile_ms(
             lambda: decode(params, nxt, ctx_len - 1, cache)))
-    return cfg, params, launches, fa_routes
+    return cfg, params, launches, fa_routes, ml_routes
 
 
 def count_drops(drops: list):
@@ -958,23 +1044,25 @@ def main() -> int:
     gmm_timing = phase_kernel_moe()
     rg_timing = phase_kernel_rglru()
     ml_timing = phase_kernel_mlstm()
-    fa_launches = {}
-    cfg, params, dense_launches, fa_launches[ARCH] = phase_serve(ARCH)
+    fa_launches, ml_launches = {}, {}
+    cfg, params, dense_launches, fa_launches[ARCH], ml_launches[ARCH] = \
+        phase_serve(ARCH)
     phase_consistency(cfg, params)
     del params
     torch.cuda.empty_cache()
-    cfg, params, moe_launches, fa_launches[MOE_ARCH] = phase_serve(
-        MOE_ARCH, moe_dispatch="gather")
+    cfg, params, moe_launches, fa_launches[MOE_ARCH], ml_launches[MOE_ARCH] = \
+        phase_serve(MOE_ARCH, moe_dispatch="gather")
     phase_consistency(cfg, params, moe_dispatch="gather")
     del params
     torch.cuda.empty_cache()
-    cfg, params, griffin_launches, fa_launches[GRIFFIN_ARCH] = phase_serve(
-        GRIFFIN_ARCH)
+    cfg, params, griffin_launches, fa_launches[GRIFFIN_ARCH], \
+        ml_launches[GRIFFIN_ARCH] = phase_serve(GRIFFIN_ARCH)
     phase_consistency(cfg, params, tol=GRIFFIN_CONSISTENCY_RTOL)
     del params
     torch.cuda.empty_cache()
-    cfg, params, xlstm_launches, fa_launches[XLSTM_ARCH] = phase_serve(
-        XLSTM_ARCH, profile_len=XLSTM_PROFILE_LEN)
+    cfg, params, xlstm_launches, fa_launches[XLSTM_ARCH], \
+        ml_launches[XLSTM_ARCH] = phase_serve(XLSTM_ARCH,
+                                              profile_len=XLSTM_PROFILE_LEN)
     phase_consistency(cfg, params, tol=XLSTM_CONSISTENCY_RTOL)
     del params
     torch.cuda.empty_cache()
@@ -1009,7 +1097,11 @@ def main() -> int:
         {"name": "mlstm_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/mlstm_scan/csrc/mlstm_scan.cu",
          "replaces": "src/repro/kernels/mlstm_scan/kernel.py:85",
-         "launches": xlstm_launches["mlstm_scan"], **ml_timing},
+         # launches on xlstm-1.3b's serving, all on the route in
+         # "kernel_route" (checked in its serve phase); times at its prefill
+         # shape, with each pass and the scalar bf16 kernels beside them
+         "launches": xlstm_launches["mlstm_scan"],
+         "launches_by_route": ml_launches[XLSTM_ARCH], **ml_timing},
     ]
     for k in kernels:
         # the same numbers again under short names (bound in microseconds)

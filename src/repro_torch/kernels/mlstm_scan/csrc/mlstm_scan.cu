@@ -21,27 +21,51 @@
 // T |lf|: strongly negative forget gates), which a smaller chunk, such as
 // the reference's 8 at S = 1000, does not.  h, C, n and m leave as float32.
 //
-// The result does not depend on the chunk, so the kernel takes its own
-// T = 64 for every S: the last chunk is masked (its padded rows enter
-// neither the maxima nor the state update, and b_T is the cumsum at the
-// last valid row), where the reference halves its chunk until it divides S
-// (chunk 8 at S = 1000, 1 at a prime S) and the Pallas wrapper sends ragged
-// S and `init_state` to the reference.  This kernel takes any B, S and H,
-// any Dh up to 42,432 (its n and staging buffers fill the shared memory
-// there) and an initial state (C0, n0, m0).
+// The result does not depend on the chunk, so each route takes its own T
+// for every S: the last chunk is masked (its padded rows enter neither the
+// maxima nor the state update, and b_T is the cumsum at the last valid
+// row), where the reference halves its chunk until it divides S (chunk 8 at
+// S = 1000, 1 at a prime S) and the Pallas wrapper sends ragged S and
+// `init_state` to the reference.  Every route takes any B, S and H and an
+// initial state (C0, n0, m0).
 //
-// What bounds it on the H100: operations.  Per (b, h) the inter-chunk
-// products q C and (k g)^T v are 4 S Dh^2 flops and the intra-chunk q k^T and
-// W v 4 S T Dh; at xlstm-1.3b's prefill (B 4, S 1000, H 4, Dh 1024) that is
-// 71.3 GFLOP against 231 MB of q, k, v, h, C and gates.  Arithmetic is
-// float32 throughout, on scalar FMAs (not TF32, which computes another
-// function), so this first version runs far from the bf16 tensor-core
-// bound that the repository's table states.
+// What bounds it on the H100: per (b, h) the inter-chunk products q C and
+// (k g)^T v are 4 S Dh^2 flops and the intra-chunk q k^T and W v 4 S T Dh;
+// at xlstm-1.3b's prefill (B 4, S 1000, H 4, Dh 1024) the least work of the
+// function is 67.2 GFLOP against 231 MB of q, k, v, h, C and gates, 0.069 ms
+// by bytes at the bf16 tensor-core rate, 1.0 ms by operations on float32
+// CUDA cores.
 //
-// Design.  The TPU kernel keeps the (Dh, Dh) state in VMEM across the
-// sequential chunk axis of its grid.  At xlstm-1.3b's Dh = 1024 that state
-// is 4 MiB per (b, h), 18 times an H100 SM's shared memory.  So the value
-// columns of C are split across blocks, and the work is two launches:
+// Three routes, picked by the caller (ops.py, by dtype and shape) and
+// checked here: a route refuses what it cannot take, nothing falls back.
+//  * wgmma_bf16: bf16 q, k, v that TMA can address (16-byte aligned bases,
+//    Dh a multiple of 8).  Three passes with the products on bf16 `wgmma`
+//    and float32 operands split into two bf16 halves (see its section).
+//  * scalar_bf16: bf16 q, k, v that TMA cannot address, on the scalar
+//    float32 kernels.
+//  * scalar_f32: float32 q, k, v, on the scalar float32 kernels.  Splitting
+//    both float32 factors of a product would take three or four bf16
+//    passes; the float32 model is held at 1e-4 through this route.
+//
+// The Hopper primitives (inline PTX) are in ../../csrc/hopper.cuh.
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <algorithm>
+
+#include "../../csrc/hopper.cuh"
+
+namespace {
+
+// ===========================================================================
+// Scalar routes (scalar_f32, scalar_bf16)
+//
+// The TPU kernel keeps the (Dh, Dh) state in VMEM across the sequential
+// chunk axis of its grid.  At xlstm-1.3b's Dh = 1024 that state is 4 MiB
+// per (b, h), 18 times an H100 SM's shared memory.  So the value columns of
+// C are split across blocks, and the work is two launches:
 //  * scores: grid (B*H*chunks); each block forms the raw T x T products
 //    P = (q / sqrt(Dh)) k^T of one chunk (a float32 workspace of
 //    B*H*chunks*T*T, 4.2 MB at the serving shape).  No state is needed, so
@@ -56,14 +80,13 @@
 //    coalesce and the staged q and k rows are read as broadcasts.  n and den
 //    are the same in all 32 blocks of a (b, h): each computes them (3% of
 //    its work) rather than wait on another block.
-// Past Dh = 1280 the slab no longer fits in shared memory; it then stays in
-// the output C in device memory (each block still owns its own columns),
-// which keeps every Dh running, through L2.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
+// Arithmetic is float32 on scalar FMAs (not TF32, which computes another
+// function).  T = 64.  Past Dh = 1280 the slab no longer fits in shared
+// memory; it then stays in the output C in device memory (each block still
+// owns its own columns), which keeps every Dh up to 42,432 running, through
+// L2.
+// ===========================================================================
 
-namespace {
 
 constexpr int T = 64;       // steps per chunk
 constexpr int TILE = 32;    // value columns of C per block: one per lane
@@ -487,36 +510,956 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                                  sqrt_dh, st);
 }
 
-}  // namespace
 
-// Steps per chunk of the kernels.
-extern "C" int repro_mlstm_scan_chunk() { return T; }
+// ===========================================================================
+// wgmma_bf16 route: a gate pass, a q k^T pass, a state pass, an output pass
+//
+// The state recurrence and the outputs come apart (the structure of the
+// xLSTM authors' own GPU kernels, "Tiled Flash Linear Attention"): the
+// state pass materialises the state that enters each chunk, and the output
+// pass then runs every (chunk, value-column tile) in parallel.
+//
+// Tensor cores without another function.  The state C is float32, and bf16
+// or TF32 operands would compute another function.  But q, k and v arrive
+// as bf16, so every product has one factor that is exactly bf16, and the
+// other, float32, factor x is split as hi + lo with hi = bf16(x) and
+// lo = bf16(x - hi): |x - hi - lo| <= 2^-16 |x|.  Each product is then two
+// bf16 `wgmma` passes (hi, lo) into float32 accumulators; per-row and
+// per-step scalars stay outside the products:
+//   q k^T              both factors bf16; 1/sqrt(Dh) scales the result
+//   (q w_out) C        diag(w_out) (q C): q exact, C^T split
+//   W v                v exact, W = (q k^T) o exp(a - m) split
+//   (k o g)^T v        = (g o v)^T k: k exact, g o v split
+// The tensor cores' float32 accumulation truncates, so a long chain of
+// them (q k^T over Dh = 1024 keys in one accumulator) is several times
+// less accurate than float32 FMAs; where den cancels toward its floor that
+// shows in h (4x the plain version's error against the float64 recurrence
+// in chip_smoke.py's random-key stress case).  q k^T therefore starts a
+// fresh accumulator every 64 keys and sums them in float32; the other
+// chains are 128 long (the steps of a chunk) or carry the state, which
+// keeps its own error within the plain version's.
+//
+// Passes (T = CT = 128 steps a chunk; Dp = Dh rounded up to 128):
+//  1. gates, grid (B*H*chunks), CT threads: the chunk's float64 cumsum b,
+//     m_intra_t = max_{s<=t} a[t,s], ig, g's log weight ig_s + (b_T - b_s)
+//     and the chunk's (b_T, max_s of that weight).  Nothing here depends
+//     on the state, so every chunk runs at once; the chain of m over the
+//     chunks (m_new = max(b_T + m_prev, that max)) is a few scalar steps
+//     that each later CTA walks itself (entry_m), so the large passes have
+//     no serial section.
+//  2. q k^T, grid (B*H*chunks): the raw scores of each chunk (CT x CT,
+//     float32, 64 rows a consumer warpgroup) from Q and K panels streamed
+//     through three stages, once per chunk (8.4 MB at the serving shape).
+//  3. states, grid (B*H * Dp/128 * Dp/128): each CTA holds one 128 x 128
+//     tile of C^T (rows j: values, columns i: keys) as float32 wgmma
+//     accumulators, 64 rows in each of two consumer warpgroups, and walks
+//     the chunks in order.  Per chunk it stores the tile it holds (the state
+//     entering the chunk) as bf16 hi and lo to the workspace, through a
+//     staging buffer and TMA stores; scales it by f_c; and adds
+//     (g o v)^T k in two passes, A = (g o v)^T built in registers from the
+//     staged v tile and split (the accumulator layout is the A layout, as
+//     flash feeds P), B = k MN-major in shared memory.  A producer warp
+//     keeps the k and v tiles of the next chunk in flight (two stages).
+//     The CTAs of the first value tile also carry n for their keys (CUDA
+//     cores, 1/128 of the work) and write it per chunk.  Holding C^T rather
+//     than C keeps every operand in a mode that the flash kernel uses.
+//  4. outputs, grid (B*H * chunks * Dp/128): each CTA makes 128 value
+//     columns of h for the CT rows of one chunk (64 rows a consumer
+//     warpgroup).  Per 64-wide panel of keys, Q feeds O += Q (C^T_hi)^T +
+//     Q (C^T_lo)^T (B K-major); the panels stream through four stages.
+//     Then the chunk's scores are gated into W with the float64
+//     differences and m_t, O is scaled by w_out / sqrt(Dh), O += W_hi V +
+//     W_lo V (A from registers, B = V MN-major), den = rowsum(W) +
+//     w_out (q . n) / sqrt(Dh) (q . n on CUDA cores from the staged q, 1/Dh
+//     of the work), and h = O / max(|den|, exp(-m_t)) is stored as float32
+//     pairs (each quad of lanes writes whole 32-byte sectors).
+// Workspace per segment of the sequence (STATE_BUDGET: the passes walk S
+// in segments of at most 1 GiB of C^T, carrying (C, n, m) from one to the
+// next): the gates (CT doubles and 3 CT floats per (b, h, chunk)), the
+// scores, n at each chunk's entry (float32, chunks x B*H x Dp) and C^T at
+// each chunk's entry (bf16 hi and lo, chunks x B*H x 2 x Dp^2: 512 MiB at
+// the serving shape, one segment, written once and read once), laid out
+// tile by tile so that each TMA box of it is one contiguous block.
+// Without an initial state the state entering chunk 0 is zero: the state
+// pass does not store it and the output pass skips q C and q n there.
+// Operand tiles in shared memory are 64-column panels with the 128-byte
+// swizzle, one TMA box each; q, k and v are read in their (B, S, H, Dh)
+// layout through 4-D tensor maps, rows past S and columns past Dh as
+// zeros.  A panel that lies wholly past Dh is never loaded: it is zeroed
+// once when the CTA starts.  Each CTA of passes 2-4 has one producer
+// warpgroup and two consumer warpgroups, with `setmaxnreg` moving
+// registers to the consumers, and runs one to an SM.
+// ===========================================================================
 
-// Floats of the scores workspace the wrapper allocates: (B*H, chunks, T, T).
-extern "C" long long repro_mlstm_scan_workspace_floats(int B, int S, int H) {
-  return (long long)B * H * ((S + T - 1) / T) * T * T;
+constexpr int CT = 128;               // steps per chunk
+constexpr int CTILE = 128;            // rows and columns of a state tile
+constexpr int WG = 128;               // threads of a warpgroup
+constexpr int CONSUMERS = 2;          // consumer warpgroups of 64 rows
+constexpr int NTW = (CONSUMERS + 1) * WG;
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+constexpr int PANEL_BYTES = CT * ROW_BYTES;   // 128 rows of a 64-column panel
+static_assert(CT == CTILE && CT == 64 * CONSUMERS, "two warpgroups of 64");
+
+__host__ __device__ inline long long up256(long long x) {
+  return (x + 255) / 256 * 256;
 }
 
-// Dynamic shared memory of one state block, and whether C stays in it.
-extern "C" int repro_mlstm_scan_smem_bytes(int Dh, int* c_in_smem) {
+// Dh rounded up to whole state tiles
+__host__ __device__ inline int pad_dh(int Dh) { return round_up(Dh, CTILE); }
+
+// Bytes of C^T entry states (bf16 hi and lo) that one segment of the
+// sequence keeps in the workspace: the passes walk S in segments of as many
+// chunks as fit (at least one), each starting from the state the last one
+// left, so the workspace does not grow with S.  At xlstm-1.3b's prefill
+// (B*H 16, Dh 1024: 64 MiB a chunk) a segment holds 16 chunks, 2048 steps.
+constexpr long long STATE_BUDGET = 1LL << 30;
+
+// chunks of one segment
+__host__ inline int segment_chunks(long long BH, int n_chunks, int Dh) {
+  const long long per_chunk = 4LL * BH * pad_dh(Dh) * pad_dh(Dh);
+  return (int)std::max(1LL, std::min((long long)n_chunks,
+                                     STATE_BUDGET / per_chunk));
+}
+
+// Byte offsets of the workspace's parts (each 256-byte aligned), for
+// segments of n_chunks chunks.
+struct WsLayout {
+  long long b, ig, mi, gm, ch, s, n, c, m, bytes;
+};
+
+__host__ __device__ inline WsLayout ws_layout(long long BH, int n_chunks,
+                                              int Dh) {
+  const long long rows = BH * n_chunks * CT, Dp = pad_dh(Dh);
+  WsLayout w;
+  w.b = 0;                                   // b_t, float64
+  w.ig = up256(w.b + 8 * rows);              // ig_t
+  w.mi = up256(w.ig + 4 * rows);             // m_intra_t
+  w.gm = up256(w.mi + 4 * rows);             // ig_s + (b_T - b_s), -inf past L
+  w.ch = up256(w.gm + 4 * rows);             // (b_T, max_s gm_s) per chunk
+  w.s = up256(w.ch + 8 * BH * n_chunks);     // q k^T of each chunk, float32
+  w.n = up256(w.s + 4 * rows * CT);          // n entering each chunk
+  w.c = up256(w.n + 4 * BH * n_chunks * Dp); // C^T entering each chunk
+  w.m = up256(w.c + 2LL * BH * n_chunks * 2 * Dp * Dp);  // m, 2 segments
+  w.bytes = w.m + 4 * 2 * BH;
+  return w;
+}
+
+// Dynamic shared memory of the state pass: two stages of k and v tiles (two
+// panels each), the staging of the stored tile (warpgroup, hi/lo, panel of
+// 64 rows), g of two chunks, barriers.
+struct StatesSmem {
+  static constexpr int STAGES = 2;
+  static constexpr int STAGE_BYTES = 4 * PANEL_BYTES;
+  static constexpr int STG_PANEL = 64 * ROW_BYTES;
+  static constexpr int STG_WG = 2 * 2 * STG_PANEL;
+  static constexpr int G_OFFSET = STAGES * STAGE_BYTES + CONSUMERS * STG_WG;
+  static constexpr int BAR_OFFSET = G_OFFSET + 2 * CT * 4;
+  static constexpr int N_BARS = 2 * STAGES;
+  // + 1024: the base is rounded up to the swizzle's 1024-byte period
+  static constexpr size_t bytes = 1024 + BAR_OFFSET + 8 * N_BARS;
+};
+
+// Dynamic shared memory of the q k^T pass: three stages of (Q, K) panels,
+// barriers.
+struct ScoresSmem {
+  static constexpr int STAGES = 3;
+  static constexpr int STAGE_BYTES = 2 * PANEL_BYTES;
+  static constexpr int BAR_OFFSET = STAGES * STAGE_BYTES;
+  static constexpr int N_BARS = 2 * STAGES;
+  static constexpr size_t bytes = 1024 + BAR_OFFSET + 8 * N_BARS;
+};
+
+// Dynamic shared memory of the output pass: the V tile (two panels), four
+// stages of (Q, C^T hi, C^T lo) panels, barriers.
+struct OutputsSmem {
+  static constexpr int STAGES = 4;
+  static constexpr int V_BYTES = 2 * PANEL_BYTES;
+  static constexpr int STAGE_BYTES = 3 * PANEL_BYTES;
+  static constexpr int BAR_OFFSET = V_BYTES + STAGES * STAGE_BYTES;
+  static constexpr int N_BARS = 1 + 2 * STAGES;
+  static constexpr size_t bytes = 1024 + BAR_OFFSET + 8 * N_BARS;
+};
+
+// byte offset of bf16 element (row, col) in a 64-column panel with the
+// 128-byte swizzle, as TMA writes it (the panel 1024-byte aligned)
+__device__ __forceinline__ int sw_off(int row, int col) {
+  return row * ROW_BYTES + ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2;
+}
+
+__device__ __forceinline__ float ld_bf16(const uint8_t* p) {
+  return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(p));
+}
+
+// (x0, x1) split into bf16 halves: hi = bf16(x), lo = bf16(x - hi), each
+// packed as the two elements of one A-fragment register
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = pack_bf16(hf.x, hf.y);
+  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
+// m entering chunk c of (b, h): the chain of m_new over the chunks before
+__device__ __forceinline__ float entry_m(const float* __restrict__ gch,
+                                         long long bh, int c, int n_chunks,
+                                         float m0) {
+  float m = m0;
+  for (int cc = 0; cc < c; ++cc) {
+    const float* ch = gch + 2 * (bh * n_chunks + cc);
+    m = fmaxf(ch[0] + m, ch[1]);
+  }
+  return m;
+}
+
+// zero `bytes` (a multiple of 16) of shared memory with all threads
+__device__ __forceinline__ void zero_smem(uint8_t* p, int bytes) {
+  for (int o = threadIdx.x * 16; o < bytes; o += blockDim.x * 16)
+    *reinterpret_cast<uint4*>(p + o) = make_uint4(0, 0, 0, 0);
+}
+
+// ---------------------------------------------------------------------------
+// Pass 1: the chunk's gates
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(CT)
+mlstm_gates_kernel(const float* __restrict__ ig, const float* __restrict__ fg,
+                   double* __restrict__ gb, float* __restrict__ gig,
+                   float* __restrict__ gmi, float* __restrict__ ggm,
+                   float* __restrict__ gch, int S, int S_stride, int H,
+                   int n_chunks) {
+  __shared__ double sb[CT];
+  __shared__ float sig[CT];
+  __shared__ double wsum[CT / 32];
+  __shared__ float wmax[CT / 32];
+  const long long bh = blockIdx.x / n_chunks;
+  const int c = blockIdx.x % n_chunks;
+  const long long b = bh / H;
+  const int hh = (int)(bh % H);
+  const int t0 = c * CT, L = min(CT, S - t0);
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const long long gi = (b * S_stride + t0 + t) * H + hh;
+  const float lf = t < L ? log_sigmoid(fg[gi]) : 0.f;
+  const float igv = t < L ? ig[gi] : 0.f;
+  // inclusive cumsum of lf in float64: within the warp, then the warps
+  // before (past L, lf = 0 and b stays at b_T)
+  double x = lf;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const double y = __shfl_up_sync(0xffffffffu, x, off);
+    if (lane >= off) x += y;
+  }
+  if (lane == 31) wsum[warp] = x;
+  __syncthreads();
+  for (int w = 0; w < warp; ++w) x += wsum[w];
+  sb[t] = x;
+  sig[t] = igv;
+  __syncthreads();
+  const double bTd = sb[L - 1];
+  float mi = -INFINITY;
+  if (t < L)
+    for (int s = 0; s <= t; ++s) mi = fmaxf(mi, (float)(x - sb[s]) + sig[s]);
+  const float gm = t < L ? igv + (float)(bTd - x) : -INFINITY;
+  float mx = gm;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  if (lane == 0) wmax[warp] = mx;
+  __syncthreads();
+  const long long r = (long long)blockIdx.x * CT + t;
+  gb[r] = x;
+  gig[r] = igv;
+  gmi[r] = mi;
+  ggm[r] = gm;
+  if (t == 0) {
+    float m = wmax[0];
+    for (int w = 1; w < CT / 32; ++w) m = fmaxf(m, wmax[w]);
+    gch[2LL * blockIdx.x] = (float)bTd;
+    gch[2LL * blockIdx.x + 1] = m;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Pass 2: the raw scores q k^T of each chunk
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(NTW, 1)
+mlstm_qk_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                float* __restrict__ scores, int H, int Dh, int n_chunks) {
+  using M = ScoresSmem;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + M::BAR_OFFSET);
+  uint64_t* empty = full + M::STAGES;
+  const long long slab = blockIdx.x;
+  const int b = (int)(slab / n_chunks / H), hh = (int)(slab / n_chunks % H);
+  const int t0 = (int)(slab % n_chunks) * CT;
+  const int np = (Dh + PANEL - 1) / PANEL;   // 64-key panels of q and k
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < M::STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, CONSUMERS * WG / 32);  // every consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMERS * WG) {
+      for (int p = 0; p < np; ++p) {
+        const int s = p % M::STAGES;
+        uint8_t* st = smem + s * M::STAGE_BYTES;
+        mbar_wait(empty + s, ((p / M::STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + s, 2 * PANEL_BYTES);
+        tma_load_4d(st, &tq, full + s, p * PANEL, hh, t0, b);
+        tma_load_4d(st + PANEL_BYTES, &tk, full + s, p * PANEL, hh, t0, b);
+      }
+    }
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int t = threadIdx.x % WG;
+    const int warp = t / 32, lane = t % 32;
+    const int r0 = 64 * wg + 16 * warp + lane / 4;
+    const int cq = 2 * (lane % 4);
+    // The tensor cores' float32 accumulation truncates: over all Dh keys at
+    // once it is several times less accurate than float32 FMAs, which shows
+    // in h wherever the denominator cancels.  So each 64-key panel starts a
+    // fresh accumulator, and the panels are summed in float32.
+    float sacc[64], spart[64];
+#pragma unroll
+    for (int e = 0; e < 64; ++e) sacc[e] = 0.f;
+    for (int p = 0; p < np; ++p) {
+      const int s = p % M::STAGES;
+      const uint8_t* st = smem + s * M::STAGE_BYTES;
+      const uint8_t* Qw = st + wg * 64 * ROW_BYTES;   // this warpgroup's rows
+      mbar_wait(full + s, (p / M::STAGES) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < PANEL / 16; ++kk) {
+        const int off = kk * 32;   // 16 columns = 32 bytes
+        wgmma_ss(spart, sw128_desc(Qw + off, 16),
+                 sw128_desc(st + PANEL_BYTES + off, 16), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      reg_fence(spart);
+#pragma unroll
+      for (int e = 0; e < 64; ++e) sacc[e] += spart[e];
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + s);
+    }
+    // scores[slab][t][s] at t = r0 + 8 ((e/2) % 2), s = 8 (e/4) + cq + e % 2
+    float* out = scores + slab * CT * CT;
+#pragma unroll
+    for (int e = 0; e < 64; e += 2)
+      *reinterpret_cast<float2*>(out + (r0 + 8 * ((e / 2) % 2)) * CT +
+                                 8 * (e / 4) + cq) =
+          make_float2(sacc[e], sacc[e + 1]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Pass 3: the state entering each chunk, one 128 x 128 tile of C^T a CTA
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(NTW, 1)
+mlstm_states_kernel(const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tws,
+                    const float* __restrict__ ggm,
+                    const float* __restrict__ gch,
+                    const float* __restrict__ C0,
+                    const float* __restrict__ n0,
+                    const float* __restrict__ m0, float* __restrict__ n_ws,
+                    float* __restrict__ Cout, float* __restrict__ nout,
+                    float* __restrict__ mout, int H, int Dh, int n_chunks) {
+  using M = StatesSmem;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* stages = smem;
+  uint8_t* stg = smem + M::STAGES * M::STAGE_BYTES;
+  float* gsm = reinterpret_cast<float*>(smem + M::G_OFFSET);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + M::BAR_OFFSET);
+  uint64_t* empty = full + M::STAGES;
+
+  const int Dp = pad_dh(Dh), nt = Dp / CTILE;
+  const long long bh = blockIdx.x / (nt * nt);
+  const int jt = blockIdx.x / nt % nt, it = blockIdx.x % nt;
+  const int b = (int)(bh / H), hh = (int)(bh % H);
+  const int i0 = it * CTILE, j0 = jt * CTILE;
+  // panels of the tile that hold a column below Dh; TMA fills only these
+  const int npi = min(2, (Dh - i0 + PANEL - 1) / PANEL);
+  const int npj = min(2, (Dh - j0 + PANEL - 1) / PANEL);
+  const int wg = threadIdx.x / WG;
+
+  for (int s = 0; s < M::STAGES; ++s) {
+    for (int p = npi; p < 2; ++p)
+      zero_smem(stages + s * M::STAGE_BYTES + p * PANEL_BYTES, PANEL_BYTES);
+    for (int p = npj; p < 2; ++p)
+      zero_smem(stages + s * M::STAGE_BYTES + (2 + p) * PANEL_BYTES,
+                PANEL_BYTES);
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < M::STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, CONSUMERS * WG / 32);  // every consumer warp
+    }
+    mbar_init_fence();
+  }
+  fence_proxy_async();   // the zeroed panels, before wgmma reads them
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    // producer: one thread keeps the k and v tiles of the next chunks coming
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMERS * WG) {
+      for (int c = 0; c < n_chunks; ++c) {
+        const int s = c % M::STAGES;
+        uint8_t* st = stages + s * M::STAGE_BYTES;
+        mbar_wait(empty + s, ((c / M::STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + s, (npi + npj) * PANEL_BYTES);
+        for (int p = 0; p < npi; ++p)
+          tma_load_4d(st + p * PANEL_BYTES, &tk, full + s, i0 + p * PANEL, hh,
+                      c * CT, b);
+        for (int p = 0; p < npj; ++p)
+          tma_load_4d(st + (2 + p) * PANEL_BYTES, &tv, full + s,
+                      j0 + p * PANEL, hh, c * CT, b);
+      }
+    }
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int t = threadIdx.x % WG, ct = threadIdx.x;
+    const int warp = t / 32, lane = t % 32;
+    const int rw = 16 * warp + lane / 4;   // row of acc[0] within the 64
+    const int cq = 2 * (lane % 4);         // column within each 8
+    const long long DD = (long long)Dh * Dh;
+    // acc[e]: C^T[j][i] at j = j0 + 64 wg + rw + 8 ((e/2) % 2),
+    // i = i0 + 8 (e/4) + cq + e % 2
+    float acc[64];
+#pragma unroll
+    for (int e = 0; e < 64; ++e) {
+      const int j = j0 + 64 * wg + rw + 8 * ((e / 2) % 2);
+      const int i = i0 + 8 * (e / 4) + cq + e % 2;
+      acc[e] = (C0 != nullptr && i < Dh && j < Dh)
+                   ? C0[bh * DD + (long long)i * Dh + j]
+                   : 0.f;
+    }
+    // n of key i0 + ni (first value tile only): two threads a key, each
+    // summing half of the chunk's steps
+    const int ni = ct / 2, nh = ct % 2;
+    float nreg = (jt == 0 && n0 != nullptr && i0 + ni < Dh)
+                     ? n0[bh * Dh + i0 + ni] : 0.f;
+    float m_prev = m0 != nullptr ? m0[bh] : NEG_INF;
+    uint8_t* my_stg = stg + wg * M::STG_WG;   // [hi/lo][panel][64 rows]
+
+    for (int c = 0; c < n_chunks; ++c) {
+      const int s = c % M::STAGES;
+      const long long slab = bh * n_chunks + c;
+      // the chunk's gates, loaded first: their latency passes under the
+      // staging of the tile
+      const float bT = gch[2 * slab], lmax = gch[2 * slab + 1];
+      const float gm = ct < CT ? ggm[slab * CT + ct] : 0.f;
+      // ---- the tile entering chunk c, as bf16 hi and lo, to the workspace
+      // (not the zero state entering chunk 0, which the output pass skips)
+      const bool store_entry = c > 0 || C0 != nullptr;
+      if (store_entry) {
+        if (t == 0) tma_store_wait();   // the last stores have read staging
+        named_barrier(1 + wg, WG);
+#pragma unroll
+        for (int e = 0; e < 64; e += 2) {
+          const int row = rw + 8 * ((e / 2) % 2);
+          const int col = 8 * (e / 4) + cq;
+          uint32_t hi, lo;
+          split_bf16(acc[e], acc[e + 1], hi, lo);
+          const int off =
+              (col / PANEL) * M::STG_PANEL + sw_off(row, col % PANEL);
+          *reinterpret_cast<uint32_t*>(my_stg + off) = hi;
+          *reinterpret_cast<uint32_t*>(my_stg + 2 * M::STG_PANEL + off) = lo;
+        }
+        fence_proxy_async();
+        named_barrier(1 + wg, WG);
+        if (t == 0)
+          for (int hl = 0; hl < 2; ++hl)
+            for (int p = 0; p < 2; ++p)
+              tma_store_4d(&tws, my_stg + (2 * hl + p) * M::STG_PANEL, 0,
+                           64 * wg, hl,
+                           (int)((slab * nt + jt) * 2 * nt + 2 * it + p));
+      }
+      if (jt == 0 && nh == 0) n_ws[slab * Dp + i0 + ni] = nreg;
+
+      // ---- gates of the chunk
+      const float m_new = fmaxf(bT + m_prev, lmax);
+      const float f_c = expf((bT + m_prev) - m_new);
+      float* g = gsm + (c & 1) * CT;   // two chunks' g: one barrier a chunk
+      if (ct < CT) g[ct] = expf(gm - m_new);
+      named_barrier(3, CONSUMERS * WG);
+#pragma unroll
+      for (int e = 0; e < 64; ++e) acc[e] *= f_c;
+
+      // ---- C^T += (g o v)^T k in two passes, hi and lo
+      mbar_wait(full + s, (c / M::STAGES) & 1);
+      const uint8_t* kt = stages + s * M::STAGE_BYTES;
+      const uint8_t* vt = kt + 2 * PANEL_BYTES;
+      uint32_t ahi[CT / 16][4], alo[CT / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < CT / 16; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int j = 64 * wg + rw + 8 * (r % 2);   // value column
+          const int sx = 16 * kk + 8 * (r / 2) + cq;  // step
+          const uint8_t* vp = vt + (j / PANEL) * PANEL_BYTES;
+          split_bf16(g[sx] * ld_bf16(vp + sw_off(sx, j % PANEL)),
+                     g[sx + 1] * ld_bf16(vp + sw_off(sx + 1, j % PANEL)),
+                     ahi[kk][r], alo[kk][r]);
+        }
+      }
+      reg_fence(acc);
+#pragma unroll
+      for (int kk = 0; kk < CT / 16; ++kk) {
+        reg_fence(ahi[kk]);
+        reg_fence(alo[kk]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < CT / 16; ++kk) {
+        const uint64_t db = sw128_desc(kt + kk * 16 * ROW_BYTES, PANEL_BYTES);
+        wgmma_rs(acc, ahi[kk], db);
+        wgmma_rs(acc, alo[kk], db);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      reg_fence(acc);
+
+      // ---- n = f_c n + sum_s g_s k_s
+      if (jt == 0) {
+        const uint8_t* kp = kt + (ni / PANEL) * PANEL_BYTES;
+        float sum = 0.f;
+        for (int u = 0; u < CT / 2; ++u) {
+          const int sx = nh * (CT / 2) + u;
+          sum = fmaf(g[sx], ld_bf16(kp + sw_off(sx, ni % PANEL)), sum);
+        }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        nreg = f_c * nreg + sum;
+      }
+      // this warp is done with the stage
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + s);
+      m_prev = m_new;
+    }
+    if (t == 0) tma_store_wait();
+
+    // ---- the final state: C in its (i, j) layout, n, m
+#pragma unroll
+    for (int e = 0; e < 64; ++e) {
+      const int j = j0 + 64 * wg + rw + 8 * ((e / 2) % 2);
+      const int i = i0 + 8 * (e / 4) + cq + e % 2;
+      if (i < Dh && j < Dh) Cout[bh * DD + (long long)i * Dh + j] = acc[e];
+    }
+    if (jt == 0 && nh == 0 && i0 + ni < Dh) nout[bh * Dh + i0 + ni] = nreg;
+    if (jt == 0 && it == 0 && ct == 0) mout[bh] = m_prev;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Pass 4: h of one chunk, 128 value columns a CTA
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(NTW, 1)
+mlstm_outputs_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tws,
+                     const float* __restrict__ scores,
+                     const double* __restrict__ gb,
+                     const float* __restrict__ gig,
+                     const float* __restrict__ gmi,
+                     const float* __restrict__ gch,
+                     const float* __restrict__ n_ws,
+                     const float* __restrict__ m0, float* __restrict__ hout,
+                     int S, int S_stride, int H, int Dh, int n_chunks,
+                     float inv_sqrt_dh) {
+  using M = OutputsSmem;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* vs = smem;
+  uint8_t* stages = smem + M::V_BYTES;
+  uint64_t* v_full = reinterpret_cast<uint64_t*>(smem + M::BAR_OFFSET);
+  uint64_t* full = v_full + 1;
+  uint64_t* empty = full + M::STAGES;
+
+  const int Dp = pad_dh(Dh), nt = Dp / CTILE;
+  const int jt = blockIdx.x % nt;
+  const int c = blockIdx.x / nt % n_chunks;
+  const long long bh = blockIdx.x / (nt * n_chunks);
+  const int b = (int)(bh / H), hh = (int)(bh % H);
+  const long long slab = bh * n_chunks + c;
+  const int j0 = jt * CTILE, t0 = c * CT, L = min(CT, S - t0);
+  const int npj = min(2, (Dh - j0 + PANEL - 1) / PANEL);
+  // 64-key panels of q and of the state; none for chunk 0 from the zero
+  // state, where q C and q n vanish
+  const bool zero_entry = c == 0 && m0 == nullptr;
+  const int np = zero_entry ? 0 : (Dh + PANEL - 1) / PANEL;
+  const int wg = threadIdx.x / WG;
+
+  for (int p = npj; p < 2; ++p) zero_smem(vs + p * PANEL_BYTES, PANEL_BYTES);
+  if (threadIdx.x == 0) {
+    mbar_init(v_full, 1);
+    for (int s = 0; s < M::STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, CONSUMERS * WG / 32);  // every consumer warp
+    }
+    mbar_init_fence();
+  }
+  fence_proxy_async();   // the zeroed panels, before wgmma reads them
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMERS * WG) {
+      mbar_expect_tx(v_full, npj * PANEL_BYTES);
+      for (int p = 0; p < npj; ++p)
+        tma_load_4d(vs + p * PANEL_BYTES, &tv, v_full, j0 + p * PANEL, hh, t0,
+                    b);
+      for (int p = 0; p < np; ++p) {
+        const int s = p % M::STAGES;
+        uint8_t* st = stages + s * M::STAGE_BYTES;
+        mbar_wait(empty + s, ((p / M::STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + s, 3 * PANEL_BYTES);
+        tma_load_4d(st, &tq, full + s, p * PANEL, hh, t0, b);
+        const int tile = (int)((slab * nt + jt) * 2 * nt + p);
+        tma_load_4d(st + PANEL_BYTES, &tws, full + s, 0, 0, 0, tile);
+        tma_load_4d(st + 2 * PANEL_BYTES, &tws, full + s, 0, 0, 1, tile);
+      }
+    }
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int t = threadIdx.x % WG;
+    const int warp = t / 32, lane = t % 32;
+    const int rw = 16 * warp + lane / 4;   // row of acc[0] within the 64
+    const int r0 = 64 * wg + rw;           // chunk row of acc[0]; +8 for hr 1
+    const int cq = 2 * (lane % 4);
+    // oacc[e]: O[t][j] at t = r0 + 8 ((e/2) % 2), j - j0 = 8 (e/4) + cq +
+    // e % 2
+    float oacc[64];
+#pragma unroll
+    for (int e = 0; e < 64; ++e) oacc[e] = 0.f;
+    float qn[2] = {0.f, 0.f};   // this lane's part of q . n, rows r0, r0 + 8
+
+    for (int p = 0; p < np; ++p) {
+      const int s = p % M::STAGES;
+      const uint8_t* st = stages + s * M::STAGE_BYTES;
+      const uint8_t* Qw = st + wg * 64 * ROW_BYTES;   // this warpgroup's rows
+      // n of the panel's keys (the quad's lanes take 16 keys each), loaded
+      // before the wait for the tiles, under which its latency passes
+      const float4* nv4 = reinterpret_cast<const float4*>(
+          n_ws + slab * Dp + p * PANEL + 16 * (lane % 4));
+      float nv[16];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float4 f = nv4[u];
+        nv[4 * u] = f.x;
+        nv[4 * u + 1] = f.y;
+        nv[4 * u + 2] = f.z;
+        nv[4 * u + 3] = f.w;
+      }
+      mbar_wait(full + s, (p / M::STAGES) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < PANEL / 16; ++kk) {
+        const int off = kk * 32;   // 16 columns = 32 bytes
+        const uint64_t da = sw128_desc(Qw + off, 16);
+        wgmma_ss(oacc, da, sw128_desc(st + PANEL_BYTES + off, 16), 1);
+        wgmma_ss(oacc, da, sw128_desc(st + 2 * PANEL_BYTES + off, 16), 1);
+      }
+      wgmma_commit();
+      // q . n over the panel's keys, from the staged q
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = rw + 8 * hr;
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int chunk16 = 2 * (lane % 4) + u;   // 16-byte chunk of the row
+          const uint4 w = *reinterpret_cast<const uint4*>(
+              Qw + row * ROW_BYTES + ((chunk16 ^ row) & 7) * 16);
+          const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            __nv_bfloat162 pr;
+            memcpy(&pr, &words[x], 4);
+            const float2 f = __bfloat1622float2(pr);
+            qn[hr] = fmaf(f.x, nv[8 * u + 2 * x], qn[hr]);
+            qn[hr] = fmaf(f.y, nv[8 * u + 2 * x + 1], qn[hr]);
+          }
+        }
+      }
+      // the products of the panel before have completed: release its stage
+      wgmma_wait1();
+      if (p > 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + (p - 1) % M::STAGES);
+      }
+    }
+    wgmma_wait0();
+    __syncwarp();
+    if (np > 0 && lane == 0) mbar_arrive(empty + (np - 1) % M::STAGES);
+    reg_fence(oacc);
+
+    // ---- stabilisers of this lane's rows
+    const float m_prev = entry_m(gch, bh, c, n_chunks,
+                                 m0 != nullptr ? m0[bh] : NEG_INF);
+    const long long rec = slab * CT;
+    double bt[2];
+    float mt[2], wo[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int tr = r0 + 8 * hr;
+      bt[hr] = gb[rec + tr];
+      const float m_inter = (float)bt[hr] + m_prev;
+      mt[hr] = fmaxf(gmi[rec + tr], m_inter);
+      wo[hr] = expf(m_inter - mt[hr]);
+    }
+    // ---- W = (q k^T / sqrt(Dh)) o exp(a - m_t), causal, rows below L, in
+    // the accumulator layout: sacc[e] at t = r0 + 8 ((e/2) % 2),
+    // s = 8 (e/4) + cq + e % 2
+    float sacc[64];
+    const float* sc = scores + slab * CT * CT;
+#pragma unroll
+    for (int e = 0; e < 64; e += 2) {
+      const float2 f = *reinterpret_cast<const float2*>(
+          sc + (r0 + 8 * ((e / 2) % 2)) * CT + 8 * (e / 4) + cq);
+      sacc[e] = f.x;
+      sacc[e + 1] = f.y;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < 64; ++e) {
+      const int hr = (e / 2) % 2;
+      const int tr = r0 + 8 * hr;
+      const int sx = 8 * (e / 4) + cq + e % 2;
+      float w = 0.f;
+      if (sx <= tr && tr < L)
+        w = sacc[e] * inv_sqrt_dh *
+            expf(((float)(bt[hr] - gb[rec + sx]) + gig[rec + sx]) - mt[hr]);
+      sacc[e] = w;
+      rs[hr] += w;
+    }
+#pragma unroll
+    for (int e = 0; e < 64; ++e) oacc[e] *= wo[(e / 2) % 2] * inv_sqrt_dh;
+    // ---- O += W_hi V + W_lo V
+    uint32_t whi[CT / 16][4], wlo[CT / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < CT / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        split_bf16(sacc[8 * kk + 2 * r], sacc[8 * kk + 2 * r + 1], whi[kk][r],
+                   wlo[kk][r]);
+    mbar_wait(v_full, 0);
+    reg_fence(oacc);
+#pragma unroll
+    for (int kk = 0; kk < CT / 16; ++kk) {
+      reg_fence(whi[kk]);
+      reg_fence(wlo[kk]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < CT / 16; ++kk) {
+      const uint64_t db = sw128_desc(vs + kk * 16 * ROW_BYTES, PANEL_BYTES);
+      wgmma_rs(oacc, whi[kk], db);
+      wgmma_rs(oacc, wlo[kk], db);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    reg_fence(oacc);
+
+    // ---- h = O / max(|den|, exp(-m_t)), den = rowsum(W) + w_out q.n/sqrt(Dh)
+    float dv[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float r = rs[hr], x = qn[hr];
+      r += __shfl_xor_sync(0xffffffffu, r, 1);
+      r += __shfl_xor_sync(0xffffffffu, r, 2);
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      const float den = r + wo[hr] * inv_sqrt_dh * x;
+      dv[hr] = fmaxf(fabsf(den), expf(-mt[hr]));
+    }
+#pragma unroll
+    for (int e = 0; e < 64; e += 2) {
+      const int hr = (e / 2) % 2;
+      const int tr = r0 + 8 * hr;
+      const int j = j0 + 8 * (e / 4) + cq;
+      if (tr < L && j < Dh)
+        *reinterpret_cast<float2*>(
+            hout + (((long long)b * S_stride + t0 + tr) * H + hh) * Dh + j) =
+            make_float2(oacc[e] / dv[hr], oacc[e + 1] / dv[hr]);
+    }
+  }
+}
+
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         const float* ig, const float* fg, const float* C0,
+                         const float* n0, const float* m0, void* ws,
+                         float* h, float* C, float* n, float* m, int B,
+                         int S, int H, int Dh, float sqrt_dh,
+                         cudaStream_t st) {
+  if (Dh % 8 != 0) return cudaErrorInvalidValue;  // TMA's 16-byte strides
+  for (const void* p : {q, k, v, (const void*)ws})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      return cudaErrorMisalignedAddress;
+  const int n_chunks = (S + CT - 1) / CT;
+  const int Dp = pad_dh(Dh), nt = Dp / CTILE;
+  const long long BH = (long long)B * H;
+  const int seg = segment_chunks(BH, n_chunks, Dh);
+  if (BH * seg * nt * 2 * nt > 0x7fffffffLL || BH * nt * nt > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const WsLayout w = ws_layout(BH, seg, Dh);
+  uint8_t* base = static_cast<uint8_t*>(ws);
+  double* gb = reinterpret_cast<double*>(base + w.b);
+  float* gig = reinterpret_cast<float*>(base + w.ig);
+  float* gmi = reinterpret_cast<float*>(base + w.mi);
+  float* ggm = reinterpret_cast<float*>(base + w.gm);
+  float* gch = reinterpret_cast<float*>(base + w.ch);
+  float* sc = reinterpret_cast<float*>(base + w.s);
+  float* n_ws = reinterpret_cast<float*>(base + w.n);
+  void* cws = base + w.c;
+  float* m_seg = reinterpret_cast<float*>(base + w.m);
+
+  // the workspace tile by tile, so that every box is contiguous: per
+  // ((b, h, chunk), value tile of 128, key panel of 64), hi then lo, each
+  // 128 values x 64 keys; as (key, value, hi/lo, tile) for TMA
+  CUtensorMap tws_st, tws_ld;
+  const cuuint64_t wdims[4] = {PANEL, CTILE, 2,
+                               (cuuint64_t)(BH * seg * nt * 2 * nt)};
+  const cuuint64_t wstrides[3] = {PANEL * 2, PANEL * CTILE * 2,
+                                  PANEL * CTILE * 2 * 2};
+  const cuuint32_t st_box[4] = {PANEL, 64, 1, 1};
+  const cuuint32_t ld_box[4] = {PANEL, CTILE, 1, 1};
+  if (!make_bf16_map_4d(&tws_st, cws, wdims, wstrides, st_box) ||
+      !make_bf16_map_4d(&tws_ld, cws, wdims, wstrides, ld_box))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      mlstm_qk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)ScoresSmem::bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(mlstm_states_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)StatesSmem::bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(mlstm_outputs_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)OutputsSmem::bytes);
+  if (err != cudaSuccess) return err;
+
+  // Segment g covers chunks [c0, c0 + nc) and starts from the state the
+  // last one left: C and n in the outputs, which each state-pass CTA reads
+  // (its own tile, its own keys) before it overwrites them, and m in one
+  // of two slots, since every CTA of a (b, h) reads m while one writes it.
+  const float* C_in = C0;
+  const float* n_in = n0;
+  const float* m_in = m0;
+  for (int c0 = 0, g = 0; c0 < n_chunks; c0 += seg, ++g) {
+    const int nc = std::min(seg, n_chunks - c0);
+    const int s0 = c0 * CT, Sg = std::min(nc * CT, S - s0);
+    const long long off = (long long)s0 * H * Dh;   // elements of q, k, v, h
+    float* m_out = c0 + nc >= n_chunks ? m : m_seg + (g % 2) * BH;
+    // q, k, v of the segment, as (Dh, heads, steps, batch)
+    CUtensorMap tq, tk, tv;
+    const cuuint64_t row = (cuuint64_t)H * Dh * 2;   // bytes a step
+    const cuuint64_t qdims[4] = {(cuuint64_t)Dh, (cuuint64_t)H,
+                                 (cuuint64_t)Sg, (cuuint64_t)B};
+    const cuuint64_t qstrides[3] = {(cuuint64_t)Dh * 2, row, row * S};
+    const cuuint32_t qbox[4] = {PANEL, 1, CT, 1};
+    if (!make_bf16_map_4d(&tq, static_cast<const uint8_t*>(q) + 2 * off,
+                          qdims, qstrides, qbox) ||
+        !make_bf16_map_4d(&tk, static_cast<const uint8_t*>(k) + 2 * off,
+                          qdims, qstrides, qbox) ||
+        !make_bf16_map_4d(&tv, static_cast<const uint8_t*>(v) + 2 * off,
+                          qdims, qstrides, qbox))
+      return cudaErrorInvalidValue;
+
+    mlstm_gates_kernel<<<(int)(BH * nc), CT, 0, st>>>(
+        ig + (long long)s0 * H, fg + (long long)s0 * H, gb, gig, gmi, ggm,
+        gch, Sg, S, H, nc);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    mlstm_qk_kernel<<<(int)(BH * nc), NTW, ScoresSmem::bytes, st>>>(
+        tq, tk, sc, H, Dh, nc);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    mlstm_states_kernel<<<(int)(BH * nt * nt), NTW, StatesSmem::bytes, st>>>(
+        tk, tv, tws_st, ggm, gch, C_in, n_in, m_in, n_ws, C, n, m_out, H, Dh,
+        nc);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    mlstm_outputs_kernel<<<(int)(BH * nc * nt), NTW, OutputsSmem::bytes,
+                           st>>>(tq, tv, tws_ld, sc, gb, gig, gmi, gch, n_ws,
+                                 m_in, h + off, Sg, S, H, Dh, nc,
+                                 1.f / sqrt_dh);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    C_in = C;
+    n_in = n;
+    m_in = m_out;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// Routes: 0 scalar_f32, 1 scalar_bf16, 2 wgmma_bf16.
+
+// Steps per chunk of a route (0 for an unknown route).
+extern "C" int repro_mlstm_scan_chunk(int route) {
+  return route == 2 ? CT : (route == 0 || route == 1) ? T : 0;
+}
+
+// Bytes of the workspace a call of the route needs: the raw scores
+// (B*H, chunks, T, T) float32 on the scalar routes; gates, scores, and n
+// and C^T at each chunk's entry on the wgmma route.
+extern "C" long long repro_mlstm_scan_workspace_bytes(int B, int S, int H,
+                                                      int Dh, int route) {
+  if (route == 2) {
+    const long long BH = (long long)B * H;
+    return ws_layout(BH, segment_chunks(BH, (S + CT - 1) / CT, Dh), Dh).bytes;
+  }
+  return 4LL * B * H * ((S + T - 1) / T) * T * T;
+}
+
+// Dynamic shared memory of one block of a route's pass at Dh: on the
+// scalar routes pass 0 is the state kernel (and *c_in_smem says whether its
+// slab of C lives there); on the wgmma route passes 0, 1 and 2 are the
+// q k^T, state and output passes.  -1 for an unknown route or pass.
+extern "C" int repro_mlstm_scan_smem_bytes(int Dh, int route, int pass,
+                                           int* c_in_smem) {
+  *c_in_smem = 0;
+  if (route == 2) {
+    if (pass == 0) return (int)ScoresSmem::bytes;
+    if (pass == 1) return (int)StatesSmem::bytes;
+    if (pass == 2) return (int)OutputsSmem::bytes;
+    return -1;
+  }
+  if ((route != 0 && route != 1) || pass != 0) return -1;
   const long long with_c = sizeof(float) * state_smem_floats(Dh, true);
   *c_in_smem = with_c <= SMEM_LIMIT;
   return (int)(*c_in_smem ? with_c
                           : sizeof(float) * state_smem_floats(Dh, false));
 }
 
-// q, k, v: (B, S, H, Dh) of one dtype (0 float32, 1 bf16); ig, fg: (B, S, H)
-// float32; C0 (B, H, Dh, Dh), n0 (B, H, Dh), m0 (B, H) float32, or all
-// three null (zeros, zeros, -1e30); scores: the workspace; h: (B, S, H, Dh),
-// C, n, m like C0, n0, m0, float32.  All contiguous, on the current device.
-// Launches both kernels on `stream` and returns cudaGetLastError() after
-// them (0 on success).
+// q, k, v: (B, S, H, Dh), float32 on route 0, bf16 on routes 1 and 2; ig,
+// fg: (B, S, H) float32; C0 (B, H, Dh, Dh), n0 (B, H, Dh), m0 (B, H)
+// float32, or all three null (zeros, zeros, -1e30); ws: the route's
+// workspace (repro_mlstm_scan_workspace_bytes; 16-byte aligned on route 2);
+// h: (B, S, H, Dh), C, n, m like C0, n0, m0, float32.  All contiguous, on
+// the current device; route 2 also needs q, k, v on 16-byte boundaries and
+// Dh a multiple of 8.  Launches the route's kernels on `stream` and returns
+// cudaGetLastError() after them (0 on success), or the error that refused
+// the call.
 extern "C" int repro_mlstm_scan(const void* q, const void* k, const void* v,
                                 const void* ig, const void* fg,
                                 const void* C0, const void* n0,
-                                const void* m0, void* scores, void* h,
-                                void* C, void* n, void* m, int B, int S,
-                                int H, int Dh, int dtype, float sqrt_dh,
+                                const void* m0, void* ws, void* h, void* C,
+                                void* n, void* m, int B, int S, int H,
+                                int Dh, int route, float sqrt_dh,
                                 void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || Dh <= 0) return (int)cudaErrorInvalidValue;
   if ((C0 == nullptr) != (n0 == nullptr) || (C0 == nullptr) != (m0 == nullptr))
@@ -527,17 +1470,23 @@ extern "C" int repro_mlstm_scan(const void* q, const void* k, const void* v,
   const float* f_C0 = static_cast<const float*>(C0);
   const float* f_n0 = static_cast<const float*>(n0);
   const float* f_m0 = static_cast<const float*>(m0);
-  float* f_sc = static_cast<float*>(scores);
   float* f_h = static_cast<float*>(h);
   float* f_C = static_cast<float*>(C);
   float* f_n = static_cast<float*>(n);
   float* f_m = static_cast<float*>(m);
-  if (dtype == 0)
-    return (int)launch<float>(q, k, v, f_ig, f_fg, f_C0, f_n0, f_m0, f_sc,
-                              f_h, f_C, f_n, f_m, B, S, H, Dh, sqrt_dh, st);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, k, v, f_ig, f_fg, f_C0, f_n0, f_m0,
-                                      f_sc, f_h, f_C, f_n, f_m, B, S, H, Dh,
-                                      sqrt_dh, st);
-  return (int)cudaErrorInvalidValue;
+  switch (route) {
+    case 0:
+      return (int)launch<float>(q, k, v, f_ig, f_fg, f_C0, f_n0, f_m0,
+                                static_cast<float*>(ws), f_h, f_C, f_n, f_m,
+                                B, S, H, Dh, sqrt_dh, st);
+    case 1:
+      return (int)launch<__nv_bfloat16>(q, k, v, f_ig, f_fg, f_C0, f_n0, f_m0,
+                                        static_cast<float*>(ws), f_h, f_C,
+                                        f_n, f_m, B, S, H, Dh, sqrt_dh, st);
+    case 2:
+      return (int)launch_wgmma(q, k, v, f_ig, f_fg, f_C0, f_n0, f_m0, ws, f_h,
+                               f_C, f_n, f_m, B, S, H, Dh, sqrt_dh, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

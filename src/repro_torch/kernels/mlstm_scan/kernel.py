@@ -1,25 +1,47 @@
 """ctypes binding of the chunkwise mLSTM CUDA kernels (csrc/mlstm_scan.cu).
 
-``launch`` runs the scores and the state kernel on tensors that
-``ops.mlstm_chunkwise`` has checked, on PyTorch's current stream, and counts
-the call in ``LAUNCHES`` (one per call: each call launches the two
-kernels).  A run reads the counter to show that it went through the
-kernels.  The library is built at the first launch, never at import.
+``launch`` runs one route's kernels on tensors that ``ops.mlstm_chunkwise``
+has checked and routed, on PyTorch's current stream, and counts the call
+in ``LAUNCHES`` and in ``LAUNCHES_BY_ROUTE`` under its route (one per
+call, whatever the number of kernels the route launches):
+
+* ``wgmma_bf16``: bf16 q, k, v that TMA can address; a gate pass, a
+  q k^T pass, a state pass and an output pass with the products on bf16
+  ``wgmma``;
+* ``scalar_bf16``: other bf16 q, k, v, on the scalar float32 kernels;
+* ``scalar_f32``: float32 q, k, v, on the scalar float32 kernels.
+
+A run reads the counters to show which kernels it went through.  The
+library is built at the first launch, never at import.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
-LAUNCHES = 0    # launch() calls in this process; reset by whoever reads it
+# the C function's route code, by route name
+ROUTES = {"scalar_f32": 0, "scalar_bf16": 1, "wgmma_bf16": 2}
+# the kernels of each route whose dynamic shared memory
+# ``shared_memory_bytes`` reports, in the C function's pass order
+PASSES = {"scalar_f32": ("state",), "scalar_bf16": ("state",),
+          "wgmma_bf16": ("scores", "states", "outputs")}
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+LAUNCHES = 0    # launch() calls in this process; reset by whoever reads it
+LAUNCHES_BY_ROUTE = {route: 0 for route in ROUTES}
+
 _fn = None
+
+
+def reset_launches() -> None:
+    global LAUNCHES
+    LAUNCHES = 0
+    for route in LAUNCHES_BY_ROUTE:
+        LAUNCHES_BY_ROUTE[route] = 0
 
 
 def _kernel_fn():
@@ -33,52 +55,71 @@ def _kernel_fn():
     return _fn
 
 
-def chunk() -> int:
-    """Steps per chunk of the kernels (the last chunk of S is masked)."""
+def chunk(route: str) -> int:
+    """Steps per chunk of ``route`` (the last chunk of S is masked)."""
     fn = build.load_library().repro_mlstm_scan_chunk
+    fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_int
-    return fn()
+    return fn(ROUTES[route])
 
 
-def workspace_floats(B: int, S: int, H: int) -> int:
-    """Floats of the raw-scores workspace of one call."""
-    fn = build.load_library().repro_mlstm_scan_workspace_floats
-    fn.argtypes = [ctypes.c_int] * 3
+def workspace_bytes(B: int, S: int, H: int, Dh: int, route: str) -> int:
+    """Bytes of the workspace one call of ``route`` allocates: the raw
+    scores on the scalar routes; the gates, the scores, and n and C^T (bf16
+    hi and lo) at each chunk's entry of one segment of S (at most 1 GiB of
+    C^T), on the wgmma route."""
+    fn = build.load_library().repro_mlstm_scan_workspace_bytes
+    fn.argtypes = [ctypes.c_int] * 5
     fn.restype = ctypes.c_longlong
-    return fn(B, S, H)
+    return fn(B, S, H, Dh, ROUTES[route])
 
 
-def shared_memory_bytes(head_dim: int) -> Tuple[int, bool]:
-    """(dynamic shared memory of one state block, whether its slab of C
-    lives there) at ``head_dim``."""
+def shared_memory_bytes(head_dim: int, route: str) -> Dict[str, int]:
+    """{kernel: dynamic shared memory of one block} of ``route`` at
+    ``head_dim`` (``PASSES``), as the kernels request it."""
     fn = build.load_library().repro_mlstm_scan_smem_bytes
-    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
-    in_smem = ctypes.c_int(0)
-    nbytes = fn(head_dim, ctypes.byref(in_smem))
-    return nbytes, bool(in_smem.value)
+    flag = ctypes.c_int(0)
+    return {name: fn(head_dim, ROUTES[route], i, ctypes.byref(flag))
+            for i, name in enumerate(PASSES[route])}
+
+
+def state_in_shared_memory(head_dim: int) -> bool:
+    """Whether the scalar state kernel keeps its slab of C in shared memory
+    at ``head_dim`` (else in device memory, through L2)."""
+    fn = build.load_library().repro_mlstm_scan_smem_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    flag = ctypes.c_int(0)
+    fn(head_dim, ROUTES["scalar_f32"], 0, ctypes.byref(flag))
+    return bool(flag.value)
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            ig: torch.Tensor, fg: torch.Tensor,
            init: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
            h: torch.Tensor, C: torch.Tensor, n: torch.Tensor,
-           m: torch.Tensor) -> None:
+           m: torch.Tensor, route: str) -> None:
     """(h, C, n, m) <- the chunkwise mLSTM of (q, k, v, ig, fg) from
-    ``init`` (or the zero state); all contiguous on one GPU, ig, fg, init,
-    h, C, n and m float32."""
+    ``init`` (or the zero state) on ``route``; all contiguous on one GPU,
+    ig, fg, init, h, C, n and m float32."""
     global LAUNCHES
     B, S, H, Dh = q.shape
     fn = _kernel_fn()
-    scores = torch.empty((workspace_floats(B, S, H),), dtype=torch.float32,
-                         device=q.device)
+    # 16-byte aligned, as TMA needs (the caching allocator's blocks are)
+    ws = torch.empty((workspace_bytes(B, S, H, Dh, route),),
+                     dtype=torch.uint8, device=q.device)
     C0, n0, m0 = (None, None, None) if init is None else \
         tuple(t.data_ptr() for t in init)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ig.data_ptr(),
-                 fg.data_ptr(), C0, n0, m0, scores.data_ptr(), h.data_ptr(),
+                 fg.data_ptr(), C0, n0, m0, ws.data_ptr(), h.data_ptr(),
                  C.data_ptr(), n.data_ptr(), m.data_ptr(), B, S, H, Dh,
-                 _DTYPE_CODE[q.dtype], math.sqrt(Dh), stream)
-    build.check_launch(err, "mlstm_scan kernel launch")
+                 ROUTES[route], math.sqrt(Dh), stream)
+    build.check_launch(err, f"mlstm_scan kernel launch ({route})")
     LAUNCHES += 1
+    LAUNCHES_BY_ROUTE[route] += 1

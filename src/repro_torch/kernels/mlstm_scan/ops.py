@@ -7,7 +7,17 @@ On tensors that lie on the CPU it computes the plain version (``ref``) at
 ``chunk``.  On CUDA tensors it launches the CUDA kernels or raises: there is
 no fallback, for any S, for ``init_state`` or for a build failure.  The
 result does not depend on the chunk, and the kernels take their own (64
-steps, the last chunk masked); ``chunk`` is then only checked.
+steps on the scalar routes, 128 on the wgmma route, the last chunk
+masked); ``chunk`` is then only checked.
+
+The route is chosen by dtype and shape (``kernel_route``), before any
+launch, never by catching an error:
+* float32 q, k, v take ``scalar_f32``, the scalar float32 kernels;
+* bf16 q, k, v that TMA can address take ``wgmma_bf16``: Dh a multiple of
+  8 (TMA's strides are multiples of 16 bytes) and q, k, v on 16-byte
+  boundaries;
+* other bf16 q, k, v take ``scalar_bf16``, the scalar kernels' bf16
+  instantiation.
 """
 from __future__ import annotations
 
@@ -59,6 +69,15 @@ def check_kernel_args(q, k, v, ig, fg, init_state) -> None:
                          "init_state")
 
 
+def kernel_route(q, k, v) -> str:
+    """The route of ``kernel.ROUTES`` that checked q, k, v take."""
+    if q.dtype == torch.float32:
+        return "scalar_f32"
+    tma_ok = q.shape[-1] % 8 == 0 and \
+        all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    return "wgmma_bf16" if tma_ok else "scalar_bf16"
+
+
 def mlstm_chunkwise(q, k, v, ig, fg, *, chunk: int = 64, init_state=None):
     """The chunkwise mLSTM; see ``ref.reference_mlstm``."""
     _check_shapes(q, k, v, ig, fg, chunk, init_state)
@@ -78,5 +97,6 @@ def mlstm_chunkwise(q, k, v, ig, fg, *, chunk: int = 64, init_state=None):
     C = torch.empty((B, H, Dh, Dh), **f32)
     n = torch.empty((B, H, Dh), **f32)
     m = torch.empty((B, H), **f32)
-    kernel.launch(q, k, v, ig, fg, init_state, h, C, n, m)
+    kernel.launch(q, k, v, ig, fg, init_state, h, C, n, m,
+                  kernel_route(q, k, v))
     return h, (C, n, m)

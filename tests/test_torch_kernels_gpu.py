@@ -388,21 +388,57 @@ def _mlstm_inputs(B, S, H, Dh, dtype, with_init=False, stress=False, seed=0):
     (2, 136, 4, 512, True, False),     # from an initial state
     (2, 1000, 4, 1024, False, True),   # the stabiliser under stress
     (1, 100, 2, 1300, False, False),   # C past shared memory
+    (2, 127, 2, 256, False, False),    # the wgmma route's chunk (128): less,
+    (2, 128, 2, 256, True, False),     # one whole chunk,
+    (2, 129, 2, 256, False, False),    # one step more,
+    (1, 257, 2, 128, True, False),     # two chunks and one step
+    (2, 150, 2, 96, True, False),      # Dh not a multiple of 64
+    (1, 50, 1, 37, True, False),       # H * Dh odd: TMA cannot address it
+    (1, 2600, 16, 1024, True, False),  # two segments of the wgmma route
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_mlstm_kernel_matches_plain(B, S, H, Dh, with_init, stress, dtype):
     _need_cuda()
     xs, init = _mlstm_inputs(B, S, H, Dh, dtype, with_init, stress)
-    before = ml_kernel.LAUNCHES
+    route = "scalar_f32" if dtype == torch.float32 else \
+        "wgmma_bf16" if Dh % 8 == 0 else "scalar_bf16"
+    before = ml_kernel.LAUNCHES, ml_kernel.LAUNCHES_BY_ROUTE[route]
     h, state = ml_ops.mlstm_chunkwise(*xs, chunk=256, init_state=init)
     torch.cuda.synchronize()
-    assert ml_kernel.LAUNCHES == before + 1
+    assert (ml_kernel.LAUNCHES, ml_kernel.LAUNCHES_BY_ROUTE[route]) == \
+        (before[0] + 1, before[1] + 1)
     assert h.dtype == torch.float32 and h.shape == xs[0].shape
     wh, wstate = ml_ref.reference_mlstm(*xs, chunk=256, init_state=init)
     for name, got, want in zip("hCnm", (h,) + state, (wh,) + wstate):
         assert got.dtype == torch.float32 and got.shape == want.shape, name
         rel = float((got - want).abs().max() / want.abs().max())
         assert rel <= MLSTM_RTOL, (name, rel)
+
+
+def test_mlstm_kernel_counts_bf16_on_wgmma_and_float32_on_scalar():
+    """The route follows dtype and shape: bf16 that TMA can address on
+    wgmma_bf16, a bf16 view one element into its storage on scalar_bf16,
+    float32 on scalar_f32; one count per call on one route."""
+    _need_cuda()
+    assert ml_kernel.chunk("wgmma_bf16") == ml_ref.WGMMA_CHUNK
+    xs, _ = _mlstm_inputs(2, 130, 2, 64, torch.bfloat16)
+    storage = torch.randn(2 * 130 * 2 * 64 + 1, device="cuda").bfloat16()
+    q_off = storage[1:].view(xs[0].shape)
+    assert q_off.is_contiguous() and q_off.data_ptr() % 16 == 2
+    q_off.copy_(xs[0])
+    want, _ = ml_ref.reference_mlstm(*xs, chunk=256)
+    for args, route in ((xs, "wgmma_bf16"), ((q_off,) + xs[1:], "scalar_bf16"),
+                        ((xs[0].float(), xs[1].float(), xs[2].float())
+                         + xs[3:], "scalar_f32")):
+        assert ml_ops.kernel_route(*args[:3]) == route
+        before = dict(ml_kernel.LAUNCHES_BY_ROUTE), ml_kernel.LAUNCHES
+        h, _ = ml_ops.mlstm_chunkwise(*args, chunk=256)
+        torch.cuda.synchronize()
+        assert ml_kernel.LAUNCHES == before[1] + 1
+        assert ml_kernel.LAUNCHES_BY_ROUTE == {
+            r: n + (r == route) for r, n in before[0].items()}
+        rel = float((h - want).abs().max() / want.abs().max())
+        assert rel <= MLSTM_RTOL, (route, rel)
 
 
 def test_mlstm_kernel_rejects_what_it_does_not_take():
@@ -451,3 +487,45 @@ def test_xlstm_model_on_gpu_matches_plain_on_cpu():
         lg_off, c_off = R.decode_step(params, cfg, toks[:, t:t + 1], t,
                                       c_off, device="cpu")
         assert float((lg_on.cpu() - lg_off).abs().max()) < 1e-3
+
+
+def test_bf16_xlstm_model_on_wgmma_is_as_close_to_float32_as_plain():
+    """xlstm-1.3b reduced with two heads, so an mLSTM head dim of 64, in
+    bf16: forward and prefill through mlstm_scan's wgmma route (CUDA)
+    against the float32 plain version on the CPU.  bf16 rounds at other
+    points on the two devices, so, as the Griffin slice holds its bf16
+    model (ROADMAP C18), the kernel path's error may be at most twice the
+    plain bf16 version's own."""
+    _need_cuda()
+    cfg = dataclasses.replace(get_arch("xlstm-1.3b").reduced(), n_heads=2,
+                              dtype="bfloat16")
+    assert 2 * cfg.d_model // cfg.n_heads == 64
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = R.init_params(cfg, 0, device="cpu")
+    params32 = {k: ([{g: {n: w.float() for n, w in sub.items()}
+                      for g, sub in lay.items()} for lay in v]
+                    if k == "layers" else v.float())
+                for k, v in params.items()}
+    params_gpu = {k: ([{g: {n: w.cuda() for n, w in sub.items()}
+                        for g, sub in lay.items()} for lay in v]
+                      if k == "layers" else v.cuda())
+                  for k, v in params.items()}
+    toks = torch.randint(0, cfg.vocab_size, (2, 150),
+                         generator=torch.Generator().manual_seed(0))
+    n_mlstm = cfg.n_layers // 2
+    truth = R.forward_logits(params32, cfg32, {"tokens": toks}, device="cpu")
+    plain = R.forward_logits(params, cfg, {"tokens": toks}, device="cpu")
+    before = ml_kernel.LAUNCHES_BY_ROUTE["wgmma_bf16"]
+    on = R.forward_logits(params_gpu, cfg, {"tokens": toks}, device="cuda")
+    assert ml_kernel.LAUNCHES_BY_ROUTE["wgmma_bf16"] == before + n_mlstm
+    plain_err = float((plain.float() - truth).abs().max())
+    err = float((on.float().cpu() - truth).abs().max())
+    assert plain_err < 0.15, plain_err
+    assert err <= 2 * plain_err, (err, plain_err)
+    lg_on, _ = R.prefill(params_gpu, cfg, {"tokens": toks[:, :140]},
+                         device="cuda")
+    lg_off, _ = R.prefill(params, cfg, {"tokens": toks[:, :140]},
+                          device="cpu")
+    assert ml_kernel.LAUNCHES_BY_ROUTE["wgmma_bf16"] == before + 2 * n_mlstm
+    assert float((lg_on.float().cpu() - truth[:, 139]).abs().max()) <= \
+        2 * max(plain_err, float((lg_off.float() - truth[:, 139]).abs().max()))

@@ -75,6 +75,27 @@ def _scan_inputs(B, S, D, seed=0):
     return x, lam, ga, gx, h0
 
 
+def _rglru_float64(x, lam, ga, gx, h0=None):
+    """The RG-LRU in float64 numpy, step by step: the gates as
+    ``repro.models.rglru.rglru`` forms them, then h_t = a_t h_{t-1} + b_t.
+    Returns (y (B, S, D), h_last (B, D))."""
+    x, lam, ga, gx = (np.asarray(a, np.float64) for a in (x, lam, ga, gx))
+    log_a = -JG.RGLRU_C * np.logaddexp(0.0, lam) / (1.0 + np.exp(-ga))
+    b = np.sqrt(-np.expm1(2.0 * log_a)) * x / (1.0 + np.exp(-gx))
+    a = np.exp(log_a)
+    h = np.zeros(x[:, 0].shape) if h0 is None else np.asarray(h0, np.float64)
+    y = np.empty_like(x)
+    for t in range(x.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        y[:, t] = h
+    return y, h
+
+
+# the reference under jit, as the other parity tests call it: one XLA
+# executable rather than the associative scan's ops dispatched one by one
+_jax_rglru = jax.jit(JG.rglru)
+
+
 # ------------------------------------------------------------ RG-LRU ops
 @pytest.mark.parametrize("B,S,D,with_h0", [
     (2, 136, 128, False),     # shapes whose steps, channels or rows the
@@ -85,17 +106,24 @@ def _scan_inputs(B, S, D, seed=0):
     (3, 77, 200, True),       # with an initial state
 ])
 def test_plain_rglru_matches_jax(B, S, D, with_h0):
+    """The port's plain scan and the JAX package's, each held against the
+    same recurrence step by step in float64 (numpy), so that an error names
+    its side: both are float32 evaluations of one function, ~5e-7 from it
+    at (2, 136, 128), 1/20 of OP_TOL."""
     x, lam, ga, gx, h0 = _scan_inputs(B, S, D)
     h0 = h0 if with_h0 else None
-    wy, wh = JG.rglru(*(jnp.asarray(a) for a in (x, lam, ga, gx)),
-                      None if h0 is None else jnp.asarray(h0))
+    ty, th = _rglru_float64(x, lam, ga, gx, h0)
+    wy, wh = _jax_rglru(*(jnp.asarray(a) for a in (x, lam, ga, gx)),
+                        None if h0 is None else jnp.asarray(h0))
     before = kernel.LAUNCHES
     gy, gh = ops.rglru(_t(x), _t(lam), _t(ga), _t(gx),
                        None if h0 is None else _t(h0))
     assert kernel.LAUNCHES == before        # the CPU takes the plain version
     assert gy.dtype == gh.dtype == torch.float32
-    np.testing.assert_allclose(gy.numpy(), np.asarray(wy), **OP_TOL)
-    np.testing.assert_allclose(gh.numpy(), np.asarray(wh), **OP_TOL)
+    for side, y, h in (("port", gy.numpy(), gh.numpy()),
+                       ("jax", np.asarray(wy), np.asarray(wh))):
+        np.testing.assert_allclose(y, ty, err_msg=side, **OP_TOL)
+        np.testing.assert_allclose(h, th, err_msg=side, **OP_TOL)
 
 
 def test_plain_rglru_takes_bf16_x_with_float32_gates():

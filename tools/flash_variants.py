@@ -70,8 +70,11 @@ def build_variant(name, edits):
                         .replace(",", "").replace("(", "").replace(")", ""))
     with open(stem + ".cu", "w") as f:
         f.write(src)
-    res = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o",
-                          stem + ".so", stem + ".cu", ERRORS],
+    # -I: the copy's relative include of csrc/hopper.cuh resolves from the
+    # source's own directory
+    res = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I",
+                          os.path.dirname(SOURCE), "-o", stem + ".so",
+                          stem + ".cu", ERRORS],
                          capture_output=True, text=True)
     if res.returncode:
         raise SystemExit(f"{name}: nvcc failed\n{res.stderr}")
