@@ -22,12 +22,16 @@ a non-zero exit:
                 attention at minicpm's, granite-moe's and recurrentgemma's
                 prefill shapes, with kernel / SDPA as a factor); bf16 flash
                 attention runs on the wgmma route, float32 on the scalar
-                one; mlstm_scan likewise (bf16 that TMA cannot address on
-                its scalar bf16 route), each case on the route its dtype
-                and shape pick, with each pass of the wgmma route timed at
-                the serving shape beside the scalar bf16 kernel, and also
-                under stress with random keys, against the recurrence in
-                float64
+                one; moe_gmm likewise (bf16 that TMA cannot address on its
+                WMMA route), timed at granite-moe's prefill with every row
+                live and at its decode with a routing's bucket fills (only
+                the touched experts' weights streamed), with the launches
+                per route; mlstm_scan likewise (bf16 that TMA cannot
+                address on its scalar bf16 route), each case on the route
+                its dtype and shape pick, with each pass of the wgmma route
+                timed at the serving shape beside the scalar bf16 kernel,
+                and also under stress with random keys, against the
+                recurrence in float64
 4. serve        full-width minicpm-2b (40 layers, bf16, random weights from a
                 seed) serves 8 requests of 1000 prompt tokens through
                 ``repro_torch.launch.serve.serve``; every prefill layer must
@@ -39,8 +43,8 @@ a non-zero exit:
 6. serve        the same for full-width granite-moe-3b-a800m (32 layers, 40
                 experts top-8) with ``moe_dispatch="gather"``: every MoE
                 layer of every prefill and decode call must have launched the
-                moe_gmm kernels, every attention layer of every prefill the
-                flash kernel
+                moe_gmm kernels, on their wgmma route, every attention layer
+                of every prefill the flash kernel
 7. consistency  the same for granite-moe in float32, at a capacity where no
                 (token, expert) pair is dropped
 8. serve        the same for full-width recurrentgemma-9b (38 layers: 26
@@ -405,10 +409,59 @@ GMM_CASES = [
     ("geglu-136", 4, 136, 256, 512, "geglu", True, 17),
     ("relu2-no-w3", 4, 136, 256, 512, "relu2", False, 17),
 ]
+# granite-moe's decode with served routing: 4 tokens routed top-8 of 40
+# experts by a seeded router, the buckets (C 8) filled to each expert's
+# count and zero after, the fills handed to the kernel as ``counts``
+GMM_DECODE_ROUTED = ("granite-decode-routed", 40, 4, 8, 1536, 512)
+
+
+def gmm_route(dtype, d, f) -> str:
+    """The route of moe_gmm a contiguous fresh input takes (ops.py's rule):
+    float32 on the scalar kernels, bf16 on wgmma where TMA can address it
+    (d and f multiples of 8), else on the WMMA kernels."""
+    if dtype == torch.float32:
+        return "scalar_f32"
+    return "wgmma_bf16" if d % 8 == 0 and f % 8 == 0 else "wmma_bf16"
+
+
+def run_gmm_case(name, xe, p, act, counts, pad_note):
+    """One moe_gmm call on the route its inputs pick, held against the
+    plain version; returns (max abs error, rows at or past counts all 0)."""
+    from repro_torch.kernels.moe_gmm import kernel, ops, ref
+    E, C, d = xe.shape
+    f = p["w1"].shape[-1]
+    route = gmm_route(xe.dtype, d, f)
+    got_route = ops.kernel_route(xe, p["w1"], p.get("w3"), p["w2"])
+    check(got_route == route,
+          f"moe_gmm {name}: route {got_route}, expected {route}")
+    before = kernel.LAUNCHES_BY_ROUTE[route]
+    out = ops.expert_ffn(xe, p, act, counts)
+    torch.cuda.synchronize()
+    check(kernel.LAUNCHES_BY_ROUTE[route] == before + 1,
+          f"moe_gmm {name} {xe.dtype} did not run on {route}")
+    want = ref.reference_expert_ffn(
+        xe.float(), {k: w.float() for k, w in p.items()}, act, counts)
+    scale = float(want.abs().max())
+    err = float((out.float() - want).abs().max())
+    rel = err / scale if scale > 0 else err
+    tol = GMM_RTOL[xe.dtype]
+    pads_zero = True
+    if counts is not None:
+        rows = torch.arange(C, device=xe.device)
+        pads_zero = not bool(out[rows[None, :] >= counts[:, None]].any())
+    print(f"  {name:21s} {str(xe.dtype):15s} E={E} C={C} d={d} f={f} "
+          f"{act}{'' if 'w3' in p else ' no w3'} ({route}): "
+          f"max_abs_err={err:.3e} max|y|={scale:.3e} rel={rel:.3e} "
+          f"tol={tol:.0e}; {pad_note}", flush=True)
+    check(math.isfinite(rel) and rel <= tol,
+          f"moe_gmm {name} {xe.dtype}: relative error {rel} > {tol}")
+    check(pads_zero, f"moe_gmm {name} {xe.dtype}: a row past counts is not 0")
+    return err
 
 
 def phase_kernel_moe():
-    from repro_torch.kernels.moe_gmm import ops, ref
+    """Returns the timings at the prefill and the routed decode shape."""
+    from repro_torch.kernels.moe_gmm import kernel
     gen = torch.Generator(device="cuda").manual_seed(1)
     result = None
     for name, E, C, d, f, act, gated, pad in GMM_CASES:
@@ -424,28 +477,76 @@ def phase_kernel_moe():
         for dtype in (torch.bfloat16, torch.float32):
             xe = x32.to(dtype)
             p = {k: w.to(dtype) for k, w in p32.items()}
-            out = ops.expert_ffn(xe, p, act)
-            torch.cuda.synchronize()
-            want = ref.reference_expert_ffn(
-                xe.float(), {k: w.float() for k, w in p.items()}, act)
-            scale = float(want.abs().max())
-            err = float((out.float() - want).abs().max())
-            rel = err / scale if scale > 0 else err
-            tol = GMM_RTOL[dtype]
             bound_ms, bound_by, _, _ = gmm_bound(E, C - pad, d, f, gated,
                                                  dtype)
-            print(f"  {name:16s} {str(dtype):15s} E={E} C={C} d={d} f={f} "
-                  f"{act}{'' if gated else ' no w3'}: max_abs_err={err:.3e} "
-                  f"max|y|={scale:.3e} rel={rel:.3e} tol={tol:.0e}; bound "
-                  f"over the {C - pad} real rows {bound_ms * 1e3:.2f} us by "
-                  f"{bound_by}", flush=True)
-            check(math.isfinite(rel) and rel <= tol,
-                  f"moe_gmm {name} {dtype}: relative error {rel} > {tol}")
+            err = run_gmm_case(
+                name, xe, p, act, None,
+                f"bound over the {C - pad} real rows {bound_ms * 1e3:.2f} "
+                f"us by {bound_by}")
             if result is None and dtype == torch.bfloat16:
                 result = time_moe_kernel(xe, p, act, err)
-            del xe, p, out, want
+            del xe, p
         del x32, p32
         torch.cuda.empty_cache()
+    result["at_decode_routed"] = phase_kernel_moe_decode(gen)
+    print(f"  moe_gmm launches by route in this phase: "
+          f"{dict(kernel.LAUNCHES_BY_ROUTE)}", flush=True)
+    return result
+
+
+def routed_fills(E, T, k, gen):
+    """Bucket fills of a seeded top-k routing of T tokens over E experts:
+    int32 (E,), and the number of experts some token reached."""
+    logits = torch.randn((T, E), generator=gen, device="cuda")
+    idx = torch.topk(logits, k, dim=-1).indices.reshape(-1)
+    counts = torch.zeros(E, dtype=torch.int32, device="cuda")
+    counts.scatter_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
+    return counts, int((counts > 0).sum())
+
+
+def phase_kernel_moe_decode(gen):
+    """GMM_DECODE_ROUTED in bf16 and float32 against the plain version,
+    and the bf16 kernel's time there beside two bounds: every expert's
+    weights, and the touched experts' only."""
+    from repro_torch.kernels.moe_gmm import ops
+    name, E, T, C, d, f = GMM_DECODE_ROUTED
+    counts, touched = routed_fills(E, T, 8, gen)
+    rows = torch.arange(C, device="cuda")
+    live = (rows[None, :] < counts[:, None])[..., None]
+    x32 = torch.randn((E, C, d), generator=gen, device="cuda") * live
+    p32 = {k: torch.randn(s, generator=gen, device="cuda") / math.sqrt(s[1])
+           for k, s in (("w1", (E, d, f)), ("w3", (E, d, f)),
+                        ("w2", (E, f, d)))}
+    n_live = int(counts.sum())
+    result = None
+    for dtype in (torch.bfloat16, torch.float32):
+        xe = x32.to(dtype)
+        p = {k: w.to(dtype) for k, w in p32.items()}
+        err = run_gmm_case(name, xe, p, "swiglu", counts,
+                           f"{n_live} live rows in {touched} of {E} experts")
+        if dtype == torch.bfloat16:
+            kernel_ms = cuda_ms(lambda: ops.expert_ffn(xe, p, "swiglu",
+                                                       counts), iters=50)
+            all_ms, all_by, _, _ = gmm_bound(E, C, d, f, True, dtype)
+            # the least the card could do: the touched experts' weights,
+            # the live rows of xe read and of y written
+            nbytes = 2 * (2 * n_live * d + 3 * touched * d * f)
+            flops = 6.0 * n_live * d * f
+            t_ops = flops / PEAK_FLOPS[dtype]
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            bound_ms = max(t_ops, t_bytes) * 1e3
+            bound_by = "bytes" if t_bytes >= t_ops else "operations"
+            print(f"  timing at {name} (E={E} C={C} d={d} f={f} {dtype}, "
+                  f"{n_live} live rows, {touched} experts touched): kernel "
+                  f"{kernel_ms:.4f} ms; bound over the touched experts "
+                  f"{bound_ms * 1e3:.2f} us by {bound_by} "
+                  f"({nbytes / 1e6:.2f} MB), over all {E} experts "
+                  f"{all_ms * 1e3:.2f} us by {all_by}", flush=True)
+            result = {"max_abs_err": err, "ms": kernel_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "bound_all_experts_ms": all_ms,
+                      "touched_experts": touched, "live_rows": n_live}
+        del xe, p
     return result
 
 
@@ -808,9 +909,9 @@ def layer_counts(cfg) -> dict:
 def phase_serve(arch: str, moe_dispatch: str = "einsum",
                 profile_len: int = PROMPT_LEN):
     """Serve SERVE_REQUESTS requests of ``arch`` at full width through
-    ``serve()``; returns (cfg, params, launches of each kernel, flash
-    attention's and mlstm_scan's launches by route).  The profiled prefill
-    takes the first ``profile_len`` prompt tokens."""
+    ``serve()``; returns (cfg, params, launches of each kernel, {kernel:
+    launches by route} of flash_attention, moe_gmm and mlstm_scan).  The
+    profiled prefill takes the first ``profile_len`` prompt tokens."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
@@ -838,7 +939,7 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum",
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa_kernel.reset_launches()
-    gmm_kernel.LAUNCHES = 0
+    gmm_kernel.reset_launches()
     rg_kernel.LAUNCHES = 0
     ml_kernel.reset_launches()
     t0 = time.perf_counter()
@@ -851,6 +952,7 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum",
                 "rglru_scan": rg_kernel.LAUNCHES,
                 "mlstm_scan": ml_kernel.LAUNCHES}
     fa_routes = dict(fa_kernel.LAUNCHES_BY_ROUTE)
+    gmm_routes = dict(gmm_kernel.LAUNCHES_BY_ROUTE)
     ml_routes = dict(ml_kernel.LAUNCHES_BY_ROUTE)
     peak = torch.cuda.max_memory_allocated()
 
@@ -882,8 +984,13 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum",
                         for r in fa_routes},
           f"flash_attention launches by route {fa_routes}: a {cfg.dtype} "
           f"model must take {fa_route} only")
-    # and its mLSTM layers the wgmma route (contiguous fresh q, k, v)
+    # and its mLSTM layers and expert FFNs the wgmma route (contiguous
+    # fresh q, k, v; buckets with d and f multiples of 8)
     check(cfg.dtype == "bfloat16", f"served in {cfg.dtype}")
+    check(gmm_routes == {r: launches["moe_gmm"] if r == "wgmma_bf16" else 0
+                         for r in gmm_routes},
+          f"moe_gmm launches by route {gmm_routes}: a bfloat16 model must "
+          f"take wgmma_bf16 only")
     check(ml_routes == {r: launches["mlstm_scan"] if r == "wgmma_bf16" else 0
                         for r in ml_routes},
           f"mlstm_scan launches by route {ml_routes}: a bfloat16 model must "
@@ -903,8 +1010,9 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum",
           + (f" = {n_mlstm} mLSTM layers x {n_prefill} prefills"
              if want["mlstm_scan"] else "")
           + f"; peak memory {peak / 2**30:.2f} GiB", flush=True)
-    print(f"  flash_attention launches by route: {fa_routes}; mlstm_scan "
-          f"launches by route: {ml_routes}", flush=True)
+    print(f"  flash_attention launches by route: {fa_routes}; moe_gmm "
+          f"launches by route: {gmm_routes}; mlstm_scan launches by route: "
+          f"{ml_routes}", flush=True)
     print(f"  req{done[0].rid}: {done[0].generated}", flush=True)
 
     # per-step times at the same shapes, through the same step functions
@@ -936,7 +1044,9 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum",
             lambda: prefill(params, {"tokens": toks[:, :profile_len]})))
         print_profile(f"decode step at batch {SERVE_SLOTS}", *profile_ms(
             lambda: decode(params, nxt, ctx_len - 1, cache)))
-    return cfg, params, launches, fa_routes, ml_routes
+    return cfg, params, launches, {"flash_attention": fa_routes,
+                                   "moe_gmm": gmm_routes,
+                                   "mlstm_scan": ml_routes}
 
 
 def count_drops(drops: list):
@@ -1044,25 +1154,23 @@ def main() -> int:
     gmm_timing = phase_kernel_moe()
     rg_timing = phase_kernel_rglru()
     ml_timing = phase_kernel_mlstm()
-    fa_launches, ml_launches = {}, {}
-    cfg, params, dense_launches, fa_launches[ARCH], ml_launches[ARCH] = \
-        phase_serve(ARCH)
+    routes = {}     # {arch: {kernel: launches by route}}
+    cfg, params, dense_launches, routes[ARCH] = phase_serve(ARCH)
     phase_consistency(cfg, params)
     del params
     torch.cuda.empty_cache()
-    cfg, params, moe_launches, fa_launches[MOE_ARCH], ml_launches[MOE_ARCH] = \
+    cfg, params, moe_launches, routes[MOE_ARCH] = \
         phase_serve(MOE_ARCH, moe_dispatch="gather")
     phase_consistency(cfg, params, moe_dispatch="gather")
     del params
     torch.cuda.empty_cache()
-    cfg, params, griffin_launches, fa_launches[GRIFFIN_ARCH], \
-        ml_launches[GRIFFIN_ARCH] = phase_serve(GRIFFIN_ARCH)
+    cfg, params, griffin_launches, routes[GRIFFIN_ARCH] = \
+        phase_serve(GRIFFIN_ARCH)
     phase_consistency(cfg, params, tol=GRIFFIN_CONSISTENCY_RTOL)
     del params
     torch.cuda.empty_cache()
-    cfg, params, xlstm_launches, fa_launches[XLSTM_ARCH], \
-        ml_launches[XLSTM_ARCH] = phase_serve(XLSTM_ARCH,
-                                              profile_len=XLSTM_PROFILE_LEN)
+    cfg, params, xlstm_launches, routes[XLSTM_ARCH] = \
+        phase_serve(XLSTM_ARCH, profile_len=XLSTM_PROFILE_LEN)
     phase_consistency(cfg, params, tol=XLSTM_CONSISTENCY_RTOL)
     del params
     torch.cuda.empty_cache()
@@ -1083,13 +1191,18 @@ def main() -> int:
              MOE_ARCH: moe_launches["flash_attention"],
              GRIFFIN_ARCH: griffin_launches["flash_attention"],
              XLSTM_ARCH: xlstm_launches["flash_attention"]},
-         "launches_by_route": fa_launches,
+         "launches_by_route": {arch: r["flash_attention"]
+                               for arch, r in routes.items()},
          "at_granite_shape": fa_timing["granite-prefill"],
          "at_griffin_shape": fa_timing["griffin-prefill"]},
         {"name": "moe_gmm", "route": "cuda",
          "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
          "replaces": "src/repro/kernels/moe_gmm/kernel.py:55",
-         "launches": moe_launches["moe_gmm"], **gmm_timing},
+         # launches on granite-moe's serving, all on wgmma_bf16 (checked in
+         # its serve phase); times at its prefill shape with every row live,
+         # and in "at_decode_routed" at its decode with a routing's fills
+         "launches": moe_launches["moe_gmm"],
+         "launches_by_route": routes[MOE_ARCH]["moe_gmm"], **gmm_timing},
         {"name": "rglru_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan/kernel.py:55",
@@ -1101,7 +1214,8 @@ def main() -> int:
          # "kernel_route" (checked in its serve phase); times at its prefill
          # shape, with each pass and the scalar bf16 kernels beside them
          "launches": xlstm_launches["mlstm_scan"],
-         "launches_by_route": ml_launches[XLSTM_ARCH], **ml_timing},
+         "launches_by_route": routes[XLSTM_ARCH]["mlstm_scan"],
+         **ml_timing},
     ]
     for k in kernels:
         # the same numbers again under short names (bound in microseconds)

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
@@ -53,8 +54,10 @@ def shared_memory_bytes(head_dim: int, dtype: torch.dtype) -> int:
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           out: torch.Tensor, *, causal: bool, window: int) -> None:
-    """out <- attention(q, k, v); all contiguous (B, S, heads, Dh) on one GPU."""
+           out: torch.Tensor, *, causal: bool, window: int,
+           scale: Optional[float] = None) -> None:
+    """out <- attention(q, k, v) with scores times ``scale`` (None: 1 /
+    sqrt(Dh)); all contiguous (B, S, heads, Dh) on one GPU."""
     global LAUNCHES
     B, S, H, Dh = q.shape
     KH = k.shape[2]
@@ -64,7 +67,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, S, H, KH, Dh, int(causal), int(window), code,
-                 1.0 / math.sqrt(Dh), stream)
+                 1.0 / math.sqrt(Dh) if scale is None else scale, stream)
     build.check_launch(err, f"flash_attention kernel launch ({route})")
     LAUNCHES += 1
     LAUNCHES_BY_ROUTE[route] += 1

@@ -3,13 +3,22 @@
 
 On tensors that lie on the CPU it computes the plain version (``ref``).  On
 CUDA tensors it launches the CUDA kernel or raises: there is no fallback,
-and any sequence length runs on the kernel.  The kernel's route follows the
-dtype: bf16 runs on tensor cores (``wgmma`` on tiles that TMA loads, which
-needs 16-byte aligned tensors), float32 on scalar FMAs.
+and any sequence length, any head dim up to 256 and any layout run on the
+kernel.  The kernel's route follows the dtype: bf16 runs on tensor cores
+(``wgmma`` on tiles that TMA loads, which needs 16-byte aligned tensors),
+float32 on scalar FMAs.  The kernel is built for the head dims in
+``SUPPORTED_HEAD_DIMS``; ``kernel_layout`` hands it any other q, k, v
+zero-padded along Dh to the next of them (zeros add nothing to q k^T, and
+the padded columns of the output are dropped; the scale stays that of the
+true Dh), and copies a non-contiguous q, k or v, or a bf16 one off a
+16-byte boundary, into a fresh contiguous tensor.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import kernel, ref
 
@@ -42,7 +51,7 @@ def check_alignment(q, k, v) -> None:
 
 
 def check_kernel_args(q, k, v) -> None:
-    """Raise on anything the CUDA kernel does not take."""
+    """Raise on anything the CUDA kernel does not take, in any layout."""
     devices = {t.device for t in (q, k, v)}
     if len(devices) != 1 or q.device.type != "cuda":
         raise ValueError(f"the kernel takes q, k, v on one CUDA device, got "
@@ -51,15 +60,34 @@ def check_kernel_args(q, k, v) -> None:
             v.dtype != q.dtype:
         raise ValueError(f"the kernel takes float32 or bfloat16 q, k, v of "
                          f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.shape[3] not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[3]} not supported by the kernel "
-                         f"(supported: {SUPPORTED_HEAD_DIMS})")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("the kernel takes contiguous q, k, v")
-    check_alignment(q, k, v)
+    if q.shape[3] > SUPPORTED_HEAD_DIMS[-1]:
+        raise ValueError(f"head dim {q.shape[3]} exceeds the kernel's "
+                         f"largest, {SUPPORTED_HEAD_DIMS[-1]}")
     if q.shape[0] * q.shape[2] > _MAX_BATCH_HEADS:
         raise ValueError(f"B * H = {q.shape[0] * q.shape[2]} exceeds "
                          f"{_MAX_BATCH_HEADS}")
+
+
+def kernel_head_dim(head_dim: int) -> int:
+    """The supported head dim a head dim of at most 256 is padded to."""
+    return next(dh for dh in SUPPORTED_HEAD_DIMS if dh >= head_dim)
+
+
+def kernel_layout(q, k, v):
+    """q, k, v as the kernel takes them: contiguous, bf16 on 16-byte
+    boundaries (``check_alignment``), their head dim zero-padded to
+    ``kernel_head_dim``.  A tensor that is so already is passed as it is;
+    any other is a fresh copy."""
+    dh = kernel_head_dim(q.shape[3])
+
+    def fit(t):
+        if t.shape[3] != dh:
+            return F.pad(t, (0, dh - t.shape[3]))
+        if not t.is_contiguous() or \
+                (t.dtype == torch.bfloat16 and t.data_ptr() % 16):
+            return t.clone(memory_format=torch.contiguous_format)
+        return t
+    return fit(q), fit(k), fit(v)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
@@ -68,6 +96,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return ref.reference_attention(q, k, v, causal=causal, window=window)
     check_kernel_args(q, k, v)
+    head_dim = q.shape[3]
+    q, k, v = kernel_layout(q, k, v)
+    check_alignment(q, k, v)
     out = torch.empty_like(q)
-    kernel.launch(q, k, v, out, causal=causal, window=window)
-    return out
+    kernel.launch(q, k, v, out, causal=causal, window=window,
+                  scale=1.0 / math.sqrt(head_dim))
+    return out if head_dim == out.shape[3] else \
+        out[..., :head_dim].contiguous()

@@ -9,7 +9,9 @@ Two dispatch strategies, selectable per call, as in the reference:
 * ``gather``  — capacity-indexed gather dispatch: tokens are gathered into
   ``(E, C, d)`` buckets and the expert FFN runs through the grouped
   expert-FFN kernel (``repro_torch.kernels.moe_gmm``): the CUDA kernel on a
-  GPU tensor, its plain version on a CPU tensor.  This is the serving path.
+  GPU tensor, its plain version on a CPU tensor.  Each bucket's fill goes
+  with it, so that the kernel skips the pad rows (and an expert no token
+  reached).  This is the serving path.
 
 Every MoE model is gated whatever ``cfg.act`` says: the reference's
 ``_init_moe`` always makes ``w3`` and ``_expert_ffn`` always uses it.
@@ -72,7 +74,13 @@ def _expert_ffn(xe, p, act: str):
 def _slots(flat_e, E: int):
     """flat_e: (..., T*k) experts of the (token, k) pairs, token-major.
     Returns each pair's slot in its expert's bucket: its rank among the
-    pairs routed to that expert, in that order.
+    pairs routed to that expert, in that order."""
+    return _slots_and_counts(flat_e, E)[0]
+
+
+def _slots_and_counts(flat_e, E: int):
+    """``_slots`` and the number of pairs routed to each expert, (..., E)
+    int64, both without a host sync.
 
     The reference takes a cumsum of the (T*k, E) one-hot down the pairs; a
     stable sort by expert gives the same ranks (pairs of one expert keep
@@ -86,7 +94,7 @@ def _slots(flat_e, E: int):
     starts = torch.cumsum(counts, -1) - counts       # first sorted index
     rank = torch.arange(n, device=flat_e.device) - \
         torch.gather(starts, -1, sorted_e)
-    return torch.empty_like(flat_e).scatter_(-1, order, rank)
+    return torch.empty_like(flat_e).scatter_(-1, order, rank), counts
 
 
 # ---------------------------------------------------------------------------
@@ -148,7 +156,7 @@ def moe_gather(x, p, cfg):
     C = _capacity(T, E, k, cfg.capacity_factor)
 
     flat_e = idx.reshape(-1)                                 # (T*k,)
-    slot = _slots(flat_e, E)
+    slot, routed = _slots_and_counts(flat_e, E)
     keep = slot < C
     tok_id = torch.arange(T, device=x.device).repeat_interleave(k)
     # token ids into (E, C) buckets, T (the zero pad row) where empty;
@@ -157,7 +165,10 @@ def moe_gather(x, p, cfg):
     bucket[torch.where(keep, flat_e * C + slot, E * C)] = tok_id
     xpad = torch.cat([x, x.new_zeros((1, d))])
     xe = xpad[bucket[:E * C].reshape(E, C)]                  # (E, C, d)
-    ye = gmm_ops.expert_ffn(xe, p, cfg.act)
+    # slots are ranks, so each bucket's filled slots are its first
+    # min(routed, C): the kernel skips the pad rows after them
+    fill = torch.clamp(routed, max=C).to(torch.int32)
+    ye = gmm_ops.expert_ffn(xe, p, cfg.act, fill)
     # combine: each token owns k consecutive pairs; sum them, no atomics
     wk = torch.where(keep, w.reshape(-1).to(x.dtype), 0.0)
     src = ye[flat_e, slot.clamp(0, C - 1)] * wk[:, None]

@@ -122,6 +122,53 @@ def test_bf16_alignment_check_needs_16_byte_boundaries():
     ops.check_alignment(f32, f32, f32)
 
 
+@pytest.mark.parametrize("head_dim,padded", [
+    (16, 64), (64, 64), (80, 120), (96, 120), (120, 120), (121, 128),
+    (130, 256), (256, 256)])
+def test_kernel_layout_pads_the_head_dim_to_a_supported_one(head_dim,
+                                                            padded):
+    """The kernel is built for SUPPORTED_HEAD_DIMS; any other head dim up
+    to 256 is zero-padded to the next of them, and the padded q k^T and
+    the first head_dim columns of the padded P V are the unpadded ones."""
+    assert ops.kernel_head_dim(head_dim) == padded
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 4, 2, head_dim))
+    pq, pk, pv = ops.kernel_layout(q, k, v)
+    for t, p in ((q, pq), (k, pk), (v, pv)):
+        assert p.shape == t.shape[:3] + (padded,) and p.is_contiguous()
+        assert torch.equal(p[..., :head_dim], t)
+        assert not p[..., head_dim:].any()
+        assert (p is t) == (padded == head_dim)
+    kk = k.repeat_interleave(2, dim=2)
+    pkk = pk.repeat_interleave(2, dim=2)
+    torch.testing.assert_close(torch.einsum("bqhd,bkhd->bhqk", pq, pkk),
+                               torch.einsum("bqhd,bkhd->bhqk", q, kk))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_layout_copies_only_what_the_kernel_cannot_address(dtype):
+    """A transposed view and a slice of a fused QKV tensor are copied to
+    fresh contiguous tensors; a contiguous view off a 16-byte boundary is
+    copied in bf16 (TMA) and passed as it is in float32 (the scalar
+    route); a contiguous aligned tensor is passed as it is."""
+    B, S, H, Dh = 1, 8, 2, 64
+    n = B * S * H * Dh
+    fresh = torch.randn(B, S, H, Dh).to(dtype)
+    transposed = torch.randn(B, H, S, Dh).to(dtype).transpose(1, 2)
+    fused = torch.randn(B, S, 3 * H, Dh).to(dtype)[:, :, :H]
+    storage = torch.randn(n + 8).to(dtype)
+    misaligned = storage[1:n + 1].view(B, S, H, Dh)
+    assert misaligned.is_contiguous() and misaligned.data_ptr() % 16
+    out = ops.kernel_layout(transposed, fused, misaligned)
+    for src, got in zip((transposed, fused, misaligned), out):
+        assert got.is_contiguous() and torch.equal(got, src)
+    assert out[0] is not transposed and out[1] is not fused
+    assert (out[2] is misaligned) == (dtype == torch.float32)
+    if dtype == torch.bfloat16:
+        assert out[2].data_ptr() % 16 == 0
+    q, k, v = ops.kernel_layout(fresh, fresh, fresh)
+    assert q is fresh and k is fresh and v is fresh
+
+
 def test_launch_counts_each_dtype_on_its_route(monkeypatch):
     """``kernel.launch`` hands the C function its route's dtype code and
     counts the launch under that route; a stand-in takes the C function's

@@ -139,35 +139,103 @@ def test_flash_kernel_counts_bf16_on_wgmma_and_float32_on_scalar():
 
 
 def test_flash_kernel_refuses_a_misaligned_bf16_view():
-    """TMA needs 16-byte aligned tensors: a contiguous bf16 view one element
-    into its storage raises before any launch."""
+    """TMA needs 16-byte aligned tensors, and the kernel no longer refuses a
+    contiguous bf16 view one element into its storage: the wrapper copies it
+    to a fresh, aligned tensor, and the kernel runs on it (counted on its
+    route) within the bf16 bar."""
     _need_cuda()
     shape = (1, 64, 4, 64)
     storage = torch.randn(4 * 64 * 64 + 1, device="cuda").to(torch.bfloat16)
     q = storage[1:].view(shape)
     assert q.is_contiguous() and q.data_ptr() % 16 == 2
     _, k, v = _qkv(1, 64, 4, 4, 64, torch.bfloat16)
-    before = kernel.LAUNCHES
     for args in ((q, k, v), (k, q, v), (k, v, q)):
-        with pytest.raises(ValueError, match="16-byte boundary"):
-            ops.flash_attention(*args)
-    assert kernel.LAUNCHES == before
+        before = kernel.LAUNCHES_BY_ROUTE["wgmma_bf16"]
+        out = ops.flash_attention(*args)
+        torch.cuda.synchronize()
+        assert kernel.LAUNCHES_BY_ROUTE["wgmma_bf16"] == before + 1
+        want = ref.reference_attention(*(t.float() for t in args))
+        err = float((out.float() - want).abs().max())
+        assert err <= TOL[torch.bfloat16], err
 
 
 def test_flash_kernel_rejects_what_it_does_not_take():
+    """Head dims past 256, dtypes other than float32 and bf16, and tensors
+    on more than one device raise before any launch; a head dim the kernel
+    is not built for (96) and a transposed view run on it (the wrapper pads
+    and copies; their results are held in the tests below)."""
     _need_cuda()
-    q, k, v = _qkv(1, 16, 2, 2, 96, torch.float32)
-    with pytest.raises(ValueError, match="head dim 96"):
+    before = kernel.LAUNCHES
+    q, k, v = _qkv(1, 16, 2, 2, 288, torch.float32)
+    with pytest.raises(ValueError, match="head dim 288"):
         ops.flash_attention(q, k, v)
     q, k, v = _qkv(1, 16, 2, 2, 64, torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         ops.flash_attention(q, k, v)
     q, k, v = _qkv(1, 16, 2, 2, 64, torch.float32)
-    q_strided = torch.randn((1, 2, 16, 64), device="cuda").transpose(1, 2)
-    with pytest.raises(ValueError, match="contiguous"):
-        ops.flash_attention(q_strided, k, v)
     with pytest.raises(ValueError, match="one CUDA device"):
         ops.flash_attention(q, k.cpu(), v)
+    assert kernel.LAUNCHES == before
+    q_strided = torch.randn((1, 2, 16, 64), device="cuda").transpose(1, 2)
+    ops.flash_attention(q_strided, k, v)
+    q, k, v = _qkv(1, 16, 2, 2, 96, torch.float32)
+    out = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES == before + 2 and out.shape == q.shape
+
+
+# head dims the kernel is not built for: zero-padded to the next supported
+# one (16 -> 64, the reduced configs; 80 -> 120, hubert-xlarge; 96 -> 120)
+@pytest.mark.parametrize("Dh", [16, 80, 96])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 33),
+                                           (False, 0)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_pads_other_head_dims(Dh, causal, window, dtype):
+    _need_cuda()
+    q, k, v = _qkv(2, 150, 4, 2, Dh, dtype, seed=Dh)
+    route = kernel.ROUTES[dtype][1]
+    before = kernel.LAUNCHES_BY_ROUTE[route]
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES_BY_ROUTE[route] == before + 1
+    assert out.dtype == dtype and out.shape == q.shape and \
+        out.is_contiguous()
+    want = ref.reference_attention(q.float(), k.float(), v.float(),
+                                   causal=causal, window=window)
+    err = float((out.float() - want).abs().max())
+    assert err <= TOL[dtype], err
+
+
+# views the kernel cannot address as they are: transposed from a (B, heads,
+# S, Dh) layout, a slice of a fused QKV projection, and (bf16) a contiguous
+# view one element into its storage; each is copied and runs on the kernel
+@pytest.mark.parametrize("view", ["transposed", "fused-qkv", "misaligned"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_takes_views(view, dtype):
+    _need_cuda()
+    B, S, H, Dh = 2, 130, 4, 64
+    g = torch.Generator(device="cuda").manual_seed(7)
+    if view == "transposed":
+        q, k, v = (torch.randn((B, H, S, Dh), generator=g, device="cuda")
+                   .to(dtype).transpose(1, 2) for _ in range(3))
+    elif view == "fused-qkv":
+        qkv = torch.randn((B, S, 3 * H, Dh), generator=g,
+                          device="cuda").to(dtype)
+        q, k, v = qkv.split(H, dim=2)
+    else:
+        flat = torch.randn(3 * B * S * H * Dh + 1, generator=g,
+                           device="cuda").to(dtype)
+        q, k, v = flat[1:].view(3, B, S, H, Dh).unbind(0)
+        assert dtype == torch.float32 or q.data_ptr() % 16 == 2
+    assert view == "misaligned" or not q.is_contiguous()
+    route = kernel.ROUTES[dtype][1]
+    before = kernel.LAUNCHES_BY_ROUTE[route]
+    out = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES_BY_ROUTE[route] == before + 1
+    want = ref.reference_attention(q.float(), k.float(), v.float())
+    err = float((out.float() - want).abs().max())
+    assert err <= TOL[dtype], err
 
 
 def test_model_on_gpu_matches_plain_on_cpu():
@@ -200,6 +268,26 @@ def _gmm_inputs(E, C, d, f, gated, dtype, pad=0, seed=0):
     return xe.to(dtype), {k: w.to(dtype) for k, w in p.items()}
 
 
+def _gmm_route(dtype, d, f):
+    """The route of a fresh, contiguous input (ops.kernel_route's rule)."""
+    if dtype == torch.float32:
+        return "scalar_f32"
+    return "wgmma_bf16" if d % 8 == 0 and f % 8 == 0 else "wmma_bf16"
+
+
+def _gmm_check(xe, p, act, counts, out):
+    """out within GMM_RTOL of the plain version (in float32 on the same
+    inputs), and rows at or past ``counts`` exactly 0."""
+    want = gmm_ref.reference_expert_ffn(
+        xe.float(), {k: w.float() for k, w in p.items()}, act, counts)
+    rel = float((out.float() - want).abs().max() / want.abs().max())
+    assert rel <= GMM_RTOL[xe.dtype], rel
+    if counts is not None:
+        rows = torch.arange(xe.shape[1], device=xe.device)
+        pads = rows[None, :] >= counts[:, None]
+        assert not out[pads].any()
+
+
 @pytest.mark.parametrize("E,C,d,f,act,gated,pad", [
     (40, 1000, 1536, 512, "swiglu", True, 0),    # granite-moe prefill
     (40, 8, 1536, 512, "swiglu", True, 7),       # granite-moe decode
@@ -214,10 +302,14 @@ def _gmm_inputs(E, C, d, f, gated, dtype, pad=0, seed=0):
 def test_moe_gmm_kernel_matches_plain(E, C, d, f, act, gated, pad, dtype):
     _need_cuda()
     xe, p = _gmm_inputs(E, C, d, f, gated, dtype, pad)
-    before = gmm_kernel.LAUNCHES
+    route = gmm_ops.kernel_route(xe, p["w1"], p.get("w3"), p["w2"])
+    assert route == _gmm_route(dtype, d, f)
+    before = gmm_kernel.LAUNCHES, dict(gmm_kernel.LAUNCHES_BY_ROUTE)
     out = gmm_ops.expert_ffn(xe, p, act)
     torch.cuda.synchronize()
-    assert gmm_kernel.LAUNCHES == before + 1
+    assert gmm_kernel.LAUNCHES == before[0] + 1
+    assert gmm_kernel.LAUNCHES_BY_ROUTE == {
+        r: n + (r == route) for r, n in before[1].items()}
     assert out.dtype == dtype and out.shape == xe.shape
     want = gmm_ref.reference_expert_ffn(
         xe.float(), {k: w.float() for k, w in p.items()}, act)
@@ -225,6 +317,107 @@ def test_moe_gmm_kernel_matches_plain(E, C, d, f, act, gated, pad, dtype):
     assert rel <= GMM_RTOL[dtype], rel
     if pad:
         assert not out[:, C - pad:].any()       # act(0) * 0 = 0 for pad rows
+
+
+# the wgmma route's tile edges: 64-row tiles for buckets of at most 64
+# rows, 128-row tiles above; the last is granite's prefill bucket
+@pytest.mark.parametrize("C", [1, 63, 64, 65, 127, 128, 129, 1000])
+def test_moe_gmm_wgmma_route_at_tile_edges(C):
+    _need_cuda()
+    xe, p = _gmm_inputs(6, C, 256, 384, True, torch.bfloat16, seed=C)
+    assert gmm_ops.kernel_route(xe, p["w1"], p["w3"], p["w2"]) == \
+        "wgmma_bf16"
+    before = gmm_kernel.LAUNCHES_BY_ROUTE["wgmma_bf16"]
+    out = gmm_ops.expert_ffn(xe, p, "swiglu")
+    torch.cuda.synchronize()
+    assert gmm_kernel.LAUNCHES_BY_ROUTE["wgmma_bf16"] == before + 1
+    _gmm_check(xe, p, "swiglu", None, out)
+
+
+def _bucket_counts(E, C, seed):
+    """Fills of E buckets of C: an empty one, a full one, the rest at
+    random (a few empty) and the rows past each fill zero, as the gather
+    dispatch leaves them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    counts = torch.randint(0, C + 1, (E,), generator=g, device="cuda")
+    counts[0], counts[-1] = 0, C
+    counts[1::5] = 0
+    return counts.to(torch.int32)
+
+
+# (E, C, d, f, act, gated): bucket fills of 0, partial and full on every
+# route; d and f not multiples of 64 (TMA clips them) on the wgmma route
+@pytest.mark.parametrize("E,C,d,f,act,gated", [
+    (40, 8, 1536, 512, "swiglu", True),       # granite decode
+    (40, 1000, 1536, 512, "swiglu", True),    # granite prefill
+    (8, 200, 200, 328, "geglu", True),
+    (6, 130, 136, 72, "relu2", False),
+    (5, 40, 64, 64, "gelu", False),
+    (3, 100, 211, 333, "swiglu", True),       # bf16 on wmma_bf16
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_moe_gmm_skips_rows_past_counts(E, C, d, f, act, gated, dtype):
+    _need_cuda()
+    counts = _bucket_counts(E, C, seed=E * C)
+    xe, p = _gmm_inputs(E, C, d, f, gated, dtype, seed=C)
+    rows = torch.arange(C, device="cuda")
+    xe = xe * (rows[None, :] < counts[:, None])[..., None].to(dtype)
+    route = gmm_ops.kernel_route(xe, p["w1"], p.get("w3"), p["w2"])
+    assert route == _gmm_route(dtype, d, f)
+    before = gmm_kernel.LAUNCHES_BY_ROUTE[route]
+    out = gmm_ops.expert_ffn(xe, p, act, counts)
+    torch.cuda.synchronize()
+    assert gmm_kernel.LAUNCHES_BY_ROUTE[route] == before + 1
+    _gmm_check(xe, p, act, counts, out)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_moe_gmm_zeroes_rows_past_counts_whatever_they_hold(dtype):
+    """Rows at or past counts[e] are pads by contract: y is 0 there even
+    where xe holds data, and the live rows match the plain version."""
+    _need_cuda()
+    E, C = 6, 150
+    counts = _bucket_counts(E, C, seed=3)
+    xe, p = _gmm_inputs(E, C, 128, 192, True, dtype, seed=3)
+    out = gmm_ops.expert_ffn(xe, p, "swiglu", counts)
+    torch.cuda.synchronize()
+    _gmm_check(xe, p, "swiglu", counts, out)
+
+
+# a full-width mixtral expert FFN (d 4096, f 14336): the down product sums
+# 14336 terms in one float32 accumulator
+def test_moe_gmm_wgmma_route_at_mixtral_width():
+    _need_cuda()
+    E, C = 8, 300
+    counts = _bucket_counts(E, C, seed=8)
+    xe, p = _gmm_inputs(E, C, 4096, 14336, True, torch.bfloat16, seed=8)
+    assert gmm_ops.kernel_route(xe, p["w1"], p["w3"], p["w2"]) == \
+        "wgmma_bf16"
+    for c in (None, counts):
+        out = gmm_ops.expert_ffn(xe, p, "swiglu", c)
+        torch.cuda.synchronize()
+        _gmm_check(xe, p, "swiglu", c, out)
+
+
+def test_moe_gmm_takes_bf16_that_tma_cannot_address_on_wmma():
+    """A bf16 xe one element into its storage, and odd d and f, take
+    wmma_bf16 by the explicit rule, counted there, within the bar."""
+    _need_cuda()
+    E, C, d, f = 3, 70, 128, 96
+    xe, p = _gmm_inputs(E, C, d, f, True, torch.bfloat16)
+    storage = torch.empty(E * C * d + 1, dtype=torch.bfloat16, device="cuda")
+    x_view = storage[1:].view(E, C, d)
+    x_view.copy_(xe)
+    assert x_view.is_contiguous() and x_view.data_ptr() % 16 == 2
+    for x, q in ((x_view, p), _gmm_inputs(3, 100, 211, 333, True,
+                                          torch.bfloat16)):
+        assert gmm_ops.kernel_route(x, q["w1"], q["w3"], q["w2"]) == \
+            "wmma_bf16"
+        before = gmm_kernel.LAUNCHES_BY_ROUTE["wmma_bf16"]
+        out = gmm_ops.expert_ffn(x, q, "swiglu")
+        torch.cuda.synchronize()
+        assert gmm_kernel.LAUNCHES_BY_ROUTE["wmma_bf16"] == before + 1
+        _gmm_check(x, q, "swiglu", None, out)
 
 
 def test_moe_gmm_casts_weights_to_the_input_dtype():
@@ -253,6 +446,11 @@ def test_moe_gmm_rejects_what_it_does_not_take():
         gmm_ops.expert_ffn(xe, p, "tanh")
     with pytest.raises(ValueError, match="w2"):
         gmm_ops.expert_ffn(xe, {**p, "w2": p["w1"][:, :, :32]}, "swiglu")
+    with pytest.raises(ValueError, match="counts must be int32"):
+        gmm_ops.expert_ffn(xe, p, "swiglu", torch.ones(2, device="cuda",
+                                                       dtype=torch.long))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        gmm_ops.expert_ffn(xe, p, "swiglu", torch.ones(2, dtype=torch.int32))
 
 
 def test_moe_model_on_gpu_matches_plain_on_cpu():

@@ -4,6 +4,7 @@ plain expert FFN against the Pallas kernel in interpret mode, and the MoE
 models (granite-moe, a wide-routing variant, mixtral) end to end."""
 import dataclasses
 import functools
+import zlib
 
 import jax
 import jax.numpy as jnp
@@ -231,6 +232,121 @@ def test_plain_expert_ffn_matches_pallas_and_reference(E, C, d, f, act,
                                           act).numpy())
 
 
+def _fills(kind, E, C, rng):
+    """Bucket fills: all empty, partial (at random, one empty and one
+    full), or all full."""
+    if kind == "empty":
+        return np.zeros(E, np.int32)
+    if kind == "full":
+        return np.full(E, C, np.int32)
+    fills = rng.integers(0, C + 1, E).astype(np.int32)
+    fills[0], fills[-1] = 0, C
+    return fills
+
+
+@pytest.mark.parametrize("fill", ["empty", "partial", "full"])
+@pytest.mark.parametrize("act,gated", [
+    ("swiglu", True), ("geglu", True), ("gelu", False), ("relu2", False),
+    ("relu2", True), ("swiglu", False),
+])
+def test_expert_ffn_with_counts_matches_pallas_and_reference(act, gated,
+                                                             fill):
+    """The buckets' fills as ``counts``: rows past each fill are zero pads
+    (as the gather dispatch leaves them), the JAX functions see only the
+    buckets, and the port's y equals theirs, with exactly 0 past the
+    fills."""
+    E, C, d, f = 4, 24, 32, 64
+    rng = np.random.default_rng(zlib.crc32(f"{act} {gated} {fill}".encode()))
+    counts = _fills(fill, E, C, rng)
+    xe = rng.standard_normal((E, C, d)).astype(np.float32)
+    xe[np.arange(C)[None, :] >= counts[:, None]] = 0.0
+    p = {"w1": (rng.standard_normal((E, d, f)) / np.sqrt(d))
+         .astype(np.float32),
+         "w2": (rng.standard_normal((E, f, d)) / np.sqrt(f))
+         .astype(np.float32)}
+    if gated:
+        p["w3"] = (rng.standard_normal((E, d, f)) / np.sqrt(d)) \
+            .astype(np.float32)
+    jp, tp = _both(p)
+    got = gmm_ops.expert_ffn(torch.from_numpy(xe), tp, act,
+                             torch.from_numpy(counts)).numpy()
+    pallas = jax_gmm_ops.expert_ffn(jnp.asarray(xe), jp, act, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas), atol=BLOCK_TOL,
+                               rtol=0)
+    want = jax_gmm_ref.reference_expert_ffn(jnp.asarray(xe), jp, act)
+    np.testing.assert_allclose(got, np.asarray(want), atol=BLOCK_TOL, rtol=0)
+    pads = np.arange(C)[None, :] >= counts[:, None]
+    assert (got[pads] == 0.0).all()
+    if fill == "full":
+        np.testing.assert_array_equal(
+            got, gmm_ops.expert_ffn(torch.from_numpy(xe), tp, act).numpy())
+
+
+def test_plain_expert_ffn_zeroes_rows_past_counts_whatever_they_hold():
+    """Past counts[e] the rows are pads by contract: y is 0 there even
+    where xe holds data, and the live rows are those of the full
+    product."""
+    rng = np.random.default_rng(5)
+    E, C, d, f = 3, 16, 32, 48
+    xe = torch.from_numpy(rng.standard_normal((E, C, d)).astype(np.float32))
+    p = {k: torch.from_numpy((rng.standard_normal(s) / 6).astype(np.float32))
+         for k, s in (("w1", (E, d, f)), ("w3", (E, d, f)),
+                      ("w2", (E, f, d)))}
+    counts = torch.tensor([0, 7, 16], dtype=torch.int32)
+    got = gmm_ops.expert_ffn(xe, p, "swiglu", counts)
+    full = gmm_ops.expert_ffn(xe, p, "swiglu")
+    for e, n in enumerate(counts.tolist()):
+        assert torch.equal(got[e, :n], full[e, :n])
+        assert not got[e, n:].any()
+
+
+@pytest.mark.parametrize("cf", [1.25, 0.25])        # 0.25: forced overflow
+@pytest.mark.parametrize("case", list(MOE_CASES))
+def test_moe_gather_hands_the_kernel_each_buckets_fill(case, cf,
+                                                       monkeypatch):
+    """moe_gather's counts are each bucket's fill: the pairs the reference
+    routes to the expert and keeps (slot < C), int32 on the tokens' device,
+    and the bucket holds its tokens in its first counts[e] rows, zeros
+    after."""
+    jc, tc = _configs(case, capacity_factor=cf)
+    p = _moe_params(jc)
+    _, tp = _both(p)
+    T = 96
+    x = np.random.default_rng(4).standard_normal((T, jc.d_model)) \
+        .astype(np.float32)
+    seen = []
+    real = TM.gmm_ops.expert_ffn
+
+    def recording(xe, q, act, counts=None):
+        seen.append((xe.clone(), counts))
+        return real(xe, q, act, counts)
+    monkeypatch.setattr(TM.gmm_ops, "expert_ffn", recording)
+    TM.moe_gather(torch.from_numpy(x), tp, tc)
+    (xe, counts), = seen
+    assert counts.dtype == torch.int32 and counts.shape == (jc.n_experts,)
+    _, jidx, _ = JM.router_topk(jnp.asarray(x), jnp.asarray(p["router"]),
+                                jc.top_k)
+    C = JM._capacity(T, jc.n_experts, jc.top_k, cf)
+    jidx = np.asarray(jidx).reshape(-1)
+    kept = jidx[_jax_slots(jidx, jc.n_experts) < C]
+    want = np.bincount(kept, minlength=jc.n_experts)
+    np.testing.assert_array_equal(counts.numpy(), want)
+    live = np.arange(C)[None, :] < want[:, None]
+    assert (xe.numpy()[~live] == 0).all()
+    assert (np.abs(xe.numpy()).sum(-1)[live] > 0).all()
+    if cf < 1:                                   # some buckets overflowed
+        assert (want == C).any()
+
+
+def test_slots_and_counts_count_each_experts_pairs():
+    flat_e = torch.from_numpy(np.random.default_rng(9).integers(0, 8,
+                                                                (3, 50)))
+    slot, counts = TM._slots_and_counts(flat_e, 8)
+    assert torch.equal(slot, TM._slots(flat_e, 8))
+    for row, c in zip(flat_e, counts):
+        assert torch.equal(c, torch.bincount(row, minlength=8))
+
+
 def test_expert_ffn_checks_shapes_on_the_cpu_too():
     xe = torch.zeros((2, 8, 16))
     p = {"w1": torch.zeros((2, 16, 32)), "w2": torch.zeros((2, 32, 16))}
@@ -240,6 +356,10 @@ def test_expert_ffn_checks_shapes_on_the_cpu_too():
         gmm_ops.expert_ffn(xe, {**p, "w1": torch.zeros((2, 8, 32))})
     with pytest.raises(ValueError, match="w3"):
         gmm_ops.expert_ffn(xe, {**p, "w3": torch.zeros((2, 16, 8))})
+    with pytest.raises(ValueError, match="counts must be int32"):
+        gmm_ops.expert_ffn(xe, p, "swiglu", torch.ones(2, dtype=torch.long))
+    with pytest.raises(ValueError, match="counts must be int32"):
+        gmm_ops.expert_ffn(xe, p, "swiglu", torch.ones(3, dtype=torch.int32))
 
 
 # ------------------------------------------------------------------ models
