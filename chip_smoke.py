@@ -31,7 +31,11 @@ a non-zero exit:
                 its dtype and shape pick, with each pass of the wgmma route
                 timed at the serving shape beside the scalar bf16 kernel,
                 and also under stress with random keys, against the
-                recurrence in float64
+                recurrence in float64; rglru_scan on both routes (gate
+                biases fused in, whole gates), each timed at the serving
+                shape beside its own bound, its window and segment edges,
+                and a long memory (a up to 0.9999, S 1000 and 4096) held
+                against the recurrence in float64
 4. serve        full-width minicpm-2b (40 layers, bf16, random weights from a
                 seed) serves 8 requests of 1000 prompt tokens through
                 ``repro_torch.launch.serve.serve``; every prefill layer must
@@ -50,7 +54,7 @@ a non-zero exit:
 8. serve        the same for full-width recurrentgemma-9b (38 layers: 26
                 RG-LRU, 12 LOCAL attention with MQA at head dim 256): every
                 RG-LRU layer of every prefill must have launched rglru_scan,
-                every LOCAL layer the flash kernel
+                on its fused_bias route, every LOCAL layer the flash kernel
 9. consistency  the same for recurrentgemma-9b in float32, under its own
                 bar (its decode state rounds the conv lag buffer to bf16)
 10. serve       the same for full-width xlstm-1.3b (48 layers: 24 mLSTM, 24
@@ -574,15 +578,16 @@ def time_moe_kernel(xe, p, act, err):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def rglru_bound(B, S, D, x_dtype, g_dtype, with_h0):
+def rglru_bound(B, S, D, x_dtype, g_dtype, with_h0, fused):
     """(bound_ms, bound_by, flops, bytes) of one RG-LRU scan on the card.
 
-    Bytes count x, ga, gx, lam (and h0) read once and y, h_last written
-    once; operations are RGLRU_OPS_PER_ELEM float32 operations per
-    (b, t, d) element."""
+    Bytes count x, ga, gx, lam (the biases b_a and b_i on the fused route,
+    and h0) read once and y, h_last written once; operations are
+    RGLRU_OPS_PER_ELEM float32 operations per (b, t, d) element."""
     size = {torch.float32: 4, torch.bfloat16: 2}
     n = B * S * D
     nbytes = (n * (size[x_dtype] + 2 * size[g_dtype] + 4) + 4 * D
+              + (8 * D if fused else 0)
               + 4 * B * D * (2 if with_h0 else 1))
     flops = float(RGLRU_OPS_PER_ELEM * n)
     t_ops = flops / PEAK_FLOPS[torch.float32]
@@ -591,69 +596,134 @@ def rglru_bound(B, S, D, x_dtype, g_dtype, with_h0):
                                        else "operations"), flops, nbytes
 
 
-# (name, B, S, D, x dtype, gate dtype, with h0); the first is the serving
-# shape (bf16 x and float32 gates, as the bf16 model hands them over)
+# (name, B, S, D, x dtype, gate dtype, with h0, route).  The first two are
+# the serving shape, timed (RGLRU_TIMED): on the fused route, as the bf16
+# model hands its gates over (bf16 x, bf16 gate products and float32
+# biases), and on whole float32 gates.  The kernel walks S in windows of
+# 64 steps, 64 channels a block; D not a multiple of 8 stages with plain
+# loads.
 RGLRU_CASES = [
-    ("griffin-prefill", 4, 1000, 4096, torch.bfloat16, torch.float32, False),
+    ("griffin-prefill", 4, 1000, 4096, torch.bfloat16, torch.bfloat16,
+     False, "fused_bias"),
+    ("griffin-gates-f32", 4, 1000, 4096, torch.bfloat16, torch.float32,
+     False, "gates"),
     ("griffin-prefill-f32", 4, 1000, 4096, torch.float32, torch.float32,
-     False),
-    ("ragged-136", 2, 136, 128, torch.bfloat16, torch.float32, False),
-    ("d-640", 2, 128, 640, torch.bfloat16, torch.float32, False),
-    ("b-12", 12, 64, 128, torch.float32, torch.float32, False),
-    ("single-step", 3, 1, 256, torch.bfloat16, torch.float32, False),
-    ("odd-d", 3, 77, 200, torch.float32, torch.float32, False),
-    ("with-h0", 3, 77, 200, torch.bfloat16, torch.float32, True),
-    ("bf16-gates", 2, 136, 128, torch.bfloat16, torch.bfloat16, True),
+     False, "gates"),
+    ("ragged-136", 2, 136, 128, torch.bfloat16, torch.float32, False,
+     "gates"),
+    ("d-640", 2, 128, 640, torch.bfloat16, torch.float32, False, "gates"),
+    ("b-12", 12, 64, 128, torch.float32, torch.float32, False, "gates"),
+    ("single-step", 3, 1, 256, torch.bfloat16, torch.float32, False,
+     "gates"),
+    ("odd-d", 3, 77, 200, torch.float32, torch.float32, False, "gates"),
+    ("with-h0", 3, 77, 200, torch.bfloat16, torch.float32, True, "gates"),
+    ("bf16-gates", 2, 136, 128, torch.bfloat16, torch.bfloat16, True,
+     "gates"),
+    ("fused-single-step", 1, 1, 96, torch.bfloat16, torch.bfloat16, True,
+     "fused_bias"),
+    ("fused-window-63", 3, 63, 77, torch.bfloat16, torch.bfloat16, False,
+     "fused_bias"),
+    ("fused-window-65", 12, 65, 200, torch.bfloat16, torch.bfloat16, True,
+     "fused_bias"),
+    ("fused-f32-129", 1, 129, 4100, torch.float32, torch.float32, True,
+     "fused_bias"),
 ]
+RGLRU_TIMED = ("griffin-prefill", "griffin-gates-f32")
+
+# Long memory: a between 0.999 and 0.9999 at zero gate, from h0, on the
+# fused route in bf16.  The plain version rounds each a, and over
+# thousands of steps of a near 1 drifts from the recurrence in float64 by
+# ~1e-5 of max |y| (1.1e-5 on an H100 at S 1000), so the kernel is held
+# against float64 there: at most twice the plain version's own error and
+# at most RGLRU_RTOL (the bar written before the first run on the card).
+RGLRU_ORACLE_CASES = [("long-memory-1000", 2, 1000, 512),
+                      ("long-memory-4096", 2, 4096, 512)]
+
+
+def rglru_inputs(B, S, D, x_dt, g_dt, gen, u=(0.9, 0.999)):
+    """(x, lam, ga, gx, h0, b_a, b_i) on the card; a in [u0, u1] at zero
+    gate."""
+    from repro_torch.kernels.rglru_scan.ref import RGLRU_C
+    u = u[0] + (u[1] - u[0]) * torch.rand((D,), generator=gen, device="cuda")
+    lam = torch.log(torch.expm1(-torch.log(u) / RGLRU_C))
+    x, ga, gx = (torch.randn((B, S, D), generator=gen, device="cuda")
+                 for _ in range(3))
+    h0 = torch.randn((B, D), generator=gen, device="cuda")
+    b_a, b_i = (0.5 * torch.randn((D,), generator=gen, device="cuda")
+                for _ in range(2))
+    return x.to(x_dt), lam, ga.to(g_dt), gx.to(g_dt), h0, b_a, b_i
 
 
 def phase_kernel_rglru():
-    from repro_torch.kernels.rglru_scan import ops, ref
+    from repro_torch.kernels.rglru_scan import kernel, ops, ref
     gen = torch.Generator(device="cuda").manual_seed(2)
-    result = None
-    for name, B, S, D, x_dt, g_dt, with_h0 in RGLRU_CASES:
-        u = 0.9 + 0.099 * torch.rand((D,), generator=gen, device="cuda")
-        lam = torch.log(torch.expm1(-torch.log(u) / ref.RGLRU_C))
-        x = torch.randn((B, S, D), generator=gen, device="cuda").to(x_dt)
-        ga = torch.randn((B, S, D), generator=gen, device="cuda").to(g_dt)
-        gx = torch.randn((B, S, D), generator=gen, device="cuda").to(g_dt)
-        h0 = torch.randn((B, D), generator=gen, device="cuda") \
-            if with_h0 else None
-        y, h = ops.rglru(x, lam, ga, gx, h0)
+    timed = {}
+    for name, B, S, D, x_dt, g_dt, with_h0, route in RGLRU_CASES:
+        x, lam, ga, gx, h0, b_a, b_i = rglru_inputs(B, S, D, x_dt, g_dt, gen)
+        h0 = h0 if with_h0 else None
+        bias = dict(b_a=b_a, b_i=b_i) if route == "fused_bias" else {}
+        before = kernel.LAUNCHES_BY_ROUTE[route]
+        y, h = ops.rglru(x, lam, ga, gx, h0, **bias)
         torch.cuda.synchronize()
+        check(kernel.LAUNCHES_BY_ROUTE[route] == before + 1,
+              f"rglru_scan {name} did not run on {route}")
         # the plain version computes in float32 from the same inputs
-        wy, wh = ref.reference_rglru(x, lam, ga, gx, h0)
+        wy, wh = ref.reference_rglru(x, lam, ga, gx, h0, **bias)
         scale = float(wy.abs().max())
         err = max(float((y - wy).abs().max()), float((h - wh).abs().max()))
         rel = err / scale if scale > 0 else err
-        bound_ms, bound_by, _, _ = rglru_bound(B, S, D, x_dt, g_dt, with_h0)
+        bound_ms, bound_by, _, _ = rglru_bound(B, S, D, x_dt, g_dt, with_h0,
+                                               bool(bias))
         print(f"  {name:19s} x {str(x_dt):14s} gates {str(g_dt):14s} "
-              f"B={B} S={S} D={D} h0={with_h0}: max_abs_err={err:.3e} "
-              f"max|y|={scale:.3e} rel={rel:.3e} tol={RGLRU_RTOL:.0e}; "
-              f"bound {bound_ms * 1e3:.2f} us by {bound_by}", flush=True)
+              f"B={B} S={S} D={D} h0={with_h0} ({route}): "
+              f"max_abs_err={err:.3e} max|y|={scale:.3e} rel={rel:.3e} "
+              f"tol={RGLRU_RTOL:.0e}; bound {bound_ms * 1e3:.2f} us by "
+              f"{bound_by}", flush=True)
         check(math.isfinite(rel) and rel <= RGLRU_RTOL,
               f"rglru_scan {name}: relative error {rel} > {RGLRU_RTOL}")
-        if result is None:
-            result = time_rglru_kernel(x, lam, ga, gx, err)
+        if name in RGLRU_TIMED:
+            timed[route] = time_rglru_kernel(x, lam, ga, gx, bias, route,
+                                             err)
         del x, ga, gx, y, wy
+    for name, B, S, D in RGLRU_ORACLE_CASES:
+        x, lam, ga, gx, h0, b_a, b_i = rglru_inputs(
+            B, S, D, torch.bfloat16, torch.bfloat16, gen, u=(0.999, 0.9999))
+        truth = ref.oracle_rglru(x, lam, ga, gx, h0, b_a=b_a, b_i=b_i)
+        y, _ = ops.rglru(x, lam, ga, gx, h0, b_a=b_a, b_i=b_i)
+        wy, _ = ref.reference_rglru(x, lam, ga, gx, h0, b_a=b_a, b_i=b_i)
+        scale = float(truth.abs().max())
+        err = float((y.double() - truth).abs().max()) / scale
+        plain_err = float((wy.double() - truth).abs().max()) / scale
+        print(f"  {name:19s} B={B} S={S} D={D} a in [0.999, 0.9999], h0 "
+              f"(fused_bias): against float64, kernel {err:.3e}, plain "
+              f"{plain_err:.3e} (bar: <= 2x plain and <= {RGLRU_RTOL:.0e}); "
+              f"kernel vs plain "
+              f"{float((y - wy).abs().max()) / float(wy.abs().max()):.3e}",
+              flush=True)
+        check(err <= 2 * plain_err and err <= RGLRU_RTOL,
+              f"rglru_scan {name}: {err} from float64, the plain version "
+              f"{plain_err}")
+        del x, ga, gx, y, wy, truth
     torch.cuda.empty_cache()
-    return result
+    return {**timed["fused_bias"], "timed_route": "fused_bias",
+            "at_gates_route": timed["gates"]}
 
 
-def time_rglru_kernel(x, lam, ga, gx, err):
-    """Kernel and plain times at the serving shape; no single PyTorch call
-    computes this function, so there is no library time."""
+def time_rglru_kernel(x, lam, ga, gx, bias, route, err):
+    """Kernel and plain times at the serving shape on ``route``; no single
+    PyTorch call computes this function, so there is no library time."""
     from repro_torch.kernels.rglru_scan import ops, ref
     B, S, D = x.shape
-    kernel_ms = cuda_ms(lambda: ops.rglru(x, lam, ga, gx))
-    plain_ms = cuda_ms(lambda: ref.reference_rglru(x, lam, ga, gx), iters=3,
-                       warmup=1)
-    bound_ms, bound_by, flops, nbytes = rglru_bound(B, S, D, x.dtype,
-                                                    ga.dtype, False)
-    print(f"  timing at B={B} S={S} D={D} x {x.dtype} gates {ga.dtype}: "
-          f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library: "
-          f"none; bound {bound_ms * 1e3:.2f} us by {bound_by} "
-          f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)", flush=True)
+    kernel_ms = cuda_ms(lambda: ops.rglru(x, lam, ga, gx, **bias))
+    plain_ms = cuda_ms(lambda: ref.reference_rglru(x, lam, ga, gx, **bias),
+                       iters=3, warmup=1)
+    bound_ms, bound_by, flops, nbytes = rglru_bound(
+        B, S, D, x.dtype, ga.dtype, False, bool(bias))
+    print(f"  timing at B={B} S={S} D={D} x {x.dtype} gates {ga.dtype} "
+          f"({route}): kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"library: none; bound {bound_ms * 1e3:.2f} us by {bound_by} "
+          f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), "
+          f"{bound_ms / kernel_ms:.1%} of it", flush=True)
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -910,7 +980,8 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum",
                 profile_len: int = PROMPT_LEN):
     """Serve SERVE_REQUESTS requests of ``arch`` at full width through
     ``serve()``; returns (cfg, params, launches of each kernel, {kernel:
-    launches by route} of flash_attention, moe_gmm and mlstm_scan).  The
+    launches by route} of flash_attention, moe_gmm, rglru_scan and
+    mlstm_scan).  The
     profiled prefill takes the first ``profile_len`` prompt tokens."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -940,7 +1011,7 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum",
     torch.cuda.reset_peak_memory_stats()
     fa_kernel.reset_launches()
     gmm_kernel.reset_launches()
-    rg_kernel.LAUNCHES = 0
+    rg_kernel.reset_launches()
     ml_kernel.reset_launches()
     t0 = time.perf_counter()
     done = serve(cfg, reqs, slots=SERVE_SLOTS, ctx_len=ctx_len,
@@ -953,6 +1024,7 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum",
                 "mlstm_scan": ml_kernel.LAUNCHES}
     fa_routes = dict(fa_kernel.LAUNCHES_BY_ROUTE)
     gmm_routes = dict(gmm_kernel.LAUNCHES_BY_ROUTE)
+    rg_routes = dict(rg_kernel.LAUNCHES_BY_ROUTE)
     ml_routes = dict(ml_kernel.LAUNCHES_BY_ROUTE)
     peak = torch.cuda.max_memory_allocated()
 
@@ -995,6 +1067,12 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum",
                         for r in ml_routes},
           f"mlstm_scan launches by route {ml_routes}: a bfloat16 model must "
           f"take wgmma_bf16 only")
+    # and every RG-LRU layer hands the scan its bf16 gate products with the
+    # float32 biases, which the kernel adds itself
+    check(rg_routes == {r: launches["rglru_scan"] if r == "fused_bias" else 0
+                        for r in rg_routes},
+          f"rglru_scan launches by route {rg_routes}: every RG-LRU layer "
+          f"must take fused_bias")
     n_tok = sum(len(r.generated) for r in done)
     print(f"  served {len(done)} requests, {n_tok} new tokens in "
           f"{wall:.3f} s ({n_tok / wall:.1f} tok/s); flash_attention "
@@ -1011,8 +1089,9 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum",
              if want["mlstm_scan"] else "")
           + f"; peak memory {peak / 2**30:.2f} GiB", flush=True)
     print(f"  flash_attention launches by route: {fa_routes}; moe_gmm "
-          f"launches by route: {gmm_routes}; mlstm_scan launches by route: "
-          f"{ml_routes}", flush=True)
+          f"launches by route: {gmm_routes}; rglru_scan launches by route: "
+          f"{rg_routes}; mlstm_scan launches by route: {ml_routes}",
+          flush=True)
     print(f"  req{done[0].rid}: {done[0].generated}", flush=True)
 
     # per-step times at the same shapes, through the same step functions
@@ -1046,6 +1125,7 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum",
             lambda: decode(params, nxt, ctx_len - 1, cache)))
     return cfg, params, launches, {"flash_attention": fa_routes,
                                    "moe_gmm": gmm_routes,
+                                   "rglru_scan": rg_routes,
                                    "mlstm_scan": ml_routes}
 
 
@@ -1206,7 +1286,12 @@ def main() -> int:
         {"name": "rglru_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan/kernel.py:55",
-         "launches": griffin_launches["rglru_scan"], **rg_timing},
+         # launches on recurrentgemma-9b's serving, all on fused_bias
+         # (checked in its serve phase); times at its prefill shape on that
+         # route, and in "at_gates_route" on whole float32 gates
+         "launches": griffin_launches["rglru_scan"],
+         "launches_by_route": routes[GRIFFIN_ARCH]["rglru_scan"],
+         **rg_timing},
         {"name": "mlstm_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/mlstm_scan/csrc/mlstm_scan.cu",
          "replaces": "src/repro/kernels/mlstm_scan/kernel.py:85",

@@ -15,7 +15,8 @@ output projection.  The MLP sublayer lives in ``transformer.py``.
 
 Numerics follow the reference where they are not obvious: the gates are
 float32 even in a bf16 model (``b_a`` and ``b_i`` are float32 and promote
-the sum), and the conv lag buffer of the decode state is stored in bf16
+the sum; over a sequence the scan adds them to the bf16 products itself),
+and the conv lag buffer of the decode state is stored in bf16
 whatever ``cfg.dtype`` is, so a float32 model's prefill + decode differs
 from its full forward by that rounding, as the reference's does.
 """
@@ -60,10 +61,10 @@ def apply_rglru(x, p, cfg, *, return_state: bool = False):
     xb_pre = dense(h_in, p["w_x"])
     gb = act_fn("gelu")(dense(h_in, p["w_g"]))     # the tanh approximation
     xb = causal_conv1d(xb_pre, p["conv_w"], p["conv_b"])
-    ga = dense(xb, p["w_a"]) + p["b_a"]
-    gx = dense(xb, p["w_i"]) + p["b_i"]
-    # the CUDA kernel on the GPU, its plain version on the CPU
-    y, h_last = rglru_scan(xb, p["lam"], ga, gx)
+    # the CUDA kernel on the GPU, its plain version on the CPU; either adds
+    # the float32 gate biases to the products itself, in float32
+    y, h_last = rglru_scan(xb, p["lam"], dense(xb, p["w_a"]),
+                           dense(xb, p["w_i"]), b_a=p["b_a"], b_i=p["b_i"])
     y = y.to(x.dtype) * gb
     out = x + dense(y, p["w_out"])
     if return_state:

@@ -41,6 +41,8 @@ GMM_RTOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # they differ by the last bits of exp/expm1/sqrt and a fused multiply-add
 # per step, which the recurrence (a < 1) does not amplify.
 RGLRU_RTOL = 1e-5
+# the steps a block of csrc/rglru_scan.cu stages at once (its Block's W)
+RGLRU_WINDOW = 64
 
 # mlstm_scan, relative to the plain version's max |h| (and max |C|, |n|,
 # |m|): both compute in float32 from the same inputs, in another order
@@ -476,14 +478,17 @@ def test_moe_model_on_gpu_matches_plain_on_cpu():
     assert float((on.cpu() - off).abs().max()) < 1e-3
 
 
-def _scan_inputs(B, S, D, x_dtype, g_dtype, seed=0):
+def _scan_inputs(B, S, D, x_dtype, g_dtype, seed=0, u=(0.9, 0.999)):
+    """x, lam (a in [u0, u1] at zero gate), ga, gx, h0, b_a, b_i."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    u = 0.9 + 0.099 * torch.rand((D,), generator=g, device="cuda")
+    u = u[0] + (u[1] - u[0]) * torch.rand((D,), generator=g, device="cuda")
     lam = torch.log(torch.expm1(-torch.log(u) / rg_ref.RGLRU_C))
     x, ga, gx = (torch.randn((B, S, D), generator=g, device="cuda")
                  for _ in range(3))
     h0 = torch.randn((B, D), generator=g, device="cuda")
-    return x.to(x_dtype), lam, ga.to(g_dtype), gx.to(g_dtype), h0
+    b_a, b_i = (0.5 * torch.randn((D,), generator=g, device="cuda")
+                for _ in range(2))
+    return x.to(x_dtype), lam, ga.to(g_dtype), gx.to(g_dtype), h0, b_a, b_i
 
 
 @pytest.mark.parametrize("B,S,D,with_h0", [
@@ -494,30 +499,72 @@ def _scan_inputs(B, S, D, x_dtype, g_dtype, seed=0):
     (3, 1, 256, False),        # a single step
     (3, 77, 200, False),       # odd S and D
     (3, 77, 200, True),        # with an initial state
+    # the window's and the segments' edges; D = 77 is not a multiple of 8
+    # (staged with plain loads), 200 and 4100 not of the block's 64 channels
+    (1, 1, 96, True),
+    (3, RGLRU_WINDOW - 1, 77, False),
+    (1, RGLRU_WINDOW, 200, True),
+    (12, RGLRU_WINDOW + 1, 96, True),
+    (2, 2 * RGLRU_WINDOW + 1, 77, True),
+    (1, 2 * RGLRU_WINDOW + 1, 4100, False),
 ])
 @pytest.mark.parametrize("x_dtype,g_dtype", [
     (torch.bfloat16, torch.float32), (torch.float32, torch.float32),
     (torch.bfloat16, torch.bfloat16)])
-def test_rglru_kernel_matches_plain(B, S, D, with_h0, x_dtype, g_dtype):
+@pytest.mark.parametrize("route", ["gates", "fused_bias"])
+def test_rglru_kernel_matches_plain(B, S, D, with_h0, x_dtype, g_dtype,
+                                    route):
+    """The kernel on ``route`` against the plain version on the same
+    inputs: fused_bias hands over bias-free products and the biases,
+    gates the whole gates."""
     _need_cuda()
-    x, lam, ga, gx, h0 = _scan_inputs(B, S, D, x_dtype, g_dtype)
+    x, lam, ga, gx, h0, b_a, b_i = _scan_inputs(B, S, D, x_dtype, g_dtype)
     h0 = h0 if with_h0 else None
-    before = rg_kernel.LAUNCHES
-    y, h = rg_ops.rglru(x, lam, ga, gx, h0)
+    bias = dict(b_a=b_a, b_i=b_i) if route == "fused_bias" else {}
+    before = rg_kernel.LAUNCHES, rg_kernel.LAUNCHES_BY_ROUTE[route]
+    y, h = rg_ops.rglru(x, lam, ga, gx, h0, **bias)
     torch.cuda.synchronize()
-    assert rg_kernel.LAUNCHES == before + 1
+    assert (rg_kernel.LAUNCHES, rg_kernel.LAUNCHES_BY_ROUTE[route]) == \
+        (before[0] + 1, before[1] + 1)
     assert y.dtype == h.dtype == torch.float32
     assert y.shape == x.shape and h.shape == (B, D)
-    wy, wh = rg_ref.reference_rglru(x, lam, ga, gx, h0)
+    wy, wh = rg_ref.reference_rglru(x, lam, ga, gx, h0, **bias)
     scale = float(wy.abs().max())
     assert float((y - wy).abs().max()) <= RGLRU_RTOL * scale
     assert float((h - wh).abs().max()) <= RGLRU_RTOL * scale
+    assert torch.equal(h, y[:, -1])
+
+
+@pytest.mark.parametrize("S", [1000, 4096])
+@pytest.mark.parametrize("route", ["gates", "fused_bias"])
+def test_rglru_kernel_long_memory_against_float64(S, route):
+    """a up to 0.9999 over thousands of steps, from h0: the kernel's
+    segment products are the one rounding the sequential order does not
+    have.  Its error against the float64 recurrence, relative to max |y|,
+    may be at most twice the plain version's own and at most RGLRU_RTOL.
+    (At chip_smoke.py's long-memory cases on an H100 the kernel is 1.7e-6
+    and 4.2e-6 from float64 at S 1000 and 4096, the plain version 1.1e-5
+    and 3.2e-5: the plain version is no yardstick at 1e-5 here.)"""
+    _need_cuda()
+    x, lam, ga, gx, h0, b_a, b_i = _scan_inputs(
+        2, S, 512, torch.bfloat16, torch.bfloat16, seed=2, u=(0.999, 0.9999))
+    truth = rg_ref.oracle_rglru(x, lam, ga, gx, h0, b_a=b_a, b_i=b_i)
+    if route == "gates":
+        ga, gx, bias = ga + b_a, gx + b_i, {}
+    else:
+        bias = dict(b_a=b_a, b_i=b_i)
+    y, _ = rg_ops.rglru(x, lam, ga, gx, h0, **bias)
+    wy, _ = rg_ref.reference_rglru(x, lam, ga, gx, h0, **bias)
+    scale = float(truth.abs().max())
+    err = float((y.double() - truth).abs().max()) / scale
+    plain_err = float((wy.double() - truth).abs().max()) / scale
+    assert err <= 2 * plain_err and err <= RGLRU_RTOL, (err, plain_err)
 
 
 def test_rglru_kernel_rejects_what_it_does_not_take():
     _need_cuda()
-    x, lam, ga, gx, h0 = _scan_inputs(2, 16, 64, torch.float32,
-                                      torch.float32)
+    x, lam, ga, gx, h0, b_a, b_i = _scan_inputs(2, 16, 64, torch.float32,
+                                                torch.float32)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         rg_ops.rglru(x.half(), lam, ga, gx)
     with pytest.raises(ValueError, match="one dtype"):
@@ -527,6 +574,14 @@ def test_rglru_kernel_rejects_what_it_does_not_take():
                      ga, gx)
     with pytest.raises(ValueError, match="one CUDA device"):
         rg_ops.rglru(x, lam, ga.cpu(), gx)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        rg_ops.rglru(x, lam, ga, gx, b_a=b_a.cpu(), b_i=b_i)
+    with pytest.raises(ValueError, match="b_a must be float32"):
+        rg_ops.rglru(x, lam, ga, gx, b_a=b_a.bfloat16(), b_i=b_i)
+    with pytest.raises(ValueError, match="both gate biases"):
+        rg_ops.rglru(x, lam, ga, gx, b_i=b_i)
+    with pytest.raises(ValueError, match=r"b_i \(32,\)"):
+        rg_ops.rglru(x, lam, ga, gx, b_a=b_a, b_i=b_i[:32])
 
 
 def test_griffin_model_on_gpu_matches_plain_on_cpu():
@@ -545,10 +600,14 @@ def test_griffin_model_on_gpu_matches_plain_on_cpu():
     n_rglru = sum(k == "rglru" for k in
                   (cfg.block_pattern[n % cfg.pattern_period]
                    for n in range(cfg.n_layers)))
-    before = rg_kernel.LAUNCHES, kernel.LAUNCHES
+    before = (rg_kernel.LAUNCHES, rg_kernel.LAUNCHES_BY_ROUTE["fused_bias"],
+              kernel.LAUNCHES)
     on = R.forward_logits(params_gpu, cfg, {"tokens": toks}, device="cuda")
-    assert (rg_kernel.LAUNCHES, kernel.LAUNCHES) == \
-        (before[0] + n_rglru, before[1] + cfg.n_layers - n_rglru)
+    # every RG-LRU layer on the fused route: the gate biases added in the
+    # kernel
+    assert (rg_kernel.LAUNCHES, rg_kernel.LAUNCHES_BY_ROUTE["fused_bias"],
+            kernel.LAUNCHES) == (before[0] + n_rglru, before[1] + n_rglru,
+                                 before[2] + cfg.n_layers - n_rglru)
     off = R.forward_logits(params, cfg, {"tokens": toks}, device="cpu")
     assert float((on.cpu() - off).abs().max()) < 1e-3
     lg_on, c_on = R.prefill(params_gpu, cfg, {"tokens": toks[:, :140]},

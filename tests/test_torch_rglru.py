@@ -16,14 +16,16 @@ from repro.configs import get_arch as jax_arch
 from repro.launch import serve as jax_serve
 from repro.models import registry as JR
 from repro.models import rglru as JG
+from repro.models.layers import dense as jax_dense
 from repro.models import xlstm as JX
 from repro_torch.configs import get_arch as torch_arch
 from repro_torch.convert import (cache_to_jax, flatten_with_paths,
                                  params_from_jax)
-from repro_torch.kernels.rglru_scan import kernel, ops
+from repro_torch.kernels.rglru_scan import kernel, ops, ref
 from repro_torch.launch import serve as torch_serve
 from repro_torch.models import registry as R
 from repro_torch.models import rglru as TG
+from repro_torch.models.layers import dense
 from repro_torch.models import xlstm as TX
 
 # float32 ops: the same formulas; the reference's associative scan sums in
@@ -171,6 +173,160 @@ def test_non_cpu_tensor_goes_to_the_kernel_checks_never_the_plain_path():
     with pytest.raises(ValueError, match="one CUDA device"):
         ops.rglru(x, lam, ga.to("meta"), gx)
     assert kernel.LAUNCHES == before
+
+
+# ------------------------------------------------------------ gate biases
+def _products(B, S, D, dtype, seed=3):
+    """xb, w_a, w_i, b_a, b_i as numpy (xb and the weights rounded to
+    ``dtype``, the biases float32), lam as in ``_scan_inputs``."""
+    rng = np.random.default_rng(seed)
+    xb = rng.standard_normal((B, S, D)).astype(np.float32)
+    w_a, w_i = (rng.standard_normal((D, D)).astype(np.float32) / np.sqrt(D)
+                for _ in range(2))
+    b_a, b_i = (0.5 * rng.standard_normal(D).astype(np.float32)
+                for _ in range(2))
+    if dtype == "bfloat16":
+        xb, w_a, w_i = (_f32(jnp.asarray(a, jnp.bfloat16))
+                        for a in (xb, w_a, w_i))
+    _, lam, _, _, h0 = _scan_inputs(B, S, D, seed)
+    return xb, w_a, w_i, b_a, b_i, lam, h0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_bias_plain_route_matches_jax(dtype):
+    """The JAX package's ``dense(xb, w) + b`` then ``rglru`` against the
+    port's scan handed the bias-free products and the biases.  In bf16 both
+    sides get the same products (JAX's ``dense``), so that a matmul
+    rounding one bf16 ulp apart does not hide the scan's arithmetic."""
+    xb, w_a, w_i, b_a, b_i, lam, h0 = _products(2, 40, 96, dtype)
+    jdt = jnp.dtype(dtype)
+    jxb = jnp.asarray(xb, jdt)
+    pa, pi = (jax_dense(jxb, jnp.asarray(w, jdt)) for w in (w_a, w_i))
+    wy, wh = _jax_rglru(jxb, jnp.asarray(lam), pa + jnp.asarray(b_a),
+                        pi + jnp.asarray(b_i), jnp.asarray(h0))
+    tdt = getattr(torch, dtype)
+    txb = _t(xb).to(tdt)
+    if dtype == "float32":
+        ta, ti = dense(txb, _t(w_a)), dense(txb, _t(w_i))
+    else:
+        ta, ti = (_t(_f32(p)).to(tdt) for p in (pa, pi))
+    before = kernel.LAUNCHES
+    gy, gh = ops.rglru(txb, _t(lam), ta, ti, _t(h0), b_a=_t(b_a),
+                       b_i=_t(b_i))
+    assert kernel.LAUNCHES == before
+    assert ta.dtype == tdt and gy.dtype == torch.float32
+    np.testing.assert_allclose(gy.numpy(), np.asarray(wy), **OP_TOL)
+    np.testing.assert_allclose(gh.numpy(), np.asarray(wh), **OP_TOL)
+
+
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+def test_fused_bias_route_is_the_whole_gate_route_bit_for_bit(g_dtype):
+    """Adding the float32 biases inside the scan is PyTorch's promotion of
+    the sum: the same float32 gates, so the same y and h_last."""
+    x, lam, pa, pi, h0 = (_t(a) for a in _scan_inputs(3, 33, 48, seed=4))
+    x, pa, pi = x.bfloat16(), pa.to(g_dtype), pi.to(g_dtype)
+    ba, bi = _t(_rand((48,), 6, 0.5)), _t(_rand((48,), 7, 0.5))
+    fy, fh = ops.rglru(x, lam, pa, pi, h0, b_a=ba, b_i=bi)
+    gy, gh = ops.rglru(x, lam, pa + ba, pi + bi, h0)
+    assert (pa + ba).dtype == torch.float32
+    assert torch.equal(fy, gy) and torch.equal(fh, gh)
+
+
+def test_rglru_wrapper_checks_the_gate_biases():
+    x, lam, ga, gx, _ = (_t(a) for a in _scan_inputs(2, 8, 16))
+    b = torch.zeros(16)
+    with pytest.raises(ValueError, match="both gate biases"):
+        ops.rglru(x, lam, ga, gx, b_a=b)
+    with pytest.raises(ValueError, match="both gate biases"):
+        ops.rglru(x, lam, ga, gx, b_i=b)
+    with pytest.raises(ValueError, match=r"b_i \(8,\) is not \(16,\)"):
+        ops.rglru(x, lam, ga, gx, b_a=b, b_i=b[:8])
+    with pytest.raises(ValueError, match=r"b_a \(2, 16\)"):
+        ops.rglru(x, lam, ga, gx, b_a=b.expand(2, 16), b_i=b)
+    for dt in (torch.bfloat16, torch.float64):
+        with pytest.raises(ValueError, match="b_a must be float32"):
+            ops.rglru(x, lam, ga, gx, b_a=b.to(dt), b_i=b)
+    before = kernel.LAUNCHES_BY_ROUTE["fused_bias"]
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ops.rglru(x, lam, ga, gx, b_a=b.to("meta"), b_i=b)
+    assert kernel.LAUNCHES_BY_ROUTE["fused_bias"] == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_apply_rglru_fuses_the_gate_biases_into_the_scan(dtype,
+                                                         monkeypatch):
+    """The block hands the scan its bias-free gate products, in the model's
+    dtype, and the float32 biases, and stays at the JAX block's output."""
+    jc, tc, (pj, pt) = _block(dtype)
+    tdt = getattr(torch, dtype)
+    calls = []
+    real = TG.rglru_scan
+
+    def spy(xb, lam, ga, gx, h0=None, **bias):
+        calls.append((ga.dtype, gx.dtype, bias))
+        return real(xb, lam, ga, gx, h0, **bias)
+
+    monkeypatch.setattr(TG, "rglru_scan", spy)
+    x = _rand((2, 20, jc.d_model), 8)
+    wo = JG.apply_rglru(jnp.asarray(x, dtype), pj, jc)
+    go = TG.apply_rglru(_t(x).to(tdt), pt, tc)
+    assert len(calls) == 1
+    ga_dtype, gx_dtype, bias = calls[0]
+    assert ga_dtype == gx_dtype == tdt
+    assert bias["b_a"] is pt["b_a"] and bias["b_i"] is pt["b_i"]
+    assert pt["b_a"].dtype == torch.float32
+    np.testing.assert_allclose(_f32(go), _f32(wo), atol=TOL[dtype], rtol=0)
+
+
+# ------------------------------------------------------------ the kernel's
+# order: windows of W steps, each cut into P segments (ref.windowed_rglru)
+@pytest.mark.parametrize("window,segments,S", [
+    (64, 8, 1), (64, 8, 63), (64, 8, 65), (64, 8, 201), (32, 4, 77),
+    (16, 16, 50), (128, 16, 300), (8, 2, 13)])
+def test_windowed_order_matches_the_sequential_plain_version(window,
+                                                             segments, S):
+    """The CUDA kernel's order of the arithmetic against the step-by-step
+    loop, both float32, with h0 and the biases fused: within 1e-5 of max
+    |y| (the card's bar for the kernel against the plain version), and
+    h_last is y's last step."""
+    x, lam, ga, gx, h0 = (_t(a) for a in _scan_inputs(2, S, 48, seed=5))
+    args = (x.bfloat16(), lam, ga.bfloat16(), gx.bfloat16(), h0)
+    bias = dict(b_a=_t(_rand((48,), 6, 0.5)), b_i=_t(_rand((48,), 7, 0.5)))
+    wy, wh = ref.reference_rglru(*args, **bias)
+    gy, gh = ref.windowed_rglru(*args, **bias, window=window,
+                                segments=segments)
+    scale = float(wy.abs().max())
+    assert float((gy - wy).abs().max()) <= 1e-5 * scale
+    assert float((gh - wh).abs().max()) <= 1e-5 * scale
+    assert torch.equal(gh, gy[:, -1])
+
+
+def test_windowed_order_at_long_memory_against_float64():
+    """a between 0.999 and 0.9999 over 4096 steps from h0: the segment
+    products, formed as exp(sum log_a), are the order's one new rounding.
+    Against the float64 recurrence the kernel's order may miss by at most
+    twice the plain version's own error (the card's bar for the kernel),
+    and by at most 1e-5 of max |y|."""
+    B, S, D = 2, 4096, 128
+    rng = np.random.default_rng(7)
+    u = rng.uniform(0.999, 0.9999, D)
+    lam = np.log(np.expm1(-np.log(u) / JG.RGLRU_C)).astype(np.float32)
+    x, pa, pi = (_f32(jnp.asarray(rng.standard_normal((B, S, D)),
+                                  jnp.bfloat16)) for _ in range(3))
+    b_a, b_i = (0.5 * rng.standard_normal(D).astype(np.float32)
+                for _ in range(2))
+    h0 = rng.standard_normal((B, D)).astype(np.float32)
+    # the float32 gates the contract forms, then the recurrence in float64
+    ty, _ = _rglru_float64(x, lam, pa + b_a, pi + b_i, h0)
+    args = (_t(x).bfloat16(), _t(lam), _t(pa).bfloat16(),
+            _t(pi).bfloat16(), _t(h0))
+    bias = dict(b_a=_t(b_a), b_i=_t(b_i))
+    scale = np.abs(ty).max()
+    plain_err = np.abs(ref.reference_rglru(*args, **bias)[0].numpy()
+                       - ty).max() / scale
+    err = np.abs(ref.windowed_rglru(*args, **bias)[0].numpy()
+                 - ty).max() / scale
+    assert err <= 2 * plain_err and err <= 1e-5, (err, plain_err)
 
 
 # ------------------------------------------------------------ conv4
