@@ -35,7 +35,19 @@ a non-zero exit:
                 biases fused in, whole gates), each timed at the serving
                 shape beside its own bound, its window and segment edges,
                 and a long memory (a up to 0.9999, S 1000 and 4096) held
-                against the recurrence in float64
+                against the recurrence in float64; and flash_attention's
+                backward (kernel_bwd): through the wrapper's autograd
+                function against the plain backward (explicit formulas in
+                float32), bf16 (wmma_bf16) and float32 (scalar_f32), MHA,
+                GQA 24/8 and MQA, causal, not causal and biting windows,
+                head dims 16, 64, 80, 120, 128 and 256 (16 and 80 padded),
+                S 1, 63, 65, 200, 1000 and 4096 (the train phase's own
+                shape, minicpm-2b's 36 heads of 64 at one microbatch of
+                4096), each case checked to run on its route, the forward's
+                row log-sum-exp against the plain one, and at the train
+                shape and minicpm's, granite's and recurrentgemma's prefill
+                shapes the kernel, the plain version and SDPA's backward
+                timed beside the card's bound
 4. serve        full-width minicpm-2b (40 layers, bf16, random weights from a
                 seed) serves 8 requests of 1000 prompt tokens through
                 ``repro_torch.launch.serve.serve``; every prefill layer must
@@ -68,9 +80,25 @@ a non-zero exit:
                 blocks round their conv lag buffers to bf16); xLSTM reads no
                 position, so its negative control feeds each decode step the
                 previous token instead
+12. train       full-width, full-depth minicpm-2b (40 layers, 2.725 B
+                params) trains 4 AdamW steps (float32 master weights and
+                moments, bf16 compute, remat "full", the wsd schedule at lr
+                3e-4 with one warmup step) on one batch of 2 x 4096 tokens
+                as 2 microbatches, then one eval step, through
+                ``make_train_step`` / ``make_eval_step``: metrics finite,
+                the loss after step 4 below step 1's, every step 160 flash
+                forward launches (40 layers x 2 microbatches x forward and
+                recompute, on wgmma_bf16) and 80 backward ones (on
+                wmma_bf16), no other kernel; step times, tokens/s, peak
+                memory and a profiled step
+13. train consistency  one float32 step of minicpm-2b at full width, 2
+                layers, S 1024 (flash's scalar_f32 routes both ways): loss
+                and every parameter's gradient on the card against the CPU's
+                plain versions from the same weights, with the labels
+                shifted by one position as the negative control
 
-Earlier paths run at full depth; if the run outgrows its time, their depth
-is what gets cut first.
+Earlier serve paths run at full depth; if the run outgrows its time, their
+depth is what gets cut first.
 
 It then prints one JSON line of kernel numbers, the card line, and as its
 last line ``{"ok": true, "device": {...}}``.
@@ -149,6 +177,40 @@ RGLRU_RTOL = 1e-5
 # recurrence's multiply-add (2)
 RGLRU_OPS_PER_ELEM = 16
 
+# flash_attention's backward against its plain version (explicit formulas
+# in float32 on the same q, k, v, o, dO), dq, dk and dv each relative to the
+# plain gradient's max |.|:
+#  * bf16: the kernel rounds P and dS to bf16 for the products that take
+#    them, and dq, dk, dv on output (half a unit in the last place, 2**-9
+#    ~ 2e-3 of the value, each), and reads the forward's bf16 o in D =
+#    rowsum(dO o); 2e-2 leaves room for those roundings' sums.
+#  * float32: both compute in float32 (no TF32) in another summation order
+#    over at most 4096 keys or queries; errors are ~1e-6, 1e-4 is the bar.
+# A gradient below 1e-3 of the largest of the three is a sum of cancelling
+# terms of that size, so each scale is floored at 1e-3 of the largest.
+# Where every query sees one key (S 1, or a window of 1), dP = D and dS = 0,
+# so dq = dk = 0 in exact arithmetic and both sides hold only the rounding
+# of dP and D in two summation orders (~3e-7 of the largest in float32):
+# there dq and dk are held against the largest gradient's scale, which
+# checks that they vanish.
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+BWD_SCALE_FLOOR = 1e-3
+# the forward's row log-sum-exp against the plain one (natural log, ~log S
+# plus the largest score, < 20 here): float32 sums of exact bf16 products
+# or of float32 products in another order, ~1e-5 apart; 1e-4 is the bar
+LSE_ATOL = 1e-4
+
+# training consistency: the same float32 step (loss and every parameter's
+# gradient) on the card (the flash kernel's scalar routes, cuBLAS) and on
+# the CPU (the plain versions), from the same weights and batch, relative
+# to each leaf's max |g| (floored at 1e-3 of the largest leaf's, as a leaf
+# whose gradient nearly vanishes holds only rounding): other summation
+# orders over d = 2304, 1024 keys and 122753 logits agree to ~1e-6; the
+# labels shifted by one position move the gradients by O(1) of their
+# scale, so 1e-4 sits between the two.
+TRAIN_RTOL = 1e-4
+TRAIN_FLOOR = 1e-3
+
 # mlstm_scan against its plain version, relative to the plain version's max
 # |h| (and max |C|, |n|, |m| for the state): both compute in float32 from the
 # same inputs, in another order (chunks of 64 steps against the reference's
@@ -162,6 +224,13 @@ GRIFFIN_ARCH = "recurrentgemma-9b"
 XLSTM_ARCH = "xlstm-1.3b"
 XLSTM_PROFILE_LEN = 200     # prompt tokens of the profiled xLSTM prefill
 SERVE_REQUESTS, SERVE_SLOTS, PROMPT_LEN, GEN = 8, 4, 1000, 16
+# training: minicpm-2b at full width and depth, the reference's train_4k
+# sequence, a global batch of 2 as two microbatches of 1 (its global batch
+# of 256 does not fit one card), 4 AdamW steps on one batch, then an eval
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 4096, 2, 2, 4
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 1
+# the consistency step: full width, depth cut to 2 layers, float32
+CONSIST_LAYERS, CONSIST_SEQ = 2, 1024
 
 
 def phase(name: str) -> None:
@@ -189,7 +258,8 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 # the port's kernels, by the prefix of their CUDA function names
-PORT_KERNELS = {"flash_attention": "flash_fwd", "moe_gmm": "gmm_",
+PORT_KERNELS = {"flash_attention": "flash_fwd",
+                "flash_attention_bwd": "flash_bwd", "moe_gmm": "gmm_",
                 "rglru_scan": "rglru_scan", "mlstm_scan": "mlstm_"}
 
 
@@ -288,6 +358,11 @@ def phase_build() -> None:
         print(f"  flash_attention {route} dynamic shared memory per block: "
               + ", ".join(f"Dh={dh}: {kernel.shared_memory_bytes(dh, dtype)} B"
                           for dh in ops.SUPPORTED_HEAD_DIMS), flush=True)
+    for dtype, route in kernel.BWD_ROUTES.items():
+        print(f"  flash_attention backward {route} (dK/dV and dQ passes) "
+              f"dynamic shared memory per block: " + ", ".join(
+                  f"Dh={dh}: {kernel.bwd_shared_memory_bytes(dh, dtype)} B"
+                  for dh in ops.SUPPORTED_HEAD_DIMS), flush=True)
     from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
     B, S, H, Dh = MLSTM_CASES[0][1:5]
     for route in ml_kernel.ROUTES:
@@ -379,6 +454,168 @@ def time_kernel(q, k, v, causal, window, err):
           f"{library_ms:.4f} ms, kernel / sdpa {kernel_ms / library_ms:.2f}x; "
           f"bound {bound_ms * 1e3:.2f} us by {bound_by} "
           f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)", flush=True)
+    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def attention_bwd_bound(B, S, H, KH, Dh, causal, window, dtype):
+    """(bound_ms, bound_by, flops, bytes) of one attention backward.
+
+    FLOPs: five products of 2*Dh per visible (query, key) pair (q k^T,
+    P^T dO, dO V^T, dS^T Q, dS K); bytes: q, k, v, o, dO and the row
+    log-sum-exp read once, dq, dk, dv written once."""
+    qpos = np.arange(S)
+    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(S, int)
+    hi = qpos + 1 if causal else np.full(S, S)
+    pairs = int(np.sum(hi - lo))
+    flops = 10.0 * B * H * Dh * pairs
+    elem = torch.tensor([], dtype=dtype).element_size()
+    nbytes = elem * (4 * B * S * H * Dh + 4 * B * S * KH * Dh) + 4 * B * H * S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations"), flops, nbytes
+
+
+# (name, B, S, H, KH, Dh, causal, window): the train phase's own shape
+# (minicpm-2b, one microbatch of 4096); MHA, GQA 24/8 and MQA; causal, not
+# causal and windows that bite; head dims 16 and 80 padded by the wrapper;
+# S 1, 63, 65, 1000 and 4096.  BWD_TIMED_CASES are timed in bf16: the
+# train shape for the kernels line's numbers, the prefill shapes under
+# its at_* keys.
+BWD_CASES = [
+    ("minicpm-train", 1, TRAIN_SEQ, 36, 36, 64, True, 0),
+    ("minicpm-prefill", 4, 1000, 36, 36, 64, True, 0),
+    ("granite-prefill", 4, 1000, 24, 8, 64, True, 0),
+    ("griffin-prefill", 4, 1000, 16, 1, 256, True, 2048),
+    ("window-bites-1000", 2, 1000, 8, 2, 128, True, 100),
+    ("single-token", 2, 1, 8, 2, 64, True, 0),
+    ("ragged-63", 2, 63, 8, 8, 120, True, 0),
+    ("ragged-65-mqa-window", 2, 65, 6, 1, 256, True, 32),
+    ("dh16-padded", 2, 65, 4, 2, 16, True, 0),
+    ("dh80-non-causal", 2, 63, 4, 4, 80, False, 0),
+    ("non-causal-window", 1, 200, 4, 2, 64, False, 40),
+]
+BWD_TIMED_CASES = ("minicpm-train",) + TIMED_CASES
+
+
+def bwd_errors(got, want, one_key):
+    """(each of dq, dk, dv's max error over the plain gradient's max |.|,
+    floored at BWD_SCALE_FLOOR of the largest of the three; the largest
+    absolute error).  With ``one_key`` (every query sees one key), dq and
+    dk vanish in exact arithmetic and are held against the largest scale."""
+    scales = [float(w.abs().max()) for w in want]
+    floor = BWD_SCALE_FLOOR * max(scales)
+    if one_key:
+        scales[0] = scales[1] = max(scales)
+    errs = [float((g.float() - w).abs().max()) for g, w in zip(got, want)]
+    return [e / max(sc, floor) for e, sc in zip(errs, scales)], max(errs)
+
+
+def phase_kernel_bwd():
+    """The flash backward against its plain version; returns the timing at
+    the train phase's shape, with minicpm's, granite's and recurrentgemma's
+    prefill shapes under at_minicpm_prefill_shape, at_granite_shape and
+    at_griffin_shape."""
+    from repro_torch.kernels.flash_attention import kernel, ops, ref
+    phase("kernel_bwd")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    result = {}
+    for name, B, S, H, KH, Dh, causal, window in BWD_CASES:
+        q32, k32, v32, do32 = (
+            torch.randn((B, S, h, Dh), generator=gen, device="cuda")
+            for h in (H, KH, KH, H))
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (t.to(dtype).requires_grad_() for t in (q32, k32, v32))
+            do = do32.to(dtype)
+            route = kernel.BWD_ROUTES[dtype]
+            fwd_route = kernel.ROUTES[dtype][1]
+            before = (kernel.BWD_LAUNCHES_BY_ROUTE[route],
+                      kernel.LAUNCHES_BY_ROUTE[fwd_route])
+            o = ops.flash_attention(q, k, v, causal=causal, window=window)
+            grads = torch.autograd.grad(o, (q, k, v), do)
+            torch.cuda.synchronize()
+            check((kernel.BWD_LAUNCHES_BY_ROUTE[route],
+                   kernel.LAUNCHES_BY_ROUTE[fwd_route]) ==
+                  (before[0] + 1, before[1] + 1),
+                  f"flash backward {name} {dtype} did not run on {route} "
+                  f"after a forward on {fwd_route}")
+            qd, kd, vd = (t.detach() for t in (q, k, v))
+            lse = ref.reference_attention_lse(qd, kd, causal=causal,
+                                              window=window)
+            want = ref.reference_attention_bwd(qd, kd, vd, o.detach(), lse,
+                                               do, causal=causal,
+                                               window=window)
+            errs, abs_err = bwd_errors(grads, want, S == 1 or window == 1)
+            del want
+            tol = BWD_TOL[dtype]
+            lse_note = ""
+            if Dh in ops.SUPPORTED_HEAD_DIMS:
+                # the log-sum-exp the training forward writes
+                out = torch.empty_like(qd)
+                klse = torch.empty((B, H, S), device="cuda")
+                kernel.launch(qd, kd, vd, out, causal=causal, window=window,
+                              lse=klse)
+                torch.cuda.synchronize()
+                lse_err = float((klse - lse).abs().max())
+                lse_note = f", lse max_abs_err={lse_err:.3e}"
+                check(lse_err <= LSE_ATOL,
+                      f"flash forward {name} {dtype}: lse error {lse_err}")
+            print(f"  {name:20s} {str(dtype):15s} B={B} S={S} H={H} KH={KH} "
+                  f"Dh={Dh} causal={causal} window={window} ({route}): rel "
+                  f"err dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} "
+                  f"tol={tol:.0e}{lse_note}", flush=True)
+            check(all(math.isfinite(e) and e <= tol for e in errs),
+                  f"flash backward {name} {dtype}: errors {errs} > {tol}")
+            if name in BWD_TIMED_CASES and dtype == torch.bfloat16:
+                result[name] = time_kernel_bwd(qd, kd, vd, do, causal,
+                                               window, abs_err)
+            del q, k, v, o, grads
+    torch.cuda.empty_cache()
+    timing = dict(result["minicpm-train"])
+    timing["at_minicpm_prefill_shape"] = result["minicpm-prefill"]
+    timing["at_granite_shape"] = result["granite-prefill"]
+    timing["at_griffin_shape"] = result["griffin-prefill"]
+    return timing
+
+
+def time_kernel_bwd(q, k, v, do, causal, window, err):
+    """The backward kernel's three passes, its plain version and
+    ``torch.autograd.grad`` of SDPA on the same inputs."""
+    from repro_torch.kernels.flash_attention import kernel, ref
+    import torch.nn.functional as F
+    B, S, H, Dh = q.shape
+    KH = k.shape[2]
+    scale = 1.0 / math.sqrt(Dh)
+    out, lse = torch.empty_like(q), torch.empty((B, H, S), device="cuda")
+    kernel.launch(q, k, v, out, causal=causal, window=window, scale=scale,
+                  lse=lse)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dsum = torch.empty_like(lse)
+    kernel_ms = cuda_ms(lambda: kernel.launch_bwd(
+        q, k, v, out, do, lse, dsum, dq, dk, dv, causal=causal,
+        window=window, scale=scale), iters=10)
+    plain_ms = cuda_ms(lambda: ref.reference_attention_bwd(
+        q, k, v, out, lse, do, causal=causal, window=window), iters=3,
+        warmup=1)
+    # yardstick only: SDPA's own backward on the same inputs; the port
+    # never calls it
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                        enable_gqa=H != KH)
+    dot = do.transpose(1, 2).contiguous()
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), dot, retain_graph=True), iters=10)
+    bound_ms, bound_by, flops, nbytes = attention_bwd_bound(
+        B, S, H, KH, Dh, causal, window, q.dtype)
+    print(f"  backward timing at B={B} S={S} H={H} KH={KH} Dh={Dh} "
+          f"window={window} {q.dtype}: kernel {kernel_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, kernel / "
+          f"sdpa {kernel_ms / library_ms:.2f}x; bound {bound_ms * 1e3:.2f} "
+          f"us by {bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} "
+          f"MB)", flush=True)
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by}
@@ -1222,6 +1459,207 @@ def phase_consistency(cfg, params, moe_dispatch: str = "einsum",
           f"an off-by-one {control} passes the tolerance ({rel_bad})")
 
 
+def _kernel_modules():
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
+    from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
+    from repro_torch.kernels.rglru_scan import kernel as rg_kernel
+    return fa_kernel, gmm_kernel, rg_kernel, ml_kernel
+
+
+def kernel_launches() -> dict:
+    """Every kernel's launch count, the flash backward's apart."""
+    fa, gmm, rg, ml = _kernel_modules()
+    return {"flash_attention": fa.LAUNCHES,
+            "flash_attention_bwd": fa.BWD_LAUNCHES, "moe_gmm": gmm.LAUNCHES,
+            "rglru_scan": rg.LAUNCHES, "mlstm_scan": ml.LAUNCHES}
+
+
+def reset_kernel_launches() -> None:
+    for module in _kernel_modules():
+        module.reset_launches()
+
+
+def phase_train():
+    """Four AdamW steps of full-width minicpm-2b at TRAIN_SEQ, then an eval
+    step, through ``make_train_step`` / ``make_eval_step``; returns
+    ({kernel: launches over the steps and the eval}, {kernel: launches by
+    route}, {step metrics and times})."""
+    from repro_torch.configs import get_arch, get_schedule
+    from repro_torch.data import batch_for
+    from repro_torch.launch.steps import make_eval_step, make_train_step
+    from repro_torch.models import registry as R
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import AdamWConfig, adamw_init
+    fa_kernel = _kernel_modules()[0]
+    phase(f"train {ARCH}")
+    cfg = get_arch(ARCH)
+    check(cfg.remat == "full" and cfg.dtype == "bfloat16",
+          f"{cfg.name} trains with remat={cfg.remat} in {cfg.dtype}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # float32 master weights from a seed, cast to bf16 at use
+    params = R.init_params(cfg, 0, device="cuda", param_dtype=torch.float32)
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    n_params = R.count_params_analytic(cfg)
+    shape = ShapeSpec("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in batch_for(cfg, shape, seed=0, step=0).items()}
+    ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                       total_steps=TRAIN_STEPS, schedule=get_schedule(ARCH))
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+          f"{n_params / 1e9:.3f} B params, float32 weights and AdamW "
+          f"moments, {cfg.dtype} compute, remat={cfg.remat}; batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} as {TRAIN_ACCUM} microbatches; "
+          f"{ocfg.schedule} lr {ocfg.lr} warmup {ocfg.warmup_steps} of "
+          f"{ocfg.total_steps}; init {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    step_fn = make_train_step(cfg, ocfg, accum_steps=TRAIN_ACCUM,
+                              device="cuda")
+    n_attn = sum(v for k, v in layer_counts(cfg).items()
+                 if k in ("attn", "swa", "local"))
+    # per microbatch: the forward and its recompute under full remat, and
+    # one backward
+    want = {"flash_attention": n_attn * 2 * TRAIN_ACCUM,
+            "flash_attention_bwd": n_attn * TRAIN_ACCUM, "moe_gmm": 0,
+            "rglru_scan": 0, "mlstm_scan": 0}
+    reset_kernel_launches()
+    history = []
+    for i in range(TRAIN_STEPS):
+        before = kernel_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        m = {k: float(v) for k, v in metrics.items()}
+        after = kernel_launches()
+        delta = {k: after[k] - before[k] for k in after}
+        check(all(math.isfinite(v) for v in m.values()),
+              f"train step {i + 1}: a metric is not finite: {m}")
+        check(delta == want, f"train step {i + 1} launched {delta}, "
+              f"expected {want}")
+        m["ms"] = ms
+        m["tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3)
+        history.append(m)
+        print(f"  step {i + 1}: loss {m['loss']:.5f} nll {m['nll']:.5f} "
+              f"acc {m['acc']:.4f} grad_norm {m['grad_norm']:.4f} lr "
+              f"{m['lr']:.3e}; {ms:.1f} ms, {m['tokens_per_s']:.1f} "
+              f"tokens/s; launches {delta}", flush=True)
+    check(history[-1]["loss"] < history[0]["loss"],
+          f"the loss did not fall over {TRAIN_STEPS} steps on one batch: "
+          f"{history[0]['loss']} -> {history[-1]['loss']}")
+    before = kernel_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev = {k: float(v) for k, v in
+          make_eval_step(cfg, device="cuda")(params, batch).items()}
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    delta = {k: v - before[k] for k, v in kernel_launches().items()}
+    check(all(math.isfinite(v) for v in ev.values()),
+          f"eval: a metric is not finite: {ev}")
+    check(delta == dict(want, flash_attention=n_attn,
+                        flash_attention_bwd=0),
+          f"the eval step launched {delta}")
+    peak = torch.cuda.max_memory_allocated()
+    launches = kernel_launches()
+    routes = {"flash_attention": dict(fa_kernel.LAUNCHES_BY_ROUTE),
+              "flash_attention_bwd": dict(fa_kernel.BWD_LAUNCHES_BY_ROUTE)}
+    check(routes["flash_attention"] == {
+        r: launches["flash_attention"] if r == "wgmma_bf16" else 0
+        for r in routes["flash_attention"]},
+        f"flash forward launches by route {routes['flash_attention']}: "
+        f"a bf16 model must take wgmma_bf16 only")
+    check(routes["flash_attention_bwd"] == {
+        r: launches["flash_attention_bwd"] if r == "wmma_bf16" else 0
+        for r in routes["flash_attention_bwd"]},
+        f"flash backward launches by route "
+        f"{routes['flash_attention_bwd']}: a bf16 model must take "
+        f"wmma_bf16 only")
+    steady = [h["ms"] for h in history[1:]]
+    print(f"  eval: loss {ev['loss']:.5f} nll {ev['nll']:.5f} acc "
+          f"{ev['acc']:.4f}; {eval_ms:.1f} ms; loss {history[0]['loss']:.5f}"
+          f" -> {history[-1]['loss']:.5f} over {TRAIN_STEPS} steps",
+          flush=True)
+    print(f"  {TRAIN_STEPS} steps + eval: launches {launches}; by route "
+          f"{routes}; step time {min(steady):.1f}-{max(steady):.1f} ms after "
+          f"the first ({history[0]['ms']:.1f} ms); peak memory "
+          f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB)", flush=True)
+    # where the time goes: one more step, under the profiler
+    print_profile("train step", *profile_ms(
+        lambda: step_fn(params, opt, batch)))
+    del params, opt
+    torch.cuda.empty_cache()
+    return launches, routes, {"steps": history, "eval": ev,
+                              "eval_ms": eval_ms, "peak_bytes": peak}
+
+
+def phase_train_consistency():
+    """One float32 training step's loss and gradients on the card against
+    the same on the CPU, at full width and CONSIST_LAYERS layers, with the
+    labels shifted by one position as the negative control."""
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import flatten_with_paths
+    from repro_torch.data import batch_for
+    from repro_torch.models import registry as R
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.tree import tree_map
+    fa_kernel = _kernel_modules()[0]
+    phase(f"train consistency {ARCH}")
+    cfg = dataclasses.replace(get_arch(ARCH), n_layers=CONSIST_LAYERS,
+                              dtype="float32")
+    params = R.init_params(cfg, 0, device="cpu", param_dtype=torch.float32)
+    batch = batch_for(cfg, ShapeSpec("consistency", CONSIST_SEQ, 1, "train"),
+                      seed=1)
+
+    def run(device, labels):
+        p = tree_map(lambda t: t.detach().to(device).requires_grad_(True),
+                     params)
+        loss, _ = R.forward_train(p, cfg, {"tokens": batch["tokens"],
+                                           "labels": labels}, device=device)
+        loss.backward()
+        return float(loss.detach()), {k: t.grad.detach().cpu() for k, t in
+                                      flatten_with_paths(p).items()}
+
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    loss_gpu, g_gpu = run("cuda", batch["labels"])
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    launches = kernel_launches()
+    n_fwd = CONSIST_LAYERS * (1 if cfg.remat == "none" else 2)
+    check(launches["flash_attention"] == n_fwd and
+          launches["flash_attention_bwd"] == CONSIST_LAYERS and
+          fa_kernel.BWD_LAUNCHES_BY_ROUTE["scalar_f32"] == CONSIST_LAYERS and
+          fa_kernel.LAUNCHES_BY_ROUTE["scalar_f32"] == n_fwd,
+          f"the float32 step launched {launches}")
+    t0 = time.perf_counter()
+    loss_cpu, g_cpu = run("cpu", batch["labels"])
+    cpu_s = time.perf_counter() - t0
+    _, g_bad = run("cpu", np.roll(batch["labels"], 1, axis=1))
+
+    def rel(got, want):
+        top = max(float(w.abs().max()) for w in want.values())
+        return max(float((got[k] - w).abs().max()) /
+                   max(float(w.abs().max()), TRAIN_FLOOR * top)
+                   for k, w in want.items())
+    err, err_bad = rel(g_gpu, g_cpu), rel(g_gpu, g_bad)
+    loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    print(f"  {cfg.n_layers} layers at full width, float32, S={CONSIST_SEQ}:"
+          f" loss card {loss_gpu:.6f} cpu {loss_cpu:.6f} (rel err "
+          f"{loss_err:.3e}); max rel grad err over {len(g_cpu)} leaves "
+          f"{err:.3e} (tol {TRAIN_RTOL:.0e}); labels shifted by one: "
+          f"{err_bad:.3e}; card {gpu_s:.2f} s, cpu {cpu_s:.2f} s; launches "
+          f"{launches}", flush=True)
+    check(loss_err <= TRAIN_RTOL, f"the loss disagrees: {loss_err}")
+    check(err <= TRAIN_RTOL, f"the gradients disagree: {err}")
+    check(err_bad > TRAIN_RTOL,
+          f"shifted labels pass the tolerance ({err_bad})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this runs on the GPU",
@@ -1231,6 +1669,7 @@ def main() -> int:
     card = phase_device()
     phase_build()
     fa_timing = phase_kernel()
+    bwd_timing = phase_kernel_bwd()
     gmm_timing = phase_kernel_moe()
     rg_timing = phase_kernel_rglru()
     ml_timing = phase_kernel_mlstm()
@@ -1254,6 +1693,8 @@ def main() -> int:
     phase_consistency(cfg, params, tol=XLSTM_CONSISTENCY_RTOL)
     del params
     torch.cuda.empty_cache()
+    train_launches, train_routes, _ = phase_train()
+    phase_train_consistency()
 
     kernels = [
         {"name": "flash_attention", "route": "cuda",
@@ -1270,11 +1711,27 @@ def main() -> int:
              ARCH: dense_launches["flash_attention"],
              MOE_ARCH: moe_launches["flash_attention"],
              GRIFFIN_ARCH: griffin_launches["flash_attention"],
-             XLSTM_ARCH: xlstm_launches["flash_attention"]},
-         "launches_by_route": {arch: r["flash_attention"]
-                               for arch, r in routes.items()},
+             XLSTM_ARCH: xlstm_launches["flash_attention"],
+             f"{ARCH} train": train_launches["flash_attention"]},
+         "launches_by_route": {
+             **{arch: r["flash_attention"] for arch, r in routes.items()},
+             f"{ARCH} train": train_routes["flash_attention"]},
          "at_granite_shape": fa_timing["granite-prefill"],
          "at_griffin_shape": fa_timing["griffin-prefill"]},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention_bwd.cu",
+         # the gradient of the TPU kernel above, which has none of its own:
+         # the reference differentiates its plain attention
+         # (src/repro/models/layers.py:90) with jax.grad
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:72",
+         # launches on its path, minicpm-2b training (4 steps and an eval),
+         # all on wmma_bf16 (checked in the train phase); times at that
+         # path's shape (B 1, S 4096, 36 heads of 64), and at minicpm's,
+         # granite's and recurrentgemma's prefill shapes
+         "launches": train_launches["flash_attention_bwd"],
+         "launches_by_route": train_routes["flash_attention_bwd"],
+         **bwd_timing},
         {"name": "moe_gmm", "route": "cuda",
          "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
          "replaces": "src/repro/kernels/moe_gmm/kernel.py:55",

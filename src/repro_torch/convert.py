@@ -10,6 +10,12 @@ scanned periods and ``tail[n - n_scan_blocks * P]`` after them.
 A JAX tree is given as nested dicts and lists of numpy arrays, as
 ``jax.tree.map(np.asarray, params)`` gives it.  Paths in errors are written
 as ``jax.tree_util.keystr`` writes them, e.g. ``['blocks']['l0']['mix']['wq']``.
+
+The optimizer state converts the same way: its moments ``m`` and ``v`` are
+trees shaped like the params (``opt_state_to_jax``,
+``opt_state_from_jax``).  ``tree_to_jax_flat`` and ``tree_from_jax_flat``
+key a params-shaped tree by those JAX paths directly, keeping its tensors'
+dtypes, as a checkpoint stores them.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import torch
 
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ArchConfig
+from repro_torch.optim import AdamWState
 
 Path = Tuple[Any, ...]
 
@@ -84,8 +91,17 @@ def params_from_jax(cfg: ArchConfig, tree, *, device="cpu"):
     Raises KeyError naming the path if a port weight has no JAX leaf or a
     JAX leaf is left unused, and ValueError on a shape mismatch.
     """
+    flat = {k: np.asarray(v) for k, v in flatten_with_paths(tree).items()}
+    return _from_flat(cfg, flat, _to_torch, device)
+
+
+def _from_flat(cfg: ArchConfig, flat: Dict[str, Any], to_torch, device,
+               prefix: str = ""):
+    """A params-shaped port tree of ``to_torch(leaf)`` on ``device`` from
+    {prefix + JAX keystr path: leaf}; every key under ``prefix`` used."""
     template = tf.init_params(cfg, device="meta")
-    flat = flatten_with_paths(tree)
+    flat = {k[len(prefix):]: v for k, v in flat.items()
+            if k.startswith(prefix)}
     used = set()
 
     def take(path: Path, like: torch.Tensor):
@@ -94,7 +110,7 @@ def params_from_jax(cfg: ArchConfig, tree, *, device="cpu"):
             raise KeyError(f"JAX params have no leaf {jpath} for the port's "
                            f"{keystr(path)}")
         used.add(jpath)
-        arr = np.asarray(flat[jpath])
+        arr = flat[jpath]
         if idx is not None:
             if arr.ndim == 0 or arr.shape[0] != cfg.n_scan_blocks:
                 raise ValueError(f"{jpath}: expected a leading dim of "
@@ -105,7 +121,7 @@ def params_from_jax(cfg: ArchConfig, tree, *, device="cpu"):
             raise ValueError(f"{jpath}: shape {tuple(arr.shape)} does not "
                              f"match the port's {keystr(path)} "
                              f"{tuple(like.shape)}")
-        return _to_torch(arr).to(device)
+        return to_torch(arr).to(device)
 
     out = _map_with_path(template, take)
     unused = sorted(set(flat) - used)
@@ -124,34 +140,70 @@ def _stack(layers):
     first = layers[0]
     if isinstance(first, dict):
         return {k: _stack([lay[k] for lay in layers]) for k in first}
-    return np.stack([_to_numpy(t) for t in layers])
+    return torch.stack([t.detach() for t in layers])
 
 
 def _to_jax_layout(cfg: ArchConfig, tree):
+    """A params-shaped port tree in the JAX layout: the layers of each
+    pattern position stacked over the scanned blocks, then the tail; the
+    tensors' dtypes and device kept."""
     layers = tree["layers"]
     if len(layers) != cfg.n_layers:
         raise ValueError(f"{len(layers)} layers for a {cfg.n_layers}-layer "
                          f"config")
     P, n_scan = cfg.pattern_period, cfg.n_scan_blocks
-    out = {k: _tree_to_numpy(v) for k, v in tree.items() if k != "layers"}
+    out = {k: v for k, v in tree.items() if k != "layers"}
     if n_scan:
         out["blocks"] = {f"l{i}": _stack([layers[j * P + i]
                                           for j in range(n_scan)])
                          for i in range(P)}
     if cfg.n_tail_layers:
-        out["tail"] = [_tree_to_numpy(layers[n_scan * P + i])
+        out["tail"] = [layers[n_scan * P + i]
                        for i in range(cfg.n_tail_layers)]
     return out
 
 
 def params_to_jax(cfg: ArchConfig, params):
     """The JAX params layout (numpy arrays; bf16 as float32) of port params."""
-    return _to_jax_layout(cfg, params)
+    return _tree_to_numpy(_to_jax_layout(cfg, params))
+
+
+def opt_state_to_jax(cfg: ArchConfig, state: AdamWState):
+    """(step, m, v) of a port AdamW state in the JAX layout, numpy arrays,
+    in the order of the JAX package's ``AdamWState`` fields."""
+    return (_to_numpy(state.step), params_to_jax(cfg, state.m),
+            params_to_jax(cfg, state.v))
+
+
+def opt_state_from_jax(cfg: ArchConfig, state, *, device="cpu"):
+    """The port's AdamW state from a JAX one ((step, m, v) of numpy
+    arrays, or anything with those fields)."""
+    step, m, v = state
+    return AdamWState(
+        step=torch.tensor(np.asarray(step), dtype=torch.int32,
+                          device=device),
+        m=params_from_jax(cfg, m, device=device),
+        v=params_from_jax(cfg, v, device=device))
+
+
+def tree_to_jax_flat(cfg: ArchConfig, tree,
+                     prefix: str = "") -> Dict[str, torch.Tensor]:
+    """{prefix + JAX keystr path: tensor} of a params-shaped port tree in
+    the JAX layout; dtypes kept."""
+    return {prefix + k: t.detach() for k, t in
+            flatten_with_paths(_to_jax_layout(cfg, tree)).items()}
+
+
+def tree_from_jax_flat(cfg: ArchConfig, flat: Dict[str, torch.Tensor],
+                       prefix: str = "", *, device="cpu"):
+    """The params-shaped port tree under ``prefix`` of a flat
+    {JAX keystr path: tensor}, as ``tree_to_jax_flat`` keys it."""
+    return _from_flat(cfg, flat, torch.as_tensor, device, prefix)
 
 
 def cache_to_jax(cfg: ArchConfig, cache):
     """The JAX decode-cache layout (numpy arrays) of a port cache."""
-    out = _to_jax_layout(cfg, cache)
+    out = _tree_to_numpy(_to_jax_layout(cfg, cache))
     out.setdefault("blocks", {})
     out.setdefault("tail", [])
     return out

@@ -38,6 +38,10 @@
 //  * Any S works: q rows and k columns past S are masked, and K/V rows
 //    past S are loaded as zeros.  Dh is a template parameter: 64, 120, 128
 //    and 256.
+//  * When the caller passes an `lse` buffer (B, H, S) float32 (training:
+//    the backward in flash_attention_bwd.cu reads it), each row's
+//    log-sum-exp of its scaled scores, m + log(l) in natural-log units, is
+//    written beside the output.  Serving passes null and writes nothing.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -96,8 +100,9 @@ __device__ __forceinline__ float group_reduce(float v) {
 template <int DH>
 __global__ void __launch_bounds__(Tiles<DH>::NT)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int S,
-              int H, int KH, int causal, int window, float scale) {
+              const float* __restrict__ v, float* __restrict__ o,
+              float* __restrict__ lse, int S, int H, int KH, int causal,
+              int window, float scale) {
   using L = Tiles<DH>;
   constexpr int NT = L::NT, KPT = L::KPT, NC = L::NC, LN = L::LANES;
   static_assert(DH % LN == 0, "Dh must split over the lanes of a row group");
@@ -229,14 +234,17 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int n = 0; n < NC; ++n)
         ob[s * q_stride + tc + LN * n] = acc[i][n] * inv;
+      // every lane of the row group holds the row's m and l
+      if (lse != nullptr && tc == 0)
+        lse[((long long)b * H + h) * S + s] = m[i] + logf(l[i]);
     }
   }
 }
 
 template <int DH>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       int B, int S, int H, int KH, int causal, int window,
-                       float scale, cudaStream_t stream) {
+                       float* lse, int B, int S, int H, int KH, int causal,
+                       int window, float scale, cudaStream_t stream) {
   const size_t smem = Tiles<DH>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_f32<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -245,8 +253,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((S + BQ - 1) / BQ, B * H);
   flash_fwd_f32<DH><<<grid, Tiles<DH>::NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, H, KH, causal,
-      window, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, H, KH,
+      causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -319,8 +327,9 @@ __global__ void __launch_bounds__(WgTiles<DH>::NT, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv,
-               const __grid_constant__ CUtensorMap to, int S, int H, int KH,
-               int causal, int window, float scale) {
+               const __grid_constant__ CUtensorMap to,
+               float* __restrict__ lse, int S, int H, int KH, int causal,
+               int window, float scale) {
   using T = WgTiles<DH>;
   constexpr int DHP = T::DHP, NP = T::NP, BKEYS = T::BKEYS;
   constexpr int STAGES = T::STAGES, CONSUMERS = T::CONSUMERS, BQ = T::BQ;
@@ -525,6 +534,11 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
         sum += __shfl_xor_sync(0xffffffffu, sum, 2);
         // a row with no valid key (only past S) is never stored
         inv[hr] = sum > 0.f ? 1.f / sum : 0.f;
+        // m is in log2 units (scores times scale * log2(e))
+        const int row = my_row + 8 * hr;
+        if (lse != nullptr && lane % 4 == 0 && row < S)
+          lse[((long long)b * H + h) * S + row] =
+              m[hr] * 0.6931471805599453f + logf(sum);
       }
       // O in bf16 into this warpgroup's Q rows, in the swizzled layout the
       // tensor map stores from; the products that read Q have completed
@@ -565,8 +579,8 @@ bool make_map(CUtensorMap* map, const void* base, int B, int S, int heads,
 
 template <int DH>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        int B, int S, int H, int KH, int causal, int window,
-                        float scale, cudaStream_t stream) {
+                        float* lse, int B, int S, int H, int KH, int causal,
+                        int window, float scale, cudaStream_t stream) {
   using T = WgTiles<DH>;
   for (const void* p : {q, k, v, (const void*)o})
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
@@ -583,7 +597,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (S + T::BQ - 1) / T::BQ);
   flash_fwd_bf16<DH><<<grid, T::NT, T::bytes, stream>>>(
-      tq, tk, tv, to, S, H, KH, causal, window, scale);
+      tq, tk, tv, to, lse, S, H, KH, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -602,40 +616,42 @@ extern "C" int repro_flash_attention_smem_bytes(int Dh, int dtype) {
 }
 
 // q: (B, S, H, Dh), k and v: (B, S, KH, Dh), o: (B, S, H, Dh), all
-// contiguous, on the current device.  dtype picks the route: 0 float32 (the
-// scalar kernel), 1 bf16 (the wgmma kernel, which takes 16-byte aligned
-// tensors only).  Launches on `stream` and returns cudaGetLastError() after
-// the launch (0 on success), or the error that refused it.
+// contiguous, on the current device; lse: null, or (B, H, S) float32 for
+// each row's log-sum-exp.  dtype picks the route: 0 float32 (the scalar
+// kernel), 1 bf16 (the wgmma kernel, which takes 16-byte aligned tensors
+// only).  Launches on `stream` and returns cudaGetLastError() after the
+// launch (0 on success), or the error that refused it.
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
-                                         const void* v, void* o, int B, int S,
-                                         int H, int KH, int Dh, int causal,
-                                         int window, int dtype, float scale,
-                                         void* stream) {
+                                         const void* v, void* o, void* lse,
+                                         int B, int S, int H, int KH, int Dh,
+                                         int causal, int window, int dtype,
+                                         float scale, void* stream) {
   if (B <= 0 || S <= 0 || KH <= 0 || H <= 0 || H % KH != 0 ||
       (long long)B * H > 65535 || window < 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool bf16 = dtype == 1;
+  float* l = static_cast<float*>(lse);
   switch (Dh) {
     case 64:
-      return (int)(bf16 ? launch_bf16<64>(q, k, v, o, B, S, H, KH, causal,
+      return (int)(bf16 ? launch_bf16<64>(q, k, v, o, l, B, S, H, KH, causal,
                                           window, scale, st)
-                        : launch_f32<64>(q, k, v, o, B, S, H, KH, causal,
+                        : launch_f32<64>(q, k, v, o, l, B, S, H, KH, causal,
                                          window, scale, st));
     case 120:
-      return (int)(bf16 ? launch_bf16<120>(q, k, v, o, B, S, H, KH, causal,
+      return (int)(bf16 ? launch_bf16<120>(q, k, v, o, l, B, S, H, KH, causal,
                                            window, scale, st)
-                        : launch_f32<120>(q, k, v, o, B, S, H, KH, causal,
+                        : launch_f32<120>(q, k, v, o, l, B, S, H, KH, causal,
                                           window, scale, st));
     case 128:
-      return (int)(bf16 ? launch_bf16<128>(q, k, v, o, B, S, H, KH, causal,
+      return (int)(bf16 ? launch_bf16<128>(q, k, v, o, l, B, S, H, KH, causal,
                                            window, scale, st)
-                        : launch_f32<128>(q, k, v, o, B, S, H, KH, causal,
+                        : launch_f32<128>(q, k, v, o, l, B, S, H, KH, causal,
                                           window, scale, st));
     case 256:
-      return (int)(bf16 ? launch_bf16<256>(q, k, v, o, B, S, H, KH, causal,
+      return (int)(bf16 ? launch_bf16<256>(q, k, v, o, l, B, S, H, KH, causal,
                                            window, scale, st)
-                        : launch_f32<256>(q, k, v, o, B, S, H, KH, causal,
+                        : launch_f32<256>(q, k, v, o, l, B, S, H, KH, causal,
                                           window, scale, st));
     default:
       return (int)cudaErrorInvalidValue;

@@ -12,6 +12,14 @@ zero-padded along Dh to the next of them (zeros add nothing to q k^T, and
 the padded columns of the output are dropped; the scale stays that of the
 true Dh), and copies a non-contiguous q, k or v, or a bf16 one off a
 16-byte boundary, into a fresh contiguous tensor.
+
+Under grad mode, with an input that requires grad, the kernel runs inside
+``FlashAttentionFunction``: the forward also writes each row's
+log-sum-exp, and the backward is the hand-written kernel of
+``csrc/flash_attention_bwd.cu``.  ``kernel_layout``'s padding and copies
+stay outside the function, so autograd carries the gradient through them
+(and drops a padded head dim's extra columns).  Otherwise (serving, under
+``no_grad`` or ``inference_mode``) the forward writes no log-sum-exp.
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels.flash_attention import kernel, ref
 
@@ -90,6 +99,42 @@ def kernel_layout(q, k, v):
     return fit(q), fit(k), fit(v)
 
 
+def _forward(q, k, v, causal, window, scale, with_lse):
+    out = torch.empty_like(q)
+    lse = None
+    if with_lse:
+        B, S, H, _ = q.shape
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    kernel.launch(q, k, v, out, causal=causal, window=window, scale=scale,
+                  lse=lse)
+    return out, lse
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """The kernel's forward and backward on q, k, v in the kernel's layout
+    (``kernel_layout``); ``scale`` multiplies the scores."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, scale: float):
+        out, lse = _forward(q, k, v, causal, window, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.to(q.dtype).contiguous()
+        if dout.dtype == torch.bfloat16 and dout.data_ptr() % 16:
+            dout = dout.clone()
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        kernel.launch_bwd(q, k, v, out, dout, lse, torch.empty_like(lse),
+                          dq, dk, dv, causal=ctx.causal, window=ctx.window,
+                          scale=ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q: (B, S, H, Dh); k, v: (B, S, KH, Dh) -> (B, S, H, Dh)."""
     _check_shapes(q, k, v, window)
@@ -97,10 +142,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         return ref.reference_attention(q, k, v, causal=causal, window=window)
     check_kernel_args(q, k, v)
     head_dim = q.shape[3]
+    scale = 1.0 / math.sqrt(head_dim)
     q, k, v = kernel_layout(q, k, v)
     check_alignment(q, k, v)
-    out = torch.empty_like(q)
-    kernel.launch(q, k, v, out, causal=causal, window=window,
-                  scale=1.0 / math.sqrt(head_dim))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        out = FlashAttentionFunction.apply(q, k, v, causal, window, scale)
+    else:
+        out, _ = _forward(q, k, v, causal, window, scale, with_lse=False)
     return out if head_dim == out.shape[3] else \
         out[..., :head_dim].contiguous()

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.mlstm_scan import kernel, ref
 
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
@@ -85,6 +86,9 @@ def mlstm_chunkwise(q, k, v, ig, fg, *, chunk: int = 64, init_state=None):
     if all(t.device.type == "cpu" for t in ts):
         return ref.reference_mlstm(q, k, v, ig, fg, chunk=chunk,
                                    init_state=init_state)
+    build.check_no_grad(
+        "mlstm_scan", ts,
+        "call it under torch.no_grad() (serving), or train xLSTM on the CPU")
     # the gates and the state are read in float32, as the reference casts
     # them
     ig, fg = ig.float(), fg.float()

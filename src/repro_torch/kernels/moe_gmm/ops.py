@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.moe_gmm import kernel, ref
 
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
@@ -92,6 +93,10 @@ def expert_ffn(xe, p, act: str = "swiglu", counts=None):
     if all(t.device.type == "cpu"
            for t in (xe, p["w1"], p["w2"], w3, counts) if t is not None):
         return ref.reference_expert_ffn(xe, p, act, counts)
+    build.check_no_grad(
+        "moe_gmm", (xe, p["w1"], p["w2"], w3),
+        "call it under torch.no_grad() (serving), or train MoE with "
+        "moe_dispatch='einsum'")
     w1, w2 = p["w1"].to(xe.dtype), p["w2"].to(xe.dtype)
     w3 = None if w3 is None else w3.to(xe.dtype)
     check_kernel_args(xe, w1, w3, w2, counts)

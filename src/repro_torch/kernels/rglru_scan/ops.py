@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.rglru_scan import kernel, ref
 
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
@@ -72,6 +73,10 @@ def rglru(x, lam, ga, gx, h0=None, *, b_a=None, b_i=None):
     if all(t.device.type == "cpu"
            for t in (x, lam, ga, gx, h0, b_a, b_i) if t is not None):
         return ref.reference_rglru(x, lam, ga, gx, h0, b_a=b_a, b_i=b_i)
+    build.check_no_grad(
+        "rglru_scan", (x, lam, ga, gx, h0, b_a, b_i),
+        "call it under torch.no_grad() (serving), or train Griffin on the "
+        "CPU")
     # lam and h0 are read in float32, as the reference casts them
     lam = lam.float()
     h0 = None if h0 is None else h0.float()

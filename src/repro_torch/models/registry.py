@@ -13,6 +13,7 @@ from repro_torch.models.config import ArchConfig
 
 # Re-exported model API (single entry point for the rest of the port).
 init_params = tf.init_params
+forward_train = tf.forward_train
 forward_logits = tf.forward_logits
 prefill = tf.prefill
 decode_step = tf.decode_step

@@ -20,7 +20,9 @@ sLSTM layer.
 
 Public API (``moe_dispatch`` is "einsum" or "gather", as in the reference;
 it is read only by MoE layers):
-  init_params(cfg, seed, device=)                  -> params
+  init_params(cfg, seed, device=, param_dtype=)    -> params
+  forward_train(params, cfg, batch, moe_dispatch=, aux_weight=, device=)
+                                                   -> (loss, metrics)
   forward_logits(params, cfg, batch, moe_dispatch=, device=) -> (B, S, V)
   prefill(params, cfg, batch, cache_len=, moe_dispatch=, device=)
                                                    -> (last_logits, cache)
@@ -30,11 +32,14 @@ it is read only by MoE layers):
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import check_on_device, resolve_device, torch_dtype
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -55,6 +60,7 @@ _SELF_ATTN = (ATTN, SWA, LOCAL)
 _RECURRENT = (RGLRU, MLSTM, SLSTM)
 _SUPPORTED = _SELF_ATTN + _RECURRENT
 _LATER_SLICE = {CROSS: "the cross-attention (vision) slice"}
+XENT_CHUNK = 512  # sequence chunk of the fused logits + loss
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -84,14 +90,16 @@ def _window_for(kind: str, cfg: ArchConfig) -> int:
 # Init
 # ---------------------------------------------------------------------------
 
-def init_params(cfg: ArchConfig, seed: int = 0, *,
-                device=None) -> Dict[str, Any]:
+def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
+                param_dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """Random weights with the JAX init's shapes and scales.
 
     Drawn in float32 from a ``torch.Generator`` seeded with ``seed`` on the
-    target device, then stored in ``cfg.dtype`` (the reference keeps
-    float32 weights and casts them at use; full-width serving reads half
-    the bytes this way).  The MoE router stays float32: routing casts it
+    target device, then stored in ``param_dtype``.  Training passes
+    ``torch.float32``: master weights as the reference keeps them, cast to
+    ``cfg.dtype`` at use, which AdamW updates.  By default (serving) they
+    are stored in ``cfg.dtype``, so that full-width serving reads half the
+    bytes; then the MoE router stays float32: routing casts it
     to float32 anyway, and a rounded router routes differently from the
     reference's.  So do the RG-LRU's ``lam``, ``b_a`` and ``b_i`` and the
     xLSTM gate biases (the reference's gates are float32 sums in a bf16
@@ -102,7 +110,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, *,
     """
     check_supported(cfg)
     device = resolve_device(device)
-    dt = torch_dtype(cfg.dtype)
+    dt = param_dtype or torch_dtype(cfg.dtype)
     gen = None if device.type == "meta" else \
         torch.Generator(device=device).manual_seed(seed)
 
@@ -229,34 +237,68 @@ def _self_attn(x, p, cfg, *, positions, window):
 
 
 def _apply_ffn(x, p, cfg, moe_dispatch):
+    """Returns (x, aux): the MoE load-balancing loss, 0.0 for a dense MLP."""
     if cfg.is_moe:
-        # the aux loss is for training, which this port does not run yet
-        x, _ = moe_block(x, p, cfg, dispatch=moe_dispatch)
-        return x
+        return moe_block(x, p, cfg, dispatch=moe_dispatch)
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    return x + gated_mlp(h, p, cfg.act)
+    return x + gated_mlp(h, p, cfg.act), 0.0
+
+
+def _apply_layer(x, layer, kind, cfg, positions, moe_dispatch,
+                 collect_kv: bool):
+    """Returns (x, aux, (k, v) or recurrent state or None)."""
+    if kind in _RECURRENT:
+        out = _APPLY_RECURRENT[kind](x, layer["mix"], cfg,
+                                     return_state=collect_kv)
+        x, kv = out if collect_kv else (out, None)
+    else:
+        x, kv = _self_attn(x, layer["mix"], cfg, positions=positions,
+                           window=_window_for(kind, cfg))
+    aux = 0.0
+    if "ffn" in layer:
+        x, aux = _apply_ffn(x, layer["ffn"], cfg, moe_dispatch)
+    return x, aux, kv
+
+
+# matrix products without batch dims: what the reference's "dots" policy
+# (``dots_with_no_batch_dims_saveable``) keeps; ``x @ w`` with a 2-D weight
+# dispatches to one of these
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS else \
+        CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _stack_forward(params, cfg, x, positions, moe_dispatch, *,
-                   collect_kv: bool = False):
+                   collect_kv: bool = False, remat: str = "none"):
     """Runs every layer in depth order.
 
-    Returns (x, per-layer [(k, v) or recurrent state] or None)."""
+    ``remat`` is the reference's ``cfg.remat`` for training: "full" keeps
+    only each layer's input and recomputes the layer in the backward,
+    "dots" keeps its matrix products' outputs too, "none" keeps all.
+    Returns (x, summed aux loss (0.0 without MoE layers), per-layer
+    [(k, v) or recurrent state] or None)."""
+    if remat not in ("full", "dots", "none"):
+        raise ValueError(f"remat {remat!r}; known: full, dots, none")
+    ckpt = {"use_reentrant": False}
+    if remat == "dots":
+        ckpt["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
     kvs: Optional[List[Any]] = [] if collect_kv else None
+    aux = 0.0
     for n, layer in enumerate(params["layers"]):
-        kind = layer_kind(cfg, n)
-        if kind in _RECURRENT:
-            apply = _APPLY_RECURRENT[kind]
-            out = apply(x, layer["mix"], cfg, return_state=collect_kv)
-            x, kv = out if collect_kv else (out, None)
+        args = (x, layer, layer_kind(cfg, n), cfg, positions, moe_dispatch,
+                collect_kv)
+        if remat == "none":
+            x, a, kv = _apply_layer(*args)
         else:
-            x, kv = _self_attn(x, layer["mix"], cfg, positions=positions,
-                               window=_window_for(kind, cfg))
+            x, a, kv = checkpoint(_apply_layer, *args, **ckpt)
+        aux = aux + a
         if kvs is not None:
             kvs.append(kv)
-        if "ffn" in layer:
-            x = _apply_ffn(x, layer["ffn"], cfg, moe_dispatch)
-    return x, kvs
+    return x, aux, kvs
 
 
 _APPLY_RECURRENT = {RGLRU: apply_rglru, MLSTM: apply_mlstm,
@@ -301,13 +343,81 @@ def _prepare(params, cfg, tokens, device):
 # Public entry points
 # ---------------------------------------------------------------------------
 
+def _head_matrix(params, cfg):
+    """The unembedding as (d, V), float32 in training."""
+    return params["embed"].t() if cfg.tie_embeddings else params["head"]
+
+
+def _chunk_loss(xc, head, lc, mc, z_weight: float):
+    logits = (xc @ head).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc[..., None])[..., 0]
+    nll = (lse - gold) * mc
+    zl = z_weight * torch.sum(torch.square(lse) * mc)
+    correct = torch.sum((torch.argmax(logits, dim=-1) == lc) * mc)
+    return torch.sum(nll) + zl, torch.sum(mc), correct
+
+
+def softmax_xent_from_hidden(x, head, labels, mask=None, *,
+                             chunk: int = XENT_CHUNK,
+                             z_weight: float = 1e-4):
+    """Fused per-chunk logits + cross-entropy, each chunk recomputed in the
+    backward, so that (B, S, V) is never held.
+
+    x: (B, S, d) hidden states; head: (d, V), cast to x's dtype (once, not
+    per chunk); labels: (B, S) ints; mask: (B, S) or None.  Chunks of
+    ``chunk`` positions, then the remainder, in order.  Returns
+    (mean nll + z-loss, accuracy), both over the mask's weight; the z-loss
+    ``z_weight * sum(lse^2)`` regularises the log-sum-exp."""
+    B, S, d = x.shape
+    chunk = min(chunk, S)
+    head = head.to(x.dtype)
+    labels = labels.long()
+    mask = torch.ones((B, S), device=x.device) if mask is None else \
+        mask.float()
+    tot = cnt = cor = torch.zeros((), device=x.device)
+    for s0 in range(0, S, chunk):
+        sl = slice(s0, min(s0 + chunk, S))
+        t, m, c = checkpoint(_chunk_loss, x[:, sl], head, labels[:, sl],
+                             mask[:, sl], z_weight, use_reentrant=False)
+        tot, cnt, cor = tot + t, cnt + m, cor + c
+    den = torch.clamp(cnt, min=1.0)
+    return tot / den, cor / den
+
+
+def forward_train(params, cfg: ArchConfig, batch, *,
+                  moe_dispatch: str = "einsum", aux_weight: float = 0.01,
+                  device=None):
+    """Training forward: next-token LM loss.  batch: tokens and labels
+    (B, S), and optionally a (B, S) mask.
+
+    Layers are recomputed in the backward as ``cfg.remat`` says.  Returns
+    (total, {"nll", "aux", "acc"}); total adds ``aux_weight * aux /
+    n_layers`` to the loss for an MoE model, as the reference does."""
+    tokens = _prepare(params, cfg, batch["tokens"], device)
+    labels = _tokens(batch["labels"], tokens.device)
+    x = _embed(params, cfg, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, aux, _ = _stack_forward(params, cfg, x, positions, moe_dispatch,
+                               remat=cfg.remat)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+    mask = batch.get("mask")
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=x.device)
+    loss, acc = softmax_xent_from_hidden(x, _head_matrix(params, cfg),
+                                         labels, mask)
+    total = loss + aux_weight * aux / cfg.n_layers if cfg.is_moe else loss
+    return total, {"nll": loss, "aux": aux, "acc": acc}
+
+
 def forward_logits(params, cfg: ArchConfig, batch, *,
                    moe_dispatch: str = "einsum", device=None):
     """Full-sequence logits (no cache) — used by eval / tests."""
     tokens = _prepare(params, cfg, batch["tokens"], device)
     x = _embed(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, _ = _stack_forward(params, cfg, x, positions, moe_dispatch)
+    x, _, _ = _stack_forward(params, cfg, x, positions, moe_dispatch)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     return _unembed(x, params, cfg)
 
@@ -366,7 +476,7 @@ def decode_step(params, cfg: ArchConfig, tokens, pos: int, cache, *,
                 window=_window_for(kind, cfg))
         layers.append(new)
         if "ffn" in layer:
-            x = _apply_ffn(x, layer["ffn"], cfg, moe_dispatch)
+            x, _ = _apply_ffn(x, layer["ffn"], cfg, moe_dispatch)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     return _unembed(x, params, cfg)[:, 0], {"layers": layers}
 
@@ -386,8 +496,8 @@ def prefill(params, cfg: ArchConfig, batch, *,
     x = _embed(params, cfg, tokens)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
-    x, kvs = _stack_forward(params, cfg, x, positions, moe_dispatch,
-                            collect_kv=True)
+    x, _, kvs = _stack_forward(params, cfg, x, positions, moe_dispatch,
+                               collect_kv=True)
     x = rms_norm(x[:, -1], params["final_ln"], cfg.norm_eps)
     logits = _unembed(x, params, cfg)
 

@@ -192,8 +192,9 @@ def test_launch_counts_each_dtype_on_its_route(monkeypatch):
         for _ in range(n):
             kernel.launch(q, kv, kv, torch.empty_like(q), causal=True,
                           window=16)
-    assert [c[11] for c in calls] == [1, 1, 0]    # the dtype code
-    assert [c[4:11] for c in calls] == [(1, 8, 4, 2, 64, 1, 16)] * 3
+    assert [c[12] for c in calls] == [1, 1, 0]    # the dtype code
+    assert [c[4] for c in calls] == [None] * 3     # no log-sum-exp asked
+    assert [c[5:12] for c in calls] == [(1, 8, 4, 2, 64, 1, 16)] * 3
     assert kernel.LAUNCHES == 8
     assert kernel.LAUNCHES_BY_ROUTE == {"wgmma_bf16": 4, "scalar_f32": 4}
     kernel.reset_launches()

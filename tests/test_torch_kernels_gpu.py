@@ -786,3 +786,140 @@ def test_bf16_xlstm_model_on_wgmma_is_as_close_to_float32_as_plain():
     assert ml_kernel.LAUNCHES_BY_ROUTE["wgmma_bf16"] == before + 2 * n_mlstm
     assert float((lg_on.float().cpu() - truth[:, 139]).abs().max()) <= \
         2 * max(plain_err, float((lg_off.float() - truth[:, 139]).abs().max()))
+
+
+# --------------------------------------------------------------------------
+# flash_attention's backward (csrc/flash_attention_bwd.cu), through the
+# wrapper's autograd function, against the plain backward's explicit
+# formulas in float32 on the same q, k, v, o and dO.  bf16 rounds P and dS
+# for the products that take them and dq, dk, dv on output, and reads the
+# forward's bf16 o; float32 differs in summation order only.  Each
+# gradient relative to its plain max |.|, floored at 1e-3 of the largest of
+# the three: a smaller one is a sum of cancelling terms of that size.  Where
+# every query sees one key (S 1, or a window of 1), dP = D, so dq = dk = 0
+# in exact arithmetic and both sides hold rounding only: there dq and dk
+# are held against the largest gradient's scale.
+# --------------------------------------------------------------------------
+
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def _bwd_check(q, k, v, do, causal, window, grads, o):
+    qd, kd, vd = (t.detach().float() for t in (q, k, v))
+    lse = ref.reference_attention_lse(qd, kd, causal=causal, window=window)
+    want = ref.reference_attention_bwd(qd, kd, vd, o.detach().float(), lse,
+                                       do.float(), causal=causal,
+                                       window=window)
+    scales = [float(w.abs().max()) for w in want]
+    floor = 1e-3 * max(scales)
+    if q.shape[1] == 1 or window == 1:
+        scales[0] = scales[1] = max(scales)
+    for g, w, sc in zip(grads, want, scales):
+        err = float((g.float() - w).abs().max())
+        assert err <= BWD_TOL[q.dtype] * max(sc, floor), err
+
+
+@pytest.mark.parametrize("B,S,H,KH,Dh,causal,window", [
+    (1, 4096, 36, 36, 64, True, 0),     # minicpm-2b's training shape
+    (2, 1000, 8, 8, 64, True, 0),       # minicpm's head dim
+    (2, 1000, 24, 8, 64, True, 0),      # granite's GQA
+    (1, 1000, 8, 1, 256, True, 2048),   # recurrentgemma's MQA
+    (2, 1000, 8, 2, 128, True, 100),    # a window that bites
+    (2, 1, 8, 2, 64, True, 0),
+    (2, 63, 8, 8, 120, True, 0),
+    (2, 65, 6, 1, 256, True, 32),
+    (2, 65, 4, 2, 16, True, 0),         # padded to 64 by the wrapper
+    (2, 63, 4, 4, 80, False, 0),        # padded to 120
+    (1, 200, 4, 2, 64, False, 40),
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_backward_matches_plain(B, S, H, KH, Dh, causal, window,
+                                      dtype):
+    _need_cuda()
+    q, k, v = (t.requires_grad_() for t in _qkv(B, S, H, KH, Dh, dtype))
+    do = _qkv(B, S, H, H, Dh, dtype, seed=1)[0]
+    route = kernel.BWD_ROUTES[dtype]
+    before = kernel.BWD_LAUNCHES_BY_ROUTE[route]
+    o = ops.flash_attention(q, k, v, causal=causal, window=window)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert kernel.BWD_LAUNCHES_BY_ROUTE[route] == before + 1
+    assert all(g.dtype == dtype and g.shape == t.shape
+               for g, t in zip(grads, (q, k, v)))
+    _bwd_check(q, k, v, do, causal, window, grads, o)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_backward_through_a_strided_q(dtype):
+    """A transposed q (copied by the wrapper) reaches the same gradients."""
+    _need_cuda()
+    B, S, H, KH, Dh = 2, 130, 4, 2, 64
+    q, k, v = _qkv(B, S, H, KH, Dh, dtype)
+    qt = q.transpose(1, 2).contiguous().requires_grad_()   # (B, H, S, Dh)
+    k.requires_grad_()
+    v.requires_grad_()
+    do = _qkv(B, S, H, H, Dh, dtype, seed=1)[0]
+    o = ops.flash_attention(qt.transpose(1, 2), k, v, causal=True)
+    dqt, dk, dv = torch.autograd.grad(o, (qt, k, v), do)
+    _bwd_check(qt.transpose(1, 2), k, v, do, True, 0,
+               (dqt.transpose(1, 2), dk, dv), o)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_forward_lse_matches_plain_and_leaves_output_unchanged(dtype):
+    """The training forward's log-sum-exp; the output is the same bits
+    with the lse pointer null (serving) and with it."""
+    _need_cuda()
+    for B, S, H, KH, Dh, window in ((2, 300, 8, 2, 64, 0),
+                                    (1, 257, 4, 1, 256, 64),
+                                    (2, 65, 4, 4, 120, 0)):
+        q, k, v = _qkv(B, S, H, KH, Dh, dtype)
+        o1, o2 = torch.empty_like(q), torch.empty_like(q)
+        lse = torch.empty((B, H, S), device="cuda")
+        kernel.launch(q, k, v, o1, causal=True, window=window)
+        kernel.launch(q, k, v, o2, causal=True, window=window, lse=lse)
+        torch.cuda.synchronize()
+        assert torch.equal(o1, o2)
+        want = ref.reference_attention_lse(q.float(), k.float(), causal=True,
+                                           window=window)
+        assert float((lse - want).abs().max()) <= 1e-4
+
+
+def test_flash_serving_writes_no_lse():
+    """Under no_grad (serving), or without an input that requires grad,
+    the forward runs outside the autograd function."""
+    _need_cuda()
+    q, k, v = (t.requires_grad_() for t in _qkv(1, 64, 4, 4, 64,
+                                                 torch.bfloat16))
+    with torch.no_grad():
+        o = ops.flash_attention(q, k, v)
+    assert o.grad_fn is None
+    o = ops.flash_attention(q.detach(), k.detach(), v.detach())
+    assert o.grad_fn is None
+    o = ops.flash_attention(q, k, v)
+    assert o.grad_fn is not None
+
+
+def test_kernels_without_a_backward_refuse_grad_on_cuda():
+    """moe_gmm, rglru_scan and mlstm_scan raise under grad rather than
+    return an output with no gradient path, and run under no_grad."""
+    _need_cuda()
+    xe, p = _gmm_inputs(4, 16, 64, 64, True, torch.bfloat16)
+    x, lam, ga, gx, h0, b_a, b_i = _scan_inputs(1, 16, 64, torch.bfloat16,
+                                                torch.bfloat16)
+    (q, k, v, ig, fg), _ = _mlstm_inputs(1, 16, 2, 32, torch.bfloat16)
+    calls = {
+        "moe_gmm": lambda: gmm_ops.expert_ffn(xe, p, "swiglu"),
+        "rglru_scan": lambda: rg_ops.rglru(x, lam, ga, gx, h0),
+        "mlstm_scan": lambda: ml_ops.mlstm_chunkwise(q, k, v, ig, fg),
+    }
+    for t in (xe, p["w1"], x, q):
+        t.requires_grad_()
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no backward yet"):
+            call()
+        with torch.no_grad():
+            call()
+        with torch.inference_mode():
+            call()
+    torch.cuda.synchronize()

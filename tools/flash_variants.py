@@ -82,7 +82,7 @@ def build_variant(name, edits):
              if "C7514" in line or ("spill" in line
                                     and not line.strip().startswith("0 b"))]
     fn = ctypes.CDLL(stem + ".so").repro_flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn, notes
@@ -124,7 +124,8 @@ def main() -> int:
 
         def call(fn):
             return lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              out.data_ptr(), B, S, H, KH, Dh, int(causal),
+                              out.data_ptr(), None, B, S, H, KH, Dh,
+                              int(causal),
                               window, 1, 1.0 / math.sqrt(Dh), stream)
         want = ref.reference_attention(q.float(), k.float(), v.float(),
                                        causal=causal, window=window)
