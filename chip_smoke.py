@@ -47,7 +47,19 @@ a non-zero exit:
                 row log-sum-exp against the plain one, and at the train
                 shape and minicpm's, granite's and recurrentgemma's prefill
                 shapes the kernel, the plain version and SDPA's backward
-                timed beside the card's bound
+                timed beside the card's bound; then rglru_scan's backward
+                (through ``ops.rglru``'s autograd function, bf16 and float32,
+                the train shape B 1, S 4096, D 4096, the 64-step chunk's
+                edges, h0 and dh_last, both routes; a long memory, a up to
+                0.9999 over 4096 steps, against autograd in float64) and
+                mlstm_scan's backward (through ``ops.mlstm_chunkwise``'s,
+                bf16 forward on wgmma_bf16 and float32 on scalar_f32, the
+                backward's scalar kernels on both: the train shape B 1, S
+                4096, 4 heads of 1024, S 200 and 1, the denominator's floor
+                active on most rows, an initial state, Dh 1600 and 37; the
+                forward's row statistics against the plain ones), each
+                against its plain backward, the train shape timed beside
+                its bound
 4. serve        full-width minicpm-2b (40 layers, bf16, random weights from a
                 seed) serves 8 requests of 1000 prompt tokens through
                 ``repro_torch.launch.serve.serve``; every prefill layer must
@@ -96,6 +108,20 @@ a non-zero exit:
                 and every parameter's gradient on the card against the CPU's
                 plain versions from the same weights, with the labels
                 shifted by one position as the negative control
+14. train       recurrentgemma-9b at full width, depth cut to 2 periods (4
+                RG-LRU, 2 LOCAL layers, 3.41 B params), as phase 12 at
+                2 x 4096: every step 16 rglru_scan and 8 flash forward
+                launches (forward and recompute), 8 rglru_scan_bwd and 4
+                flash backward ones, all on the bf16 routes; a profiled step
+15. train consistency  recurrentgemma-9b, one period, float32, S 512
+                (rglru_scan's fused_bias route both ways, flash's
+                scalar_f32)
+16. train       xlstm-1.3b at full width, depth cut to 2 periods (2 mLSTM,
+                2 sLSTM layers), as phase 12 at 2 x 1024: every step 8
+                mlstm_scan launches on wgmma_bf16 and 4 mlstm_scan_bwd on
+                scalar_bf16
+17. train consistency  xlstm-1.3b, one period, float32, S 512 (mlstm_scan's
+                scalar_f32 routes both ways)
 
 Earlier serve paths run at full depth; if the run outgrows its time, their
 depth is what gets cut first.
@@ -109,6 +135,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -231,6 +258,15 @@ TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 4096, 2, 2, 4
 TRAIN_LR, TRAIN_WARMUP = 3e-4, 1
 # the consistency step: full width, depth cut to 2 layers, float32
 CONSIST_LAYERS, CONSIST_SEQ = 2, 1024
+# the recurrent families' training at full width, depth cut for time:
+# recurrentgemma-9b to 2 periods of (RG-LRU, RG-LRU, LOCAL), 6 layers, at
+# TRAIN_SEQ; xlstm-1.3b to 2 periods of (mLSTM, sLSTM), 4 layers, at S
+# 1024 (the sLSTM's plain loop over time is ~60 launches a step and layer)
+GRIFFIN_TRAIN_LAYERS = 6
+XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_SEQ = 4, 1024
+# their float32 consistency steps: one period each, at S 512
+GRIFFIN_CONSIST_LAYERS, XLSTM_CONSIST_LAYERS, RECURRENT_CONSIST_SEQ = \
+    3, 2, 512
 
 
 def phase(name: str) -> None:
@@ -257,10 +293,12 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-# the port's kernels, by the prefix of their CUDA function names
-PORT_KERNELS = {"flash_attention": "flash_fwd",
-                "flash_attention_bwd": "flash_bwd", "moe_gmm": "gmm_",
-                "rglru_scan": "rglru_scan", "mlstm_scan": "mlstm_"}
+# the port's kernels, by a part of their CUDA function names; a kernel
+# counts under the first entry whose part it holds
+PORT_KERNELS = (("flash_attention_bwd", "flash_bwd"),
+                ("flash_attention", "flash_fwd"), ("moe_gmm", "gmm_"),
+                ("rglru_scan_bwd", "rglru_bwd"), ("rglru_scan", "rglru_scan"),
+                ("mlstm_scan_bwd", "mlstm_bwd"), ("mlstm_scan", "mlstm_"))
 
 
 def profile_ms(fn):
@@ -282,11 +320,11 @@ def profile_ms(fn):
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     port = {}
-    for name, prefix in PORT_KERNELS.items():
-        mine = [e for e in kernels if prefix in e.key]
-        if mine:
-            port[name] = (sum(e.self_device_time_total for e in mine) / 1e3,
-                          sum(e.count for e in mine))
+    for e in kernels:
+        name = next((n for n, part in PORT_KERNELS if part in e.key), None)
+        if name is not None:
+            ms, n = port.get(name, (0.0, 0))
+            port[name] = (ms + e.self_device_time_total / 1e3, n + e.count)
     return wall, busy, [(e.self_device_time_total / 1e3, e.count, e.key)
                         for e in top], port
 
@@ -703,6 +741,7 @@ def run_gmm_case(name, xe, p, act, counts, pad_note):
 def phase_kernel_moe():
     """Returns the timings at the prefill and the routed decode shape."""
     from repro_torch.kernels.moe_gmm import kernel
+    phase("kernel moe_gmm")
     gen = torch.Generator(device="cuda").manual_seed(1)
     result = None
     for name, E, C, d, f, act, gated, pad in GMM_CASES:
@@ -893,6 +932,7 @@ def rglru_inputs(B, S, D, x_dt, g_dt, gen, u=(0.9, 0.999)):
 
 def phase_kernel_rglru():
     from repro_torch.kernels.rglru_scan import kernel, ops, ref
+    phase("kernel rglru_scan")
     gen = torch.Generator(device="cuda").manual_seed(2)
     timed = {}
     for name, B, S, D, x_dt, g_dt, with_h0, route in RGLRU_CASES:
@@ -1075,6 +1115,7 @@ def mlstm_route(dtype, Dh) -> str:
 
 def phase_kernel_mlstm():
     from repro_torch.kernels.mlstm_scan import kernel, ops, ref
+    phase("kernel mlstm_scan")
     gen = torch.Generator(device="cuda").manual_seed(3)
     result = None
     for name, B, S, H, Dh, dtype, with_init, stress in MLSTM_CASES:
@@ -1202,6 +1243,358 @@ def time_mlstm_kernel(xs, err):
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
             "kernel_route": route, "passes_ms": passes,
             "workspace_bytes": ws, "scalar_bf16_ms": scalar_ms}
+
+
+# rglru_scan's backward against its plain version (explicit formulas in
+# float32 on the same inputs and the forward's y), each gradient relative
+# to the plain one's max |.|:
+#  * bf16 dx, dga, dgx: rounded to bf16 on output (2**-9 of the value);
+#    2e-2 as the other bf16 bars;
+#  * float32 gradients, and dlam, db_a, db_i, dh0 in either dtype: the same
+#    float32 formulas in another order (the carry composed over chunks of
+#    64 steps, the per-channel sums over B * S from 64-step partials);
+#    ~1e-6 apart, 1e-4 is the bar.
+RGLRU_BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# float32 operations per (b, t, d) element of the backward: the gates again
+# (two sigmoids, expm1, sqrt: 12), the carry (2), dlog_a (7), dga (4),
+# dgx (5), dx (2), three partial sums (3); pass 1's gates and carry (8)
+RGLRU_BWD_OPS_PER_ELEM = 43
+
+# (name, B, S, D, h0, dh_last, fused biases), each run with bf16 and with
+# float32 x and gates: the train phase's own shape (recurrentgemma-9b, one
+# microbatch of 4096; h_last unused, as in training), timed in bf16; the
+# edges of the backward's 64-step chunks (S 1, 63, 64, 65, 129), D not a
+# multiple of the 128-channel block (77, 200, 4100), h0 and dh_last, both
+# routes.
+RGLRU_BWD_CASES = [
+    ("griffin-train", 1, TRAIN_SEQ, 4096, False, False, True),
+    ("single-step", 2, 1, 256, True, True, True),
+    ("chunk-63", 3, 63, 77, True, True, False),
+    ("chunk-64", 2, 64, 128, False, True, True),
+    ("chunk-65", 2, 65, 200, True, False, True),
+    ("chunk-129", 1, 129, 4100, True, True, True),
+    ("gates-1000", 2, 1000, 512, True, True, False),
+]
+# a from 0.999 to 0.9999 over 4096 steps, float32, from h0 with dh_last:
+# the carry runs through thousands of a near 1, where every float32
+# evaluation drifts from the truth (as the forward's long-memory case), so
+# the kernel's gradients are held against autograd of the recurrence in
+# float64, at most twice the plain version's own error, or 1e-4 where that
+# is larger
+RGLRU_BWD_ORACLE_CASE = ("long-memory-4096", 2, 4096, 512)
+
+
+def rglru_bwd_bound(B, S, D, dtype, fused):
+    """(bound_ms, bound_by, flops, bytes) of one RG-LRU backward: x, ga,
+    gx (``dtype``), the forward's y and dy (float32), lam and the biases
+    read once; dx, dga, dgx (``dtype``), dlam and the biases' gradients
+    written once; RGLRU_BWD_OPS_PER_ELEM float32 operations an element."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    n = B * S * D
+    nbytes = n * (6 * size + 8) + 4 * D * (4 if fused else 2)
+    flops = float(RGLRU_BWD_OPS_PER_ELEM * n)
+    t_ops = flops / PEAK_FLOPS[torch.float32]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations"), flops, nbytes
+
+
+def rglru_grads(x, lam, ga, gx, h0, b_a, b_i, dy, dh_last):
+    """The gradients (x, lam, ga, gx, h0, b_a, b_i; None where not given)
+    through ``ops.rglru``'s autograd function, and its y."""
+    from repro_torch.kernels.rglru_scan import ops
+    leaves = [None if t is None else t.detach().requires_grad_()
+              for t in (x, lam, ga, gx, h0, b_a, b_i)]
+    y, h_last = ops.rglru(*leaves[:5], b_a=leaves[5], b_i=leaves[6])
+    outs, cots = ([y, h_last], [dy, dh_last]) if dh_last is not None \
+        else ([y], [dy])
+    given = [t for t in leaves if t is not None]
+    got = iter(torch.autograd.grad(outs, given, cots))
+    return [None if t is None else next(got) for t in leaves], y.detach()
+
+
+def grad_errors(got, want, floor_frac=BWD_SCALE_FLOOR):
+    """Each gradient's max error over the plain one's max |.|, floored at
+    ``floor_frac`` of the largest of them (None stays None)."""
+    scales = [float(w.abs().max()) for w in want if w is not None]
+    floor = floor_frac * max(scales)
+    return [None if w is None else
+            float((g.float() - w.float()).abs().max()) /
+            max(float(w.abs().max()), floor) for g, w in zip(got, want)]
+
+
+def phase_kernel_rglru_bwd():
+    """rglru_scan's backward through ``ops.rglru`` under grad against the
+    plain backward, both dtypes; returns the timing at the train shape."""
+    from repro_torch.kernels.rglru_scan import kernel, ref
+    phase("kernel_bwd rglru_scan")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    names = ("dx", "dlam", "dga", "dgx", "dh0", "db_a", "db_i")
+    timing = None
+    for name, B, S, D, with_h0, with_dhl, fused in RGLRU_BWD_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, lam, ga, gx, h0, b_a, b_i = rglru_inputs(B, S, D, dtype,
+                                                        dtype, gen)
+            h0 = h0 if with_h0 else None
+            b_a, b_i = (b_a, b_i) if fused else (None, None)
+            dy = torch.randn((B, S, D), generator=gen, device="cuda")
+            dh_last = torch.randn((B, D), generator=gen, device="cuda") \
+                if with_dhl else None
+            route = "fused_bias" if fused else "gates"
+            before = (kernel.BWD_LAUNCHES_BY_ROUTE[route],
+                      kernel.LAUNCHES_BY_ROUTE[route])
+            got, y = rglru_grads(x, lam, ga, gx, h0, b_a, b_i, dy, dh_last)
+            torch.cuda.synchronize()
+            check((kernel.BWD_LAUNCHES_BY_ROUTE[route],
+                   kernel.LAUNCHES_BY_ROUTE[route]) ==
+                  (before[0] + 1, before[1] + 1),
+                  f"rglru_scan backward {name} {dtype} did not run on "
+                  f"{route}")
+            want = ref.reference_rglru_bwd(x, lam, ga, gx, y, dy, h0,
+                                           dh_last, b_a=b_a, b_i=b_i)
+            errs = grad_errors(got, want)
+            tols = [RGLRU_BWD_TOL[dtype] if k in ("dx", "dga", "dgx")
+                    else RGLRU_BWD_TOL[torch.float32] for k in names]
+            abs_err = max(float((g.float() - w.float()).abs().max())
+                          for g, w in zip(got, want) if w is not None)
+            print(f"  {name:15s} {str(dtype):15s} B={B} S={S} D={D} "
+                  f"h0={with_h0} dh_last={with_dhl} ({route}): rel err "
+                  + " ".join(f"{k} {e:.3e}" for k, e in zip(names, errs)
+                             if e is not None), flush=True)
+            check(all(e is None or (math.isfinite(e) and e <= t)
+                      for e, t in zip(errs, tols)),
+                  f"rglru_scan backward {name} {dtype}: errors {errs}")
+            if name == "griffin-train" and dtype == torch.bfloat16:
+                timing = time_rglru_bwd(x, lam, ga, gx, b_a, b_i, y, dy,
+                                        abs_err)
+            del x, ga, gx, y, dy, got, want
+    check_rglru_bwd_against_oracle(gen)
+    torch.cuda.empty_cache()
+    return timing
+
+
+def check_rglru_bwd_against_oracle(gen):
+    from repro_torch.kernels.rglru_scan import ref
+    name, B, S, D = RGLRU_BWD_ORACLE_CASE
+    x, lam, ga, gx, h0, b_a, b_i = rglru_inputs(
+        B, S, D, torch.float32, torch.float32, gen, u=(0.999, 0.9999))
+    dy = torch.randn((B, S, D), generator=gen, device="cuda")
+    dh_last = torch.randn((B, D), generator=gen, device="cuda")
+    got, y = rglru_grads(x, lam, ga, gx, h0, b_a, b_i, dy, dh_last)
+    plain = ref.reference_rglru_bwd(x, lam, ga, gx, y, dy, h0, dh_last,
+                                    b_a=b_a, b_i=b_i)
+    leaves = [t.double().requires_grad_()
+              for t in (x, lam, ga, gx, h0, b_a, b_i)]
+    y64 = ref.oracle_rglru(*leaves[:5], b_a=leaves[5], b_i=leaves[6])
+    truth = torch.autograd.grad(
+        (y64 * dy.double()).sum() + (y64[:, -1] * dh_last.double()).sum(),
+        leaves)
+    errs = grad_errors(got, truth)
+    plain_errs = grad_errors(plain, truth)
+    print(f"  {name} B={B} S={S} D={D} a in [0.999, 0.9999], h0, dh_last, "
+          f"float32 (fused_bias): against autograd in float64, kernel "
+          + " ".join(f"{e:.3e}" for e in errs) + "; plain "
+          + " ".join(f"{e:.3e}" for e in plain_errs), flush=True)
+    for e, pe in zip(errs, plain_errs):
+        check(math.isfinite(e) and e <= max(RGLRU_BWD_TOL[torch.float32],
+                                            2 * pe),
+              f"rglru_scan backward {name}: {errs} against float64, the "
+              f"plain version {plain_errs}")
+
+
+def time_rglru_bwd(x, lam, ga, gx, b_a, b_i, y, dy, err):
+    """The backward kernel's four passes and the plain backward at the
+    train shape; no PyTorch call computes this gradient, so no library
+    time."""
+    from repro_torch.kernels.rglru_scan import kernel, ref
+    B, S, D = x.shape
+    f32 = dict(dtype=torch.float32, device="cuda")
+    dx, dga, dgx = (torch.empty_like(t) for t in (x, ga, gx))
+    dlam, db_a, db_i = (torch.empty((D,), **f32) for _ in range(3))
+    kernel_ms = cuda_ms(lambda: kernel.launch_bwd(
+        x, lam, ga, gx, b_a, b_i, None, y, dy, None, dx, dga, dgx, dlam,
+        db_a, db_i, None))
+    plain_ms = cuda_ms(lambda: ref.reference_rglru_bwd(
+        x, lam, ga, gx, y, dy, b_a=b_a, b_i=b_i), iters=2, warmup=1)
+    bound_ms, bound_by, flops, nbytes = rglru_bwd_bound(B, S, D, x.dtype,
+                                                        b_a is not None)
+    print(f"  backward timing at B={B} S={S} D={D} {x.dtype} (fused_bias): "
+          f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library: "
+          f"none; bound {bound_ms * 1e3:.2f} us by {bound_by} "
+          f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), "
+          f"{bound_ms / kernel_ms:.1%} of it", flush=True)
+    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+# mlstm_scan's backward against its plain version (explicit formulas in
+# float32, on the same inputs, the forward's h and its row statistics),
+# each gradient relative to the plain one's max |.|, floored at 1e-3 of the
+# largest of dq, dk, dv (or of dig, dfg):
+#  * bf16 dq, dk, dv: rounded to bf16 on output; 2e-2 as the other bf16
+#    bars;
+#  * float32 dq, dk, dv, and dig and dfg in both dtypes: the same float32
+#    formulas in another order (chunks of 64 on the card, sums over Dh and
+#    S); ~1e-6 apart, 1e-4 is the bar.
+# With one step (S 1) h does not depend on fg (F_t - F_s = 0), and where the
+# clamp is inactive h = v sign(q . k): dfg, and dq and dk, vanish in exact
+# arithmetic and hold only rounding, so each is held against the largest
+# scale of its group.
+MLSTM_BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+# (name, B, S, H, Dh, with init_state, stress), each in bf16 and float32:
+# the train phase's own shape (xlstm-1.3b's mLSTM at train_4k, one
+# microbatch), timed in bf16; S not a multiple of either chunk (200); S 1;
+# input gates lowered by 8, so that the denominator's floor exp(-m) takes
+# most rows ("clamp"); a constant initial state; Dh 1600, past which a
+# state slab leaves shared memory; Dh 37, whose bf16 forward takes the
+# scalar route.
+MLSTM_BWD_CASES = [
+    ("xlstm-train", 1, TRAIN_SEQ, 4, 1024, False, None),
+    ("ragged-200", 2, 200, 4, 512, False, None),
+    ("single-step", 2, 1, 4, 256, False, None),
+    ("clamp-active", 1, 300, 4, 256, False, "clamp"),
+    ("with-init", 2, 136, 4, 512, True, None),
+    ("dh-1600", 1, 100, 1, 1600, False, None),
+    ("dh-37", 2, 150, 1, 37, True, None),
+]
+
+
+def mlstm_bwd_bound(B, S, H, Dh, dtype, chunk):
+    """(bound_ms, bound_by, flops, bytes) of one mLSTM backward.  FLOPs: per
+    (b, h) the five state products (C's update, C dnum, D's update, D v,
+    D^T k), 10 S Dh^2, and the five products over the pairs a chunk of
+    ``chunk`` steps leaves under the causal mask, 5 S (chunk + 1) Dh; at the
+    peak rate of the input type.  Bytes: q, k, v, h, dh, ig, fg and the row
+    statistics read once, dq, dk, dv, dig and the row sums written once."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    n = B * S * H * Dh
+    nbytes = n * (6 * size + 8) + 4 * B * S * H * 6
+    flops = float(B * H) * (10.0 * S * Dh * Dh + 5.0 * S * (chunk + 1) * Dh)
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations"), flops, nbytes
+
+
+def phase_kernel_mlstm_bwd():
+    """mlstm_scan's backward through ``ops.mlstm_chunkwise`` under grad
+    against the plain backward, both dtypes, and the forward's row
+    statistics against the plain ones; returns the timing at the train
+    shape."""
+    from repro_torch.kernels.mlstm_scan import kernel, ops, ref
+    phase("kernel_bwd mlstm_scan")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    names = ("dq", "dk", "dv", "dig", "dfg")
+    timing = None
+    for name, B, S, H, Dh, with_init, stress in MLSTM_BWD_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            (q, k, v, ig, fg), init = mlstm_inputs(B, S, H, Dh, dtype,
+                                                   with_init, None, gen)
+            if stress == "clamp":
+                ig = ig - 8.0
+            dh = torch.randn((B, S, H, Dh), generator=gen, device="cuda")
+            route = mlstm_route(dtype, Dh)
+            bwd_route = kernel.BWD_ROUTES[dtype][1]
+            leaves = [t.requires_grad_() for t in (q, k, v, ig, fg)]
+            before = (kernel.BWD_LAUNCHES_BY_ROUTE[bwd_route],
+                      kernel.LAUNCHES_BY_ROUTE[route])
+            h, _ = ops.mlstm_chunkwise(*leaves, chunk=MLSTM_PLAIN_CHUNK,
+                                       init_state=init)
+            m_t, den = h.grad_fn.saved_tensors[-2:]
+            got = torch.autograd.grad(h, leaves, dh)
+            torch.cuda.synchronize()
+            check((kernel.BWD_LAUNCHES_BY_ROUTE[bwd_route],
+                   kernel.LAUNCHES_BY_ROUTE[route]) ==
+                  (before[0] + 1, before[1] + 1),
+                  f"mlstm_scan backward {name} {dtype} did not run on "
+                  f"{bwd_route} after a forward on {route}")
+            xs = [t.detach() for t in leaves]
+            # the forward's statistics against the plain ones
+            pm, pden, _ = ref.reference_mlstm_stats(*xs, init_state=init)
+            m_err = float((m_t - pm).abs().max()) / \
+                max(float(pm.abs().max()), 1.0)
+            den_err = float((den - pden).abs().max()) / \
+                float(pden.abs().max())
+            want = ref.reference_mlstm_bwd(*xs, h.detach(), (m_t, den), dh,
+                                           init_state=init)
+            errs = grad_errors(got[:3], want[:3]) + \
+                grad_errors(got[3:], want[3:])
+            if S == 1:
+                top = max(float(w.abs().max()) for w in want[:3])
+                errs[:2] = [float((g.float() - w).abs().max()) / top
+                            for g, w in zip(got[:2], want[:2])]
+                errs[4] = float((got[4] - want[4]).abs().max()) / \
+                    max(float(w.abs().max()) for w in want[3:])
+            tols = [MLSTM_BWD_TOL[dtype]] * 3 + \
+                [MLSTM_BWD_TOL[torch.float32]] * 2
+            clamped = float((den.abs() <= torch.exp(-m_t)).float().mean())
+            abs_err = max(float((g.float() - w).abs().max())
+                          for g, w in zip(got, want))
+            print(f"  {name:13s} {str(dtype):15s} B={B} S={S} H={H} Dh={Dh} "
+                  f"init={with_init} ({route} -> {bwd_route}), clamped rows "
+                  f"{clamped:.1%}: rel err " + " ".join(
+                      f"{k} {e:.3e}" for k, e in zip(names, errs))
+                  + f"; stats m {m_err:.3e} den {den_err:.3e}", flush=True)
+            check(all(math.isfinite(e) and e <= t
+                      for e, t in zip(errs, tols)),
+                  f"mlstm_scan backward {name} {dtype}: errors {errs}")
+            check(m_err <= MLSTM_RTOL and den_err <= MLSTM_RTOL,
+                  f"mlstm_scan forward {name} {dtype}: row statistics "
+                  f"m {m_err}, den {den_err}")
+            if name == "xlstm-train" and dtype == torch.bfloat16:
+                timing = time_mlstm_bwd(xs, h.detach(), (m_t, den), dh,
+                                        abs_err)
+            del q, k, v, ig, fg, leaves, h, got, want, xs
+            torch.cuda.empty_cache()
+    return timing
+
+
+def time_mlstm_bwd(xs, h, stats, dh, err):
+    """The backward kernel's five passes and the plain backward at the
+    train shape; no PyTorch call computes this gradient, so no library
+    time."""
+    from repro_torch.kernels.mlstm_scan import kernel, ref
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v, ig, fg = xs
+    B, S, H, Dh = q.shape
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dig, rows = torch.empty_like(ig), torch.empty_like(ig)
+
+    def run():
+        kernel.launch_bwd(q, k, v, ig, fg, None, h, stats, dh, dq, dk, dv,
+                          dig, rows)
+    kernel_ms = cuda_ms(run, iters=5, warmup=1)
+    plain_ms = cuda_ms(lambda: ref.reference_mlstm_bwd(
+        q, k, v, ig, fg, h, stats, dh), iters=2, warmup=1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+    passes = {}
+    for e in prof.key_averages():
+        found = re.search(r"mlstm_bwd_\w+(<[^()]*>)?", e.key)
+        if e.device_type == torch.autograd.DeviceType.CUDA and found and \
+                e.count:
+            name = found.group(0)
+            passes[name] = passes.get(name, 0.0) + \
+                e.self_device_time_total / 3 / 1e3
+    chunk = kernel.bwd_chunk()
+    bound_ms, bound_by, flops, nbytes = mlstm_bwd_bound(B, S, H, Dh,
+                                                        q.dtype, chunk)
+    f32_bound_ms = flops / PEAK_FLOPS[torch.float32] * 1e3
+    print(f"  backward timing at B={B} S={S} H={H} Dh={Dh} {q.dtype} "
+          f"(scalar float32 FMAs, chunk {chunk}): kernel {kernel_ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, library: none; bound "
+          f"{bound_ms * 1e3:.2f} us by {bound_by} ({flops / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.2f} MB; {f32_bound_ms:.3f} ms at the float32 "
+          f"rate); passes " + (", ".join(f"{k} {v:.4f} ms" for k, v in
+                                       passes.items()) or "not measured"),
+          flush=True)
+    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "float32_rate_bound_ms": f32_bound_ms, "passes_ms": passes}
 
 
 def layer_counts(cfg) -> dict:
@@ -1468,11 +1861,24 @@ def _kernel_modules():
 
 
 def kernel_launches() -> dict:
-    """Every kernel's launch count, the flash backward's apart."""
+    """Every kernel's launch count, each backward apart."""
     fa, gmm, rg, ml = _kernel_modules()
     return {"flash_attention": fa.LAUNCHES,
             "flash_attention_bwd": fa.BWD_LAUNCHES, "moe_gmm": gmm.LAUNCHES,
-            "rglru_scan": rg.LAUNCHES, "mlstm_scan": ml.LAUNCHES}
+            "rglru_scan": rg.LAUNCHES, "rglru_scan_bwd": rg.BWD_LAUNCHES,
+            "mlstm_scan": ml.LAUNCHES, "mlstm_scan_bwd": ml.BWD_LAUNCHES}
+
+
+def kernel_routes() -> dict:
+    """Every kernel's launches by route, each backward apart."""
+    fa, gmm, rg, ml = _kernel_modules()
+    return {"flash_attention": dict(fa.LAUNCHES_BY_ROUTE),
+            "flash_attention_bwd": dict(fa.BWD_LAUNCHES_BY_ROUTE),
+            "moe_gmm": dict(gmm.LAUNCHES_BY_ROUTE),
+            "rglru_scan": dict(rg.LAUNCHES_BY_ROUTE),
+            "rglru_scan_bwd": dict(rg.BWD_LAUNCHES_BY_ROUTE),
+            "mlstm_scan": dict(ml.LAUNCHES_BY_ROUTE),
+            "mlstm_scan_bwd": dict(ml.BWD_LAUNCHES_BY_ROUTE)}
 
 
 def reset_kernel_launches() -> None:
@@ -1480,23 +1886,65 @@ def reset_kernel_launches() -> None:
         module.reset_launches()
 
 
-def phase_train():
-    """Four AdamW steps of full-width minicpm-2b at TRAIN_SEQ, then an eval
-    step, through ``make_train_step`` / ``make_eval_step``; returns
-    ({kernel: launches over the steps and the eval}, {kernel: launches by
-    route}, {step metrics and times})."""
+def step_launches(cfg, microbatches: int, backward: bool) -> dict:
+    """The launches of one train step (``backward``) or eval step: per
+    microbatch and layer a forward, and under full remat its recompute and
+    one backward."""
+    counts = layer_counts(cfg)
+    layers = {"flash_attention": sum(counts.get(k, 0) for k in
+                                     ("attn", "swa", "local")),
+              "rglru_scan": counts.get("rglru", 0),
+              "mlstm_scan": counts.get("mlstm", 0)}
+    want = {k: 0 for k in kernel_launches()}
+    for name, n in layers.items():
+        if backward:
+            want[name] = n * microbatches * (2 if cfg.remat == "full" else 1)
+            want[name + "_bwd"] = n * microbatches
+        else:
+            want[name] = n
+    return want
+
+
+# the route every launch of a bf16 model's train step takes
+TRAIN_ROUTES = {"flash_attention": "wgmma_bf16",
+                "flash_attention_bwd": "wmma_bf16",
+                "rglru_scan": "fused_bias", "rglru_scan_bwd": "fused_bias",
+                "mlstm_scan": "wgmma_bf16", "mlstm_scan_bwd": "scalar_bf16"}
+# the routes of the float32 consistency step
+CONSIST_ROUTES = {"flash_attention": "scalar_f32",
+                  "flash_attention_bwd": "scalar_f32",
+                  "rglru_scan": "fused_bias", "rglru_scan_bwd": "fused_bias",
+                  "mlstm_scan": "scalar_f32", "mlstm_scan_bwd": "scalar_f32"}
+
+
+def check_routes(routes, launches, expected, what):
+    for name, want_route in expected.items():
+        check(routes[name] == {r: launches[name] if r == want_route else 0
+                               for r in routes[name]},
+              f"{what}: {name} launches by route {routes[name]}, all "
+              f"expected on {want_route}")
+
+
+def phase_train(arch: str = ARCH, n_layers=None, seq: int = TRAIN_SEQ,
+                profile: bool = True):
+    """Four AdamW steps of full-width ``arch`` (``n_layers`` layers, or its
+    full depth) at ``seq``, then an eval step, through ``make_train_step``
+    / ``make_eval_step``; returns ({kernel: launches over the steps and the
+    eval}, {kernel: launches by route}, {step metrics and times})."""
     from repro_torch.configs import get_arch, get_schedule
     from repro_torch.data import batch_for
     from repro_torch.launch.steps import make_eval_step, make_train_step
     from repro_torch.models import registry as R
     from repro_torch.models.config import ShapeSpec
     from repro_torch.optim import AdamWConfig, adamw_init
-    fa_kernel = _kernel_modules()[0]
-    phase(f"train {ARCH}")
-    cfg = get_arch(ARCH)
+    phase(f"train {arch}")
+    cfg = get_arch(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     check(cfg.remat == "full" and cfg.dtype == "bfloat16",
           f"{cfg.name} trains with remat={cfg.remat} in {cfg.dtype}")
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     # float32 master weights from a seed, cast to bf16 at use
@@ -1504,27 +1952,22 @@ def phase_train():
     opt = adamw_init(params)
     torch.cuda.synchronize()
     n_params = R.count_params_analytic(cfg)
-    shape = ShapeSpec("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    shape = ShapeSpec("train", seq, TRAIN_BATCH, "train")
     batch = {k: torch.as_tensor(v, device="cuda")
              for k, v in batch_for(cfg, shape, seed=0, step=0).items()}
     ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
-                       total_steps=TRAIN_STEPS, schedule=get_schedule(ARCH))
-    print(f"  {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
-          f"{n_params / 1e9:.3f} B params, float32 weights and AdamW "
-          f"moments, {cfg.dtype} compute, remat={cfg.remat}; batch "
-          f"{TRAIN_BATCH} x {TRAIN_SEQ} as {TRAIN_ACCUM} microbatches; "
+                       total_steps=TRAIN_STEPS,
+                       schedule=get_schedule(arch))
+    print(f"  {cfg.name}: {cfg.n_layers} layers {layer_counts(cfg)}, "
+          f"d={cfg.d_model}, {n_params / 1e9:.3f} B params, float32 weights "
+          f"and AdamW moments, {cfg.dtype} compute, remat={cfg.remat}; batch "
+          f"{TRAIN_BATCH} x {seq} as {TRAIN_ACCUM} microbatches; "
           f"{ocfg.schedule} lr {ocfg.lr} warmup {ocfg.warmup_steps} of "
           f"{ocfg.total_steps}; init {time.perf_counter() - t0:.2f} s",
           flush=True)
     step_fn = make_train_step(cfg, ocfg, accum_steps=TRAIN_ACCUM,
                               device="cuda")
-    n_attn = sum(v for k, v in layer_counts(cfg).items()
-                 if k in ("attn", "swa", "local"))
-    # per microbatch: the forward and its recompute under full remat, and
-    # one backward
-    want = {"flash_attention": n_attn * 2 * TRAIN_ACCUM,
-            "flash_attention_bwd": n_attn * TRAIN_ACCUM, "moe_gmm": 0,
-            "rglru_scan": 0, "mlstm_scan": 0}
+    want = step_launches(cfg, TRAIN_ACCUM, backward=True)
     reset_kernel_launches()
     history = []
     for i in range(TRAIN_STEPS):
@@ -1542,7 +1985,7 @@ def phase_train():
         check(delta == want, f"train step {i + 1} launched {delta}, "
               f"expected {want}")
         m["ms"] = ms
-        m["tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3)
+        m["tokens_per_s"] = TRAIN_BATCH * seq / (ms / 1e3)
         history.append(m)
         print(f"  step {i + 1}: loss {m['loss']:.5f} nll {m['nll']:.5f} "
               f"acc {m['acc']:.4f} grad_norm {m['grad_norm']:.4f} lr "
@@ -1551,6 +1994,7 @@ def phase_train():
     check(history[-1]["loss"] < history[0]["loss"],
           f"the loss did not fall over {TRAIN_STEPS} steps on one batch: "
           f"{history[0]['loss']} -> {history[-1]['loss']}")
+    peak = torch.cuda.max_memory_allocated()
     before = kernel_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1561,24 +2005,11 @@ def phase_train():
     delta = {k: v - before[k] for k, v in kernel_launches().items()}
     check(all(math.isfinite(v) for v in ev.values()),
           f"eval: a metric is not finite: {ev}")
-    check(delta == dict(want, flash_attention=n_attn,
-                        flash_attention_bwd=0),
+    check(delta == step_launches(cfg, TRAIN_ACCUM, backward=False),
           f"the eval step launched {delta}")
-    peak = torch.cuda.max_memory_allocated()
     launches = kernel_launches()
-    routes = {"flash_attention": dict(fa_kernel.LAUNCHES_BY_ROUTE),
-              "flash_attention_bwd": dict(fa_kernel.BWD_LAUNCHES_BY_ROUTE)}
-    check(routes["flash_attention"] == {
-        r: launches["flash_attention"] if r == "wgmma_bf16" else 0
-        for r in routes["flash_attention"]},
-        f"flash forward launches by route {routes['flash_attention']}: "
-        f"a bf16 model must take wgmma_bf16 only")
-    check(routes["flash_attention_bwd"] == {
-        r: launches["flash_attention_bwd"] if r == "wmma_bf16" else 0
-        for r in routes["flash_attention_bwd"]},
-        f"flash backward launches by route "
-        f"{routes['flash_attention_bwd']}: a bf16 model must take "
-        f"wmma_bf16 only")
+    routes = kernel_routes()
+    check_routes(routes, launches, TRAIN_ROUTES, f"train {cfg.name}")
     steady = [h["ms"] for h in history[1:]]
     print(f"  eval: loss {ev['loss']:.5f} nll {ev['nll']:.5f} acc "
           f"{ev['acc']:.4f}; {eval_ms:.1f} ms; loss {history[0]['loss']:.5f}"
@@ -1586,20 +2017,22 @@ def phase_train():
           flush=True)
     print(f"  {TRAIN_STEPS} steps + eval: launches {launches}; by route "
           f"{routes}; step time {min(steady):.1f}-{max(steady):.1f} ms after "
-          f"the first ({history[0]['ms']:.1f} ms); peak memory "
-          f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB)", flush=True)
-    # where the time goes: one more step, under the profiler
-    print_profile("train step", *profile_ms(
-        lambda: step_fn(params, opt, batch)))
-    del params, opt
+          f"the first ({history[0]['ms']:.1f} ms); peak memory over the "
+          f"steps {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB)", flush=True)
+    if profile:
+        # where the time goes: one more step, under the profiler
+        print_profile("train step", *profile_ms(
+            lambda: step_fn(params, opt, batch)))
+    del params, opt, batch, step_fn
     torch.cuda.empty_cache()
     return launches, routes, {"steps": history, "eval": ev,
                               "eval_ms": eval_ms, "peak_bytes": peak}
 
 
-def phase_train_consistency():
+def phase_train_consistency(arch: str = ARCH, n_layers: int = CONSIST_LAYERS,
+                            seq: int = CONSIST_SEQ):
     """One float32 training step's loss and gradients on the card against
-    the same on the CPU, at full width and CONSIST_LAYERS layers, with the
+    the same on the CPU, at full width and ``n_layers`` layers, with the
     labels shifted by one position as the negative control."""
     from repro_torch.configs import get_arch
     from repro_torch.convert import flatten_with_paths
@@ -1607,12 +2040,11 @@ def phase_train_consistency():
     from repro_torch.models import registry as R
     from repro_torch.models.config import ShapeSpec
     from repro_torch.tree import tree_map
-    fa_kernel = _kernel_modules()[0]
-    phase(f"train consistency {ARCH}")
-    cfg = dataclasses.replace(get_arch(ARCH), n_layers=CONSIST_LAYERS,
+    phase(f"train consistency {arch}")
+    cfg = dataclasses.replace(get_arch(arch), n_layers=n_layers,
                               dtype="float32")
     params = R.init_params(cfg, 0, device="cpu", param_dtype=torch.float32)
-    batch = batch_for(cfg, ShapeSpec("consistency", CONSIST_SEQ, 1, "train"),
+    batch = batch_for(cfg, ShapeSpec("consistency", seq, 1, "train"),
                       seed=1)
 
     def run(device, labels):
@@ -1630,12 +2062,12 @@ def phase_train_consistency():
     torch.cuda.synchronize()
     gpu_s = time.perf_counter() - t0
     launches = kernel_launches()
-    n_fwd = CONSIST_LAYERS * (1 if cfg.remat == "none" else 2)
-    check(launches["flash_attention"] == n_fwd and
-          launches["flash_attention_bwd"] == CONSIST_LAYERS and
-          fa_kernel.BWD_LAUNCHES_BY_ROUTE["scalar_f32"] == CONSIST_LAYERS and
-          fa_kernel.LAUNCHES_BY_ROUTE["scalar_f32"] == n_fwd,
-          f"the float32 step launched {launches}")
+    want = step_launches(cfg, 1, backward=True)
+    check(launches == want,
+          f"the float32 step launched {launches}, expected {want}")
+    check_routes(kernel_routes(), launches, CONSIST_ROUTES,
+                 f"train consistency {cfg.name}")
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     loss_cpu, g_cpu = run("cpu", batch["labels"])
     cpu_s = time.perf_counter() - t0
@@ -1648,16 +2080,18 @@ def phase_train_consistency():
                    for k, w in want.items())
     err, err_bad = rel(g_gpu, g_cpu), rel(g_gpu, g_bad)
     loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
-    print(f"  {cfg.n_layers} layers at full width, float32, S={CONSIST_SEQ}:"
-          f" loss card {loss_gpu:.6f} cpu {loss_cpu:.6f} (rel err "
-          f"{loss_err:.3e}); max rel grad err over {len(g_cpu)} leaves "
-          f"{err:.3e} (tol {TRAIN_RTOL:.0e}); labels shifted by one: "
+    print(f"  {cfg.n_layers} layers {layer_counts(cfg)} at full width, "
+          f"float32, S={seq}: loss card {loss_gpu:.6f} cpu {loss_cpu:.6f} "
+          f"(rel err {loss_err:.3e}); max rel grad err over {len(g_cpu)} "
+          f"leaves {err:.3e} (tol {TRAIN_RTOL:.0e}); labels shifted by one: "
           f"{err_bad:.3e}; card {gpu_s:.2f} s, cpu {cpu_s:.2f} s; launches "
           f"{launches}", flush=True)
     check(loss_err <= TRAIN_RTOL, f"the loss disagrees: {loss_err}")
     check(err <= TRAIN_RTOL, f"the gradients disagree: {err}")
     check(err_bad > TRAIN_RTOL,
           f"shifted labels pass the tolerance ({err_bad})")
+    del params, g_gpu, g_cpu, g_bad
+    return {"rel_err": err, "shifted_rel_err": err_bad}
 
 
 def main() -> int:
@@ -1670,6 +2104,8 @@ def main() -> int:
     phase_build()
     fa_timing = phase_kernel()
     bwd_timing = phase_kernel_bwd()
+    rg_bwd_timing = phase_kernel_rglru_bwd()
+    ml_bwd_timing = phase_kernel_mlstm_bwd()
     gmm_timing = phase_kernel_moe()
     rg_timing = phase_kernel_rglru()
     ml_timing = phase_kernel_mlstm()
@@ -1695,6 +2131,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_launches, train_routes, _ = phase_train()
     phase_train_consistency()
+    griffin_train, griffin_train_routes, _ = phase_train(
+        GRIFFIN_ARCH, GRIFFIN_TRAIN_LAYERS)
+    phase_train_consistency(GRIFFIN_ARCH, GRIFFIN_CONSIST_LAYERS,
+                            RECURRENT_CONSIST_SEQ)
+    xlstm_train, xlstm_train_routes, _ = phase_train(
+        XLSTM_ARCH, XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_SEQ, profile=False)
+    phase_train_consistency(XLSTM_ARCH, XLSTM_CONSIST_LAYERS,
+                            RECURRENT_CONSIST_SEQ)
 
     kernels = [
         {"name": "flash_attention", "route": "cuda",
@@ -1712,10 +2156,12 @@ def main() -> int:
              MOE_ARCH: moe_launches["flash_attention"],
              GRIFFIN_ARCH: griffin_launches["flash_attention"],
              XLSTM_ARCH: xlstm_launches["flash_attention"],
-             f"{ARCH} train": train_launches["flash_attention"]},
+             f"{ARCH} train": train_launches["flash_attention"],
+             f"{GRIFFIN_ARCH} train": griffin_train["flash_attention"]},
          "launches_by_route": {
              **{arch: r["flash_attention"] for arch, r in routes.items()},
-             f"{ARCH} train": train_routes["flash_attention"]},
+             f"{ARCH} train": train_routes["flash_attention"],
+             f"{GRIFFIN_ARCH} train": griffin_train_routes["flash_attention"]},
          "at_granite_shape": fa_timing["granite-prefill"],
          "at_griffin_shape": fa_timing["griffin-prefill"]},
         {"name": "flash_attention_bwd", "route": "cuda",
@@ -1730,7 +2176,13 @@ def main() -> int:
          # path's shape (B 1, S 4096, 36 heads of 64), and at minicpm's,
          # granite's and recurrentgemma's prefill shapes
          "launches": train_launches["flash_attention_bwd"],
-         "launches_by_route": train_routes["flash_attention_bwd"],
+         "launches_by_route": {
+             f"{ARCH} train": train_routes["flash_attention_bwd"],
+             f"{GRIFFIN_ARCH} train":
+                 griffin_train_routes["flash_attention_bwd"]},
+         "launches_by_path": {
+             f"{ARCH} train": train_launches["flash_attention_bwd"],
+             f"{GRIFFIN_ARCH} train": griffin_train["flash_attention_bwd"]},
          **bwd_timing},
         {"name": "moe_gmm", "route": "cuda",
          "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
@@ -1748,7 +2200,23 @@ def main() -> int:
          # route, and in "at_gates_route" on whole float32 gates
          "launches": griffin_launches["rglru_scan"],
          "launches_by_route": routes[GRIFFIN_ARCH]["rglru_scan"],
+         "launches_by_path": {
+             GRIFFIN_ARCH: griffin_launches["rglru_scan"],
+             f"{GRIFFIN_ARCH} train": griffin_train["rglru_scan"]},
          **rg_timing},
+        {"name": "rglru_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/rglru_scan/csrc/"
+                   "rglru_scan_bwd.cu",
+         # the gradient of the TPU kernel above, which has none of its own:
+         # the reference differentiates its plain recurrence
+         # (src/repro/models/rglru.py:41) with jax.grad
+         "replaces": "src/repro/kernels/rglru_scan/kernel.py:55",
+         # launches on its path, recurrentgemma-9b training (4 steps and an
+         # eval), all on fused_bias (checked in the train phase); times at
+         # that path's shape (B 1, S 4096, D 4096, bf16)
+         "launches": griffin_train["rglru_scan_bwd"],
+         "launches_by_route": griffin_train_routes["rglru_scan_bwd"],
+         **rg_bwd_timing},
         {"name": "mlstm_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/mlstm_scan/csrc/mlstm_scan.cu",
          "replaces": "src/repro/kernels/mlstm_scan/kernel.py:85",
@@ -1757,7 +2225,23 @@ def main() -> int:
          # shape, with each pass and the scalar bf16 kernels beside them
          "launches": xlstm_launches["mlstm_scan"],
          "launches_by_route": routes[XLSTM_ARCH]["mlstm_scan"],
+         "launches_by_path": {
+             XLSTM_ARCH: xlstm_launches["mlstm_scan"],
+             f"{XLSTM_ARCH} train": xlstm_train["mlstm_scan"]},
          **ml_timing},
+        {"name": "mlstm_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/mlstm_scan/csrc/"
+                   "mlstm_scan_bwd.cu",
+         # the gradient of the TPU kernel above, which has none of its own:
+         # the reference differentiates its plain chunkwise function
+         # (src/repro/models/xlstm.py:92) with jax.grad
+         "replaces": "src/repro/kernels/mlstm_scan/kernel.py:85",
+         # launches on its path, xlstm-1.3b training (4 steps and an eval),
+         # all on scalar_bf16 (checked in the train phase); times at the
+         # mLSTM's train_4k shape (B 1, S 4096, 4 heads of 1024, bf16)
+         "launches": xlstm_train["mlstm_scan_bwd"],
+         "launches_by_route": xlstm_train_routes["mlstm_scan_bwd"],
+         **ml_bwd_timing},
     ]
     for k in kernels:
         # the same numbers again under short names (bound in microseconds)

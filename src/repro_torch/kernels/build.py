@@ -1,12 +1,13 @@
 """Build the port's CUDA kernels into one shared library and load it.
 
-Every ``csrc/*.cu`` under ``repro_torch/kernels`` is compiled by one ``nvcc``
-call for Hopper (``sm_90a``) into ``build/repro_torch/<hash>/libkernels.so``
-at the repository root, where ``<hash>`` is a digest of the sources and the
+Every ``csrc/*.cu`` under ``repro_torch/kernels`` is compiled for Hopper
+(``sm_90a``), one ``nvcc`` process per source, all started together, and
+the objects are linked into ``build/repro_torch/<hash>/libkernels.so`` at
+the repository root, where ``<hash>`` is a digest of the sources and the
 flags, and loaded with ``ctypes``.  The sources have a plain C interface and
-include no PyTorch header, so a build takes seconds.  The build happens at
-first use (never at import); a library already built from the same sources
-is reused.  Any failure to build or to load raises.
+include no PyTorch header, so a build takes as long as its largest source.
+The build happens at first use (never at import); a library already built
+from the same sources is reused.  Any failure to build or to load raises.
 """
 from __future__ import annotations
 
@@ -26,12 +27,15 @@ KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_ROOT = KERNELS_DIR.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# one source into an object: the same flags, without -shared
+COMPILE_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared")
 
 
 @dataclass(frozen=True)
 class BuildInfo:
     path: Path
-    seconds: float     # nvcc's wall time; 0.0 when a cached build was reused
+    seconds: float     # the build's wall time, compiles and link; 0.0 when a
+                       # cached build was reused
     log: str           # nvcc's output: ptxas registers, shared memory, spills
     cached: bool
 
@@ -72,16 +76,35 @@ def build() -> BuildInfo:
         return BuildInfo(lib, 0.0, "", cached=True)
     nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libkernels.{os.getpid()}.tmp.so"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    tag = f"{os.getpid()}.tmp"
+    objs = [out_dir / (str(p.relative_to(KERNELS_DIR)).replace(os.sep, "_")
+                       + f".{tag}.o") for p in srcs]
+    tmp = out_dir / f"libkernels.{tag}.so"
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    # one nvcc per source, all at once: the build takes the longest one's
+    # time rather than the sum
+    cmds = [[nvcc, *COMPILE_FLAGS, "-c", "-o", str(o), str(p)]
+            for p, o in zip(srcs, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    log = "".join(outs)
+    failed = [(cmd, out) for cmd, out, proc in zip(cmds, outs, procs)
+              if proc.returncode != 0]
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log += res.stdout + res.stderr
+        if res.returncode != 0:
+            failed = [(cmd, res.stdout + res.stderr)]
+    for o in objs:
+        o.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = res.stdout + res.stderr
-    if res.returncode != 0:
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {res.returncode}:\n"
-                           f"{' '.join(cmd)}\n{log}")
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{' '.join(cmd)}\n{out}" for cmd, out in failed))
     os.replace(tmp, lib)   # atomic: a concurrent builder sees all or nothing
     return BuildInfo(lib, seconds, log, cached=False)
 

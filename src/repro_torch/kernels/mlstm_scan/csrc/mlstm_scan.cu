@@ -212,7 +212,8 @@ mlstm_state_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
                    const float* __restrict__ n0, const float* __restrict__ m0,
                    const float* __restrict__ scores, float* __restrict__ hout,
                    float* __restrict__ Cout, float* __restrict__ nout,
-                   float* __restrict__ mout, int S, int H, int Dh,
+                   float* __restrict__ mout, float* __restrict__ mstat,
+                   float* __restrict__ dstat, int S, int H, int Dh,
                    int n_chunks, int n_tiles, float sqrt_dh) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -433,6 +434,12 @@ mlstm_state_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
     den_inter += __shfl_xor_sync(0xffffffffu, den_inter, 2);
     if (dpart == 0) s_den[drow] = den_intra + den_inter;
     __syncthreads();
+    // the row statistics for the backward, m_t and den_t (one block of the
+    // (b, h) writes them)
+    if (mstat != nullptr && tile == 0 && tid < L) {
+      mstat[gbase + (long long)tid * H] = s_m[tid];
+      dstat[gbase + (long long)tid * H] = s_den[tid];
+    }
     if (jok) {
 #pragma unroll
       for (int r = 0; r < RW; ++r) {
@@ -464,7 +471,8 @@ cudaError_t launch_state(const void* q, const void* k, const void* v,
                          const float* ig, const float* fg, const float* C0,
                          const float* n0, const float* m0,
                          const float* scores, float* h, float* C, float* n,
-                         float* m, int grid, int S, int H, int Dh,
+                         float* m, float* mstat, float* dstat, int grid,
+                         int S, int H, int Dh,
                          int n_chunks, int n_tiles, float sqrt_dh,
                          cudaStream_t st) {
   const size_t smem = sizeof(float) * state_smem_floats(Dh, SMEM_C);
@@ -474,8 +482,8 @@ cudaError_t launch_state(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   mlstm_state_kernel<TQ, SMEM_C><<<grid, NT, smem, st>>>(
       static_cast<const TQ*>(q), static_cast<const TQ*>(k),
-      static_cast<const TQ*>(v), ig, fg, C0, n0, m0, scores, h, C, n, m, S,
-      H, Dh, n_chunks, n_tiles, sqrt_dh);
+      static_cast<const TQ*>(v), ig, fg, C0, n0, m0, scores, h, C, n, m,
+      mstat, dstat, S, H, Dh, n_chunks, n_tiles, sqrt_dh);
   return cudaGetLastError();
 }
 
@@ -483,8 +491,9 @@ template <typename TQ>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* ig, const float* fg, const float* C0,
                    const float* n0, const float* m0, float* scores, float* h,
-                   float* C, float* n, float* m, int B, int S, int H, int Dh,
-                   float sqrt_dh, cudaStream_t st) {
+                   float* C, float* n, float* m, float* mstat, float* dstat,
+                   int B, int S, int H, int Dh, float sqrt_dh,
+                   cudaStream_t st) {
   const int n_chunks = (S + T - 1) / T;
   const int n_tiles = (Dh + TILE - 1) / TILE;
   const long long BH = (long long)B * H;
@@ -503,11 +512,11 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const int grid = (int)(BH * n_tiles);
   if (smem_c)
     return launch_state<TQ, true>(q, k, v, ig, fg, C0, n0, m0, scores, h, C,
-                                  n, m, grid, S, H, Dh, n_chunks, n_tiles,
-                                  sqrt_dh, st);
+                                  n, m, mstat, dstat, grid, S, H, Dh,
+                                  n_chunks, n_tiles, sqrt_dh, st);
   return launch_state<TQ, false>(q, k, v, ig, fg, C0, n0, m0, scores, h, C,
-                                 n, m, grid, S, H, Dh, n_chunks, n_tiles,
-                                 sqrt_dh, st);
+                                 n, m, mstat, dstat, grid, S, H, Dh,
+                                 n_chunks, n_tiles, sqrt_dh, st);
 }
 
 
@@ -1076,6 +1085,7 @@ mlstm_outputs_kernel(const __grid_constant__ CUtensorMap tq,
                      const float* __restrict__ gch,
                      const float* __restrict__ n_ws,
                      const float* __restrict__ m0, float* __restrict__ hout,
+                     float* __restrict__ mstat, float* __restrict__ dstat,
                      int S, int S_stride, int H, int Dh, int n_chunks,
                      float inv_sqrt_dh) {
   using M = OutputsSmem;
@@ -1282,6 +1292,14 @@ mlstm_outputs_kernel(const __grid_constant__ CUtensorMap tq,
       x += __shfl_xor_sync(0xffffffffu, x, 2);
       const float den = r + wo[hr] * inv_sqrt_dh * x;
       dv[hr] = fmaxf(fabsf(den), expf(-mt[hr]));
+      // the row statistics for the backward, m_t and den_t (the first value
+      // tile's quad leaders write them)
+      const int tr = r0 + 8 * hr;
+      if (mstat != nullptr && jt == 0 && lane % 4 == 0 && tr < L) {
+        const long long row = ((long long)b * S_stride + t0 + tr) * H + hh;
+        mstat[row] = mt[hr];
+        dstat[row] = den;
+      }
     }
 #pragma unroll
     for (int e = 0; e < 64; e += 2) {
@@ -1296,12 +1314,17 @@ mlstm_outputs_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// the row statistics from step s0 on (null stays null)
+float* at_row(float* stat, int s0, int H) {
+  return stat != nullptr ? stat + (long long)s0 * H : nullptr;
+}
+
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          const float* ig, const float* fg, const float* C0,
                          const float* n0, const float* m0, void* ws,
-                         float* h, float* C, float* n, float* m, int B,
-                         int S, int H, int Dh, float sqrt_dh,
-                         cudaStream_t st) {
+                         float* h, float* C, float* n, float* m,
+                         float* mstat, float* dstat, int B, int S, int H,
+                         int Dh, float sqrt_dh, cudaStream_t st) {
   if (Dh % 8 != 0) return cudaErrorInvalidValue;  // TMA's 16-byte strides
   for (const void* p : {q, k, v, (const void*)ws})
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
@@ -1393,7 +1416,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return err;
     mlstm_outputs_kernel<<<(int)(BH * nc * nt), NTW, OutputsSmem::bytes,
                            st>>>(tq, tv, tws_ld, sc, gb, gig, gmi, gch, n_ws,
-                                 m_in, h + off, Sg, S, H, Dh, nc,
+                                 m_in, h + off, at_row(mstat, s0, H),
+                                 at_row(dstat, s0, H), Sg, S, H, Dh, nc,
                                  1.f / sqrt_dh);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -1449,19 +1473,23 @@ extern "C" int repro_mlstm_scan_smem_bytes(int Dh, int route, int pass,
 // fg: (B, S, H) float32; C0 (B, H, Dh, Dh), n0 (B, H, Dh), m0 (B, H)
 // float32, or all three null (zeros, zeros, -1e30); ws: the route's
 // workspace (repro_mlstm_scan_workspace_bytes; 16-byte aligned on route 2);
-// h: (B, S, H, Dh), C, n, m like C0, n0, m0, float32.  All contiguous, on
-// the current device; route 2 also needs q, k, v on 16-byte boundaries and
-// Dh a multiple of 8.  Launches the route's kernels on `stream` and returns
-// cudaGetLastError() after them (0 on success), or the error that refused
-// the call.
+// h: (B, S, H, Dh), C, n, m like C0, n0, m0, float32; mstat and dstat:
+// (B, S, H) float32, or both null: for training, each row's stabiliser m_t
+// and its denominator den_t before the clamp (h_t = num_t /
+// max(|den_t|, exp(-m_t))).  All contiguous, on the current device; route
+// 2 also needs q, k, v on 16-byte boundaries and Dh a multiple of 8.
+// Launches the route's kernels on `stream` and returns cudaGetLastError()
+// after them (0 on success), or the error that refused the call.
 extern "C" int repro_mlstm_scan(const void* q, const void* k, const void* v,
                                 const void* ig, const void* fg,
                                 const void* C0, const void* n0,
                                 const void* m0, void* ws, void* h, void* C,
-                                void* n, void* m, int B, int S, int H,
-                                int Dh, int route, float sqrt_dh,
-                                void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || Dh <= 0) return (int)cudaErrorInvalidValue;
+                                void* n, void* m, void* mstat, void* dstat,
+                                int B, int S, int H, int Dh, int route,
+                                float sqrt_dh, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || Dh <= 0 ||
+      (mstat == nullptr) != (dstat == nullptr))
+    return (int)cudaErrorInvalidValue;
   if ((C0 == nullptr) != (n0 == nullptr) || (C0 == nullptr) != (m0 == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1474,18 +1502,22 @@ extern "C" int repro_mlstm_scan(const void* q, const void* k, const void* v,
   float* f_C = static_cast<float*>(C);
   float* f_n = static_cast<float*>(n);
   float* f_m = static_cast<float*>(m);
+  float* f_ms = static_cast<float*>(mstat);
+  float* f_ds = static_cast<float*>(dstat);
   switch (route) {
     case 0:
       return (int)launch<float>(q, k, v, f_ig, f_fg, f_C0, f_n0, f_m0,
                                 static_cast<float*>(ws), f_h, f_C, f_n, f_m,
-                                B, S, H, Dh, sqrt_dh, st);
+                                f_ms, f_ds, B, S, H, Dh, sqrt_dh, st);
     case 1:
       return (int)launch<__nv_bfloat16>(q, k, v, f_ig, f_fg, f_C0, f_n0, f_m0,
                                         static_cast<float*>(ws), f_h, f_C,
-                                        f_n, f_m, B, S, H, Dh, sqrt_dh, st);
+                                        f_n, f_m, f_ms, f_ds, B, S, H, Dh,
+                                        sqrt_dh, st);
     case 2:
       return (int)launch_wgmma(q, k, v, f_ig, f_fg, f_C0, f_n0, f_m0, ws, f_h,
-                               f_C, f_n, f_m, B, S, H, Dh, sqrt_dh, st);
+                               f_C, f_n, f_m, f_ms, f_ds, B, S, H, Dh,
+                               sqrt_dh, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,4 +1,5 @@
-"""ctypes binding of the chunkwise mLSTM CUDA kernels (csrc/mlstm_scan.cu).
+"""ctypes binding of the chunkwise mLSTM CUDA kernels (csrc/mlstm_scan.cu
+and, for the gradient, csrc/mlstm_scan_bwd.cu).
 
 ``launch`` runs one route's kernels on tensors that ``ops.mlstm_chunkwise``
 has checked and routed, on PyTorch's current stream, and counts the call
@@ -11,8 +12,13 @@ call, whatever the number of kernels the route launches):
 * ``scalar_bf16``: other bf16 q, k, v, on the scalar float32 kernels;
 * ``scalar_f32``: float32 q, k, v, on the scalar float32 kernels.
 
-A run reads the counters to show which kernels it went through.  The
-library is built at the first launch, never at import.
+With ``stats`` the forward also writes each row's stabiliser m_t and
+denominator den_t for the backward.  ``launch_bwd`` runs the backward's
+five passes (scalar float32 FMAs for both dtypes, chunks of
+``bwd_chunk()`` steps) and counts one launch in ``BWD_LAUNCHES`` and
+``BWD_LAUNCHES_BY_ROUTE`` under ``scalar_f32`` or ``scalar_bf16``, by the
+dtype of q.  A run reads the counters to show which kernels it went
+through.  The library is built at the first launch, never at import.
 """
 from __future__ import annotations
 
@@ -33,26 +39,64 @@ PASSES = {"scalar_f32": ("state",), "scalar_bf16": ("state",),
 
 LAUNCHES = 0    # launch() calls in this process; reset by whoever reads it
 LAUNCHES_BY_ROUTE = {route: 0 for route in ROUTES}
+# the backward's route, by the dtype of q, k, v (the C function's dtype
+# code)
+BWD_ROUTES = {torch.float32: (0, "scalar_f32"),
+              torch.bfloat16: (1, "scalar_bf16")}
+BWD_LAUNCHES = 0    # backward launches (five passes each), likewise
+BWD_LAUNCHES_BY_ROUTE = {route: 0 for _, route in BWD_ROUTES.values()}
 
 _fn = None
+_bwd_fn = None
 
 
 def reset_launches() -> None:
-    global LAUNCHES
+    global LAUNCHES, BWD_LAUNCHES
     LAUNCHES = 0
-    for route in LAUNCHES_BY_ROUTE:
-        LAUNCHES_BY_ROUTE[route] = 0
+    BWD_LAUNCHES = 0
+    for counts in (LAUNCHES_BY_ROUTE, BWD_LAUNCHES_BY_ROUTE):
+        for route in counts:
+            counts[route] = 0
 
 
 def _kernel_fn():
     global _fn
     if _fn is None:
         fn = build.load_library().repro_mlstm_scan
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + \
+        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + \
             [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def _bwd_kernel_fn():
+    global _bwd_fn
+    if _bwd_fn is None:
+        fn = build.load_library().repro_mlstm_scan_bwd
+        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + \
+            [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _bwd_fn = fn
+    return _bwd_fn
+
+
+def bwd_chunk() -> int:
+    """Steps per chunk of the backward (the last chunk of S is masked)."""
+    fn = build.load_library().repro_mlstm_scan_bwd_chunk
+    fn.argtypes = []
+    fn.restype = ctypes.c_int
+    return fn()
+
+
+def bwd_workspace_bytes(B: int, S: int, H: int, Dh: int) -> int:
+    """Bytes of the workspace one backward call allocates: per row the
+    chunk's cumulative log-forget and gate weights, and the float32
+    inter-chunk parts of dq, dk and dv (3 B S H Dh floats)."""
+    fn = build.load_library().repro_mlstm_scan_bwd_workspace_bytes
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
+    return fn(B, S, H, Dh)
 
 
 def chunk(route: str) -> int:
@@ -102,10 +146,13 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            ig: torch.Tensor, fg: torch.Tensor,
            init: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
            h: torch.Tensor, C: torch.Tensor, n: torch.Tensor,
-           m: torch.Tensor, route: str) -> None:
+           m: torch.Tensor, route: str,
+           stats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> None:
     """(h, C, n, m) <- the chunkwise mLSTM of (q, k, v, ig, fg) from
     ``init`` (or the zero state) on ``route``; all contiguous on one GPU,
-    ig, fg, init, h, C, n and m float32."""
+    ig, fg, init, h, C, n and m float32.  With ``stats``, two (B, S, H)
+    float32 tensors, each row's stabiliser m_t and denominator den_t (before
+    its clamp) are written there too."""
     global LAUNCHES
     B, S, H, Dh = q.shape
     fn = _kernel_fn()
@@ -118,8 +165,45 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ig.data_ptr(),
                  fg.data_ptr(), C0, n0, m0, ws.data_ptr(), h.data_ptr(),
-                 C.data_ptr(), n.data_ptr(), m.data_ptr(), B, S, H, Dh,
-                 ROUTES[route], math.sqrt(Dh), stream)
+                 C.data_ptr(), n.data_ptr(), m.data_ptr(),
+                 *((None, None) if stats is None else
+                   (stats[0].data_ptr(), stats[1].data_ptr())),
+                 B, S, H, Dh, ROUTES[route], math.sqrt(Dh), stream)
     build.check_launch(err, f"mlstm_scan kernel launch ({route})")
     LAUNCHES += 1
     LAUNCHES_BY_ROUTE[route] += 1
+
+
+def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               ig: torch.Tensor, fg: torch.Tensor,
+               init: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]],
+               h: torch.Tensor, stats: Tuple[torch.Tensor, torch.Tensor],
+               dh: torch.Tensor, dq: torch.Tensor, dk: torch.Tensor,
+               dv: torch.Tensor, dig: torch.Tensor,
+               rows: torch.Tensor) -> None:
+    """(dq, dk, dv, dig, rows) <- the gradient of the mLSTM at its output h
+    for dh, from the forward's row statistics ``stats`` (m_t, den_t); q, k,
+    v, ig, fg, init as ``launch`` took them, h, dh float32, dq, dk, dv in
+    q's dtype, dig (the gradient of ig) and rows (each row's sum of
+    dS o (q~ k^T), for fg's gradient) (B, S, H) float32; all contiguous on
+    one GPU."""
+    global BWD_LAUNCHES
+    B, S, H, Dh = q.shape
+    code, route = BWD_ROUTES[q.dtype]
+    fn = _bwd_kernel_fn()
+    ws = torch.empty((bwd_workspace_bytes(B, S, H, Dh),), dtype=torch.uint8,
+                     device=q.device)
+    C0, n0, m0 = (None, None, None) if init is None else \
+        tuple(t.data_ptr() for t in init)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ig.data_ptr(),
+                 fg.data_ptr(), C0, n0, m0, h.data_ptr(), dh.data_ptr(),
+                 stats[0].data_ptr(), stats[1].data_ptr(), ws.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 dig.data_ptr(), rows.data_ptr(), B, S, H, Dh, code,
+                 math.sqrt(Dh), stream)
+    build.check_launch(err, f"mlstm_scan backward launch ({route})")
+    BWD_LAUNCHES += 1
+    BWD_LAUNCHES_BY_ROUTE[route] += 1

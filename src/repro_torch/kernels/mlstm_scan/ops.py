@@ -18,12 +18,22 @@ launch, never by catching an error:
   boundaries;
 * other bf16 q, k, v take ``scalar_bf16``, the scalar kernels' bf16
   instantiation.
+
+Under grad mode, with an input that requires grad, the kernels run inside
+``MLSTMScanFunction``: the forward also writes each row's stabiliser m_t
+and denominator den_t, and the backward is the hand-written kernel of
+``csrc/mlstm_scan_bwd.cu`` (scalar float32 FMAs for both dtypes), to q, k,
+v, ig and fg; the gates' last step (a reverse cumsum over S) is PyTorch.
+No gradient flows into or out of the state: a gradient that reaches the
+final (C, n, m) raises, as does an ``init_state`` that requires grad.
+Otherwise (serving, under ``no_grad`` or ``inference_mode``) the forward
+writes no statistics.
 """
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
-from repro_torch.kernels import build
 from repro_torch.kernels.mlstm_scan import kernel, ref
 
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
@@ -79,6 +89,70 @@ def kernel_route(q, k, v) -> str:
     return "wgmma_bf16" if tma_ok else "scalar_bf16"
 
 
+def _forward(q, k, v, ig, fg, init_state, route, with_stats: bool):
+    B, S, H, Dh = q.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    h = torch.empty((B, S, H, Dh), **f32)
+    C = torch.empty((B, H, Dh, Dh), **f32)
+    n = torch.empty((B, H, Dh), **f32)
+    m = torch.empty((B, H), **f32)
+    stats = (torch.empty((B, S, H), **f32), torch.empty((B, S, H), **f32)) \
+        if with_stats else None
+    kernel.launch(q, k, v, ig, fg, init_state, h, C, n, m, route,
+                  stats=stats)
+    return h, (C, n, m), stats
+
+
+def fg_grad(fg, dig, rows):
+    """fg's gradient from the backward kernel's dig and row sums: dF = rows
+    - dig, summed from each step to the end of S, times d logsigmoid(fg) =
+    sigmoid(-fg)."""
+    dF = rows - dig
+    dlf = torch.flip(torch.cumsum(torch.flip(dF, (1,)), dim=1), (1,))
+    return dlf * torch.sigmoid(-fg)
+
+
+class MLSTMScanFunction(torch.autograd.Function):
+    """The kernels' forward (with its row statistics) and backward on
+    checked float32-gated inputs (``check_kernel_args``); returns
+    (h, C, n, m).  The initial state (C0, n0, m0, or three Nones) is a
+    constant."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, ig, fg, C0, n0, m0, route: str):
+        if any(ctx.needs_input_grad[5:8]):
+            raise RuntimeError(
+                "mlstm_scan: init_state requires grad, and the backward "
+                "kernel carries no gradient into the state; pass it "
+                "detached")
+        init = None if C0 is None else (C0, n0, m0)
+        h, (C, n, m), stats = _forward(q, k, v, ig, fg, init, route,
+                                       with_stats=True)
+        ctx.save_for_backward(q, k, v, ig, fg, C0, n0, m0, h, *stats)
+        ctx.set_materialize_grads(False)
+        return h, C, n, m
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dh, dC, dn, dm):
+        if dC is not None or dn is not None or dm is not None:
+            raise RuntimeError(
+                "mlstm_scan: a gradient reached the final state (C, n, m), "
+                "and the backward kernel carries none through the state; "
+                "only h may be differentiated")
+        q, k, v, ig, fg, C0, n0, m0, h, m_t, den = ctx.saved_tensors
+        if dh is None:
+            return (None,) * 9
+        dh = dh.float().contiguous()
+        init = None if C0 is None else (C0, n0, m0)
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        dig, rows = torch.empty_like(ig), torch.empty_like(ig)
+        kernel.launch_bwd(q, k, v, ig, fg, init, h, (m_t, den), dh, dq, dk,
+                          dv, dig, rows)
+        return (dq, dk, dv, dig, fg_grad(fg, dig, rows), None, None, None,
+                None)
+
+
 def mlstm_chunkwise(q, k, v, ig, fg, *, chunk: int = 64, init_state=None):
     """The chunkwise mLSTM; see ``ref.reference_mlstm``."""
     _check_shapes(q, k, v, ig, fg, chunk, init_state)
@@ -86,21 +160,17 @@ def mlstm_chunkwise(q, k, v, ig, fg, *, chunk: int = 64, init_state=None):
     if all(t.device.type == "cpu" for t in ts):
         return ref.reference_mlstm(q, k, v, ig, fg, chunk=chunk,
                                    init_state=init_state)
-    build.check_no_grad(
-        "mlstm_scan", ts,
-        "call it under torch.no_grad() (serving), or train xLSTM on the CPU")
     # the gates and the state are read in float32, as the reference casts
     # them
     ig, fg = ig.float(), fg.float()
     if init_state is not None:
         init_state = tuple(t.float() for t in init_state)
     check_kernel_args(q, k, v, ig, fg, init_state)
-    B, S, H, Dh = q.shape
-    f32 = dict(dtype=torch.float32, device=q.device)
-    h = torch.empty((B, S, H, Dh), **f32)
-    C = torch.empty((B, H, Dh, Dh), **f32)
-    n = torch.empty((B, H, Dh), **f32)
-    m = torch.empty((B, H), **f32)
-    kernel.launch(q, k, v, ig, fg, init_state, h, C, n, m,
-                  kernel_route(q, k, v))
-    return h, (C, n, m)
+    route = kernel_route(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        h, C, n, m = MLSTMScanFunction.apply(
+            q, k, v, ig, fg, *(init_state or (None, None, None)), route)
+        return h, (C, n, m)
+    h, state, _ = _forward(q, k, v, ig, fg, init_state, route,
+                           with_stats=False)
+    return h, state

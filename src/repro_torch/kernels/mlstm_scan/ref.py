@@ -1,6 +1,8 @@
-"""Plain PyTorch versions of the chunkwise-mLSTM kernel: the chunkwise
-evaluation of ``models.xlstm`` at the kernel's contract, and the strictly
-sequential recurrence (ground truth for both)."""
+"""Plain PyTorch versions of the chunkwise-mLSTM kernels: the chunkwise
+evaluation of ``models.xlstm`` at the kernel's contract, the strictly
+sequential recurrence (ground truth for both), the per-row statistics the
+forward writes for training (``reference_mlstm_stats``) and the backward
+by explicit formulas (``reference_mlstm_bwd``)."""
 from __future__ import annotations
 
 import math
@@ -125,3 +127,189 @@ def wgmma_route_model(q, k, v, ig, fg, *, init_state=None,
         hs.append(o / torch.maximum(den.abs(), torch.exp(-m_t))[..., None])
     h = torch.stack(hs, dim=1).reshape(B, n_chunks * T, H, Dh)[:, :S]
     return h, (C, n, m)
+
+
+def _padded_chunks(x, T, value=0.0):
+    """x (B, S, ...) padded along S to whole chunks of T with ``value``."""
+    pad = -x.shape[1] % T
+    if not pad:
+        return x
+    return torch.cat([x, x.new_full((x.shape[0], pad) + x.shape[2:],
+                                    value)], dim=1)
+
+
+def reference_mlstm_stats(q, k, v, ig, fg, *, chunk: int = 64,
+                          init_state=None):
+    """The chunkwise mLSTM at ``chunk`` steps (any S: the last chunk is
+    masked, as in the kernels), keeping what the forward kernel writes for
+    the backward.  Returns (m, den, m_e): m (B, S, H) each row's stabiliser
+    m_t; den (B, S, H) its denominator before the clamp (h_t = num_t /
+    max(|den_t|, exp(-m_t))); m_e (B, chunks, H) the m entering each
+    chunk, which is m0 (-1e30 without an initial state) for the first and
+    the row stabiliser of the last step before it for every other (the
+    same max over the same log weights), so that a backward at any chunk
+    can take its boundaries' stabilisers from m alone."""
+    B, S, H, Dh = q.shape
+    T = chunk
+    n_chunks = -(-S // T)
+    qs, ks, vs = (_padded_chunks(t.float(), T) for t in (q, k, v))
+    qs = qs / math.sqrt(Dh)
+    igp = _padded_chunks(ig.float(), T, -math.inf)
+    lf = _padded_chunks(torch.nn.functional.logsigmoid(fg.float()), T)
+    C, n, m = _xlstm._zero_state(B, H, Dh, q.device) if init_state is None \
+        else tuple(t.float() for t in init_state)
+    causal = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+    ms, dens, m_e = [], [], []
+    for c in range(n_chunks):
+        sl = slice(c * T, (c + 1) * T)
+        qc, kc, vc, igc = qs[:, sl], ks[:, sl], vs[:, sl], igp[:, sl]
+        bc = torch.cumsum(lf[:, sl].double(), dim=1)          # (B, T, H)
+        bt = bc[:, -1]
+        a = ((bc[:, :, None] - bc[:, None]).float() + igc[:, None]) \
+            .masked_fill(~causal[None, :, :, None], -math.inf)
+        m_inter = bc.float() + m[:, None]
+        m_t = torch.maximum(a.amax(dim=2), m_inter)
+        scores = torch.einsum("bthd,bshd->btsh", qc, kc) * \
+            torch.exp(a - m_t[:, :, None])
+        w_out = torch.exp(m_inter - m_t)
+        den = scores.sum(dim=2) + torch.einsum("bthd,bhd->bth",
+                                               qc * w_out[..., None], n)
+        ms.append(m_t)
+        dens.append(den)
+        m_e.append(m)
+        gm = igc + (bt[:, None] - bc).float()
+        m_new = torch.maximum(bt.float() + m, gm.amax(dim=1))
+        f_c = torch.exp(bt.float() + m - m_new)
+        g = torch.exp(gm - m_new[:, None])
+        C = f_c[..., None, None] * C + torch.einsum(
+            "bthd,bthe->bhde", kc * g[..., None], vc)
+        n = f_c[..., None] * n + (kc * g[..., None]).sum(dim=1)
+        m = m_new
+    return (torch.cat(ms, dim=1)[:, :S], torch.cat(dens, dim=1)[:, :S],
+            torch.stack(m_e, dim=1))
+
+
+def reference_mlstm_bwd(q, k, v, ig, fg, h, stats, dh, *, chunk: int = 64,
+                        init_state=None):
+    """The gradient of the mLSTM at its output h for the gradient dh, by
+    explicit formulas in chunks of ``chunk`` steps (any S), from the
+    forward's row statistics ``stats`` = (m, den, ...) of
+    ``reference_mlstm_stats`` (at any chunk).  h does not depend on the
+    stabilisers in exact arithmetic, so every m is a constant here.  With
+    q~ = q / sqrt(Dh), F_t = sum_{s<=t} logsigmoid(fg_s),
+    N_t = max(|den_t|, exp(-m_t)) and w_ts = exp(F_t - F_s + ig_s - m_t)
+    (s <= t):
+
+      dnum_t = dh_t / N_t,
+      dden_t = -(dh_t . h_t) / den_t where |den_t| > exp(-m_t), else 0
+      dS_ts  = w_ts (dnum_t . v_s + dden_t),
+      dq~_t  = sum_s dS_ts k_s,  dk_s = sum_t dS_ts q~_t,
+      dv_s   = sum_t w_ts (q~_t . k_s) dnum_t,
+      dig_s  = sum_t dS_ts (q~_t . k_s),
+      dF_t   = sum_s dS_ts (q~_t . k_s) - dig_t, where the row sum is
+               dnum_t . num_t + dden_t den_t = (dh_t . h_t) when the clamp
+               is active and 0 otherwise (an initial state's terms
+               included),
+      dfg    = (reverse cumsum of dF) sigmoid(-fg).
+
+    Pairs in one chunk are summed as they stand.  Pairs across a chunk
+    boundary go through states: forwards the state (C, n) entering each
+    chunk, as the forward carries it, for dq~_t += w_out_t (C dnum_t +
+    dden_t n); backwards the state gradient (D, Dn) leaving each chunk,
+    D = sum over later t of exp(F_t - F_e + m_e - m_t) q~_t dnum_t^T (Dn
+    with dden_t q~_t), for dk_s += g_s (D v_s + Dn) and dv_s += g_s D^T k_s.
+    The boundary's stabiliser m_e is the row stabiliser of the step before
+    it, so the decay of a state over a chunk, f_c = exp(F_end - F_e + m_e -
+    m_end), the weights w_out_t = exp(F_t - F_e + m_e - m_t) and g_s =
+    exp(ig_s + F_end - F_s - m_end) are all at most 1.
+
+    Returns (dq, dk, dv, dig, dfg): dq, dk, dv (B, S, H, Dh) and dig, dfg
+    (B, S, H), float32."""
+    B, S, H, Dh = q.shape
+    m, den = stats[0].float(), stats[1].float()
+    T = chunk
+    n_chunks = -(-S // T)
+    qs = q.float() / math.sqrt(Dh)
+    kf, vf, dhf = k.float(), v.float(), dh.float()
+    F = torch.cumsum(torch.nn.functional.logsigmoid(fg.float()).double(),
+                     dim=1)                                    # (B, S, H)
+    floor = torch.exp(-m)
+    dhh = (dhf * h.float()).sum(dim=-1)
+    active = den.abs() > floor
+    dnum = dhf / torch.maximum(den.abs(), floor)[..., None]
+    dden = torch.where(active, -dhh / den, torch.zeros_like(dhh))
+    rows = torch.where(active, torch.zeros_like(dhh), dhh)
+    if init_state is None:
+        m0 = torch.full((B, H), _xlstm.NEG_INF, device=q.device)
+    else:
+        m0 = init_state[2].float()
+    bounds = [(c * T, min(S, (c + 1) * T)) for c in range(n_chunks)]
+
+    def chunk_gates(c):
+        """(w_out (B, T, H), g (B, T, H), f (B, H)) of chunk c."""
+        t0, t1 = bounds[c]
+        me = m0 if t0 == 0 else m[:, t0 - 1]
+        Fe = torch.zeros_like(F[:, 0]) if t0 == 0 else F[:, t0 - 1]
+        Fc, Fend, mend = F[:, t0:t1], F[:, t1 - 1], m[:, t1 - 1]
+        w_out = torch.exp((Fc - Fe[:, None]).float() + me[:, None]
+                          - m[:, t0:t1])
+        g = torch.exp(ig[:, t0:t1].float() + (Fend[:, None] - Fc).float()
+                      - mend[:, None])
+        f = torch.exp((Fend - Fe).float() + me - mend)
+        return w_out, g, f
+
+    gates = [chunk_gates(c) for c in range(n_chunks)]
+    dq = torch.empty_like(qs)
+    dk = torch.empty_like(qs)
+    dv = torch.empty_like(qs)
+    # forwards: the state entering each chunk
+    if init_state is None:
+        C = qs.new_zeros((B, H, Dh, Dh))
+        n = qs.new_zeros((B, H, Dh))
+    else:
+        C, n = init_state[0].float(), init_state[1].float()
+    for c, (t0, t1) in enumerate(bounds):
+        w_out, g, f = gates[c]
+        dq[:, t0:t1] = w_out[..., None] * (
+            torch.einsum("bhij,bthj->bthi", C, dnum[:, t0:t1])
+            + dden[:, t0:t1, :, None] * n[:, None])
+        kg = kf[:, t0:t1] * g[..., None]
+        C = f[..., None, None] * C + torch.einsum("bthi,bthj->bhij", kg,
+                                                  vf[:, t0:t1])
+        n = f[..., None] * n + kg.sum(dim=1)
+    # backwards: the state gradient leaving each chunk
+    D = qs.new_zeros((B, H, Dh, Dh))
+    Dn = qs.new_zeros((B, H, Dh))
+    for c in range(n_chunks - 1, -1, -1):
+        t0, t1 = bounds[c]
+        w_out, g, f = gates[c]
+        dk[:, t0:t1] = g[..., None] * (
+            torch.einsum("bhij,bthj->bthi", D, vf[:, t0:t1]) + Dn[:, None])
+        dv[:, t0:t1] = g[..., None] * torch.einsum("bhij,bthi->bthj", D,
+                                                   kf[:, t0:t1])
+        qw = qs[:, t0:t1] * w_out[..., None]
+        D = f[..., None, None] * D + torch.einsum("bthi,bthj->bhij", qw,
+                                                  dnum[:, t0:t1])
+        Dn = f[..., None] * Dn + (qw * dden[:, t0:t1, :, None]).sum(dim=1)
+    # pairs inside each chunk; dig_s = sum_t dS_ts (q~_t . k_s): across
+    # chunks k_s . dk_s, inside a chunk the column sums (which cancel less)
+    dig = (kf * dk).sum(dim=-1)
+    for t0, t1 in bounds:
+        L = t1 - t0
+        Fc = F[:, t0:t1]
+        logw = (Fc[:, :, None] - Fc[:, None]).float() + \
+            ig[:, None, t0:t1].float() - m[:, t0:t1, None]     # (B, t, s, H)
+        causal = torch.ones(L, L, dtype=torch.bool, device=q.device).tril()
+        w = torch.exp(logw).masked_fill(~causal[None, :, :, None], 0.0)
+        qc, kc, vc, dnc = (x[:, t0:t1] for x in (qs, kf, vf, dnum))
+        sc = torch.einsum("bthd,bshd->btsh", qc, kc)
+        dS = w * (torch.einsum("bthd,bshd->btsh", dnc, vc)
+                  + dden[:, t0:t1, None])
+        dq[:, t0:t1] += torch.einsum("btsh,bshd->bthd", dS, kc)
+        dk[:, t0:t1] += torch.einsum("btsh,bthd->bshd", dS, qc)
+        dv[:, t0:t1] += torch.einsum("btsh,bthd->bshd", w * sc, dnc)
+        dig[:, t0:t1] += (dS * sc).sum(dim=1)
+    dF = rows - dig
+    dlf = torch.flip(torch.cumsum(torch.flip(dF, (1,)), dim=1), (1,))
+    dfg = dlf * torch.sigmoid(-fg.float())
+    return dq / math.sqrt(Dh), dk, dv, dig, dfg

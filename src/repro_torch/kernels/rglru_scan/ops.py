@@ -11,12 +11,18 @@ a bf16 model hands its gates over in bf16.
 On tensors that lie on the CPU it computes the plain version (``ref``).  On
 CUDA tensors it launches the CUDA kernel or raises: there is no fallback,
 for any shape, for ``h0`` or for a build failure.
+
+Under grad mode, with an input that requires grad, the kernel runs inside
+``RGLRUScanFunction``: the forward saves its output y (the h_t, float32),
+and the backward is the hand-written kernel of ``csrc/rglru_scan_bwd.cu``.
+Otherwise (serving, under ``no_grad`` or ``inference_mode``) the forward
+launches as it is.
 """
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
-from repro_torch.kernels import build
 from repro_torch.kernels.rglru_scan import kernel, ref
 
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
@@ -67,22 +73,55 @@ def check_kernel_args(x, lam, ga, gx, h0, b_a, b_i) -> None:
                          "b_a and b_i")
 
 
-def rglru(x, lam, ga, gx, h0=None, *, b_a=None, b_i=None):
-    """RG-LRU gates and recurrence; see ``ref.reference_rglru``."""
-    _check_shapes(x, lam, ga, gx, h0, b_a, b_i)
-    if all(t.device.type == "cpu"
-           for t in (x, lam, ga, gx, h0, b_a, b_i) if t is not None):
-        return ref.reference_rglru(x, lam, ga, gx, h0, b_a=b_a, b_i=b_i)
-    build.check_no_grad(
-        "rglru_scan", (x, lam, ga, gx, h0, b_a, b_i),
-        "call it under torch.no_grad() (serving), or train Griffin on the "
-        "CPU")
-    # lam and h0 are read in float32, as the reference casts them
-    lam = lam.float()
-    h0 = None if h0 is None else h0.float()
-    check_kernel_args(x, lam, ga, gx, h0, b_a, b_i)
+def _forward(x, lam, ga, gx, h0, b_a, b_i):
     B, S, D = x.shape
     y = torch.empty((B, S, D), dtype=torch.float32, device=x.device)
     h_last = torch.empty((B, D), dtype=torch.float32, device=x.device)
     kernel.launch(x, lam, ga, gx, b_a, b_i, h0, y, h_last)
     return y, h_last
+
+
+class RGLRUScanFunction(torch.autograd.Function):
+    """The kernel's forward and backward on checked inputs
+    (``check_kernel_args``); returns (y, h_last)."""
+
+    @staticmethod
+    def forward(ctx, x, lam, ga, gx, h0, b_a, b_i):
+        y, h_last = _forward(x, lam, ga, gx, h0, b_a, b_i)
+        ctx.save_for_backward(x, lam, ga, gx, h0, b_a, b_i, y)
+        ctx.set_materialize_grads(False)
+        return y, h_last
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy, dh_last):
+        x, lam, ga, gx, h0, b_a, b_i, y = ctx.saved_tensors
+        dy = torch.zeros_like(y) if dy is None else \
+            dy.float().contiguous()
+        if dh_last is not None:
+            dh_last = dh_last.float().contiguous()
+        f32 = dict(dtype=torch.float32, device=x.device)
+        dx, dga, dgx = (torch.empty_like(t) for t in (x, ga, gx))
+        dlam = torch.empty(lam.shape, **f32)
+        db_a, db_i = (None, None) if b_a is None else \
+            (torch.empty(b_a.shape, **f32), torch.empty(b_i.shape, **f32))
+        dh0 = None if h0 is None else torch.empty(h0.shape, **f32)
+        kernel.launch_bwd(x, lam, ga, gx, b_a, b_i, h0, y, dy, dh_last, dx,
+                          dga, dgx, dlam, db_a, db_i, dh0)
+        return dx, dlam, dga, dgx, dh0, db_a, db_i
+
+
+def rglru(x, lam, ga, gx, h0=None, *, b_a=None, b_i=None):
+    """RG-LRU gates and recurrence; see ``ref.reference_rglru``."""
+    _check_shapes(x, lam, ga, gx, h0, b_a, b_i)
+    ts = (x, lam, ga, gx, h0, b_a, b_i)
+    if all(t.device.type == "cpu" for t in ts if t is not None):
+        return ref.reference_rglru(x, lam, ga, gx, h0, b_a=b_a, b_i=b_i)
+    # lam and h0 are read in float32, as the reference casts them
+    lam = lam.float()
+    h0 = None if h0 is None else h0.float()
+    check_kernel_args(x, lam, ga, gx, h0, b_a, b_i)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in ts):
+        return RGLRUScanFunction.apply(x, lam, ga, gx, h0, b_a, b_i)
+    return _forward(x, lam, ga, gx, h0, b_a, b_i)

@@ -11,6 +11,8 @@ product and a float32 bias add in float32).
 (windows cut into segments, each segment's product of a and its h from 0,
 the segments composed into each segment's incoming h), for checking that
 order on the CPU; ``oracle_rglru`` is the recurrence in float64.
+``reference_rglru_bwd`` is the plain version of the backward kernel: the
+gradient by explicit formulas, not by autograd.
 """
 from __future__ import annotations
 
@@ -111,3 +113,56 @@ def windowed_rglru(x, lam, ga, gx, h0=None, *, b_a=None, b_i=None,
         y[:, :, :, i] = h
     y = y.reshape(B, n * window, D)[:, :S]
     return y, y[:, -1].clone()
+
+
+def reference_rglru_bwd(x, lam, ga, gx, y, dy, h0=None, dh_last=None, *,
+                        b_a=None, b_i=None):
+    """The gradient of ``reference_rglru`` by explicit formulas: x, lam, ga,
+    gx, h0, b_a, b_i as there; y its output (the h_t, float32); dy (B, S, D)
+    and dh_last (B, D) or None the gradients of y and h_last.
+
+    With u = sigmoid(ga + b_a), sp = softplus(lam), log_a = -c sp u,
+    a = exp(log_a), beta = sqrt(-expm1(2 log_a)), i = sigmoid(gx + b_i):
+    the carry runs backwards, g_t = dy_t + a_{t+1} g_{t+1} (g_{S-1} also
+    takes dh_last); da_t = g_t h_{t-1} (h_{-1} = h0 or 0), db_t = g_t,
+    dh0 = a_0 g_0; dlog_a = da a - db i x a^2 / beta (autograd's own
+    derivative of sqrt(-expm1(2 log_a)), with its singularity at beta 0);
+    d(ga + b_a) = dlog_a (-c sp) u (1 - u); dlam = sum over B, S of
+    dlog_a (-c u) sigmoid(lam); d(gx + b_i) = db beta x i (1 - i);
+    dx = db beta i.
+
+    Returns (dx, dlam, dga, dgx, dh0, db_a, db_i): dx in x's dtype, dga and
+    dgx in ga's, dlam, dh0 (None without h0), db_a and db_i (None without
+    the biases; the float32 sums over B and S of d(ga + b_a) and
+    d(gx + b_i)) in float32."""
+    gab, gxb = _biased(ga, gx, b_a, b_i)
+    u = torch.sigmoid(gab.float())
+    sp = F.softplus(lam.float())
+    log_a = -RGLRU_C * sp * u
+    a = torch.exp(log_a)
+    beta = torch.sqrt(-torch.expm1(2.0 * log_a))
+    i = torch.sigmoid(gxb.float())
+    x32 = x.float()
+    B, S, D = x.shape
+    g = torch.empty_like(a)
+    carry = torch.zeros((B, D), dtype=torch.float32, device=x.device) \
+        if dh_last is None else dh_last.float()
+    for t in range(S - 1, -1, -1):
+        carry = dy[:, t].float() + carry
+        g[:, t] = carry
+        carry = a[:, t] * carry
+    h_prev = torch.zeros_like(a)
+    h_prev[:, 1:] = y[:, :-1].float()
+    if h0 is not None:
+        h_prev[:, 0] = h0.float()
+    dlog_a = g * h_prev * a - g * i * x32 * a * a / beta
+    dgab = dlog_a * (-RGLRU_C * sp) * u * (1.0 - u)
+    dlam = (dlog_a * (-RGLRU_C * u)).sum(dim=(0, 1)) * torch.sigmoid(
+        lam.float())
+    dgxb = g * beta * x32 * i * (1.0 - i)
+    dx = (g * beta * i).to(x.dtype)
+    dh0 = None if h0 is None else carry
+    db_a = None if b_a is None else dgab.sum(dim=(0, 1))
+    db_i = None if b_i is None else dgxb.sum(dim=(0, 1))
+    return (dx, dlam, dgab.to(ga.dtype), dgxb.to(gx.dtype), dh0, db_a,
+            db_i)

@@ -901,19 +901,13 @@ def test_flash_serving_writes_no_lse():
 
 
 def test_kernels_without_a_backward_refuse_grad_on_cuda():
-    """moe_gmm, rglru_scan and mlstm_scan raise under grad rather than
-    return an output with no gradient path, and run under no_grad."""
+    """moe_gmm, the one kernel still without a backward, raises under grad
+    rather than return an output with no gradient path, and runs under
+    no_grad."""
     _need_cuda()
     xe, p = _gmm_inputs(4, 16, 64, 64, True, torch.bfloat16)
-    x, lam, ga, gx, h0, b_a, b_i = _scan_inputs(1, 16, 64, torch.bfloat16,
-                                                torch.bfloat16)
-    (q, k, v, ig, fg), _ = _mlstm_inputs(1, 16, 2, 32, torch.bfloat16)
-    calls = {
-        "moe_gmm": lambda: gmm_ops.expert_ffn(xe, p, "swiglu"),
-        "rglru_scan": lambda: rg_ops.rglru(x, lam, ga, gx, h0),
-        "mlstm_scan": lambda: ml_ops.mlstm_chunkwise(q, k, v, ig, fg),
-    }
-    for t in (xe, p["w1"], x, q):
+    calls = {"moe_gmm": lambda: gmm_ops.expert_ffn(xe, p, "swiglu")}
+    for t in (xe, p["w1"]):
         t.requires_grad_()
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no backward yet"):
@@ -923,3 +917,199 @@ def test_kernels_without_a_backward_refuse_grad_on_cuda():
         with torch.inference_mode():
             call()
     torch.cuda.synchronize()
+
+
+# --------------------------------------------------------------------------
+# the recurrent kernels' backwards
+# --------------------------------------------------------------------------
+
+# rglru_scan's backward against the plain backward (explicit formulas in
+# float32 on the same inputs and the forward's y), each gradient against
+# the plain one's max |.| floored at 1e-3 of the largest: bf16 dx, dga, dgx
+# are rounded on output (2**-9 of the value); float32 ones and the
+# per-channel sums differ by summation order only.
+RGLRU_BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def _grad_errs(got, want, floor_frac=1e-3):
+    top = max(float(w.abs().max()) for w in want if w is not None)
+    return [None if w is None else
+            float((g.float() - w.float()).abs().max()) /
+            max(float(w.abs().max()), floor_frac * top)
+            for g, w in zip(got, want)]
+
+
+def _rglru_grads(x, lam, ga, gx, h0, b_a, b_i, dy, dh_last):
+    leaves = [None if t is None else t.detach().requires_grad_()
+              for t in (x, lam, ga, gx, h0, b_a, b_i)]
+    y, h_last = rg_ops.rglru(*leaves[:5], b_a=leaves[5], b_i=leaves[6])
+    outs, cots = ([y, h_last], [dy, dh_last]) if dh_last is not None \
+        else ([y], [dy])
+    got = iter(torch.autograd.grad(outs, [t for t in leaves
+                                          if t is not None], cots))
+    return [None if t is None else next(got) for t in leaves], y.detach()
+
+
+@pytest.mark.parametrize("B,S,D,with_h0,with_dhl,fused", [
+    (1, 4096, 4096, False, False, True),   # recurrentgemma-9b train_4k
+    (2, 1, 256, True, True, True),         # a single step
+    (3, 63, 77, True, True, False),        # the 64-step chunk's edges
+    (2, 64, 128, False, True, True),
+    (2, 65, 200, True, False, True),
+    (1, 129, 4100, True, True, True),      # D past whole 128-channel blocks
+    (2, 1000, 512, True, True, False),
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rglru_backward_matches_plain(B, S, D, with_h0, with_dhl, fused,
+                                      dtype):
+    _need_cuda()
+    x, lam, ga, gx, h0, b_a, b_i = _scan_inputs(B, S, D, dtype, dtype,
+                                                seed=S + D)
+    h0 = h0 if with_h0 else None
+    b_a, b_i = (b_a, b_i) if fused else (None, None)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    dy = torch.randn((B, S, D), generator=g, device="cuda")
+    dh_last = torch.randn((B, D), generator=g, device="cuda") \
+        if with_dhl else None
+    route = "fused_bias" if fused else "gates"
+    before = rg_kernel.BWD_LAUNCHES_BY_ROUTE[route]
+    got, y = _rglru_grads(x, lam, ga, gx, h0, b_a, b_i, dy, dh_last)
+    torch.cuda.synchronize()
+    assert rg_kernel.BWD_LAUNCHES_BY_ROUTE[route] == before + 1
+    want = rg_ref.reference_rglru_bwd(x, lam, ga, gx, y, dy, h0, dh_last,
+                                      b_a=b_a, b_i=b_i)
+    for name, g_, w, e in zip(("dx", "dlam", "dga", "dgx", "dh0", "db_a",
+                               "db_i"), got, want,
+                              _grad_errs(got, want)):
+        assert (g_ is None) == (w is None), name
+        if w is None:
+            continue
+        assert g_.dtype == w.dtype, name
+        tol = RGLRU_BWD_TOL[dtype] if name in ("dx", "dga", "dgx") else \
+            RGLRU_BWD_TOL[torch.float32]
+        assert e <= tol, (name, e)
+
+
+def test_rglru_backward_long_memory_against_float64():
+    """a from 0.999 to 0.9999 over 4096 steps: the kernel's gradients
+    within twice the plain backward's own error against autograd of the
+    recurrence in float64, or 1e-4."""
+    _need_cuda()
+    x, lam, ga, gx, h0, b_a, b_i = _scan_inputs(
+        2, 4096, 512, torch.float32, torch.float32, u=(0.999, 0.9999))
+    g = torch.Generator(device="cuda").manual_seed(8)
+    dy = torch.randn((2, 4096, 512), generator=g, device="cuda")
+    dh_last = torch.randn((2, 512), generator=g, device="cuda")
+    got, y = _rglru_grads(x, lam, ga, gx, h0, b_a, b_i, dy, dh_last)
+    plain = rg_ref.reference_rglru_bwd(x, lam, ga, gx, y, dy, h0, dh_last,
+                                       b_a=b_a, b_i=b_i)
+    leaves = [t.double().requires_grad_()
+              for t in (x, lam, ga, gx, h0, b_a, b_i)]
+    y64 = rg_ref.oracle_rglru(*leaves[:5], b_a=leaves[5], b_i=leaves[6])
+    truth = torch.autograd.grad(
+        (y64 * dy.double()).sum() + (y64[:, -1] * dh_last.double()).sum(),
+        leaves)
+    for e, pe in zip(_grad_errs(got, truth), _grad_errs(plain, truth)):
+        assert e <= max(1e-4, 2 * pe)
+
+
+def test_recurrent_kernels_serve_without_the_function():
+    """Under no_grad, or without an input that requires grad, rglru_scan and
+    mlstm_scan launch their forwards as serving does: no grad_fn, and
+    mlstm_scan's forward writes no statistics (its h is the same with
+    them)."""
+    _need_cuda()
+    x, lam, ga, gx, _, b_a, b_i = _scan_inputs(1, 70, 64, torch.bfloat16,
+                                               torch.bfloat16)
+    (q, k, v, ig, fg), _ = _mlstm_inputs(1, 70, 2, 64, torch.bfloat16)
+    x.requires_grad_()
+    q.requires_grad_()
+    with torch.no_grad():
+        y, _ = rg_ops.rglru(x, lam, ga, gx, b_a=b_a, b_i=b_i)
+        h, _ = ml_ops.mlstm_chunkwise(q, k, v, ig, fg)
+    assert y.grad_fn is None and h.grad_fn is None
+    y2, _ = rg_ops.rglru(x, lam, ga, gx, b_a=b_a, b_i=b_i)
+    h2, _ = ml_ops.mlstm_chunkwise(q, k, v, ig, fg)
+    assert y2.grad_fn is not None and h2.grad_fn is not None
+    assert torch.equal(y, y2.detach()) and torch.equal(h, h2.detach())
+
+
+# mlstm_scan's backward against the plain backward (explicit formulas in
+# float32, on the same inputs, the forward's h and its row statistics),
+# each gradient against the plain one's max |.| floored at 1e-3 of the
+# largest of dq, dk, dv (or of dig, dfg): bf16 dq, dk, dv are rounded on
+# output; the rest differ by summation order only.
+MLSTM_BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+@pytest.mark.parametrize("B,S,H,Dh,with_init,clamp", [
+    (1, 4096, 4, 1024, False, False),  # xlstm-1.3b's mLSTM at train_4k
+    (2, 200, 4, 512, False, False),    # S not a multiple of either chunk
+    (2, 1, 4, 256, False, False),      # a single step
+    (1, 300, 4, 256, False, True),     # the denominator's floor on most rows
+    (2, 136, 4, 512, True, False),     # a constant initial state
+    (1, 100, 1, 1600, False, False),   # state slabs past shared memory
+    (2, 150, 1, 37, True, False),      # bf16 forward on the scalar route
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mlstm_backward_matches_plain(B, S, H, Dh, with_init, clamp, dtype):
+    _need_cuda()
+    (q, k, v, ig, fg), init = _mlstm_inputs(B, S, H, Dh, dtype, with_init,
+                                            seed=S + Dh)
+    if clamp:
+        ig = ig - 8.0
+    g = torch.Generator(device="cuda").manual_seed(9)
+    dh = torch.randn((B, S, H, Dh), generator=g, device="cuda")
+    route = ml_kernel.BWD_ROUTES[dtype][1]
+    before = ml_kernel.BWD_LAUNCHES_BY_ROUTE[route]
+    leaves = [t.requires_grad_() for t in (q, k, v, ig, fg)]
+    h, _ = ml_ops.mlstm_chunkwise(*leaves, init_state=init)
+    m_t, den = h.grad_fn.saved_tensors[-2:]
+    got = torch.autograd.grad(h, leaves, dh)
+    torch.cuda.synchronize()
+    assert ml_kernel.BWD_LAUNCHES_BY_ROUTE[route] == before + 1
+    xs = [t.detach() for t in leaves]
+    if clamp:
+        assert float((den.abs() <= torch.exp(-m_t)).float().mean()) > 0.5
+    want = ml_ref.reference_mlstm_bwd(*xs, h.detach(), (m_t, den), dh,
+                                      init_state=init)
+    errs = _grad_errs(got[:3], want[:3]) + _grad_errs(got[3:], want[3:])
+    if S == 1:   # one key: dfg vanishes, and dq and dk where the floor
+        top = max(float(w.abs().max()) for w in want[:3])   # is inactive
+        errs[:2] = [float((g_.float() - w).abs().max()) / top
+                    for g_, w in zip(got[:2], want[:2])]
+        errs[4] = float((got[4] - want[4]).abs().max()) / max(
+            float(w.abs().max()) for w in want[3:])
+    tols = [MLSTM_BWD_TOL[dtype]] * 3 + [MLSTM_BWD_TOL[torch.float32]] * 2
+    for name, g_, e, tol in zip(("dq", "dk", "dv", "dig", "dfg"), got, errs,
+                                tols):
+        assert g_.dtype == leaves[("dq", "dk", "dv", "dig",
+                                   "dfg").index(name)].dtype
+        assert e <= tol, (name, e)
+
+
+@pytest.mark.parametrize("S,Dh,dtype", [
+    (1000, 1024, torch.bfloat16),   # the wgmma route, chunks of 128
+    (300, 96, torch.bfloat16),
+    (200, 512, torch.float32),      # the scalar routes, chunks of 64
+    (150, 37, torch.bfloat16),
+])
+def test_mlstm_forward_writes_its_row_statistics(S, Dh, dtype):
+    """The training forward's m_t and den_t against the plain ones, and its
+    h bit for bit the serving forward's."""
+    _need_cuda()
+    (q, k, v, ig, fg), init = _mlstm_inputs(2, S, 2, Dh, dtype, True)
+    route = ml_ops.kernel_route(q, k, v)
+    outs = []
+    for with_stats in (False, True):
+        outs.append(ml_ops._forward(q, k, v, ig, fg, init, route,
+                                    with_stats))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][0], outs[1][0])
+    m_t, den = outs[1][2]
+    pm, pden, _ = ml_ref.reference_mlstm_stats(q, k, v, ig, fg,
+                                               init_state=init)
+    assert float((m_t - pm).abs().max()) <= 1e-4 * max(
+        float(pm.abs().max()), 1.0)
+    assert float((den - pden).abs().max()) <= 1e-4 * float(
+        pden.abs().max())

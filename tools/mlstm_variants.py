@@ -137,7 +137,7 @@ def build_variant(name, edits):
              if "spill" in line and not line.strip().startswith("0 b")]
     lib = ctypes.CDLL(stem + ".so")
     fn = lib.repro_mlstm_scan
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + \
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + \
         [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     ws_fn = lib.repro_mlstm_scan_workspace_bytes
@@ -161,7 +161,8 @@ def caller(fn, ws_fn, xs):
     def run():
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ig.data_ptr(),
                  fg.data_ptr(), None, None, None, ws.data_ptr(),
-                 *(t.data_ptr() for t in outs), B, S, H, Dh, WGMMA_ROUTE,
+                 *(t.data_ptr() for t in outs), None, None, B, S, H, Dh,
+                 WGMMA_ROUTE,
                  math.sqrt(Dh), torch.cuda.current_stream().cuda_stream)
         if err:
             raise SystemExit(f"CUDA error {err}")
