@@ -38,16 +38,20 @@ a non-zero exit:
                 against the recurrence in float64; and flash_attention's
                 backward (kernel_bwd): through the wrapper's autograd
                 function against the plain backward (explicit formulas in
-                float32), bf16 (wmma_bf16) and float32 (scalar_f32), MHA,
-                GQA 24/8 and MQA, causal, not causal and biting windows,
-                head dims 16, 64, 80, 120, 128 and 256 (16 and 80 padded),
-                S 1, 63, 65, 200, 1000 and 4096 (the train phase's own
-                shape, minicpm-2b's 36 heads of 64 at one microbatch of
-                4096), each case checked to run on its route, the forward's
-                row log-sum-exp against the plain one, and at the train
-                shape and minicpm's, granite's and recurrentgemma's prefill
-                shapes the kernel, the plain version and SDPA's backward
-                timed beside the card's bound; then rglru_scan's backward
+                float32), bf16 (wgmma_bf16) and float32 (scalar_f32), MHA,
+                GQA 24/8 and MQA (its query heads split over blocks),
+                causal, not causal and biting windows, head dims 16, 64,
+                80, 120, 128 and 256 (16 and 80 padded), S 1, 63, 65, 200,
+                1000 and 4096 (the train phases' own shapes: minicpm-2b's
+                36 heads of 64 and recurrentgemma-9b's 16/1 at 256 with its
+                window of 2048, at one microbatch of 4096), each case
+                checked to run on its route and, in bf16, to give the same
+                bits on a second call, the forward's row log-sum-exp
+                against the plain one, and at both train shapes and
+                minicpm's, granite's and recurrentgemma's prefill shapes the
+                kernel, the plain version and SDPA's backward (with a band
+                mask where the window bites: masked SDPA) timed beside the
+                card's bound; then rglru_scan's backward
                 (through ``ops.rglru``'s autograd function, bf16 and float32,
                 the train shape B 1, S 4096, D 4096, the 64-step chunk's
                 edges, h0 and dh_last, both routes; a long memory, a up to
@@ -101,7 +105,7 @@ a non-zero exit:
                 the loss after step 4 below step 1's, every step 160 flash
                 forward launches (40 layers x 2 microbatches x forward and
                 recompute, on wgmma_bf16) and 80 backward ones (on
-                wmma_bf16), no other kernel; step times, tokens/s, peak
+                wgmma_bf16), no other kernel; step times, tokens/s, peak
                 memory and a profiled step
 13. train consistency  one float32 step of minicpm-2b at full width, 2
                 layers, S 1024 (flash's scalar_f32 routes both ways): loss
@@ -516,14 +520,15 @@ def attention_bwd_bound(B, S, H, KH, Dh, causal, window, dtype):
                                        else "operations"), flops, nbytes
 
 
-# (name, B, S, H, KH, Dh, causal, window): the train phase's own shape
-# (minicpm-2b, one microbatch of 4096); MHA, GQA 24/8 and MQA; causal, not
-# causal and windows that bite; head dims 16 and 80 padded by the wrapper;
-# S 1, 63, 65, 1000 and 4096.  BWD_TIMED_CASES are timed in bf16: the
-# train shape for the kernels line's numbers, the prefill shapes under
-# its at_* keys.
+# (name, B, S, H, KH, Dh, causal, window): the train phases' own shapes
+# (minicpm-2b and recurrentgemma-9b's LOCAL attention, one microbatch of
+# 4096); MHA, GQA 24/8 and MQA; causal, not causal and windows that bite;
+# head dims 16 and 80 padded by the wrapper; S 1, 63, 65, 1000 and 4096.
+# BWD_TIMED_CASES are timed in bf16: minicpm's train shape for the kernels
+# line's numbers, the others under its at_* keys.
 BWD_CASES = [
     ("minicpm-train", 1, TRAIN_SEQ, 36, 36, 64, True, 0),
+    ("griffin-train", 1, TRAIN_SEQ, 16, 1, 256, True, 2048),
     ("minicpm-prefill", 4, 1000, 36, 36, 64, True, 0),
     ("granite-prefill", 4, 1000, 24, 8, 64, True, 0),
     ("griffin-prefill", 4, 1000, 16, 1, 256, True, 2048),
@@ -535,7 +540,10 @@ BWD_CASES = [
     ("dh80-non-causal", 2, 63, 4, 4, 80, False, 0),
     ("non-causal-window", 1, 200, 4, 2, 64, False, 40),
 ]
-BWD_TIMED_CASES = ("minicpm-train",) + TIMED_CASES
+BWD_TIMED_CASES = ("minicpm-train", "griffin-train") + TIMED_CASES
+# the backward's route by dtype, as the port's kernel.BWD_ROUTES must say
+BWD_EXPECTED_ROUTES = {torch.bfloat16: "wgmma_bf16",
+                       torch.float32: "scalar_f32"}
 
 
 def bwd_errors(got, want, one_key):
@@ -552,10 +560,11 @@ def bwd_errors(got, want, one_key):
 
 
 def phase_kernel_bwd():
-    """The flash backward against its plain version; returns the timing at
-    the train phase's shape, with minicpm's, granite's and recurrentgemma's
-    prefill shapes under at_minicpm_prefill_shape, at_granite_shape and
-    at_griffin_shape."""
+    """The flash backward against its plain version, and in bf16 against
+    itself on a second call (bit for bit); returns the timing at minicpm's
+    train shape, with recurrentgemma's train shape and minicpm's, granite's
+    and recurrentgemma's prefill shapes under at_griffin_train_shape,
+    at_minicpm_prefill_shape, at_granite_shape and at_griffin_shape."""
     from repro_torch.kernels.flash_attention import kernel, ops, ref
     phase("kernel_bwd")
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -568,17 +577,30 @@ def phase_kernel_bwd():
             q, k, v = (t.to(dtype).requires_grad_() for t in (q32, k32, v32))
             do = do32.to(dtype)
             route = kernel.BWD_ROUTES[dtype]
+            check(route == BWD_EXPECTED_ROUTES[dtype],
+                  f"flash backward's {dtype} route is {route}, not "
+                  f"{BWD_EXPECTED_ROUTES[dtype]}")
             fwd_route = kernel.ROUTES[dtype][1]
             before = (kernel.BWD_LAUNCHES_BY_ROUTE[route],
                       kernel.LAUNCHES_BY_ROUTE[fwd_route])
             o = ops.flash_attention(q, k, v, causal=causal, window=window)
-            grads = torch.autograd.grad(o, (q, k, v), do)
+            bf16 = dtype == torch.bfloat16
+            grads = torch.autograd.grad(o, (q, k, v), do, retain_graph=bf16)
             torch.cuda.synchronize()
             check((kernel.BWD_LAUNCHES_BY_ROUTE[route],
                    kernel.LAUNCHES_BY_ROUTE[fwd_route]) ==
                   (before[0] + 1, before[1] + 1),
                   f"flash backward {name} {dtype} did not run on {route} "
                   f"after a forward on {fwd_route}")
+            same_note = ""
+            if bf16:
+                # deterministic: no atomics, every sum in a fixed order
+                again = torch.autograd.grad(o, (q, k, v), do)
+                same = all(torch.equal(a, b) for a, b in zip(grads, again))
+                check(same, f"flash backward {name} {dtype}: a second call "
+                            f"gave other bits")
+                same_note = ", repeat bit-identical"
+                del again
             qd, kd, vd = (t.detach() for t in (q, k, v))
             lse = ref.reference_attention_lse(qd, kd, causal=causal,
                                               window=window)
@@ -603,7 +625,7 @@ def phase_kernel_bwd():
             print(f"  {name:20s} {str(dtype):15s} B={B} S={S} H={H} KH={KH} "
                   f"Dh={Dh} causal={causal} window={window} ({route}): rel "
                   f"err dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} "
-                  f"tol={tol:.0e}{lse_note}", flush=True)
+                  f"tol={tol:.0e}{lse_note}{same_note}", flush=True)
             check(all(math.isfinite(e) and e <= tol for e in errs),
                   f"flash backward {name} {dtype}: errors {errs} > {tol}")
             if name in BWD_TIMED_CASES and dtype == torch.bfloat16:
@@ -612,19 +634,50 @@ def phase_kernel_bwd():
             del q, k, v, o, grads
     torch.cuda.empty_cache()
     timing = dict(result["minicpm-train"])
+    timing["at_griffin_train_shape"] = result["griffin-train"]
     timing["at_minicpm_prefill_shape"] = result["minicpm-prefill"]
     timing["at_granite_shape"] = result["granite-prefill"]
     timing["at_griffin_shape"] = result["griffin-prefill"]
     return timing
 
 
-def time_kernel_bwd(q, k, v, do, causal, window, err):
-    """The backward kernel's three passes, its plain version and
-    ``torch.autograd.grad`` of SDPA on the same inputs."""
-    from repro_torch.kernels.flash_attention import kernel, ref
+def sdpa_bwd_call(q, k, v, do, causal, window):
+    """(a call of ``torch.autograd.grad`` of SDPA on (B, S, heads, Dh) q,
+    k, v and dO, whether it takes an explicit mask): a yardstick only, the
+    port never calls it.  Where the window bites (some query is at least
+    ``window`` past a key it could otherwise see), ``is_causal`` alone
+    would attend beyond it, so SDPA gets the band as a boolean mask and
+    computes the same function (masked SDPA, on another backend)."""
     import torch.nn.functional as F
+    B, S, H, _ = q.shape
+    KH = k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    masked = 0 < window < S
+    if masked:
+        pos = torch.arange(S, device=q.device)
+        dist = pos[:, None] - pos[None, :]
+        band = dist < window
+        if causal:
+            band &= dist >= 0
+        ot = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
+                                            enable_gqa=H != KH)
+    else:
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                            enable_gqa=H != KH)
+    dot = do.transpose(1, 2).contiguous()
+    return (lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                        retain_graph=True)), masked
+
+
+def time_kernel_bwd(q, k, v, do, causal, window, err):
+    """The backward kernel's passes, its plain version and
+    ``torch.autograd.grad`` of SDPA (``sdpa_bwd_call``) on the same
+    inputs."""
+    from repro_torch.kernels.flash_attention import kernel, ref
     B, S, H, Dh = q.shape
     KH = k.shape[2]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     scale = 1.0 / math.sqrt(Dh)
     out, lse = torch.empty_like(q), torch.empty((B, H, S), device="cuda")
     kernel.launch(q, k, v, out, causal=causal, window=window, scale=scale,
@@ -637,26 +690,23 @@ def time_kernel_bwd(q, k, v, do, causal, window, err):
     plain_ms = cuda_ms(lambda: ref.reference_attention_bwd(
         q, k, v, out, lse, do, causal=causal, window=window), iters=3,
         warmup=1)
-    # yardstick only: SDPA's own backward on the same inputs; the port
-    # never calls it
-    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
-                  for t in (q, k, v))
-    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                        enable_gqa=H != KH)
-    dot = do.transpose(1, 2).contiguous()
-    library_ms = cuda_ms(lambda: torch.autograd.grad(
-        ot, (qt, kt, vt), dot, retain_graph=True), iters=10)
+    sdpa, masked = sdpa_bwd_call(q, k, v, do, causal, window)
+    library_ms = cuda_ms(sdpa, iters=10)
+    del sdpa
+    sdpa_name = "masked sdpa" if masked else "sdpa"
     bound_ms, bound_by, flops, nbytes = attention_bwd_bound(
         B, S, H, KH, Dh, causal, window, q.dtype)
     print(f"  backward timing at B={B} S={S} H={H} KH={KH} Dh={Dh} "
-          f"window={window} {q.dtype}: kernel {kernel_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, kernel / "
-          f"sdpa {kernel_ms / library_ms:.2f}x; bound {bound_ms * 1e3:.2f} "
-          f"us by {bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} "
-          f"MB)", flush=True)
+          f"window={window} {q.dtype} (splits "
+          f"{kernel.bwd_splits(B, S, H, KH, Dh, sms)}): kernel "
+          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, {sdpa_name} "
+          f"backward {library_ms:.4f} ms, kernel / {sdpa_name} "
+          f"{kernel_ms / library_ms:.2f}x; bound {bound_ms:.4f} ms by "
+          f"{bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), "
+          f"kernel / bound {kernel_ms / bound_ms:.2f}x", flush=True)
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "library": sdpa_name}
 
 
 def gmm_bound(E, C, d, f, gated, dtype):
@@ -1907,7 +1957,7 @@ def step_launches(cfg, microbatches: int, backward: bool) -> dict:
 
 # the route every launch of a bf16 model's train step takes
 TRAIN_ROUTES = {"flash_attention": "wgmma_bf16",
-                "flash_attention_bwd": "wmma_bf16",
+                "flash_attention_bwd": "wgmma_bf16",
                 "rglru_scan": "fused_bias", "rglru_scan_bwd": "fused_bias",
                 "mlstm_scan": "wgmma_bf16", "mlstm_scan_bwd": "scalar_bf16"}
 # the routes of the float32 consistency step
@@ -2172,9 +2222,10 @@ def main() -> int:
          # (src/repro/models/layers.py:90) with jax.grad
          "replaces": "src/repro/kernels/flash_attention/kernel.py:72",
          # launches on its path, minicpm-2b training (4 steps and an eval),
-         # all on wmma_bf16 (checked in the train phase); times at that
-         # path's shape (B 1, S 4096, 36 heads of 64), and at minicpm's,
-         # granite's and recurrentgemma's prefill shapes
+         # all on wgmma_bf16 (checked in the train phase); times at that
+         # path's shape (B 1, S 4096, 36 heads of 64), and at
+         # recurrentgemma's train shape and minicpm's, granite's and
+         # recurrentgemma's prefill shapes
          "launches": train_launches["flash_attention_bwd"],
          "launches_by_route": {
              f"{ARCH} train": train_routes["flash_attention_bwd"],

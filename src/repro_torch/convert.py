@@ -71,6 +71,18 @@ def _jax_location(cfg: ArchConfig, path: Path):
     return keystr(("tail", n - scanned) + rest), None
 
 
+def decay_mask(cfg: ArchConfig, params):
+    """A tree of bools shaped like ``params``: the leaves the reference's
+    AdamW decays.  It decays a leaf of rank >= 2 in its own layout, where
+    every leaf of a scanned layer carries the leading period axis, so a
+    scanned layer's vectors (norm scales, biases, Griffin's ``lam``) are
+    decayed and a tail layer's and the top-level ones are not."""
+    def rule(path: Path, p) -> bool:
+        _, idx = _jax_location(cfg, path)
+        return p.dim() + (idx is not None) >= 2
+    return _map_with_path(params, rule)
+
+
 def _to_torch(arr) -> torch.Tensor:
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":           # ml_dtypes' bf16 from JAX

@@ -1,8 +1,8 @@
 // Hopper primitives shared by the port's CUDA kernels (sm_90a).
 //
-// Included by flash_attention.cu, mlstm_scan.cu and moe_gmm.cu, each of
-// which is its own translation unit of the one nvcc call (build.py), so
-// everything here has internal linkage.  Two sections:
+// Included by flash_attention.cu, flash_attention_bwd.cu, mlstm_scan.cu and
+// moe_gmm.cu, each of which is its own translation unit of the one nvcc
+// call (build.py), so everything here has internal linkage.  Two sections:
 //  * inline PTX: mbarriers, TMA loads and stores, named barriers,
 //    `setmaxnreg` and `wgmma` (m64n64k16 and m64n128k16 with A and a
 //    K-major B from shared memory, m64n64/128/256k16 with A and an MN-major
@@ -526,6 +526,19 @@ bool make_bf16_map_4d(CUtensorMap* map, const void* base,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// 4-D bf16 tensor map over a contiguous (B, S, heads, Dh) tensor with a box
+// of (64 columns, 1 head, `rows`, 1 batch) and the 128-byte swizzle; cells
+// outside the tensor read as zeros and are not written.
+bool make_bshd_map(CUtensorMap* map, const void* base, int B, int S,
+                   int heads, int Dh, int rows) {
+  const cuuint64_t row = (cuuint64_t)heads * Dh * 2;  // bytes a position
+  return make_bf16_map_4d(map, base,
+                          {(cuuint64_t)Dh, (cuuint64_t)heads, (cuuint64_t)S,
+                           (cuuint64_t)B},
+                          {(cuuint64_t)Dh * 2, row, row * S},
+                          {(cuuint32_t)PANEL, 1, (cuuint32_t)rows, 1});
 }
 
 }  // namespace

@@ -564,19 +564,6 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// 4-D bf16 tensor map over a contiguous (B, S, heads, Dh) tensor with a box
-// of (64 columns, 1 head, `rows`, 1 batch) and the 128-byte swizzle; cells
-// outside the tensor read as zeros and are not written.
-bool make_map(CUtensorMap* map, const void* base, int B, int S, int heads,
-              int Dh, int rows) {
-  const cuuint64_t row = (cuuint64_t)heads * Dh * 2;  // bytes a position
-  return make_bf16_map_4d(map, base,
-                          {(cuuint64_t)Dh, (cuuint64_t)heads, (cuuint64_t)S,
-                           (cuuint64_t)B},
-                          {(cuuint64_t)Dh * 2, row, row * S},
-                          {(cuuint32_t)PANEL, 1, (cuuint32_t)rows, 1});
-}
-
 template <int DH>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         float* lse, int B, int S, int H, int KH, int causal,
@@ -586,10 +573,10 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
       return cudaErrorMisalignedAddress;
   CUtensorMap tq, tk, tv, to;
-  if (!make_map(&tq, q, B, S, H, DH, T::BQ) ||
-      !make_map(&tk, k, B, S, KH, DH, T::BKEYS) ||
-      !make_map(&tv, v, B, S, KH, DH, T::BKEYS) ||
-      !make_map(&to, o, B, S, H, DH, 64))
+  if (!make_bshd_map(&tq, q, B, S, H, DH, T::BQ) ||
+      !make_bshd_map(&tk, k, B, S, KH, DH, T::BKEYS) ||
+      !make_bshd_map(&tv, v, B, S, KH, DH, T::BKEYS) ||
+      !make_bshd_map(&to, o, B, S, H, DH, 64))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_bf16<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,

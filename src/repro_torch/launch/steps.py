@@ -14,6 +14,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.convert import decay_mask
 from repro_torch.models import registry as R
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim import AdamWConfig, adamw_update, make_schedule
@@ -30,7 +31,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
     by ``accum_steps`` (as is the loss); ``nll``, ``aux`` and ``acc`` are
     the last microbatch's, as in the reference.  Metrics: loss, nll, aux,
     acc, grad_norm, lr, as 0-dim tensors.  The parameters and the moments
-    are updated in place and returned."""
+    are updated in place and returned.  Weight decay follows the
+    reference's rule for the parameters' JAX layout (``decay_mask``)."""
     opt_cfg = opt_cfg or AdamWConfig()
     schedule = make_schedule(opt_cfg)
 
@@ -61,7 +63,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
             if accum_steps > 1:
                 g.div_(accum_steps)       # in place: float32 grads already
         params, opt_state, om = adamw_update(grads, opt_state, params,
-                                             opt_cfg, schedule)
+                                             opt_cfg, schedule,
+                                             decay_mask(cfg, params))
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics.update(om)
         metrics["loss"] = loss / accum_steps

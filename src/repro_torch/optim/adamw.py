@@ -94,14 +94,16 @@ def make_schedule(cfg: AdamWConfig):
 
 @torch.no_grad()
 def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig,
-                 schedule: Optional[Callable] = None):
+                 schedule: Optional[Callable] = None, decay=None):
     """Returns (params, new_state, metrics {"grad_norm", "lr"}).
 
     Clips by the global norm first, then updates the moments, with
-    decoupled weight decay on matrices only (``ndim >= 2``) and the update
-    in float32, cast back to each parameter's dtype.  ``params``, ``m`` and
-    ``v`` are updated in place; the returned params and the new state's
-    moments are those same tensors."""
+    decoupled weight decay and the update in float32, cast back to each
+    parameter's dtype.  ``decay``, a tree of bools shaped like ``params``
+    (``convert.decay_mask`` gives the reference's rule for a model's
+    parameters), says which leaves are decayed; without it, matrices only
+    (``ndim >= 2``).  ``params``, ``m`` and ``v`` are updated in place; the
+    returned params and the new state's moments are those same tensors."""
     schedule = schedule or make_schedule(cfg)
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
@@ -113,17 +115,24 @@ def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig,
     b2t = 1.0 - torch.pow(torch.tensor(cfg.b2, device=gnorm.device),
                           _f32(step))
 
-    def upd(p, g, m, v):
+    def upd(p, g, m, v, decayed):
         g = g.float() * scale
         m.copy_(cfg.b1 * m + (1.0 - cfg.b1) * g)
         v.copy_(cfg.b2 * v + (1.0 - cfg.b2) * torch.square(g))
         delta = (m / b1t) / (torch.sqrt(v / b2t) + cfg.eps)
-        if p.dim() >= 2:                  # decoupled WD on matrices only
+        if decayed:                       # decoupled WD
             delta = delta + cfg.weight_decay * p.float()
         p.copy_((p.float() - lr * delta).to(p.dtype))
 
-    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
-                          tree_leaves(state.m), tree_leaves(state.v)):
-        upd(p, g, m, v)
+    leaves = tree_leaves(params)
+    decays = ([p.dim() >= 2 for p in leaves] if decay is None
+              else tree_leaves(decay))
+    if len(decays) != len(leaves):
+        raise ValueError(f"decay mask has {len(decays)} leaves, params "
+                         f"{len(leaves)}")
+    for p, g, m, v, d in zip(leaves, tree_leaves(grads),
+                             tree_leaves(state.m), tree_leaves(state.v),
+                             decays):
+        upd(p, g, m, v, d)
     return params, AdamWState(step, state.m, state.v), {
         "grad_norm": gnorm, "lr": lr}

@@ -789,9 +789,10 @@ def test_bf16_xlstm_model_on_wgmma_is_as_close_to_float32_as_plain():
 
 
 # --------------------------------------------------------------------------
-# flash_attention's backward (csrc/flash_attention_bwd.cu), through the
-# wrapper's autograd function, against the plain backward's explicit
-# formulas in float32 on the same q, k, v, o and dO.  bf16 rounds P and dS
+# flash_attention's backward (csrc/flash_attention_bwd.cu; bf16 on
+# ``wgmma_bf16``, float32 on ``scalar_f32``), through the wrapper's
+# autograd function, against the plain backward's explicit formulas in
+# float32 on the same q, k, v, o and dO.  bf16 rounds P and dS
 # for the products that take them and dq, dk, dv on output, and reads the
 # forward's bf16 o; float32 differs in summation order only.  Each
 # gradient relative to its plain max |.|, floored at 1e-3 of the largest of
@@ -821,9 +822,12 @@ def _bwd_check(q, k, v, do, causal, window, grads, o):
 
 @pytest.mark.parametrize("B,S,H,KH,Dh,causal,window", [
     (1, 4096, 36, 36, 64, True, 0),     # minicpm-2b's training shape
+    (1, 4096, 16, 1, 256, True, 2048),  # recurrentgemma's: MQA split
     (2, 1000, 8, 8, 64, True, 0),       # minicpm's head dim
     (2, 1000, 24, 8, 64, True, 0),      # granite's GQA
+    (2, 65, 24, 8, 64, True, 0),        # granite's GQA, ragged
     (1, 1000, 8, 1, 256, True, 2048),   # recurrentgemma's MQA
+    (2, 136, 4, 4, 128, True, 0),
     (2, 1000, 8, 2, 128, True, 100),    # a window that bites
     (2, 1, 8, 2, 64, True, 0),
     (2, 63, 8, 8, 120, True, 0),
@@ -844,9 +848,57 @@ def test_flash_backward_matches_plain(B, S, H, KH, Dh, causal, window,
     grads = torch.autograd.grad(o, (q, k, v), do)
     torch.cuda.synchronize()
     assert kernel.BWD_LAUNCHES_BY_ROUTE[route] == before + 1
+    assert route == ("wgmma_bf16" if dtype == torch.bfloat16
+                     else "scalar_f32")
     assert all(g.dtype == dtype and g.shape == t.shape
                for g, t in zip(grads, (q, k, v)))
     _bwd_check(q, k, v, do, causal, window, grads, o)
+
+
+@pytest.mark.parametrize("B,S,H,KH,Dh,causal,window,splits", [
+    (1, 4096, 16, 1, 256, True, 2048, None),   # split by the wrapper's rule
+    (1, 1000, 16, 1, 256, True, 2048, 1),      # the same group unsplit
+    (2, 300, 6, 1, 64, True, 0, 5),            # five shares of six heads
+    (2, 65, 24, 8, 128, False, 0, 3),
+])
+def test_flash_backward_splits_agree_with_plain(B, S, H, KH, Dh, causal,
+                                                window, splits):
+    """The bf16 dK/dV pass with a KV head's query heads split over blocks
+    (partials summed by the reduce pass) and unsplit."""
+    _need_cuda()
+    q, k, v = _qkv(B, S, H, KH, Dh, torch.bfloat16)
+    do = _qkv(B, S, H, H, Dh, torch.bfloat16, seed=1)[0]
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, S), device="cuda")
+    scale = Dh ** -0.5
+    kernel.launch(q, k, v, out, causal=causal, window=window, scale=scale,
+                  lse=lse)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    kernel.launch_bwd(q, k, v, out, do, lse, torch.empty_like(lse), dq, dk,
+                      dv, causal=causal, window=window, scale=scale,
+                      splits=splits)
+    torch.cuda.synchronize()
+    _bwd_check(q, k, v, do, causal, window, (dq, dk, dv), out)
+
+
+@pytest.mark.parametrize("B,S,H,KH,Dh,window", [
+    (1, 4096, 16, 1, 256, 2048),    # MQA, heads split over blocks
+    (2, 1000, 24, 8, 64, 0),        # GQA, unsplit
+    (2, 63, 8, 8, 120, 0),
+])
+def test_flash_backward_is_deterministic(B, S, H, KH, Dh, window):
+    """Two backward calls on the same inputs give the same bits: no
+    atomics, and every sum in a fixed order."""
+    _need_cuda()
+    q, k, v = (t.requires_grad_() for t in _qkv(B, S, H, KH, Dh,
+                                                 torch.bfloat16))
+    do = _qkv(B, S, H, H, Dh, torch.bfloat16, seed=1)[0]
+    o = ops.flash_attention(q, k, v, causal=True, window=window)
+    first = torch.autograd.grad(o, (q, k, v), do, retain_graph=True)
+    second = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -360,6 +360,25 @@ def test_flash_autograd_function_wiring(monkeypatch):
         assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
 
 
+@pytest.mark.parametrize("B,S,H,KH,Dh,want", [
+    (1, 4096, 36, 36, 64, 1),    # minicpm-2b's train shape: 1152 blocks
+    (4, 1000, 24, 8, 64, 1),     # granite's GQA prefill: 256 blocks
+    (1, 4096, 16, 1, 256, 4),    # recurrentgemma's train shape: 64 blocks
+    (4, 1000, 16, 1, 256, 4),    # and its prefill: 64 blocks
+    (2, 65, 6, 1, 256, 6),       # 4 blocks: one head a share
+    (2, 1, 8, 2, 64, 4),
+])
+def test_flash_bwd_splits_fill_the_card(B, S, H, KH, Dh, want):
+    """The bf16 dK/dV pass splits a KV head's query heads only where its
+    key tiles would not fill the card's 132 multiprocessors, and no share
+    is empty."""
+    splits = fa_kernel.bwd_splits(B, S, H, KH, Dh, 132)
+    assert splits == want
+    G = H // KH
+    per = -(-G // splits)
+    assert (splits - 1) * per < G <= splits * per
+
+
 def test_grad_guard_refuses_only_under_grad():
     t = torch.zeros(2, requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward yet"):

@@ -1,7 +1,9 @@
 """The port's train step against the JAX package's, on the CPU: two AdamW
 steps of ``make_train_step`` (with and without microbatches) from the same
 converted float32 weights on the same batches, the eval step, the three
-remat policies, and a loose bf16 check of ``forward_train``."""
+remat policies, a loose bf16 check of ``forward_train``, and AdamW's
+weight decay of every leaf under the reference's rule for its stacked
+layout (ROADMAP C33)."""
 import dataclasses
 
 import jax
@@ -17,11 +19,13 @@ from repro.models import registry as JR
 from repro.models.config import ShapeSpec as JaxShapeSpec
 from repro.optim import AdamWConfig as JaxAdamWConfig
 from repro.optim import adamw_init as jax_adamw_init
+from repro.optim import adamw_update as jax_adamw_update
 from repro_torch.configs import get_arch as torch_arch
-from repro_torch.convert import (flatten_with_paths, opt_state_to_jax,
-                                 params_from_jax, params_to_jax)
+from repro_torch.convert import (decay_mask, flatten_with_paths,
+                                 opt_state_to_jax, params_from_jax,
+                                 params_to_jax)
 from repro_torch.launch import steps as S
-from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.tree import tree_map
 
 from test_torch_train import (GRAD_FLOOR, assert_grads_close,
@@ -141,3 +145,87 @@ def test_forward_train_bf16_close_to_jax():
     for key, w in want.items():
         scale = max(float(np.abs(w).max()), GRAD_FLOOR * top)
         assert float(np.abs(grads[key] - w).max()) <= BF16_TOL * scale, key
+
+
+# C33: the reference decays a leaf of rank >= 2 in its stacked layout, so
+# every vector of a scanned layer (norm scales, biases, Griffin's lam) is
+# decayed and a tail layer's are not.  Vectors start 0.5 away from zero and
+# the gradients are zero or small, so decay moves each decayed vector by
+# lr * wd * 0.5 = 5e-4 a step, 50x PARAM_ATOL: a leaf decayed on one side
+# only misses by 2e-3 after four steps.
+DECAY_OPT = dict(lr=1e-2, weight_decay=0.1, warmup_steps=1, total_steps=10,
+                 schedule="const")
+DECAY_STEPS = 4
+
+
+def _decay_configs(arch):
+    jc, tc = jax_arch(arch).reduced(), torch_arch(arch).reduced()
+    if arch == "recurrentgemma-9b":
+        # two scanned periods and one tail layer
+        n = 2 * tc.pattern_period + 1
+        jc, tc = (dataclasses.replace(c, n_layers=n) for c in (jc, tc))
+    return jc, tc
+
+
+@pytest.mark.parametrize("grads", ["zero", "small"])
+@pytest.mark.parametrize("arch", ["minicpm-2b", "recurrentgemma-9b"])
+def test_adamw_decay_matches_jax(arch, grads):
+    jc, tc = _decay_configs(arch)
+    jp = jax.jit(lambda key: JR.init_params(key, jc)[0])(jax.random.key(0))
+    tparams = params_from_jax(tc, jax.tree.map(np.asarray, jp))
+    for t in flatten_with_paths(tparams).values():
+        if t.dim() <= 1:
+            t.add_(0.5)
+    start = flatten_with_paths(params_to_jax(tc, tparams))
+    mask = flatten_with_paths(decay_mask(tc, tparams))
+    last = tc.n_layers - 1
+    assert mask["['layers'][0]['ffn']['ln']"]            # scanned: stacked
+    assert not mask["['final_ln']"]
+    if arch == "recurrentgemma-9b":
+        assert tc.n_layers > tc.n_scan_blocks * tc.pattern_period
+        assert not mask[f"['layers'][{last}]['ffn']['ln']"]  # tail
+        for name in ("lam", "b_a", "b_i"):
+            assert mask[f"['layers'][0]['mix']['{name}']"]
+            assert not mask[f"['layers'][{last}]['mix']['{name}']"]
+    rng = np.random.default_rng(7)
+    jparams = jax.tree.map(jnp.asarray, params_to_jax(tc, tparams))
+    jopt, topt = jax_adamw_init(jparams), adamw_init(tparams)
+    jcfg, tcfg = JaxAdamWConfig(**DECAY_OPT), AdamWConfig(**DECAY_OPT)
+    decay = decay_mask(tc, tparams)
+    for _ in range(DECAY_STEPS):
+        g = tree_map(lambda t: torch.zeros_like(t) if grads == "zero" else
+                     torch.from_numpy(1e-3 * rng.standard_normal(
+                         t.shape, dtype=np.float32)), tparams)
+        jparams, jopt, _ = jax_adamw_update(
+            jax.tree.map(jnp.asarray, params_to_jax(tc, g)), jopt, jparams,
+            jcfg)
+        tparams, topt, _ = adamw_update(g, topt, tparams, tcfg, decay=decay)
+    want = flatten_with_paths(jax.tree.map(np.asarray, jparams))
+    got = flatten_with_paths(params_to_jax(tc, tparams))
+    assert set(got) == set(want)
+    for key, w in want.items():
+        err = float(np.abs(got[key] - w).max())
+        assert err <= PARAM_ATOL, (key, err)
+    # the decay the reference applies moved a scanned layer's norm scale
+    ln = "['blocks']['l0']['ffn']['ln']"
+    assert float(np.abs(want[ln] - start[ln]).max()) > 10 * PARAM_ATOL
+
+
+def test_train_step_passes_the_reference_decay_mask(setup, monkeypatch):
+    jc, tc, jp, batches = setup
+    tparams = params_from_jax(tc, jax.tree.map(np.asarray, jp))
+    seen = []
+
+    def spy(grads, state, params, cfg, schedule=None, decay=None):
+        seen.append(decay)
+        return adamw_update(grads, state, params, cfg, schedule, decay)
+    monkeypatch.setattr(S, "adamw_update", spy)
+    step = S.make_train_step(tc, AdamWConfig(**OPT), device="cpu")
+    topt = adamw_init(tparams)
+    for batch in batches:
+        tparams, topt, _ = step(tparams, topt, batch)
+    assert len(seen) == 2
+    want = flatten_with_paths(decay_mask(tc, tparams))
+    assert want["['layers'][0]['mix']['ln']"] and not want["['final_ln']"]
+    for decay in seen:
+        assert flatten_with_paths(decay) == want
