@@ -57,13 +57,17 @@ a non-zero exit:
                 edges, h0 and dh_last, both routes; a long memory, a up to
                 0.9999 over 4096 steps, against autograd in float64) and
                 mlstm_scan's backward (through ``ops.mlstm_chunkwise``'s,
-                bf16 forward on wgmma_bf16 and float32 on scalar_f32, the
-                backward's scalar kernels on both: the train shape B 1, S
+                each case's backward on its forward's route, checked per
+                case: bf16 on wgmma_bf16 (split-bf16 ``wgmma`` products on
+                the states of each chunk of 128), Dh 37 in bf16 on
+                scalar_bf16, float32 on scalar_f32: the train shape B 1, S
                 4096, 4 heads of 1024, S 200 and 1, the denominator's floor
                 active on most rows, an initial state, Dh 1600 and 37; the
                 forward's row statistics against the plain ones), each
                 against its plain backward, the train shape timed beside
-                its bound
+                its bound (fixed at chunks of 64, as both routes are held
+                to it), with each pass of the wgmma route and the scalar
+                bf16 route's total beside it
 4. serve        full-width minicpm-2b (40 layers, bf16, random weights from a
                 seed) serves 8 requests of 1000 prompt tokens through
                 ``repro_torch.launch.serve.serve``; every prefill layer must
@@ -122,8 +126,8 @@ a non-zero exit:
                 scalar_f32)
 16. train       xlstm-1.3b at full width, depth cut to 2 periods (2 mLSTM,
                 2 sLSTM layers), as phase 12 at 2 x 1024: every step 8
-                mlstm_scan launches on wgmma_bf16 and 4 mlstm_scan_bwd on
-                scalar_bf16
+                mlstm_scan launches and 4 mlstm_scan_bwd, all on
+                wgmma_bf16
 17. train consistency  xlstm-1.3b, one period, float32, S 512 (mlstm_scan's
                 scalar_f32 routes both ways)
 
@@ -423,6 +427,12 @@ def phase_build() -> None:
               f"workspace at B={B} S={S} H={H} Dh={Dh} "
               f"{ml_kernel.workspace_bytes(B, S, H, Dh, route)} B; dynamic "
               f"shared memory per block: " + "; ".join(sizes), flush=True)
+    B, S, H, Dh = MLSTM_BWD_CASES[0][1:5]
+    for route in ml_kernel.BWD_ROUTES:
+        print(f"  mlstm_scan backward {route}: chunk "
+              f"{ml_kernel.bwd_chunk(route)}; workspace at B={B} S={S} H={H} "
+              f"Dh={Dh} {ml_kernel.bwd_workspace_bytes(B, S, H, Dh, route)} "
+              f"B", flush=True)
 
 
 # (name, B, S, H, KH, Dh, causal, window); the cases in TIMED_CASES are
@@ -1545,7 +1555,10 @@ def phase_kernel_mlstm_bwd():
                 ig = ig - 8.0
             dh = torch.randn((B, S, H, Dh), generator=gen, device="cuda")
             route = mlstm_route(dtype, Dh)
-            bwd_route = kernel.BWD_ROUTES[dtype][1]
+            check(ops.kernel_route(q, k, v) == route,
+                  f"mlstm_scan backward {name} {dtype}: inputs on route "
+                  f"{ops.kernel_route(q, k, v)}, not {route}")
+            bwd_route = route   # the backward takes its forward's route
             leaves = [t.requires_grad_() for t in (q, k, v, ig, fg)]
             before = (kernel.BWD_LAUNCHES_BY_ROUTE[bwd_route],
                       kernel.LAUNCHES_BY_ROUTE[route])
@@ -1594,14 +1607,21 @@ def phase_kernel_mlstm_bwd():
                   f"m {m_err}, den {den_err}")
             if name == "xlstm-train" and dtype == torch.bfloat16:
                 timing = time_mlstm_bwd(xs, h.detach(), (m_t, den), dh,
-                                        abs_err)
+                                        abs_err, bwd_route)
             del q, k, v, ig, fg, leaves, h, got, want, xs
             torch.cuda.empty_cache()
     return timing
 
 
-def time_mlstm_bwd(xs, h, stats, dh, err):
-    """The backward kernel's five passes and the plain backward at the
+# The bound of the mLSTM backward counts the chunk's own pairs at chunks of
+# 64, whatever chunk a route takes, so that the routes' times (and the
+# scalar route's earlier ones) are held to one yardstick.
+MLSTM_BWD_BOUND_CHUNK = 64
+
+
+def time_mlstm_bwd(xs, h, stats, dh, err, route):
+    """The backward on ``route`` (each of its passes by the profiler), the
+    scalar bf16 route on the same inputs and the plain backward, at the
     train shape; no PyTorch call computes this gradient, so no library
     time."""
     from repro_torch.kernels.mlstm_scan import kernel, ref
@@ -1611,10 +1631,11 @@ def time_mlstm_bwd(xs, h, stats, dh, err):
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     dig, rows = torch.empty_like(ig), torch.empty_like(ig)
 
-    def run():
+    def run(on=route):
         kernel.launch_bwd(q, k, v, ig, fg, None, h, stats, dh, dq, dk, dv,
-                          dig, rows)
-    kernel_ms = cuda_ms(run, iters=5, warmup=1)
+                          dig, rows, on)
+    kernel_ms = cuda_ms(run, iters=10, warmup=1)
+    scalar_ms = cuda_ms(lambda: run("scalar_bf16"), iters=3, warmup=1)
     plain_ms = cuda_ms(lambda: ref.reference_mlstm_bwd(
         q, k, v, ig, fg, h, stats, dh), iters=2, warmup=1)
     with profile(activities=[ProfilerActivity.CPU,
@@ -1624,27 +1645,29 @@ def time_mlstm_bwd(xs, h, stats, dh, err):
         torch.cuda.synchronize()
     passes = {}
     for e in prof.key_averages():
-        found = re.search(r"mlstm_bwd_\w+(<[^()]*>)?", e.key)
+        found = re.search(r"mlstm_(bwd_\w+|gates_kernel|states_kernel|"
+                          r"qk_kernel)(<[^()]*>)?", e.key)
         if e.device_type == torch.autograd.DeviceType.CUDA and found and \
                 e.count:
             name = found.group(0)
             passes[name] = passes.get(name, 0.0) + \
                 e.self_device_time_total / 3 / 1e3
-    chunk = kernel.bwd_chunk()
-    bound_ms, bound_by, flops, nbytes = mlstm_bwd_bound(B, S, H, Dh,
-                                                        q.dtype, chunk)
+    bound_ms, bound_by, flops, nbytes = mlstm_bwd_bound(
+        B, S, H, Dh, q.dtype, MLSTM_BWD_BOUND_CHUNK)
     f32_bound_ms = flops / PEAK_FLOPS[torch.float32] * 1e3
     print(f"  backward timing at B={B} S={S} H={H} Dh={Dh} {q.dtype} "
-          f"(scalar float32 FMAs, chunk {chunk}): kernel {kernel_ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, library: none; bound "
-          f"{bound_ms * 1e3:.2f} us by {bound_by} ({flops / 1e9:.2f} GFLOP, "
-          f"{nbytes / 1e6:.2f} MB; {f32_bound_ms:.3f} ms at the float32 "
-          f"rate); passes " + (", ".join(f"{k} {v:.4f} ms" for k, v in
-                                       passes.items()) or "not measured"),
-          flush=True)
+          f"({route}, chunk {kernel.bwd_chunk(route)}): kernel "
+          f"{kernel_ms:.4f} ms, scalar_bf16 {scalar_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library: none; bound {bound_ms * 1e3:.2f} us "
+          f"by {bound_by} ({flops / 1e9:.2f} GFLOP at chunks of "
+          f"{MLSTM_BWD_BOUND_CHUNK}, {nbytes / 1e6:.2f} MB; "
+          f"{f32_bound_ms:.3f} ms at the float32 rate); passes "
+          + (", ".join(f"{k} {v:.4f} ms" for k, v in passes.items())
+             or "not measured"), flush=True)
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
-            "float32_rate_bound_ms": f32_bound_ms, "passes_ms": passes}
+            "float32_rate_bound_ms": f32_bound_ms, "passes_ms": passes,
+            "scalar_bf16_ms": scalar_ms}
 
 
 def layer_counts(cfg) -> dict:
@@ -1959,7 +1982,7 @@ def step_launches(cfg, microbatches: int, backward: bool) -> dict:
 TRAIN_ROUTES = {"flash_attention": "wgmma_bf16",
                 "flash_attention_bwd": "wgmma_bf16",
                 "rglru_scan": "fused_bias", "rglru_scan_bwd": "fused_bias",
-                "mlstm_scan": "wgmma_bf16", "mlstm_scan_bwd": "scalar_bf16"}
+                "mlstm_scan": "wgmma_bf16", "mlstm_scan_bwd": "wgmma_bf16"}
 # the routes of the float32 consistency step
 CONSIST_ROUTES = {"flash_attention": "scalar_f32",
                   "flash_attention_bwd": "scalar_f32",
@@ -2288,8 +2311,9 @@ def main() -> int:
          # (src/repro/models/xlstm.py:92) with jax.grad
          "replaces": "src/repro/kernels/mlstm_scan/kernel.py:85",
          # launches on its path, xlstm-1.3b training (4 steps and an eval),
-         # all on scalar_bf16 (checked in the train phase); times at the
-         # mLSTM's train_4k shape (B 1, S 4096, 4 heads of 1024, bf16)
+         # all on wgmma_bf16 (checked in the train phase); times at the
+         # mLSTM's train_4k shape (B 1, S 4096, 4 heads of 1024, bf16),
+         # with each pass and the scalar bf16 route beside them
          "launches": xlstm_train["mlstm_scan_bwd"],
          "launches_by_route": xlstm_train_routes["mlstm_scan_bwd"],
          **ml_bwd_timing},

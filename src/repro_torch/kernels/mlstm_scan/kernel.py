@@ -13,12 +13,18 @@ call, whatever the number of kernels the route launches):
 * ``scalar_f32``: float32 q, k, v, on the scalar float32 kernels.
 
 With ``stats`` the forward also writes each row's stabiliser m_t and
-denominator den_t for the backward.  ``launch_bwd`` runs the backward's
-five passes (scalar float32 FMAs for both dtypes, chunks of
-``bwd_chunk()`` steps) and counts one launch in ``BWD_LAUNCHES`` and
-``BWD_LAUNCHES_BY_ROUTE`` under ``scalar_f32`` or ``scalar_bf16``, by the
-dtype of q.  A run reads the counters to show which kernels it went
-through.  The library is built at the first launch, never at import.
+denominator den_t for the backward.  ``launch_bwd`` runs the backward on
+the route its forward took (``BWD_ROUTES``) and counts one launch in
+``BWD_LAUNCHES`` and ``BWD_LAUNCHES_BY_ROUTE`` under it:
+
+* ``wgmma_bf16``: C^T and D^T materialised per chunk of 128 steps, then
+  dq, dk and dv per (chunk, column tile), the products on bf16 ``wgmma``
+  with the float32 factors split into bf16 hi and lo;
+* ``scalar_bf16`` and ``scalar_f32``: five passes on scalar float32 FMAs,
+  chunks of 64 steps.
+
+A run reads the counters to show which kernels it went through.  The
+library is built at the first launch, never at import.
 """
 from __future__ import annotations
 
@@ -39,12 +45,11 @@ PASSES = {"scalar_f32": ("state",), "scalar_bf16": ("state",),
 
 LAUNCHES = 0    # launch() calls in this process; reset by whoever reads it
 LAUNCHES_BY_ROUTE = {route: 0 for route in ROUTES}
-# the backward's route, by the dtype of q, k, v (the C function's dtype
-# code)
-BWD_ROUTES = {torch.float32: (0, "scalar_f32"),
-              torch.bfloat16: (1, "scalar_bf16")}
-BWD_LAUNCHES = 0    # backward launches (five passes each), likewise
-BWD_LAUNCHES_BY_ROUTE = {route: 0 for _, route in BWD_ROUTES.values()}
+# the backward's routes, as the forward's, each the route of the forward
+# it differentiates (the C function's route code)
+BWD_ROUTES = dict(ROUTES)
+BWD_LAUNCHES = 0    # backward launches (one per call), likewise
+BWD_LAUNCHES_BY_ROUTE = {route: 0 for route in BWD_ROUTES}
 
 _fn = None
 _bwd_fn = None
@@ -81,22 +86,27 @@ def _bwd_kernel_fn():
     return _bwd_fn
 
 
-def bwd_chunk() -> int:
-    """Steps per chunk of the backward (the last chunk of S is masked)."""
+def bwd_chunk(route: str) -> int:
+    """Steps per chunk of the backward's ``route`` (the last chunk of S is
+    masked)."""
     fn = build.load_library().repro_mlstm_scan_bwd_chunk
-    fn.argtypes = []
+    fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_int
-    return fn()
+    return fn(BWD_ROUTES[route])
 
 
-def bwd_workspace_bytes(B: int, S: int, H: int, Dh: int) -> int:
-    """Bytes of the workspace one backward call allocates: per row the
-    chunk's cumulative log-forget and gate weights, and the float32
-    inter-chunk parts of dq, dk and dv (3 B S H Dh floats)."""
+def bwd_workspace_bytes(B: int, S: int, H: int, Dh: int, route: str) -> int:
+    """Bytes of the workspace one backward call of ``route`` allocates: on
+    the scalar routes per row the chunk's cumulative log-forget and gate
+    weights and the float32 inter-chunk parts of dq, dk and dv (3 B S H Dh
+    floats); on the wgmma route the gates, the per-row scalars, the chunks'
+    scores, dnum as bf16 hi and lo, C^T and D^T at each chunk's boundary
+    (bf16 hi and lo) for one segment of S (at most 1 GiB of each), and the
+    float32 states carried between segments."""
     fn = build.load_library().repro_mlstm_scan_bwd_workspace_bytes
-    fn.argtypes = [ctypes.c_int] * 4
+    fn.argtypes = [ctypes.c_int] * 5
     fn.restype = ctypes.c_longlong
-    return fn(B, S, H, Dh)
+    return fn(B, S, H, Dh, BWD_ROUTES[route])
 
 
 def chunk(route: str) -> int:
@@ -181,19 +191,19 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                h: torch.Tensor, stats: Tuple[torch.Tensor, torch.Tensor],
                dh: torch.Tensor, dq: torch.Tensor, dk: torch.Tensor,
                dv: torch.Tensor, dig: torch.Tensor,
-               rows: torch.Tensor) -> None:
+               rows: torch.Tensor, route: str) -> None:
     """(dq, dk, dv, dig, rows) <- the gradient of the mLSTM at its output h
-    for dh, from the forward's row statistics ``stats`` (m_t, den_t); q, k,
-    v, ig, fg, init as ``launch`` took them, h, dh float32, dq, dk, dv in
-    q's dtype, dig (the gradient of ig) and rows (each row's sum of
-    dS o (q~ k^T), for fg's gradient) (B, S, H) float32; all contiguous on
-    one GPU."""
+    for dh on ``route``, from the row statistics ``stats`` (m_t, den_t) of
+    a forward on the same route; q, k, v, ig, fg, init as ``launch`` took
+    them, h, dh float32, dq, dk, dv in q's dtype, dig (the gradient of ig)
+    and rows (each row's sum of dS o (q~ k^T), for fg's gradient) (B, S, H)
+    float32; all contiguous on one GPU, and on the wgmma route h and dh on
+    16-byte boundaries."""
     global BWD_LAUNCHES
     B, S, H, Dh = q.shape
-    code, route = BWD_ROUTES[q.dtype]
     fn = _bwd_kernel_fn()
-    ws = torch.empty((bwd_workspace_bytes(B, S, H, Dh),), dtype=torch.uint8,
-                     device=q.device)
+    ws = torch.empty((bwd_workspace_bytes(B, S, H, Dh, route),),
+                     dtype=torch.uint8, device=q.device)
     C0, n0, m0 = (None, None, None) if init is None else \
         tuple(t.data_ptr() for t in init)
     with torch.cuda.device(q.device):
@@ -202,8 +212,8 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  fg.data_ptr(), C0, n0, m0, h.data_ptr(), dh.data_ptr(),
                  stats[0].data_ptr(), stats[1].data_ptr(), ws.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 dig.data_ptr(), rows.data_ptr(), B, S, H, Dh, code,
-                 math.sqrt(Dh), stream)
+                 dig.data_ptr(), rows.data_ptr(), B, S, H, Dh,
+                 BWD_ROUTES[route], math.sqrt(Dh), stream)
     build.check_launch(err, f"mlstm_scan backward launch ({route})")
     BWD_LAUNCHES += 1
     BWD_LAUNCHES_BY_ROUTE[route] += 1

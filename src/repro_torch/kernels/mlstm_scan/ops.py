@@ -21,9 +21,11 @@ launch, never by catching an error:
 
 Under grad mode, with an input that requires grad, the kernels run inside
 ``MLSTMScanFunction``: the forward also writes each row's stabiliser m_t
-and denominator den_t, and the backward is the hand-written kernel of
-``csrc/mlstm_scan_bwd.cu`` (scalar float32 FMAs for both dtypes), to q, k,
-v, ig and fg; the gates' last step (a reverse cumsum over S) is PyTorch.
+and denominator den_t, and the backward is the hand-written kernels of
+``csrc/mlstm_scan_bwd.cu`` on the route the forward took (``wgmma_bf16``:
+split-bf16 ``wgmma`` products on the states of each chunk;
+``scalar_bf16`` and ``scalar_f32``: scalar float32 FMAs), to q, k, v, ig
+and fg; the gates' last step (a reverse cumsum over S) is PyTorch.
 No gradient flows into or out of the state: a gradient that reaches the
 final (C, n, m) raises, as does an ``init_state`` that requires grad.
 Otherwise (serving, under ``no_grad`` or ``inference_mode``) the forward
@@ -129,6 +131,7 @@ class MLSTMScanFunction(torch.autograd.Function):
         h, (C, n, m), stats = _forward(q, k, v, ig, fg, init, route,
                                        with_stats=True)
         ctx.save_for_backward(q, k, v, ig, fg, C0, n0, m0, h, *stats)
+        ctx.route = route
         ctx.set_materialize_grads(False)
         return h, C, n, m
 
@@ -144,11 +147,13 @@ class MLSTMScanFunction(torch.autograd.Function):
         if dh is None:
             return (None,) * 9
         dh = dh.float().contiguous()
+        if dh.data_ptr() % 16:   # a view off TMA's and float4's alignment
+            dh = dh.clone()
         init = None if C0 is None else (C0, n0, m0)
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
         dig, rows = torch.empty_like(ig), torch.empty_like(ig)
         kernel.launch_bwd(q, k, v, ig, fg, init, h, (m_t, den), dh, dq, dk,
-                          dv, dig, rows)
+                          dv, dig, rows, ctx.route)
         return (dq, dk, dv, dig, fg_grad(fg, dig, rows), None, None, None,
                 None)
 

@@ -313,3 +313,151 @@ def reference_mlstm_bwd(q, k, v, ig, fg, h, stats, dh, *, chunk: int = 64,
     dlf = torch.flip(torch.cumsum(torch.flip(dF, (1,)), dim=1), (1,))
     dfg = dlf * torch.sigmoid(-fg.float())
     return dq / math.sqrt(Dh), dk, dv, dig, dfg
+
+
+def wgmma_bwd_route_model(q, k, v, ig, fg, h, stats, dh, *, init_state=None,
+                          chunk: int = WGMMA_CHUNK, split: bool = True,
+                          tile: int = 128):
+    """The wgmma_bf16 route of the backward (csrc/mlstm_scan_bwd.cu) in
+    plain PyTorch, for the tests: its algorithm at the kernel's chunk (the
+    last chunk masked, any S), with the float32 factors of the products
+    split into bf16 hi + lo where the kernel splits them (``split``).  The
+    products themselves are float32 here.
+
+    * The chain of m over the chunks is the forward's state pass's (m_new
+      = max(b_T + m_prev, max_s gm_s)); every state is scaled by it, and
+      w_out, g and the decay f of a chunk take their boundary stabilisers
+      from it (the forward's row statistics give m_t and den_t).
+    * C^T entering each chunk goes forwards as the forward's state pass
+      carries it (g o v split); D^T leaving each chunk goes backwards,
+      D^T = f D^T + (s o dnum)^T q with s_t = w_out_t / sqrt(Dh) (dnum =
+      dh / N_t split, then s o dnum split again), and Dn on CUDA cores.
+    * The outputs: dq~ = w_out (dnum C^T + dden n) + dS k, dk = g (v D^T
+      + Dn) + (dS^T / sqrt(Dh)) q, dv = g (k D) + W^T dnum, with dS = w o
+      (dnum v^T + dden) and W = w o (q k^T) / sqrt(Dh) split.
+    * dig = the column sums of dS o (q~ k^T) plus k . (dk's part across
+      chunks), the latter summed over column tiles of ``tile`` in order.
+
+    Same contract as ``reference_mlstm_bwd``: returns (dq, dk, dv, dig,
+    dfg), float32."""
+    B, S, H, Dh = q.shape
+    T = chunk
+    n_chunks = -(-S // T)
+    pad = n_chunks * T - S
+    inv = 1.0 / math.sqrt(Dh)
+
+    def chunks(x):
+        x = torch.nn.functional.pad(x.float(), (0, 0) * (x.dim() - 2)
+                                    + (0, pad)) if pad else x.float()
+        return x.reshape((B, n_chunks, T) + x.shape[2:])
+    qc, kc, vc = chunks(q), chunks(k), chunks(v)          # (B, L, T, H, Dh)
+    valid = torch.arange(n_chunks * T, device=q.device).reshape(
+        n_chunks, T) < S                                 # (L, T)
+    vmask = valid[None, :, :, None]
+    lf = torch.nn.functional.logsigmoid(chunks(fg)) * vmask
+    igc = chunks(ig) * vmask                             # (B, L, T, H)
+    m_t = chunks(stats[0]) * vmask
+    den = chunks(stats[1])
+
+    # ---- the forward's gate pass and its chain of m
+    b = torch.cumsum(lf.double(), dim=2)
+    last = (valid.sum(1) - 1).clamp(min=0)
+    bT = b.gather(2, last[None, :, None, None].expand(B, -1, 1, H))[:, :, 0]
+    gm = (igc + (bT[:, :, None] - b).float()).masked_fill(~vmask, -math.inf)
+    lmax = gm.amax(dim=2)                                # (B, L, H)
+    bTf = bT.float()
+    m = torch.full((B, H), _xlstm.NEG_INF, device=q.device) \
+        if init_state is None else init_state[2].float()
+    m_e, m_new = [], []
+    for c in range(n_chunks):
+        m_e.append(m)
+        m = torch.maximum(bTf[:, c] + m, lmax[:, c])
+        m_new.append(m)
+    m_e, m_new = torch.stack(m_e, 1), torch.stack(m_new, 1)   # (B, L, H)
+
+    # ---- prep: the per-row scalars and dnum
+    floor = torch.exp(-m_t)
+    active = (den.abs() > floor) & vmask
+    invn = torch.where(vmask, 1.0 / torch.maximum(den.abs(), floor),
+                       torch.zeros((), device=q.device))
+    dhh = (chunks(dh) * chunks(h)).sum(-1)
+    dden = torch.where(active, -dhh / den, torch.zeros_like(dhh))
+    rows = torch.where(active | ~vmask, torch.zeros_like(dhh), dhh)
+    w_out = torch.where(vmask, torch.exp((b.float() + m_e[:, :, None])
+                                         - m_t),
+                        torch.zeros((), device=q.device))
+    g = torch.exp(gm - m_new[:, :, None])                # 0 past L
+    f = torch.exp((bTf + m_e) - m_new)                   # (B, L, H)
+    dnum = _joined(chunks(dh) * invn[..., None], split)
+
+    # ---- C^T and n entering each chunk, forwards
+    if init_state is None:
+        C = torch.zeros((B, H, Dh, Dh), device=q.device)
+        n = torch.zeros((B, H, Dh), device=q.device)
+    else:
+        C, n = init_state[0].float(), init_state[1].float()
+    C_in, n_in = [], []
+    for c in range(n_chunks):
+        C_in.append(_joined(C, split))
+        n_in.append(n)
+        gv = _joined(g[:, c, ..., None] * vc[:, c], split)
+        C = f[:, c, ..., None, None] * C + torch.einsum("bshi,bshj->bhij",
+                                                        kc[:, c], gv)
+        n = f[:, c, ..., None] * n + torch.einsum("bsh,bshi->bhi", g[:, c],
+                                                  kc[:, c])
+    # ---- D (keys x values) and Dn leaving each chunk, backwards
+    D = torch.zeros((B, H, Dh, Dh), device=q.device)
+    Dn = torch.zeros((B, H, Dh), device=q.device)
+    D_out, Dn_out = [None] * n_chunks, [None] * n_chunks
+    for c in range(n_chunks - 1, -1, -1):
+        D_out[c], Dn_out[c] = _joined(D, split), Dn
+        u = _joined((w_out[:, c] * inv)[..., None] * dnum[:, c], split)
+        D = f[:, c, ..., None, None] * D + torch.einsum("bthi,bthj->bhij",
+                                                        qc[:, c], u)
+        Dn = f[:, c, ..., None] * Dn + torch.einsum(
+            "bth,bthi->bhi", w_out[:, c] * dden[:, c] * inv, qc[:, c])
+
+    # ---- outputs, chunk by chunk
+    causal = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+    dq, dk, dv, dig = [], [], [], []
+    for c in range(n_chunks):
+        mask = causal[None, :, :, None] & valid[c][None, :, None, None] \
+            & valid[c][None, None, :, None]
+        logw = (b[:, c, :, None] - b[:, c, None]).float() + \
+            igc[:, c, None] - m_t[:, c, :, None]          # (B, t, s, H)
+        w = torch.where(mask, torch.exp(logw), torch.zeros((),
+                                                           device=q.device))
+        sraw = torch.einsum("bthd,bshd->btsh", qc[:, c], kc[:, c])
+        P = torch.einsum("bthd,bshd->btsh", dnum[:, c], vc[:, c])
+        dS = w * (P + dden[:, c, :, None])
+        W = w * sraw * inv
+        wo, gg = w_out[:, c, ..., None], g[:, c, ..., None]
+        dq_c = wo * (torch.einsum("bthj,bhij->bthi", dnum[:, c], C_in[c])
+                     + dden[:, c, ..., None] * n_in[c][:, None])
+        dq_c = dq_c + torch.einsum("btsh,bshi->bthi", _joined(dS, split),
+                                   kc[:, c])
+        dk_inter = gg * (torch.einsum("bshj,bhij->bshi", vc[:, c], D_out[c])
+                         + Dn_out[c][:, None])
+        dk_c = dk_inter + torch.einsum("btsh,bthi->bshi",
+                                       _joined(dS * inv, split), qc[:, c])
+        dv_c = gg * torch.einsum("bshi,bhij->bshj", kc[:, c], D_out[c])
+        dv_c = dv_c + torch.einsum("btsh,bthj->bshj", _joined(W, split),
+                                   dnum[:, c])
+        dig_c = (dS * sraw * inv).sum(dim=1)               # (B, s, H)
+        for i0 in range(0, Dh, tile):
+            dig_c = dig_c + (kc[:, c, ..., i0:i0 + tile]
+                             * dk_inter[..., i0:i0 + tile]).sum(-1)
+        dq.append(dq_c * inv)
+        dk.append(dk_c)
+        dv.append(dv_c)
+        dig.append(dig_c)
+
+    def whole(xs):
+        x = torch.stack(xs, dim=1)
+        return x.reshape((B, n_chunks * T) + x.shape[3:])[:, :S]
+    dig = whole(dig)
+    rows = rows.reshape(B, n_chunks * T, H)[:, :S]
+    dF = rows - dig
+    dlf = torch.flip(torch.cumsum(torch.flip(dF, (1,)), dim=1), (1,))
+    dfg = dlf * torch.sigmoid(-fg.float())
+    return whole(dq), whole(dk), whole(dv), dig, dfg

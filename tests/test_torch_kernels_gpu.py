@@ -1112,7 +1112,11 @@ def test_mlstm_backward_matches_plain(B, S, H, Dh, with_init, clamp, dtype):
         ig = ig - 8.0
     g = torch.Generator(device="cuda").manual_seed(9)
     dh = torch.randn((B, S, H, Dh), generator=g, device="cuda")
-    route = ml_kernel.BWD_ROUTES[dtype][1]
+    # the backward takes its forward's route: bf16 that TMA can address on
+    # the wgmma route, Dh 37 on the scalar bf16 one
+    route = ml_ops.kernel_route(q, k, v)
+    assert route == ("scalar_f32" if dtype == torch.float32 else
+                     "wgmma_bf16" if Dh % 8 == 0 else "scalar_bf16")
     before = ml_kernel.BWD_LAUNCHES_BY_ROUTE[route]
     leaves = [t.requires_grad_() for t in (q, k, v, ig, fg)]
     h, _ = ml_ops.mlstm_chunkwise(*leaves, init_state=init)
@@ -1138,6 +1142,107 @@ def test_mlstm_backward_matches_plain(B, S, H, Dh, with_init, clamp, dtype):
         assert g_.dtype == leaves[("dq", "dk", "dv", "dig",
                                    "dfg").index(name)].dtype
         assert e <= tol, (name, e)
+
+
+def _mlstm_grads(xs, dh, init=None):
+    """(h, the forward's row statistics (m_t, den_t), the gradients of q,
+    k, v, ig and fg) through the autograd function."""
+    leaves = [t.detach().requires_grad_() for t in xs]
+    h, _ = ml_ops.mlstm_chunkwise(*leaves, init_state=init)
+    stats = h.grad_fn.saved_tensors[-2:]
+    return h, stats, torch.autograd.grad(h, leaves, dh)
+
+
+def test_mlstm_backward_of_a_misaligned_bf16_view_takes_scalar_bf16():
+    """bf16 q, k, v off TMA's 16-byte boundaries (contiguous views of a
+    buffer one element in) take the scalar bf16 route forwards and
+    backwards, and agree with the plain backward."""
+    _need_cuda()
+    B, S, H, Dh = 2, 150, 2, 64
+    (q, k, v, ig, fg), _ = _mlstm_inputs(B, S, H, Dh, torch.bfloat16,
+                                         seed=21)
+    views = []
+    for t in (q, k, v):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        views.append(view)
+    assert all(t.data_ptr() % 16 for t in views)
+    assert ml_ops.kernel_route(*views) == "scalar_bf16"
+    g = torch.Generator(device="cuda").manual_seed(9)
+    dh = torch.randn((B, S, H, Dh), generator=g, device="cuda")
+    before = dict(ml_kernel.BWD_LAUNCHES_BY_ROUTE)
+    h, (m_t, den), got = _mlstm_grads(views + [ig, fg], dh)
+    torch.cuda.synchronize()
+    assert ml_kernel.BWD_LAUNCHES_BY_ROUTE["scalar_bf16"] == \
+        before["scalar_bf16"] + 1
+    assert ml_kernel.BWD_LAUNCHES_BY_ROUTE["wgmma_bf16"] == \
+        before["wgmma_bf16"]
+    want = ml_ref.reference_mlstm_bwd(*views, ig, fg, h.detach(), (m_t, den),
+                                      dh)
+    errs = _grad_errs(got[:3], want[:3]) + _grad_errs(got[3:], want[3:])
+    tols = [MLSTM_BWD_TOL[torch.bfloat16]] * 3 + \
+        [MLSTM_BWD_TOL[torch.float32]] * 2
+    assert all(e <= t for e, t in zip(errs, tols)), errs
+
+
+@pytest.mark.parametrize("B,S,H,Dh,with_init", [
+    (1, 4096, 4, 1024, False),   # xlstm-1.3b's mLSTM at train_4k
+    (2, 200, 2, 192, True),
+])
+def test_mlstm_backward_repeats_bit_for_bit(B, S, H, Dh, with_init):
+    """The wgmma route sums every part in a fixed order (no atomics): two
+    calls on the same inputs give the same dq, dk, dv and dig, bit for
+    bit."""
+    _need_cuda()
+    (q, k, v, ig, fg), init = _mlstm_inputs(B, S, H, Dh, torch.bfloat16,
+                                            with_init, seed=22)
+    assert ml_ops.kernel_route(q, k, v) == "wgmma_bf16"
+    g = torch.Generator(device="cuda").manual_seed(9)
+    dh = torch.randn((B, S, H, Dh), generator=g, device="cuda")
+    first = _mlstm_grads((q, k, v, ig, fg), dh, init)[2]
+    second = _mlstm_grads((q, k, v, ig, fg), dh, init)[2]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv", "dig"), first, second):
+        assert torch.equal(a, b), name
+
+
+def test_mlstm_backward_copies_a_misaligned_dh():
+    """The wgmma route reads dh by TMA-aligned 16-byte loads: a dh off a
+    16-byte boundary (a contiguous view one float into a buffer) is copied
+    by the autograd function, and gives the aligned dh's gradients bit for
+    bit."""
+    _need_cuda()
+    B, S, H, Dh = 2, 200, 2, 64
+    (q, k, v, ig, fg), _ = _mlstm_inputs(B, S, H, Dh, torch.bfloat16,
+                                         seed=23)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    dh = torch.randn((B, S, H, Dh), generator=g, device="cuda")
+    buf = torch.empty(dh.numel() + 1, device="cuda")
+    off = buf[1:].view(dh.shape)
+    off.copy_(dh)
+    assert off.data_ptr() % 16 and off.is_contiguous()
+    want = _mlstm_grads((q, k, v, ig, fg), dh)[2]
+    got = _mlstm_grads((q, k, v, ig, fg), off)[2]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv", "dig", "dfg"), got, want):
+        assert torch.equal(a, b), name
+
+
+def test_mlstm_forward_chain_meets_the_last_rows_stabiliser():
+    """The wgmma backward scales its states by the chain of m of the
+    forward's state pass, which its output pass also used for each row's
+    m_t: at a chunk's last row the two are one float expression, so the
+    final m (the chain's) equals the last row's m_t bit for bit, at S a
+    multiple of the chunk and ragged, with and without an initial state."""
+    _need_cuda()
+    for S, with_init in ((256, False), (200, True), (1, False), (4096, True)):
+        (q, k, v, ig, fg), init = _mlstm_inputs(2, S, 2, 64, torch.bfloat16,
+                                                with_init, seed=S)
+        h, (C, n, m), (m_t, den) = ml_ops._forward(
+            q, k, v, ig, fg, init, "wgmma_bf16", True)
+        torch.cuda.synchronize()
+        assert torch.equal(m, m_t[:, -1]), S
 
 
 @pytest.mark.parametrize("S,Dh,dtype", [

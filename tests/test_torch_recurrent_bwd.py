@@ -328,8 +328,134 @@ def test_plain_mlstm_backward_with_an_initial_state():
         assert _rel(p, a, 1e-3 * top) <= RTOL
 
 
+# (B, S, H, Dh, with an initial state, stress): the wgmma backward's chunk
+# (128) ragged (200, 136) and a single step, with and without an initial
+# state, and the denominator's floor on most rows
+_BWD_MODEL_CASES = [(2, 200, 2, 64, False, None), (2, 136, 2, 64, True, None),
+                    (2, 1, 2, 64, False, None), (2, 1, 2, 64, True, None),
+                    (2, 200, 2, 64, True, "clamp")]
+# The wgmma route's model with its operands split: each float32 factor
+# keeps 16 of its bits (|x - hi - lo| <= 2^-16 |x|), and sums over Dh and a
+# chunk of such terms drift by ~1e-5 of the largest gradient; the bar is
+# the card's for dig and dfg against the plain backward, 1e-4 (bf16 dq,
+# dk, dv are rounded on output there, which the model does not).
+MLSTM_BWD_SPLIT_TOL = 1e-4
+
+
+def _mlstm_init(B, H, Dh, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, H, Dh, Dh)).astype(np.float32),
+            rng.standard_normal((B, H, Dh)).astype(np.float32),
+            rng.standard_normal((B, H)).astype(np.float32))
+
+
+def _jax_mlstm_grads_from(xs, dh, init):
+    chunk = 8 if xs[0].shape[1] % 8 == 0 else 1
+
+    def f(q, k, v, ig, fg):
+        return _jax_chunkwise(q, k, v, ig, fg, chunk=chunk, init_state=(
+            None if init is None else tuple(map(jnp.asarray, init))))[0]
+    _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in xs))
+    return [np.asarray(g) for g in vjp(jnp.asarray(dh))]
+
+
+def _bwd_model_errors(case, split, seed):
+    """Each of the model's gradients against the plain backward's and
+    jax.grad's, relative to its own scale floored at 1e-3 of its group's
+    largest (dq, dk, dv; dig, dfg); where one key meets each query (S 1)
+    dq, dk and dfg vanish in exact arithmetic and are held against their
+    group's largest.  With ``split`` q, k and v are bf16 values (the
+    route's inputs), held in float32 for JAX."""
+    B, S, H, Dh, with_init, stress = case
+    xs, dh = _mlstm_inputs(B, S, H, Dh, seed=seed, stress=stress)
+    if split:
+        xs = tuple(torch.from_numpy(a).bfloat16().float().numpy()
+                   if i < 3 else a for i, a in enumerate(xs))
+    init = _mlstm_init(B, H, Dh, seed + 1) if with_init else None
+    ts = [torch.from_numpy(a.copy()) for a in xs]
+    init_t = None if init is None else tuple(torch.from_numpy(a.copy())
+                                             for a in init)
+    h, _ = ml_ref.reference_mlstm(*ts, chunk=8, init_state=init_t)
+    m_t, den, _ = ml_ref.reference_mlstm_stats(*ts, chunk=128,
+                                               init_state=init_t)
+    if stress == "clamp":
+        assert float((den.abs() <= torch.exp(-m_t)).float().mean()) > 0.5
+    dht = torch.from_numpy(dh)
+    got = ml_ref.wgmma_bwd_route_model(*ts, h, (m_t, den), dht,
+                                       init_state=init_t, split=split)
+    plain = ml_ref.reference_mlstm_bwd(*ts, h, (m_t, den), dht,
+                                       init_state=init_t)
+    jg = _jax_mlstm_grads_from(xs, dh, init)
+    jg = jg[:3] + [jg[3]] + [jg[4]]
+    errs = {}
+    for lo, hi in ((0, 3), (3, 5)):
+        top = max(float(w.abs().max()) for w in plain[lo:hi])
+        for i in range(lo, hi):
+            name = ("dq", "dk", "dv", "dig", "dfg")[i]
+            floor = top if S == 1 and name in ("dq", "dk", "dfg") \
+                else 1e-3 * top
+            errs[name] = (_rel(got[i], plain[i], floor),
+                          _rel(got[i], jg[i], floor))
+    return errs
+
+
+@pytest.mark.parametrize("case", _BWD_MODEL_CASES)
+def test_wgmma_bwd_route_model_without_split_matches_plain_and_jax(case):
+    """float32 inputs, no split: the wgmma backward's passes (the states
+    scaled by the forward's chain of m, C^T forwards and D^T backwards at
+    chunks of 128, dig's tile parts in order) compute the gradient of the
+    reference's function, as the plain backward and jax.grad give it, at
+    1e-4."""
+    for name, (e_plain, e_jax) in _bwd_model_errors(case, False,
+                                                    seed=31).items():
+        assert e_plain <= RTOL and e_jax <= RTOL, (name, e_plain, e_jax)
+
+
+@pytest.mark.parametrize("case", _BWD_MODEL_CASES)
+def test_wgmma_bwd_route_model_with_split_matches_plain_and_jax(case):
+    """bf16 q, k, v and the float32 factors split into bf16 hi + lo where
+    the kernels split them: within MLSTM_BWD_SPLIT_TOL of the plain
+    backward and of jax.grad on the same inputs."""
+    for name, (e_plain, e_jax) in _bwd_model_errors(case, True,
+                                                    seed=32).items():
+        assert e_plain <= MLSTM_BWD_SPLIT_TOL and \
+            e_jax <= MLSTM_BWD_SPLIT_TOL, (name, e_plain, e_jax)
+
+
+@pytest.mark.parametrize("S,with_init", [(384, False), (200, True),
+                                         (129, False), (1, True)])
+def test_forward_chain_of_m_is_the_row_stabiliser_before_each_boundary(
+        S, with_init):
+    """The wgmma backward scales its states by the chain m_new = max(b_T +
+    m_prev, max_s gm_s) of the forward's state pass, and its w_out takes
+    m_t from the forward's row statistics.  At a chunk's last row m_t is
+    the same float expression as the chain's m_new (max over s of (b_T -
+    b_s) + ig_s, and b_T + m_prev), so the two agree bit for bit, as the
+    plain statistics at chunk 128 show: the rounding is held here."""
+    B, H, Dh = 2, 2, 16
+    xs, _ = _mlstm_inputs(B, S, H, Dh, seed=33)
+    ts = [torch.from_numpy(a.copy()) for a in xs]
+    init = None
+    if with_init:
+        init = tuple(torch.from_numpy(a.copy())
+                     for a in _mlstm_init(B, H, Dh, 34))
+    m_t, _, m_e = ml_ref.reference_mlstm_stats(*ts, chunk=128,
+                                               init_state=init)
+    # the chain, as the kernels' gate pass and state pass compute it
+    lf = torch.nn.functional.logsigmoid(ts[4])
+    m = torch.full((B, H), -1e30) if init is None else init[2].clone()
+    for c0 in range(0, S, 128):
+        assert torch.equal(m, m_e[:, c0 // 128])
+        b = torch.cumsum(lf[:, c0:c0 + 128].double(), dim=1)
+        bT = b[:, -1]
+        gm = ts[3][:, c0:c0 + 128] + (bT[:, None] - b).float()
+        m = torch.maximum(bT.float() + m, gm.amax(dim=1))
+        last = min(S, c0 + 128) - 1
+        assert torch.equal(m, m_t[:, last]), c0
+
+
 def _fake_mlstm_kernels(monkeypatch):
-    calls = {"fwd_stats": [], "bwd": 0}
+    calls = {"fwd_stats": [], "bwd": 0, "bwd_routes": []}
 
     def launch(q, k, v, ig, fg, init, h, C, n, m, route, stats=None):
         hh, (CC, nn, mm) = ml_ref.reference_mlstm(q, k, v, ig, fg, chunk=8,
@@ -344,8 +470,9 @@ def _fake_mlstm_kernels(monkeypatch):
             stats[1].copy_(den)
 
     def launch_bwd(q, k, v, ig, fg, init, h, stats, dh, dq, dk, dv, dig,
-                   rows):
+                   rows, route):
         assert dh.dtype == torch.float32 and dh.is_contiguous()
+        calls["bwd_routes"].append(route)
         grads = ml_ref.reference_mlstm_bwd(q, k, v, ig, fg, h, stats, dh,
                                            init_state=init)
         for dst, g in zip((dq, dk, dv, dig), grads):
@@ -375,7 +502,8 @@ def test_mlstm_autograd_function_wiring(monkeypatch):
     saved = h.grad_fn.saved_tensors
     assert [tuple(t.shape) for t in saved[-2:]] == [(2, 70, 2)] * 2
     got = torch.autograd.grad(h, ts, torch.tensor(dh))
-    assert calls == {"fwd_stats": [True], "bwd": 1}
+    assert calls == {"fwd_stats": [True], "bwd": 1,
+                     "bwd_routes": ["scalar_f32"]}
     top = max(float(w.abs().max()) for w in want)
     for g, w in zip(got, want):
         assert _rel(g, w, 1e-3 * top) <= RTOL

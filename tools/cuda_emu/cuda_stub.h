@@ -51,6 +51,7 @@ inline const char* cudaGetErrorString(cudaError_t) { return "emu error"; }
 
 struct float2 { float x, y; };
 struct uint4 { unsigned x, y, z, w; };
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
 inline float __uint_as_float(uint32_t u) { float f; memcpy(&f, &u, 4); return f; }
 struct float4 { float x, y, z, w; };
 struct uint2 { unsigned x, y; };
@@ -68,6 +69,7 @@ inline uint16_t f2bf(float f) {
 inline float __bfloat162float(__nv_bfloat16 b) { uint32_t u = (uint32_t)b.x << 16; float f; memcpy(&f, &u, 4); return f; }
 inline __nv_bfloat16 __float2bfloat16(float f) { return {f2bf(f)}; }
 inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) { return {{f2bf(a)}, {f2bf(b)}}; }
+inline float2 __bfloat1622float2(__nv_bfloat162 v) { return {__bfloat162float(v.x), __bfloat162float(v.y)}; }
 
 // ---- per-block synchronisation -------------------------------------------
 struct EmuBlock {
@@ -75,7 +77,10 @@ struct EmuBlock {
   std::unique_ptr<std::barrier<>> block_bar;
   std::vector<std::unique_ptr<std::barrier<>>> warp_bar, wg_bar;
   std::vector<float> shfl;            // per-thread exchange slots
+  std::vector<double> shfl_d;
   std::vector<uint32_t> frags;        // per-thread A fragments (4 each)
+  std::mutex named_mu;                // named barriers (bar.sync id, count)
+  std::map<int, std::unique_ptr<std::barrier<>>> named;
 };
 inline EmuBlock* emu_block = nullptr;
 inline uint8_t* emu_smem() { return emu_block->smem; }
@@ -91,6 +96,25 @@ inline float __shfl_xor_sync(unsigned, float v, int off) {
   const float o = emu_block->shfl[(t / 32) * 32 + ((t % 32) ^ off)];
   __syncwarp();
   return o;
+}
+inline double __shfl_up_sync(unsigned, double v, int off) {
+  const int t = threadIdx.x, lane = t % 32;
+  __syncwarp();
+  emu_block->shfl_d[t] = v;
+  __syncwarp();
+  const double o = lane >= off ? emu_block->shfl_d[t - off] : v;
+  __syncwarp();
+  return o;
+}
+inline void emu_named_barrier(int id, int count) {
+  std::barrier<>* b;
+  {
+    std::lock_guard<std::mutex> g(emu_block->named_mu);
+    auto& slot = emu_block->named[id];
+    if (!slot) slot = std::make_unique<std::barrier<>>(count);
+    b = slot.get();
+  }
+  b->arrive_and_wait();
 }
 inline void emu_wg_sync() { emu_block->wg_bar[threadIdx.x / 128]->arrive_and_wait(); }
 
@@ -111,6 +135,7 @@ void emu_launch(void (*k)(KArgs...), dim3 g, dim3 b, size_t smem, cudaStream_t, 
     for (int w = 0; w < (nt + 31) / 32; ++w) blk.warp_bar.push_back(std::make_unique<std::barrier<>>(std::min(32, nt - 32 * w)));
     for (int w = 0; w < (nt + 127) / 128; ++w) blk.wg_bar.push_back(std::make_unique<std::barrier<>>(std::min(128, nt - 128 * w)));
     blk.shfl.assign(nt, 0.f);
+    blk.shfl_d.assign(nt, 0.0);
     blk.frags.assign(4 * nt, 0u);
     emu_block = &blk;
     std::vector<std::thread> ts;

@@ -10,10 +10,11 @@ kernel's (64, 120, 128, 256); without splits, the wrapper's rule for a card
 of 4 multiprocessors picks them, so that small shapes split too.
 
 ``src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu`` is
-rewritten for g++ into ``build/cuda_emu/<digest>/`` (the inline PTX section of
-``csrc/hopper.cuh`` replaced by ``ptx_standins.h``, the CUDA runtime by
-``cuda_stub.h``, launches by ``emu_launch``) and built into a shared
-library, whose C entry point takes CPU tensors through ctypes.  One
+rewritten for g++ into ``build/cuda_emu/<digest>/`` by ``emu_build.py`` (the
+inline PTX section of ``csrc/hopper.cuh`` replaced by ``ptx_standins.h``,
+the CUDA runtime by ``cuda_stub.h``, launches by ``emu_launch``) and built
+into a shared library, whose C entry point takes CPU tensors through
+ctypes.  One
 ``std::thread`` runs each CUDA thread, blocks one at a time; shared memory
 starts as NaN; mbarriers count arrivals and TMA bytes; a TMA load copies
 its box with zero fill and the 128-byte swizzle; a ``wgmma`` computes its
@@ -28,11 +29,8 @@ from __future__ import annotations
 
 import ast
 import ctypes
-import hashlib
 import math
 import pathlib
-import re
-import subprocess
 import sys
 import time
 
@@ -42,10 +40,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 
+import emu_build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel, ref  # noqa: E402
 
-KERNELS = ROOT / "src/repro_torch/kernels"
-OUT = ROOT / "build/cuda_emu"
 TOL = 2e-2
 SMS = 4
 CASES = [(2, 1, 8, 2, 64, True, 0), (2, 63, 8, 8, 120, True, 0),
@@ -59,37 +56,8 @@ CASES = [(2, 1, 8, 2, 64, True, 0), (2, 63, 8, 8, 120, True, 0),
 
 def build(root: pathlib.Path = ROOT) -> pathlib.Path:
     """The emulated library of ``root``'s backward source."""
-    kdir = root / "src/repro_torch/kernels"
-    hdr = (kdir / "csrc/hopper.cuh").read_text()
-    a = hdr.index("// ---- BEGIN INLINE PTX")
-    b = hdr.index("// ---- END INLINE PTX")
-    hdr = hdr[:a] + '#include "ptx_standins.h"\n' + hdr[b:]
-
-    def stub(text):
-        for inc in ("<cuda.h>", "<cuda_runtime.h>", "<cuda_bf16.h>"):
-            text = re.sub(r"#include " + re.escape(inc) + r"[^\n]*",
-                          '#include "cuda_stub.h"', text)
-        return text
-    src = stub((kdir / "flash_attention/csrc/flash_attention_bwd.cu")
-               .read_text())
-    src = src.replace('#include "../../csrc/hopper.cuh"',
-                      '#include "hopper_emu.cuh"')
-    src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
-                 r"\1* \2 = (\1*)emu_smem();", src)
-    src = src.replace("__shared__", "static")
-    src = re.sub(r"([\w:]+(?:<[^<>;]*>)?)\s*<<<(.*?)>>>\s*\(",
-                 r"emu_launch(\1, \2, ", src, flags=re.S)
-    # one directory per source text: a process that loads two builds
-    # (dlopen keeps the first library of a path) gets both
-    out = OUT / hashlib.sha256((hdr + src).encode()).hexdigest()[:16]
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "hopper_emu.cuh").write_text(stub(hdr))
-    (out / "flash_bwd_emu.cpp").write_text(src)
-    lib = out / "libflash_bwd_emu.so"
-    subprocess.run(["g++", "-std=c++20", "-O2", "-shared", "-fPIC",
-                    "-pthread", "-w", "-I", str(HERE), "-I", str(out), "-o",
-                    str(lib), str(out / "flash_bwd_emu.cpp")], check=True)
-    return lib
+    return emu_build.build(["flash_attention/csrc/flash_attention_bwd.cu"],
+                           "flash_bwd", root)
 
 
 def bwd_fn(lib: pathlib.Path):

@@ -62,10 +62,29 @@ inline void tma_load_4d(void* dst, const CUtensorMap* m, uint64_t* bar, int c0, 
   EmuBar& b = emu_bars.at(bar);
   b.tx -= 2 * lin; emu_bar_check(b);
 }
-inline void tma_store_4d(const CUtensorMap*, const void*, int, int, int, int) { abort(); }
+// the box from shared memory (swizzled as a load leaves it) into the
+// tensor; cells outside the tensor are not written
+inline void tma_store_4d(const CUtensorMap* m, const void* src, int c0, int c1, int c2, int c3) {
+  const int c[4] = {c0, c1, c2, c3};
+  const uint32_t base = smem_u32(src);
+  if (base % 1024) { fprintf(stderr, "EMU: TMA source not 1024-aligned\n"); abort(); }
+  uint32_t lin = 0;
+  for (uint32_t i3 = 0; i3 < m->box[3]; ++i3)
+  for (uint32_t i2 = 0; i2 < m->box[2]; ++i2)
+  for (uint32_t i1 = 0; i1 < m->box[1]; ++i1)
+  for (uint32_t i0 = 0; i0 < m->box[0]; ++i0, ++lin) {
+    const long long x[4] = {c[0] + (long long)i0, c[1] + (long long)i1, c[2] + (long long)i2, c[3] + (long long)i3};
+    bool in = true;
+    for (int d = 0; d < 4; ++d) in = in && x[d] >= 0 && x[d] < (long long)m->dims[d];
+    if (!in) continue;
+    uint8_t* dst = const_cast<uint8_t*>(m->base);
+    for (int d = 0; d < 4; ++d) dst += x[d] * m->strides[d];
+    memcpy(dst, emu_block->smem + swz(base + 2 * lin), 2);
+  }
+}
 inline void tma_store_wait() {}
 inline void fence_proxy_async() {}
-inline void named_barrier(int, int) { abort(); }
+inline void named_barrier(int id, int count) { emu_named_barrier(id, count); }
 template <int N> inline void setmaxnreg_inc() {}
 template <int N> inline void setmaxnreg_dec() {}
 inline void wgmma_fence() {}

@@ -4,10 +4,12 @@
     python3 tools/mlstm_variants.py
 
 Run it from a checkout of the repository on a machine with a CUDA card and
-the toolkit.  Each variant is ``csrc/mlstm_scan.cu`` with a few text
-replacements that undo one design choice; each is built by ``nvcc`` with
-the port's flags into ``build/mlstm_variants/`` and called through its C
-entry point on the wgmma route.  Each variant is held against the plain
+the toolkit.  Each variant is ``csrc/mlstm_scan.cu`` and the header of the
+passes it shares with the backward, ``csrc/mlstm_wgmma.cuh``, with a few
+text replacements that undo one design choice; each is built by ``nvcc``
+with the port's flags into its own directory under
+``build/mlstm_variants/`` and called through its C entry point on the
+wgmma route.  Each variant is held against the plain
 version at xlstm-1.3b's prefill shape and against the float64 recurrence
 at chip_smoke.py's random-key stress case (the same inputs: the generator
 is advanced through ``MLSTM_CASES`` as there), then all are timed by CUDA
@@ -34,6 +36,7 @@ from repro_torch.kernels.mlstm_scan import ref  # noqa: E402
 
 SOURCE = os.path.join(ROOT, "src/repro_torch/kernels/mlstm_scan/csrc/"
                             "mlstm_scan.cu")
+HEADER = os.path.join(os.path.dirname(SOURCE), "mlstm_wgmma.cuh")
 ERRORS = os.path.join(ROOT, "src/repro_torch/kernels/csrc/cuda_errors.cu")
 OUT = os.path.join(ROOT, "build", "mlstm_variants")
 WGMMA_ROUTE = 2   # the C function's route code
@@ -60,9 +63,11 @@ VARIANTS = {
     "q k^T in one accumulator": [
         ("float sacc[64], spart[64];", "float sacc[64];"),
         ("""        wgmma_ss(spart, sw128_desc(Qw + off, 16),
-                 sw128_desc(st + PANEL_BYTES + off, 16), kk > 0);""",
+                 sw128_desc(st + NA * PANEL_BYTES + off, 16), kk > 0);""",
          """        wgmma_ss(sacc, sw128_desc(Qw + off, 16),
-                 sw128_desc(st + PANEL_BYTES + off, 16), 1);"""),
+                 sw128_desc(st + NA * PANEL_BYTES + off, 16), 1);"""),
+        ("wgmma_ss(spart, sw128_desc(Qw + PANEL_BYTES + off, 16),",
+         "wgmma_ss(sacc, sw128_desc(Qw + PANEL_BYTES + off, 16),"),
         ("""      reg_fence(spart);
 #pragma unroll
       for (int e = 0; e < 64; ++e) sacc[e] += spart[e];""",
@@ -116,17 +121,22 @@ SHAPE = (4, 1000, 4, 1024)   # xlstm-1.3b's prefill: B, S, H, Dh
 
 
 def build_variant(name, edits):
-    src = open(SOURCE).read()
+    texts = {path: open(path).read() for path in (SOURCE, HEADER)}
     for old, new in edits:
-        if src.count(old) != 1:
-            raise SystemExit(f"{name}: {old!r} is not in the source once")
-        src = src.replace(old, new)
-    os.makedirs(OUT, exist_ok=True)
-    stem = os.path.join(OUT, "".join(c if c.isalnum() else "_" for c in name))
-    with open(stem + ".cu", "w") as f:
-        f.write(src)
-    # -I: the copy's relative include of csrc/hopper.cuh resolves from the
-    # source's own directory
+        where = [p for p, t in texts.items() if old in t]
+        if len(where) != 1 or texts[where[0]].count(old) != 1:
+            raise SystemExit(f"{name}: {old!r} is not in the sources once")
+        texts[where[0]] = texts[where[0]].replace(old, new)
+    vdir = os.path.join(OUT, "".join(c if c.isalnum() else "_"
+                                     for c in name))
+    os.makedirs(vdir, exist_ok=True)
+    for path, text in texts.items():
+        with open(os.path.join(vdir, os.path.basename(path)), "w") as f:
+            f.write(text)
+    stem = os.path.join(vdir, "mlstm_scan")
+    # -I: the copies' relative include of csrc/hopper.cuh resolves from the
+    # source's own directory (the copy of the header, beside the copy of
+    # the source, comes first)
     res = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I",
                           os.path.dirname(SOURCE), "-o", stem + ".so",
                           stem + ".cu", ERRORS],
