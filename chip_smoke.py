@@ -33,7 +33,8 @@ a non-zero exit:
                 and also under stress with random keys, against the
                 recurrence in float64; rglru_scan on both routes (gate
                 biases fused in, whole gates), each timed at the serving
-                shape beside its own bound, its window and segment edges,
+                shape beside its own bound (the fused route also at the
+                train shape), its window and segment edges,
                 and a long memory (a up to 0.9999, S 1000 and 4096) held
                 against the recurrence in float64; and flash_attention's
                 backward (kernel_bwd): through the wrapper's autograd
@@ -53,9 +54,12 @@ a non-zero exit:
                 mask where the window bites: masked SDPA) timed beside the
                 card's bound; then rglru_scan's backward
                 (through ``ops.rglru``'s autograd function, bf16 and float32,
-                the train shape B 1, S 4096, D 4096, the 64-step chunk's
-                edges, h0 and dh_last, both routes; a long memory, a up to
-                0.9999 over 4096 steps, against autograd in float64) and
+                the train shape B 1, S 4096, D 4096, the edges of its
+                windows, many windows at narrower widths, B 2, x and ga
+                off a 16-byte boundary, h0 and dh_last,
+                both routes, each case repeated bit for bit; a long memory,
+                a up to 0.9999 over 4096 steps, against autograd in float64;
+                the train shape timed with each of its kernels) and
                 mlstm_scan's backward (through ``ops.mlstm_chunkwise``'s,
                 each case's backward on its forward's route, checked per
                 case: bf16 on wgmma_bf16 (split-bf16 ``wgmma`` products on
@@ -335,6 +339,28 @@ def profile_ms(fn):
             port[name] = (ms + e.self_device_time_total / 1e3, n + e.count)
     return wall, busy, [(e.self_device_time_total / 1e3, e.count, e.key)
                         for e in top], port
+
+
+def kernel_passes_ms(fn, pattern: str, calls: int = 10) -> dict:
+    """{a CUDA kernel's name as ``pattern`` (a regular expression) matches
+    it: mean device ms per call} over ``calls`` calls of ``fn``, by the
+    profiler (empty if it saw none)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    passes = {}
+    for e in prof.key_averages():
+        found = re.search(pattern, e.key)
+        if e.device_type == torch.autograd.DeviceType.CUDA and found and \
+                e.count:
+            name = found.group(0)
+            passes[name] = passes.get(name, 0.0) + \
+                e.self_device_time_total / calls / 1e3
+    return passes
 
 
 def print_profile(label, wall, busy, top, port):
@@ -1041,14 +1067,30 @@ def phase_kernel_rglru():
               f"rglru_scan {name}: {err} from float64, the plain version "
               f"{plain_err}")
         del x, ga, gx, y, wy, truth
+    # the train phases' shape (recurrentgemma-9b, one microbatch of 4096),
+    # where the forward runs twice a layer and microbatch (remat full)
+    x, lam, ga, gx, _, b_a, b_i = rglru_inputs(
+        1, TRAIN_SEQ, 4096, torch.bfloat16, torch.bfloat16, gen)
+    bias = dict(b_a=b_a, b_i=b_i)
+    y, _ = ops.rglru(x, lam, ga, gx, **bias)
+    wy, _ = ref.reference_rglru(x, lam, ga, gx, **bias)
+    err = float((y - wy).abs().max())
+    rel = err / float(wy.abs().max())
+    print(f"  {'griffin-train':19s} B=1 S={TRAIN_SEQ} D=4096 (fused_bias): "
+          f"max_abs_err={err:.3e} rel={rel:.3e} tol={RGLRU_RTOL:.0e}",
+          flush=True)
+    check(math.isfinite(rel) and rel <= RGLRU_RTOL,
+          f"rglru_scan griffin-train: relative error {rel} > {RGLRU_RTOL}")
+    at_train = time_rglru_kernel(x, lam, ga, gx, bias, "fused_bias", err)
+    del x, ga, gx, y, wy
     torch.cuda.empty_cache()
     return {**timed["fused_bias"], "timed_route": "fused_bias",
-            "at_gates_route": timed["gates"]}
+            "at_gates_route": timed["gates"], "at_train_shape": at_train}
 
 
 def time_rglru_kernel(x, lam, ga, gx, bias, route, err):
-    """Kernel and plain times at the serving shape on ``route``; no single
-    PyTorch call computes this function, so there is no library time."""
+    """Kernel and plain times at x's shape on ``route``; no single PyTorch
+    call computes this function, so there is no library time."""
     from repro_torch.kernels.rglru_scan import ops, ref
     B, S, D = x.shape
     kernel_ms = cuda_ms(lambda: ops.rglru(x, lam, ga, gx, **bias))
@@ -1258,7 +1300,6 @@ def time_mlstm_kernel(xs, err):
     each kernel the call launches (by the profiler, over the same calls)
     and, beside it, the scalar bf16 kernels on the same inputs."""
     from repro_torch.kernels.mlstm_scan import kernel, ops, ref
-    from torch.profiler import ProfilerActivity, profile
     B, S, H, Dh = xs[0].shape
     route = ops.kernel_route(*xs[:3])
     kernel_ms = cuda_ms(lambda: ops.mlstm_chunkwise(
@@ -1271,18 +1312,8 @@ def time_mlstm_kernel(xs, err):
             torch.empty((B, H), **f32))
     scalar_ms = cuda_ms(lambda: kernel.launch(*xs, None, *outs,
                                               "scalar_bf16"), iters=5)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            ops.mlstm_chunkwise(*xs, chunk=MLSTM_PLAIN_CHUNK)
-        torch.cuda.synchronize()
-    passes = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and \
-                "mlstm_" in e.key and e.count:
-            name = e.key.split("::")[-1].split("(")[0]
-            passes[name] = e.self_device_time_total / e.count / 1e3
+    passes = kernel_passes_ms(lambda: ops.mlstm_chunkwise(
+        *xs, chunk=MLSTM_PLAIN_CHUNK), r"mlstm_\w+(<[^()]*>)?")
     ws = kernel.workspace_bytes(B, S, H, Dh, route)
     bound_ms, bound_by, flops, nbytes = mlstm_bound(B, S, H, Dh,
                                                     xs[0].dtype, False)
@@ -1311,29 +1342,40 @@ def time_mlstm_kernel(xs, err):
 #  * bf16 dx, dga, dgx: rounded to bf16 on output (2**-9 of the value);
 #    2e-2 as the other bf16 bars;
 #  * float32 gradients, and dlam, db_a, db_i, dh0 in either dtype: the same
-#    float32 formulas in another order (the carry composed over chunks of
-#    64 steps, the per-channel sums over B * S from 64-step partials);
-#    ~1e-6 apart, 1e-4 is the bar.
+#    float32 formulas in another order (the carry composed over windows
+#    and their segments, the per-channel sums over B * S from per-block
+#    partials); ~1e-6 apart, 1e-4 is the bar.
 RGLRU_BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
-# float32 operations per (b, t, d) element of the backward: the gates again
+# float32 operations per (b, t, d) element of the backward: the gates
 # (two sigmoids, expm1, sqrt: 12), the carry (2), dlog_a (7), dga (4),
-# dgx (5), dx (2), three partial sums (3); pass 1's gates and carry (8)
-RGLRU_BWD_OPS_PER_ELEM = 43
+# dgx (5), dx (2), three partial sums (3)
+RGLRU_BWD_OPS_PER_ELEM = 35
 
-# (name, B, S, D, h0, dh_last, fused biases), each run with bf16 and with
-# float32 x and gates: the train phase's own shape (recurrentgemma-9b, one
-# microbatch of 4096; h_last unused, as in training), timed in bf16; the
-# edges of the backward's 64-step chunks (S 1, 63, 64, 65, 129), D not a
-# multiple of the 128-channel block (77, 200, 4100), h0 and dh_last, both
-# routes.
+# (name, B, S, D, h0, dh_last, fused biases, x and ga off a 16-byte
+# boundary), each run with bf16 and with float32 x and gates: the train
+# phase's own shape (recurrentgemma-9b, one microbatch of 4096; h_last
+# unused, as in training), timed in bf16; S 1, 63, 64, 65, 129 (the first
+# kernel's 64-step chunks), D not a multiple of 8 or of the block's 32
+# channels (77, 200, 4100), h0 and dh_last, both routes; then the windowed
+# kernel's edges: its windows (64 steps for float32 gates, 128 for bf16:
+# S 127, 128), many windows, the last ragged, at D 512 and 1024 (16 and
+# 32 blocks; S 1023 and 1025 either side of a multiple of both windows;
+# B 2), and x and ga off a 16-byte boundary (staged with plain loads).
 RGLRU_BWD_CASES = [
-    ("griffin-train", 1, TRAIN_SEQ, 4096, False, False, True),
-    ("single-step", 2, 1, 256, True, True, True),
-    ("chunk-63", 3, 63, 77, True, True, False),
-    ("chunk-64", 2, 64, 128, False, True, True),
-    ("chunk-65", 2, 65, 200, True, False, True),
-    ("chunk-129", 1, 129, 4100, True, True, True),
-    ("gates-1000", 2, 1000, 512, True, True, False),
+    ("griffin-train", 1, TRAIN_SEQ, 4096, False, False, True, False),
+    ("single-step", 2, 1, 256, True, True, True, False),
+    ("chunk-63", 3, 63, 77, True, True, False, False),
+    ("chunk-64", 2, 64, 128, False, True, True, False),
+    ("chunk-65", 2, 65, 200, True, False, True, False),
+    ("chunk-129", 1, 129, 4100, True, True, True, False),
+    ("gates-1000", 2, 1000, 512, True, True, False, False),
+    ("window-127", 2, 127, 96, True, True, True, False),
+    ("window-128", 1, 128, 64, False, True, False, False),
+    ("windows-1100", 2, 1100, 512, True, True, True, False),
+    ("windows-1023", 1, 1023, 1024, False, True, True, False),
+    ("windows-1025", 1, 1025, 1024, True, False, True, False),
+    ("b2-windows", 2, 2048, 1024, True, True, True, False),
+    ("off-16-bytes", 2, 100, 256, True, True, True, True),
 ]
 # a from 0.999 to 0.9999 over 4096 steps, float32, from h0 with dh_last:
 # the carry runs through thousands of a near 1, where every float32
@@ -1383,6 +1425,13 @@ def grad_errors(got, want, floor_frac=BWD_SCALE_FLOOR):
             max(float(w.abs().max()), floor) for g, w in zip(got, want)]
 
 
+def off_16_bytes(t):
+    """t's values in a contiguous tensor 2 or 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
 def phase_kernel_rglru_bwd():
     """rglru_scan's backward through ``ops.rglru`` under grad against the
     plain backward, both dtypes; returns the timing at the train shape."""
@@ -1391,10 +1440,12 @@ def phase_kernel_rglru_bwd():
     gen = torch.Generator(device="cuda").manual_seed(4)
     names = ("dx", "dlam", "dga", "dgx", "dh0", "db_a", "db_i")
     timing = None
-    for name, B, S, D, with_h0, with_dhl, fused in RGLRU_BWD_CASES:
+    for name, B, S, D, with_h0, with_dhl, fused, off16 in RGLRU_BWD_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             x, lam, ga, gx, h0, b_a, b_i = rglru_inputs(B, S, D, dtype,
                                                         dtype, gen)
+            if off16:
+                x, ga = off_16_bytes(x), off_16_bytes(ga)
             h0 = h0 if with_h0 else None
             b_a, b_i = (b_a, b_i) if fused else (None, None)
             dy = torch.randn((B, S, D), generator=gen, device="cuda")
@@ -1410,6 +1461,12 @@ def phase_kernel_rglru_bwd():
                   (before[0] + 1, before[1] + 1),
                   f"rglru_scan backward {name} {dtype} did not run on "
                   f"{route}")
+            again, _ = rglru_grads(x, lam, ga, gx, h0, b_a, b_i, dy,
+                                   dh_last)
+            check(all(a is None or torch.equal(a, b)
+                      for a, b in zip(got, again)),
+                  f"rglru_scan backward {name} {dtype}: a second call gave "
+                  f"other bits")
             want = ref.reference_rglru_bwd(x, lam, ga, gx, y, dy, h0,
                                            dh_last, b_a=b_a, b_i=b_i)
             errs = grad_errors(got, want)
@@ -1418,7 +1475,9 @@ def phase_kernel_rglru_bwd():
             abs_err = max(float((g.float() - w.float()).abs().max())
                           for g, w in zip(got, want) if w is not None)
             print(f"  {name:15s} {str(dtype):15s} B={B} S={S} D={D} "
-                  f"h0={with_h0} dh_last={with_dhl} ({route}): rel err "
+                  f"h0={with_h0} dh_last={with_dhl} ({route}"
+                  f"{', off 16 bytes' if off16 else ''}; repeat "
+                  f"bit-identical): rel err "
                   + " ".join(f"{k} {e:.3e}" for k, e in zip(names, errs)
                              if e is not None), flush=True)
             check(all(e is None or (math.isfinite(e) and e <= t)
@@ -1427,7 +1486,7 @@ def phase_kernel_rglru_bwd():
             if name == "griffin-train" and dtype == torch.bfloat16:
                 timing = time_rglru_bwd(x, lam, ga, gx, b_a, b_i, y, dy,
                                         abs_err)
-            del x, ga, gx, y, dy, got, want
+            del x, ga, gx, y, dy, got, again, want
     check_rglru_bwd_against_oracle(gen)
     torch.cuda.empty_cache()
     return timing
@@ -1463,17 +1522,20 @@ def check_rglru_bwd_against_oracle(gen):
 
 
 def time_rglru_bwd(x, lam, ga, gx, b_a, b_i, y, dy, err):
-    """The backward kernel's four passes and the plain backward at the
-    train shape; no PyTorch call computes this gradient, so no library
-    time."""
+    """The backward kernel (and each kernel one call launches, by the
+    profiler, mean of ten calls) and the plain backward at the train shape;
+    no PyTorch call computes this gradient, so no library time."""
     from repro_torch.kernels.rglru_scan import kernel, ref
     B, S, D = x.shape
     f32 = dict(dtype=torch.float32, device="cuda")
     dx, dga, dgx = (torch.empty_like(t) for t in (x, ga, gx))
     dlam, db_a, db_i = (torch.empty((D,), **f32) for _ in range(3))
-    kernel_ms = cuda_ms(lambda: kernel.launch_bwd(
-        x, lam, ga, gx, b_a, b_i, None, y, dy, None, dx, dga, dgx, dlam,
-        db_a, db_i, None))
+
+    def run():
+        kernel.launch_bwd(x, lam, ga, gx, b_a, b_i, None, y, dy, None, dx,
+                          dga, dgx, dlam, db_a, db_i, None)
+    kernel_ms = cuda_ms(run)
+    passes = kernel_passes_ms(run, r"rglru_bwd\w*")
     plain_ms = cuda_ms(lambda: ref.reference_rglru_bwd(
         x, lam, ga, gx, y, dy, b_a=b_a, b_i=b_i), iters=2, warmup=1)
     bound_ms, bound_by, flops, nbytes = rglru_bwd_bound(B, S, D, x.dtype,
@@ -1482,9 +1544,13 @@ def time_rglru_bwd(x, lam, ga, gx, b_a, b_i, y, dy, err):
           f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library: "
           f"none; bound {bound_ms * 1e3:.2f} us by {bound_by} "
           f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), "
-          f"{bound_ms / kernel_ms:.1%} of it", flush=True)
+          f"{bound_ms / kernel_ms:.1%} of it; passes (profiler, mean of 10 "
+          f"calls) " + (", ".join(f"{k} {v:.4f} ms" for k, v in
+                                  passes.items()) or "not measured"),
+          flush=True)
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "passes_ms": passes}
 
 
 # mlstm_scan's backward against its plain version (explicit formulas in
@@ -1625,7 +1691,6 @@ def time_mlstm_bwd(xs, h, stats, dh, err, route):
     train shape; no PyTorch call computes this gradient, so no library
     time."""
     from repro_torch.kernels.mlstm_scan import kernel, ref
-    from torch.profiler import ProfilerActivity, profile
     q, k, v, ig, fg = xs
     B, S, H, Dh = q.shape
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
@@ -1638,20 +1703,8 @@ def time_mlstm_bwd(xs, h, stats, dh, err, route):
     scalar_ms = cuda_ms(lambda: run("scalar_bf16"), iters=3, warmup=1)
     plain_ms = cuda_ms(lambda: ref.reference_mlstm_bwd(
         q, k, v, ig, fg, h, stats, dh), iters=2, warmup=1)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            run()
-        torch.cuda.synchronize()
-    passes = {}
-    for e in prof.key_averages():
-        found = re.search(r"mlstm_(bwd_\w+|gates_kernel|states_kernel|"
-                          r"qk_kernel)(<[^()]*>)?", e.key)
-        if e.device_type == torch.autograd.DeviceType.CUDA and found and \
-                e.count:
-            name = found.group(0)
-            passes[name] = passes.get(name, 0.0) + \
-                e.self_device_time_total / 3 / 1e3
+    passes = kernel_passes_ms(run, r"mlstm_(bwd_\w+|gates_kernel|"
+                                   r"states_kernel|qk_kernel)(<[^()]*>)?", 3)
     bound_ms, bound_by, flops, nbytes = mlstm_bwd_bound(
         B, S, H, Dh, q.dtype, MLSTM_BWD_BOUND_CHUNK)
     f32_bound_ms = flops / PEAK_FLOPS[torch.float32] * 1e3

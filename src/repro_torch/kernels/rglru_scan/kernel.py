@@ -9,7 +9,8 @@ PyTorch's current stream, and counts the launch in ``LAUNCHES`` and in
   adds the float32 biases b_a and b_i itself;
 * ``gates``: ga and gx are the whole gate pre-activations.
 
-``launch_bwd`` runs the backward's four passes and counts one launch in
+``launch_bwd`` runs the backward (a windowed reverse scan, a block per batch
+row and 32 channels, then the per-channel sums) and counts one launch in
 ``BWD_LAUNCHES`` and ``BWD_LAUNCHES_BY_ROUTE``, under the same routes.
 A run reads the counters to show which kernels it went through.  The
 library is built at the first launch, never at import.
@@ -27,7 +28,7 @@ ROUTES = ("fused_bias", "gates")
 
 LAUNCHES = 0    # kernel launches in this process; reset by whoever reads it
 LAUNCHES_BY_ROUTE = {route: 0 for route in ROUTES}
-BWD_LAUNCHES = 0    # backward launches (four passes each), likewise
+BWD_LAUNCHES = 0    # backward launches (two kernels each)
 BWD_LAUNCHES_BY_ROUTE = {route: 0 for route in ROUTES}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -68,8 +69,7 @@ def _bwd_kernel_fn():
 
 def bwd_workspace_bytes(B: int, S: int, D: int) -> int:
     """Bytes of the float32 workspace one backward call allocates: each
-    chunk's product of a and carry, and its partial sums of dlam, db_a and
-    db_i, per batch row and channel."""
+    batch row's partial sums of dlam, db_a and db_i, per channel."""
     fn = build.load_library().repro_rglru_scan_bwd_workspace_bytes
     fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_longlong

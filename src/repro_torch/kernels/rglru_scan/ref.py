@@ -12,7 +12,9 @@ product and a float32 bias add in float32).
 the segments composed into each segment's incoming h), for checking that
 order on the CPU; ``oracle_rglru`` is the recurrence in float64.
 ``reference_rglru_bwd`` is the plain version of the backward kernel: the
-gradient by explicit formulas, not by autograd.
+gradient by explicit formulas, not by autograd; ``rglru_bwd_route_model``
+is the backward kernel's order of the same arithmetic (windows, segments,
+the fixed-order sums).
 """
 from __future__ import annotations
 
@@ -166,3 +168,112 @@ def reference_rglru_bwd(x, lam, ga, gx, y, dy, h0=None, dh_last=None, *,
     db_i = None if b_i is None else dgxb.sum(dim=(0, 1))
     return (dx, dlam, dgab.to(ga.dtype), dgxb.to(gx.dtype), dh0, db_a,
             db_i)
+
+
+# The backward kernel's cut of the work (csrc/rglru_scan_bwd.cu: the
+# blocks' W by the gates' dtype, their P)
+BWD_WINDOW = {torch.bfloat16: 128, torch.float32: 64}
+BWD_SEGMENTS = 16
+
+
+def rglru_bwd_route_model(x, lam, ga, gx, y, dy, h0=None, dh_last=None, *,
+                          b_a=None, b_i=None, window=None,
+                          segments=BWD_SEGMENTS):
+    """``reference_rglru_bwd`` in the backward kernel's order, in float32.
+
+    S is cut into windows of ``window`` steps (None: the kernel's for ga's
+    dtype), each into ``segments`` segments.  Pass 1 forms each step's
+    gates once (a = 1 + em from em = expm1(log_a), 1 - a^2 = -em (2 + em),
+    1 / beta as rsqrt of it) and each segment's reverse pair (A =
+    exp(sum log_a), C = its carry out from 0).  The windows are walked
+    backwards from dh_last, the segments composed the last first from the
+    window's carry, and pass 2 runs g = dy + c over each segment from its
+    carry in; the last carry is dh0.  dlam's, db_a's and db_i's terms are
+    summed per (b, segment, channel) in the walked order, then over the
+    segments, then over b, in order.  Returns what ``reference_rglru_bwd``
+    returns."""
+    gab, gxb = _biased(ga, gx, b_a, b_i)
+    B, S, D = x.shape
+    u = torch.sigmoid(gab.float())
+    sp = F.softplus(lam.float())
+    coef = -RGLRU_C * sp
+    log_a = coef * u
+    em = torch.expm1(log_a)
+    bsq = -em * (2.0 + em)
+    a = 1.0 + em
+    i = torch.sigmoid(gxb.float())
+    x32 = x.float()
+    h_prev = torch.zeros_like(a)
+    h_prev[:, 1:] = y[:, :-1].float()
+    if h0 is not None:
+        h_prev[:, 0] = h0.float()
+    p = h_prev * a - i * x32 * a * a * torch.rsqrt(bsq)
+    kl = p * u                          # dlog_a (-c u) = -c g kl
+    ka = kl * coef * (1.0 - u)          # d(ga + b_a) = g ka
+    kx = torch.sqrt(bsq) * i            # dx = g kx
+    ki = kx * x32 * (1.0 - i)           # d(gx + b_i) = g ki
+    dy = dy.float()
+
+    if window is None:
+        window = BWD_WINDOW[ga.dtype]
+    n = -(-S // window)
+    L = window // segments
+    pad = n * window - S            # steps past S: a = 1, the rest 0
+
+    def cut(t, v=0.0):
+        return F.pad(t, (0, 0, 0, pad), value=v).reshape(B, n, segments, L,
+                                                         D)
+    log_a_w, a_w, dy_w = cut(log_a), cut(a, 1.0), cut(dy)
+    kl_w, ka_w, kx_w, ki_w = cut(kl), cut(ka), cut(kx), cut(ki)
+
+    # pass 1: each segment's (A, C)
+    sum_log_a = torch.zeros_like(dy_w[:, :, :, 0])
+    C = torch.zeros_like(sum_log_a)
+    for s in range(L - 1, -1, -1):
+        C = a_w[:, :, :, s] * (dy_w[:, :, :, s] + C)
+        sum_log_a = sum_log_a + log_a_w[:, :, :, s]
+    A = torch.exp(sum_log_a)
+
+    # the carries: the windows walked backwards from dh_last
+    carry = dy.new_zeros((B, D)) if dh_last is None else dh_last.float()
+    c_in = torch.empty_like(A)
+    for w in range(n - 1, -1, -1):
+        for q in range(segments - 1, -1, -1):
+            c_in[:, w, q] = carry
+            carry = A[:, w, q] * carry + C[:, w, q]
+    dh0 = None if h0 is None else carry
+
+    # pass 2: g over each segment from its carry in, and every gradient
+    g = torch.empty_like(dy_w)
+    c = c_in
+    for s in range(L - 1, -1, -1):
+        g[:, :, :, s] = dy_w[:, :, :, s] + c
+        c = a_w[:, :, :, s] * g[:, :, :, s]
+    terms = [g * kl_w, g * ka_w, g * ki_w]
+
+    # the sums: per (b, segment, channel) in the walked order (the windows
+    # backwards, each segment's steps backwards), then over the segments,
+    # then over b
+    sums = []
+    for t in terms:
+        acc = dy.new_zeros((B, segments, D))
+        for w in range(n - 1, -1, -1):
+            for s in range(L - 1, -1, -1):
+                acc = acc + t[:, w, :, s]
+        part = dy.new_zeros((B, D))
+        for q in range(segments):
+            part = part + acc[:, q]
+        total = dy.new_zeros((D,))
+        for r in part:
+            total = total + r
+        sums.append(total)
+
+    def out(t, like):
+        return t.reshape(B, n * window, D)[:, :S].to(like.dtype)
+    dx = out(g * kx_w, x)
+    dgab = out(terms[1], ga)
+    dgxb = out(terms[2], gx)
+    dlam = -RGLRU_C * sums[0] * torch.sigmoid(lam.float())
+    db_a = None if b_a is None else sums[1]
+    db_i = None if b_i is None else sums[2]
+    return dx, dlam, dgab, dgxb, dh0, db_a, db_i

@@ -1010,6 +1010,15 @@ def _rglru_grads(x, lam, ga, gx, h0, b_a, b_i, dy, dh_last):
     (2, 65, 200, True, False, True),
     (1, 129, 4100, True, True, True),      # D past whole 128-channel blocks
     (2, 1000, 512, True, True, False),
+    # the backward's windows' edges (64 steps for float32 gates, 128 for
+    # bf16); many windows, the last ragged, at D 512 and 1024 (16 and 32
+    # blocks), S one step either side of a multiple of both windows; B 2
+    (2, 127, 96, True, True, True),
+    (1, 128, 64, False, True, False),
+    (2, 1100, 512, True, True, True),
+    (1, 1023, 1024, False, True, True),
+    (1, 1025, 1024, True, False, True),
+    (2, 2048, 1024, True, True, True),
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_rglru_backward_matches_plain(B, S, D, with_h0, with_dhl, fused,
@@ -1040,6 +1049,57 @@ def test_rglru_backward_matches_plain(B, S, D, with_h0, with_dhl, fused,
         tol = RGLRU_BWD_TOL[dtype] if name in ("dx", "dga", "dgx") else \
             RGLRU_BWD_TOL[torch.float32]
         assert e <= tol, (name, e)
+
+
+def _rglru_bwd_case(B, S, D, dtype, seed):
+    """Inputs with h0 and dh_last on the fused route, and the forward's y."""
+    x, lam, ga, gx, h0, b_a, b_i = _scan_inputs(B, S, D, dtype, dtype,
+                                                seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    dy = torch.randn((B, S, D), generator=g, device="cuda")
+    dh_last = torch.randn((B, D), generator=g, device="cuda")
+    return x, lam, ga, gx, h0, b_a, b_i, dy, dh_last
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rglru_backward_off_a_16_byte_boundary(dtype):
+    """x and ga 2 or 4 bytes past a 16-byte boundary (contiguous views of
+    a buffer): the backward stages them with plain loads, and agrees with
+    the plain backward as the aligned cases do."""
+    _need_cuda()
+    B, S, D = 2, 100, 256
+    x, lam, ga, gx, h0, b_a, b_i, dy, dh_last = _rglru_bwd_case(B, S, D,
+                                                                dtype, 11)
+    views = []
+    for t in (x, ga):
+        buf = torch.empty(t.numel() + 1, dtype=dtype, device="cuda")
+        views.append(buf[1:].view(t.shape).copy_(t))
+    x, ga = views
+    assert x.data_ptr() % 16 and ga.data_ptr() % 16
+    got, y = _rglru_grads(x, lam, ga, gx, h0, b_a, b_i, dy, dh_last)
+    torch.cuda.synchronize()
+    want = rg_ref.reference_rglru_bwd(x, lam, ga, gx, y, dy, h0, dh_last,
+                                      b_a=b_a, b_i=b_i)
+    for name, e in zip(("dx", "dlam", "dga", "dgx", "dh0", "db_a", "db_i"),
+                       _grad_errs(got, want)):
+        tol = RGLRU_BWD_TOL[dtype] if name in ("dx", "dga", "dgx") else \
+            RGLRU_BWD_TOL[torch.float32]
+        assert e <= tol, (name, e)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rglru_backward_repeats_bit_for_bit(dtype):
+    """Two backward calls on the same inputs give the same bits in every
+    gradient (the sums over segments and batch rows in a fixed order, no
+    atomics), at the train shape and at B 2."""
+    _need_cuda()
+    for B, S, D in ((1, 4096, 4096), (2, 1100, 512)):
+        case = _rglru_bwd_case(B, S, D, dtype, 12)
+        first, _ = _rglru_grads(*case)
+        second, _ = _rglru_grads(*case)
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
 
 
 def test_rglru_backward_long_memory_against_float64():

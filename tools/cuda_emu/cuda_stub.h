@@ -71,6 +71,34 @@ inline __nv_bfloat16 __float2bfloat16(float f) { return {f2bf(f)}; }
 inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) { return {{f2bf(a)}, {f2bf(b)}}; }
 inline float2 __bfloat1622float2(__nv_bfloat162 v) { return {__bfloat162float(v.x), __bfloat162float(v.y)}; }
 
+// ---- fast-math intrinsics and cuda_pipeline.h ----------------------------
+inline float __expf(float v) { return expf(v); }
+inline float __fdividef(float a, float b) { return a / b; }
+inline float rsqrtf(float v) { return 1.f / sqrtf(v); }
+// cp.async as a copy queued per thread: __pipeline_commit closes a group,
+// __pipeline_wait_prior(n) carries out all but the newest n groups, so that
+// a read of the buffer before its wait sees the launcher's NaN fill
+struct EmuCopy { void* dst; const void* src; size_t size, zfill; };
+inline thread_local std::vector<EmuCopy> emu_open_group;
+inline thread_local std::vector<std::vector<EmuCopy>> emu_groups;
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t size,
+                                    size_t zfill = 0) {
+  emu_open_group.push_back({dst, src, size, zfill});
+}
+inline void __pipeline_commit() {
+  emu_groups.push_back(std::move(emu_open_group));
+  emu_open_group.clear();
+}
+inline void __pipeline_wait_prior(size_t n) {
+  while (emu_groups.size() > n) {
+    for (const EmuCopy& c : emu_groups.front()) {
+      memcpy(c.dst, c.src, c.size - c.zfill);
+      memset(static_cast<char*>(c.dst) + (c.size - c.zfill), 0, c.zfill);
+    }
+    emu_groups.erase(emu_groups.begin());
+  }
+}
+
 // ---- per-block synchronisation -------------------------------------------
 struct EmuBlock {
   uint8_t* smem = nullptr;

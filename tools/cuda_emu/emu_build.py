@@ -20,7 +20,8 @@ OUT = ROOT / "build/cuda_emu"
 
 
 def _stub(text: str) -> str:
-    for inc in ("<cuda.h>", "<cuda_runtime.h>", "<cuda_bf16.h>"):
+    for inc in ("<cuda.h>", "<cuda_runtime.h>", "<cuda_bf16.h>",
+                "<cuda_pipeline.h>"):
         text = re.sub(r"#include " + re.escape(inc) + r"[^\n]*",
                       '#include "cuda_stub.h"', text)
     return text
