@@ -19,8 +19,11 @@ a non-zero exit:
                 bf16 and float32, within the stated tolerances; at the
                 serving shapes also kernel, plain and library (or yardstick)
                 times and the card's bound for the same work (flash
-                attention at minicpm's, granite-moe's and recurrentgemma's
-                prefill shapes, with kernel / SDPA as a factor); bf16 flash
+                attention at minicpm's, granite-moe's, recurrentgemma's and
+                llama-3.2-vision's prefill shapes and hubert-xlarge's train
+                shape, with kernel / SDPA as a factor; at hubert's head dim
+                of 80, which the wrapper pads to 120, also the kernel alone
+                on inputs padded beforehand); bf16 flash
                 attention runs on the wgmma route, float32 on the scalar
                 one; moe_gmm likewise (bf16 that TMA cannot address on its
                 WMMA route), timed at granite-moe's prefill with every row
@@ -44,11 +47,12 @@ a non-zero exit:
                 causal, not causal and biting windows, head dims 16, 64,
                 80, 120, 128 and 256 (16 and 80 padded), S 1, 63, 65, 200,
                 1000 and 4096 (the train phases' own shapes: minicpm-2b's
-                36 heads of 64 and recurrentgemma-9b's 16/1 at 256 with its
-                window of 2048, at one microbatch of 4096), each case
+                36 heads of 64, recurrentgemma-9b's 16/1 at 256 with its
+                window of 2048 and hubert-xlarge's 16 heads of 80, not
+                causal, at one microbatch of 4096), each case
                 checked to run on its route and, in bf16, to give the same
                 bits on a second call, the forward's row log-sum-exp
-                against the plain one, and at both train shapes and
+                against the plain one, and at the three train shapes and
                 minicpm's, granite's and recurrentgemma's prefill shapes the
                 kernel, the plain version and SDPA's backward (with a band
                 mask where the window bites: masked SDPA) timed beside the
@@ -118,8 +122,9 @@ a non-zero exit:
 13. train consistency  one float32 step of minicpm-2b at full width, 2
                 layers, S 1024 (flash's scalar_f32 routes both ways): loss
                 and every parameter's gradient on the card against the CPU's
-                plain versions from the same weights, with the labels
-                shifted by one position as the negative control
+                plain versions from the same weights (every norm scale drawn
+                at 0.1 N(0, 1), as in every train consistency phase), with
+                the labels shifted by one position as the negative control
 14. train       recurrentgemma-9b at full width, depth cut to 2 periods (4
                 RG-LRU, 2 LOCAL layers, 3.41 B params), as phase 12 at
                 2 x 4096: every step 16 rglru_scan and 8 flash forward
@@ -134,6 +139,31 @@ a non-zero exit:
                 wgmma_bf16
 17. train consistency  xlstm-1.3b, one period, float32, S 512 (mlstm_scan's
                 scalar_f32 routes both ways)
+18. serve       full-width, full-depth llama-3.2-vision-11b (40 layers: 32
+                ATTN with GQA 32/8 at head dim 128, 8 gated CROSS layers;
+                9.780 B params in bf16, every gate set to 0.5) serves 8
+                requests of 1000 prompt tokens in 2 batches of 4, each
+                batch with 1600 patches a row from ``vision_patches``,
+                through ``make_prefill_step`` and ``make_serve_step`` (the
+                serve loop takes no patches): 16 new greedy tokens a
+                request, logits finite, every prefill 32 flash launches,
+                causal, on wgmma_bf16, no decode step any (cross-attention
+                computes on plain PyTorch); prefill and decode times, new
+                tokens/s, peak memory, profiles, and one CROSS block's and
+                its attention's CUDA-event times with their share of the
+                prefill
+19. consistency llama-3.2-vision-11b in float32, one period (4 ATTN, 1
+                CROSS) at full width, S 512, gates 0.5 and norms drawn:
+                prefill + 3 decode steps on the card against the CPU; the
+                negative control feeds the card another image's patches
+20. train       full-width, full-depth hubert-xlarge (48 layers, 0.945 B
+                params) as phase 12, on frames with the masked-prediction
+                loss: every step 192 flash forward and 96 backward
+                launches, all not causal, on wgmma_bf16; then one encode
+                (``forward_logits`` under ``inference_mode``) of 4 x 4096
+                frames, 48 flash launches, not causal
+21. train consistency  hubert-xlarge, 2 layers, float32, S 512; the
+                negative control flips the mask
 
 Earlier serve paths run at full depth; if the run outgrows its time, their
 depth is what gets cut first.
@@ -279,6 +309,22 @@ XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_SEQ = 4, 1024
 # their float32 consistency steps: one period each, at S 512
 GRIFFIN_CONSIST_LAYERS, XLSTM_CONSIST_LAYERS, RECURRENT_CONSIST_SEQ = \
     3, 2, 512
+# the vision and audio paths: llama-3.2-vision-11b serves at full width
+# and depth (8 requests of 1000 prompt tokens, n_patches patches of image
+# memory a row); hubert-xlarge trains at full width and depth as the
+# others do, and encodes ENCODE_BATCH rows of TRAIN_SEQ frames
+VISION_ARCH = "llama-3.2-vision-11b"
+AUDIO_ARCH = "hubert-xlarge"
+ENCODE_BATCH = 4
+# a CROSS layer's gate starts at 0 (its path then adds nothing) and every
+# norm scale at 0: the vision phases set each gate to GATE, and the
+# vision and train consistency phases draw each norm scale at 0.1 N(0, 1)
+GATE = 0.5
+# their float32 consistency checks: one period of the vision pattern (4
+# ATTN, 1 CROSS) at S 512 (prefill + decode, card against CPU); hubert's
+# training step at 2 layers, S 512
+VISION_CONSIST_LAYERS, VISION_CONSIST_SEQ = 5, 512
+AUDIO_CONSIST_LAYERS, AUDIO_CONSIST_SEQ = 2, 512
 
 
 def phase(name: str) -> None:
@@ -473,8 +519,11 @@ KERNEL_CASES = [
     ("ragged-136", 2, 136, 8, 2, 128, True, 0),
     ("ragged-136-window", 2, 136, 8, 2, 64, True, 100),
     ("non-causal-136", 2, 136, 4, 4, 120, False, 0),
+    ("vision-prefill", 4, 1000, 32, 8, 128, True, 0),
+    ("hubert-train", 1, TRAIN_SEQ, 16, 16, 80, False, 0),
 ]
-TIMED_CASES = ("minicpm-prefill", "granite-prefill", "griffin-prefill")
+TIMED_CASES = ("minicpm-prefill", "granite-prefill", "griffin-prefill",
+               "vision-prefill", "hubert-train")
 
 
 def phase_kernel():
@@ -509,14 +558,33 @@ def phase_kernel():
     return result
 
 
+def pad_head_dim(*ts):
+    """The tensors zero-padded along Dh to the kernel's head dim, as the
+    wrapper pads them (``ops.kernel_head_dim``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    dh = ops.kernel_head_dim(ts[0].shape[3])
+    return tuple(F.pad(t, (0, dh - t.shape[3])).contiguous() for t in ts)
+
+
 def time_kernel(q, k, v, causal, window, err):
-    """Kernel, plain version and library times at the serving shape."""
-    from repro_torch.kernels.flash_attention import ops, ref
+    """Kernel (through the wrapper, as the model calls it), plain version
+    and library times at a model's shape; at a head dim the wrapper pads,
+    also the kernel alone on inputs padded beforehand."""
+    from repro_torch.kernels.flash_attention import kernel, ops, ref
     import torch.nn.functional as F
     B, S, H, Dh = q.shape
     KH = k.shape[2]
     kernel_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
                                                     window=window))
+    padded = {}
+    if Dh not in ops.SUPPORTED_HEAD_DIMS:
+        qp, kp, vp = pad_head_dim(q, k, v)
+        out = torch.empty_like(qp)
+        padded["padded_kernel_ms"] = cuda_ms(lambda: kernel.launch(
+            qp, kp, vp, out, causal=causal, window=window,
+            scale=1.0 / math.sqrt(Dh)))
+        del qp, kp, vp, out
     plain_ms = cuda_ms(lambda: ref.reference_attention(
         q, k, v, causal=causal, window=window), iters=5)
     # yardstick only: one PyTorch call computing the same function; the
@@ -531,10 +599,13 @@ def time_kernel(q, k, v, causal, window, err):
           f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
           f"{library_ms:.4f} ms, kernel / sdpa {kernel_ms / library_ms:.2f}x; "
           f"bound {bound_ms * 1e3:.2f} us by {bound_by} "
-          f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)", flush=True)
+          f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)"
+          + (f"; the kernel alone on inputs padded to Dh "
+             f"{ops.kernel_head_dim(Dh)}: {padded['padded_kernel_ms']:.4f} "
+             f"ms" if padded else ""), flush=True)
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, **padded}
 
 
 def attention_bwd_bound(B, S, H, KH, Dh, causal, window, dtype):
@@ -575,8 +646,10 @@ BWD_CASES = [
     ("dh16-padded", 2, 65, 4, 2, 16, True, 0),
     ("dh80-non-causal", 2, 63, 4, 4, 80, False, 0),
     ("non-causal-window", 1, 200, 4, 2, 64, False, 40),
+    ("hubert-train", 1, TRAIN_SEQ, 16, 16, 80, False, 0),
 ]
-BWD_TIMED_CASES = ("minicpm-train", "griffin-train") + TIMED_CASES
+BWD_TIMED_CASES = ("minicpm-train", "griffin-train", "minicpm-prefill",
+                   "granite-prefill", "griffin-prefill", "hubert-train")
 # the backward's route by dtype, as the port's kernel.BWD_ROUTES must say
 BWD_EXPECTED_ROUTES = {torch.bfloat16: "wgmma_bf16",
                        torch.float32: "scalar_f32"}
@@ -598,8 +671,9 @@ def bwd_errors(got, want, one_key):
 def phase_kernel_bwd():
     """The flash backward against its plain version, and in bf16 against
     itself on a second call (bit for bit); returns the timing at minicpm's
-    train shape, with recurrentgemma's train shape and minicpm's, granite's
-    and recurrentgemma's prefill shapes under at_griffin_train_shape,
+    train shape, with recurrentgemma's and hubert-xlarge's train shapes and
+    minicpm's, granite's and recurrentgemma's prefill shapes under
+    at_griffin_train_shape, at_hubert_train_shape,
     at_minicpm_prefill_shape, at_granite_shape and at_griffin_shape."""
     from repro_torch.kernels.flash_attention import kernel, ops, ref
     phase("kernel_bwd")
@@ -671,6 +745,7 @@ def phase_kernel_bwd():
     torch.cuda.empty_cache()
     timing = dict(result["minicpm-train"])
     timing["at_griffin_train_shape"] = result["griffin-train"]
+    timing["at_hubert_train_shape"] = result["hubert-train"]
     timing["at_minicpm_prefill_shape"] = result["minicpm-prefill"]
     timing["at_granite_shape"] = result["granite-prefill"]
     timing["at_griffin_shape"] = result["griffin-prefill"]
@@ -709,20 +784,26 @@ def sdpa_bwd_call(q, k, v, do, causal, window):
 def time_kernel_bwd(q, k, v, do, causal, window, err):
     """The backward kernel's passes, its plain version and
     ``torch.autograd.grad`` of SDPA (``sdpa_bwd_call``) on the same
-    inputs."""
-    from repro_torch.kernels.flash_attention import kernel, ref
+    inputs.  At a head dim the wrapper pads, the kernel runs on inputs
+    padded beforehand (as the autograd function receives them)."""
+    from repro_torch.kernels.flash_attention import kernel, ops, ref
     B, S, H, Dh = q.shape
     KH = k.shape[2]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     scale = 1.0 / math.sqrt(Dh)
-    out, lse = torch.empty_like(q), torch.empty((B, H, S), device="cuda")
-    kernel.launch(q, k, v, out, causal=causal, window=window, scale=scale,
+    kdh = ops.kernel_head_dim(Dh)
+    qp, kp, vp, dop = (q, k, v, do) if kdh == Dh else \
+        pad_head_dim(q, k, v, do)
+    out, lse = torch.empty_like(qp), torch.empty((B, H, S), device="cuda")
+    kernel.launch(qp, kp, vp, out, causal=causal, window=window, scale=scale,
                   lse=lse)
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dq, dk, dv = (torch.empty_like(t) for t in (qp, kp, vp))
     dsum = torch.empty_like(lse)
     kernel_ms = cuda_ms(lambda: kernel.launch_bwd(
-        q, k, v, out, do, lse, dsum, dq, dk, dv, causal=causal,
+        qp, kp, vp, out, dop, lse, dsum, dq, dk, dv, causal=causal,
         window=window, scale=scale), iters=10)
+    del qp, kp, vp, dop, dq, dk, dv
+    out = out[..., :Dh]
     plain_ms = cuda_ms(lambda: ref.reference_attention_bwd(
         q, k, v, out, lse, do, causal=causal, window=window), iters=3,
         warmup=1)
@@ -733,8 +814,8 @@ def time_kernel_bwd(q, k, v, do, causal, window, err):
     bound_ms, bound_by, flops, nbytes = attention_bwd_bound(
         B, S, H, KH, Dh, causal, window, q.dtype)
     print(f"  backward timing at B={B} S={S} H={H} KH={KH} Dh={Dh} "
-          f"window={window} {q.dtype} (splits "
-          f"{kernel.bwd_splits(B, S, H, KH, Dh, sms)}): kernel "
+          f"(kernel Dh {kdh}) window={window} {q.dtype} (splits "
+          f"{kernel.bwd_splits(B, S, H, KH, kdh, sms)}): kernel "
           f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, {sdpa_name} "
           f"backward {library_ms:.4f} ms, kernel / {sdpa_name} "
           f"{kernel_ms / library_ms:.2f}x; bound {bound_ms:.4f} ms by "
@@ -2052,11 +2133,14 @@ def check_routes(routes, launches, expected, what):
 
 
 def phase_train(arch: str = ARCH, n_layers=None, seq: int = TRAIN_SEQ,
-                profile: bool = True):
+                profile: bool = True, extra=None):
     """Four AdamW steps of full-width ``arch`` (``n_layers`` layers, or its
     full depth) at ``seq``, then an eval step, through ``make_train_step``
-    / ``make_eval_step``; returns ({kernel: launches over the steps and the
-    eval}, {kernel: launches by route}, {step metrics and times})."""
+    / ``make_eval_step``; every flash launch causal unless the model is
+    encoder-only; ``extra(cfg, params)`` runs on the trained weights, its
+    dict kept under "extra".  Returns ({kernel: launches over the steps
+    and the eval}, {kernel: launches by route}, {step metrics and
+    times})."""
     from repro_torch.configs import get_arch, get_schedule
     from repro_torch.data import batch_for
     from repro_torch.launch.steps import make_eval_step, make_train_step
@@ -2094,7 +2178,10 @@ def phase_train(arch: str = ARCH, n_layers=None, seq: int = TRAIN_SEQ,
     step_fn = make_train_step(cfg, ocfg, accum_steps=TRAIN_ACCUM,
                               device="cuda")
     want = step_launches(cfg, TRAIN_ACCUM, backward=True)
+    unit = "frames" if cfg.modality == "audio" else "tokens"
+    opt_ms, restore_opt = time_adamw()
     reset_kernel_launches()
+    masks, restore = record_flash_masks()
     history = []
     for i in range(TRAIN_STEPS):
         before = kernel_launches()
@@ -2112,11 +2199,14 @@ def phase_train(arch: str = ARCH, n_layers=None, seq: int = TRAIN_SEQ,
               f"expected {want}")
         m["ms"] = ms
         m["tokens_per_s"] = TRAIN_BATCH * seq / (ms / 1e3)
+        m["adamw_ms"] = opt_ms[-1]
         history.append(m)
         print(f"  step {i + 1}: loss {m['loss']:.5f} nll {m['nll']:.5f} "
               f"acc {m['acc']:.4f} grad_norm {m['grad_norm']:.4f} lr "
-              f"{m['lr']:.3e}; {ms:.1f} ms, {m['tokens_per_s']:.1f} "
-              f"tokens/s; launches {delta}", flush=True)
+              f"{m['lr']:.3e}; {ms:.1f} ms ({opt_ms[-1]:.1f} in AdamW), "
+              f"{m['tokens_per_s']:.1f} {unit}/s; launches {delta}",
+              flush=True)
+    restore_opt()
     check(history[-1]["loss"] < history[0]["loss"],
           f"the loss did not fall over {TRAIN_STEPS} steps on one batch: "
           f"{history[0]['loss']} -> {history[-1]['loss']}")
@@ -2133,9 +2223,16 @@ def phase_train(arch: str = ARCH, n_layers=None, seq: int = TRAIN_SEQ,
           f"eval: a metric is not finite: {ev}")
     check(delta == step_launches(cfg, TRAIN_ACCUM, backward=False),
           f"the eval step launched {delta}")
+    restore()
     launches = kernel_launches()
     routes = kernel_routes()
     check_routes(routes, launches, TRAIN_ROUTES, f"train {cfg.name}")
+    causal = not cfg.encoder_only
+    want_masks = {(name, causal): launches[key] for name, key in
+                  (("forward", "flash_attention"),
+                   ("backward", "flash_attention_bwd")) if launches[key]}
+    check(masks == want_masks, f"train {cfg.name}: flash launches by (pass, "
+          f"causal) {masks}, expected {want_masks}")
     steady = [h["ms"] for h in history[1:]]
     print(f"  eval: loss {ev['loss']:.5f} nll {ev['nll']:.5f} acc "
           f"{ev['acc']:.4f}; {eval_ms:.1f} ms; loss {history[0]['loss']:.5f}"
@@ -2144,22 +2241,30 @@ def phase_train(arch: str = ARCH, n_layers=None, seq: int = TRAIN_SEQ,
     print(f"  {TRAIN_STEPS} steps + eval: launches {launches}; by route "
           f"{routes}; step time {min(steady):.1f}-{max(steady):.1f} ms after "
           f"the first ({history[0]['ms']:.1f} ms); peak memory over the "
-          f"steps {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB)", flush=True)
+          f"steps {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB); flash "
+          f"launches by (pass, causal) {masks}", flush=True)
     if profile:
         # where the time goes: one more step, under the profiler
         print_profile("train step", *profile_ms(
             lambda: step_fn(params, opt, batch)))
-    del params, opt, batch, step_fn
+    out = {"steps": history, "eval": ev, "eval_ms": eval_ms,
+           "peak_bytes": peak}
+    del opt, batch, step_fn
     torch.cuda.empty_cache()
-    return launches, routes, {"steps": history, "eval": ev,
-                              "eval_ms": eval_ms, "peak_bytes": peak}
+    if extra is not None:
+        out["extra"] = extra(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    return launches, routes, out
 
 
 def phase_train_consistency(arch: str = ARCH, n_layers: int = CONSIST_LAYERS,
                             seq: int = CONSIST_SEQ):
     """One float32 training step's loss and gradients on the card against
-    the same on the CPU, at full width and ``n_layers`` layers, with the
-    labels shifted by one position as the negative control."""
+    the same on the CPU, at full width and ``n_layers`` layers, every norm
+    scale drawn (0 at init, where a fault in a norm cannot show), with the
+    labels shifted by one position (an audio model: its mask flipped) as
+    the negative control."""
     from repro_torch.configs import get_arch
     from repro_torch.convert import flatten_with_paths
     from repro_torch.data import batch_for
@@ -2170,21 +2275,31 @@ def phase_train_consistency(arch: str = ARCH, n_layers: int = CONSIST_LAYERS,
     cfg = dataclasses.replace(get_arch(arch), n_layers=n_layers,
                               dtype="float32")
     params = R.init_params(cfg, 0, device="cpu", param_dtype=torch.float32)
+    draw_norms(params)
     batch = batch_for(cfg, ShapeSpec("consistency", seq, 1, "train"),
                       seed=1)
+    if cfg.modality == "audio":
+        control = "the mask flipped"
+        bad_batch = dict(batch, mask=1.0 - batch["mask"])
+    else:
+        control = "labels shifted by one"
+        bad_batch = dict(batch, labels=np.roll(batch["labels"], 1, axis=1))
 
-    def run(device, labels):
+    def run(device, b):
         p = tree_map(lambda t: t.detach().to(device).requires_grad_(True),
                      params)
-        loss, _ = R.forward_train(p, cfg, {"tokens": batch["tokens"],
-                                           "labels": labels}, device=device)
+        loss, _ = R.forward_train(p, cfg, b, device=device)
         loss.backward()
         return float(loss.detach()), {k: t.grad.detach().cpu() for k, t in
                                       flatten_with_paths(p).items()}
 
     reset_kernel_launches()
     t0 = time.perf_counter()
-    loss_gpu, g_gpu = run("cuda", batch["labels"])
+    masks, restore = record_flash_masks()
+    try:
+        loss_gpu, g_gpu = run("cuda", batch)
+    finally:
+        restore()
     torch.cuda.synchronize()
     gpu_s = time.perf_counter() - t0
     launches = kernel_launches()
@@ -2193,11 +2308,14 @@ def phase_train_consistency(arch: str = ARCH, n_layers: int = CONSIST_LAYERS,
           f"the float32 step launched {launches}, expected {want}")
     check_routes(kernel_routes(), launches, CONSIST_ROUTES,
                  f"train consistency {cfg.name}")
+    check(all(causal != cfg.encoder_only for _, causal in masks),
+          f"train consistency {cfg.name}: flash launches by (pass, causal) "
+          f"{masks}")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    loss_cpu, g_cpu = run("cpu", batch["labels"])
+    loss_cpu, g_cpu = run("cpu", batch)
     cpu_s = time.perf_counter() - t0
-    _, g_bad = run("cpu", np.roll(batch["labels"], 1, axis=1))
+    _, g_bad = run("cpu", bad_batch)
 
     def rel(got, want):
         top = max(float(w.abs().max()) for w in want.values())
@@ -2209,15 +2327,372 @@ def phase_train_consistency(arch: str = ARCH, n_layers: int = CONSIST_LAYERS,
     print(f"  {cfg.n_layers} layers {layer_counts(cfg)} at full width, "
           f"float32, S={seq}: loss card {loss_gpu:.6f} cpu {loss_cpu:.6f} "
           f"(rel err {loss_err:.3e}); max rel grad err over {len(g_cpu)} "
-          f"leaves {err:.3e} (tol {TRAIN_RTOL:.0e}); labels shifted by one: "
+          f"leaves {err:.3e} (tol {TRAIN_RTOL:.0e}); {control}: "
           f"{err_bad:.3e}; card {gpu_s:.2f} s, cpu {cpu_s:.2f} s; launches "
-          f"{launches}", flush=True)
+          f"{launches}; norms drawn", flush=True)
     check(loss_err <= TRAIN_RTOL, f"the loss disagrees: {loss_err}")
     check(err <= TRAIN_RTOL, f"the gradients disagree: {err}")
     check(err_bad > TRAIN_RTOL,
-          f"shifted labels pass the tolerance ({err_bad})")
+          f"{control}: passes the tolerance ({err_bad})")
     del params, g_gpu, g_cpu, g_bad
     return {"rel_err": err, "shifted_rel_err": err_bad}
+
+
+def record_flash_masks():
+    """Count the flash kernel's launches by (pass, causal) from now on, by
+    wrapping ``kernel.launch`` and ``kernel.launch_bwd`` (which the wrapper
+    and the autograd function call through the module); returns (the
+    {("forward" or "backward", causal): launches} dict, a function that
+    restores both)."""
+    from repro_torch.kernels.flash_attention import kernel
+    counts: dict = {}
+    real = {"forward": kernel.launch, "backward": kernel.launch_bwd}
+
+    def wrap(name):
+        def launch(*args, **kwargs):
+            key = (name, bool(kwargs["causal"]))
+            counts[key] = counts.get(key, 0) + 1
+            return real[name](*args, **kwargs)
+        return launch
+    kernel.launch, kernel.launch_bwd = wrap("forward"), wrap("backward")
+
+    def restore():
+        kernel.launch, kernel.launch_bwd = real["forward"], real["backward"]
+    return counts, restore
+
+
+def time_adamw():
+    """Time each ``adamw_update`` of the train step from now on (wall
+    clock, the card synchronised before and after), by wrapping the name
+    ``launch.steps`` calls; returns (the list of ms it appends to, a
+    function that restores the name)."""
+    from repro_torch.launch import steps
+    real = steps.adamw_update
+    times: list = []
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+    steps.adamw_update = timed
+
+    def restore():
+        steps.adamw_update = real
+    return times, restore
+
+
+def set_gates(params, gate: float = GATE) -> int:
+    """Set every CROSS layer's gate (0 at init) to ``gate``; returns how
+    many there are."""
+    gates = [lay["mix"]["gate"] for lay in params["layers"]
+             if "gate" in lay["mix"]]
+    for g in gates:
+        g.fill_(gate)
+    return len(gates)
+
+
+def draw_norms(params, seed: int = 1) -> None:
+    """Draw every norm scale (0 at init) at 0.1 N(0, 1), so that a norm
+    that differs between card and CPU shows (C33)."""
+    from repro_torch.convert import flatten_with_paths
+    gen = torch.Generator().manual_seed(seed)
+    for name, t in flatten_with_paths(params).items():
+        if name.endswith("ln']"):
+            t.copy_(0.1 * torch.randn(t.shape, generator=gen))
+
+
+def cross_attention_ms(cfg, params, patches, prefill_ms):
+    """CUDA-event times of one CROSS block (``transformer._cross_attn``)
+    and of its plain attention alone at the serving prefill's shapes, and
+    the bound of that attention (S_k = n_patches keys for every query,
+    4 Dh FLOPs a pair at the bf16 rate; q, k, v read and o written once);
+    their shares of the prefill are the block's times n_cross over
+    ``prefill_ms``."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import attention, dense, rms_norm
+    n_cross = sum(T.layer_kind(cfg, n) == "cross"
+                  for n in range(cfg.n_layers))
+    p = next(lay["mix"] for lay in params["layers"] if "gate" in lay["mix"])
+    dt = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    B, S, P = SERVE_SLOTS, PROMPT_LEN, patches.shape[1]
+    H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    with torch.inference_mode():
+        x = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda",
+                        dtype=dt)
+        memory = dense(torch.as_tensor(patches, device="cuda").to(dt),
+                       params["vis_proj"])
+        block_ms = cuda_ms(lambda: T._cross_attn(x, p, cfg, memory=memory),
+                           iters=10)
+        q = dense(rms_norm(x, p["ln"], cfg.norm_eps), p["wq"]) \
+            .reshape(B, S, H, Dh)
+        k = dense(memory, p["wk"]).reshape(B, P, KH, Dh)
+        v = dense(memory, p["wv"]).reshape(B, P, KH, Dh)
+        attn_ms = cuda_ms(lambda: attention(q, k, v, causal=False),
+                          iters=10)
+    flops = 4.0 * B * H * Dh * S * P
+    nbytes = 2 * (2 * B * S * H * Dh + 2 * B * P * KH * Dh)
+    bound_ms = max(flops / PEAK_FLOPS[dt], nbytes / HBM_BYTES_PER_S) * 1e3
+    print(f"  cross-attention at B={B} S_q={S} S_k={P} H={H} KH={KH} "
+          f"Dh={Dh} (CUDA events): the block {block_ms:.4f} ms, its plain "
+          f"attention {attn_ms:.4f} ms (bound {bound_ms:.4f} ms, "
+          f"{flops / 1e9:.2f} GFLOP); x {n_cross} CROSS layers: block "
+          f"{n_cross * block_ms:.2f} ms ({n_cross * block_ms / prefill_ms:.1%}"
+          f" of the prefill), attention {n_cross * attn_ms:.2f} ms "
+          f"({n_cross * attn_ms / prefill_ms:.1%})", flush=True)
+    return {"block_ms": block_ms, "attention_ms": attn_ms,
+            "bound_ms": bound_ms, "n_cross": n_cross,
+            "share_of_prefill": n_cross * block_ms / prefill_ms}
+
+
+def phase_serve_vision(arch: str = VISION_ARCH):
+    """Serve SERVE_REQUESTS requests of the vision model at full width
+    and depth, SERVE_SLOTS at a time, through ``make_prefill_step`` (with
+    each batch's patches) and ``make_serve_step``: the first new token
+    from the prefill, GEN - 1 from decode steps.  Every prefill must
+    launch the flash kernel once per ATTN layer, causal, on its wgmma
+    route, and no decode step any; the CROSS layers compute on plain
+    PyTorch.  Returns (launches, {kernel: launches by route})."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.frontends import vision_patches
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import registry as R
+    phase(f"serve {arch}")
+    cfg = get_arch(arch)
+    t0 = time.perf_counter()
+    params = R.init_params(cfg, 0, device="cuda")
+    n_cross = set_gates(params)
+    torch.cuda.synchronize()
+    n_params = R.count_params_analytic(cfg)
+    kinds = layer_counts(cfg)
+    n_attn = kinds.get("attn", 0)
+    print(f"  {cfg.name}: {cfg.n_layers} layers {kinds}, d={cfg.d_model}, "
+          f"GQA {cfg.n_heads}/{cfg.n_kv_heads} at Dh {cfg.head_dim}, "
+          f"{n_params / 1e9:.3f} B params in {cfg.dtype}, init "
+          f"{time.perf_counter() - t0:.2f} s; {n_cross} gates set to "
+          f"{GATE}; {cfg.n_patches} patches of {cfg.frontend_dim} a row",
+          flush=True)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(1, cfg.vocab_size, size=(
+        SERVE_REQUESTS, PROMPT_LEN)).astype(np.int32)
+    n_batches = math.ceil(SERVE_REQUESTS / SERVE_SLOTS)
+    # each batch's images, from its own seed
+    patches = [vision_patches(SERVE_SLOTS, cfg.n_patches, cfg.frontend_dim,
+                              seed=i) for i in range(n_batches)]
+    ctx_len = PROMPT_LEN + GEN
+    prefill = make_prefill_step(cfg, cache_len=ctx_len, device="cuda")
+    decode = make_serve_step(cfg, device="cuda")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_launches()
+    masks, restore = record_flash_masks()
+    generated = []
+    try:
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            for i in range(n_batches):
+                toks = prompts[i * SERVE_SLOTS:(i + 1) * SERVE_SLOTS]
+                before = fa_kernel.LAUNCHES
+                logits, cache = prefill(params, {"tokens": toks,
+                                                 "patches": patches[i]})
+                check(fa_kernel.LAUNCHES - before == n_attn,
+                      f"prefill {i} launched the flash kernel "
+                      f"{fa_kernel.LAUNCHES - before} times, expected "
+                      f"{n_attn}")
+                check(bool(torch.isfinite(logits).all()),
+                      f"prefill {i}: logits not finite")
+                nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
+                out = [nxt]
+                before = fa_kernel.LAUNCHES
+                for pos in range(PROMPT_LEN, PROMPT_LEN + GEN - 1):
+                    nxt, logits, cache = decode(params, nxt, pos, cache)
+                    out.append(nxt)
+                check(fa_kernel.LAUNCHES == before,
+                      f"decode of batch {i} launched the flash kernel")
+                check(bool(torch.isfinite(logits).all()),
+                      f"decode of batch {i}: logits not finite")
+                generated.append(torch.cat(out, dim=1).cpu())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    peak = torch.cuda.max_memory_allocated()
+    launches, routes = kernel_launches(), kernel_routes()
+    tokens = torch.cat(generated)
+    check(tuple(tokens.shape) == (SERVE_REQUESTS, GEN),
+          f"generated {tuple(tokens.shape)}")
+    check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+          "a token outside the vocab")
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = n_attn * n_batches
+    check(launches == want, f"the serve launched {launches}, expected {want}")
+    check(masks == {("forward", True): n_attn * n_batches},
+          f"flash launches by (pass, causal) {masks}: every one causal")
+    check_routes(routes, launches, {"flash_attention": "wgmma_bf16"},
+                 f"serve {cfg.name}")
+    n_tok = SERVE_REQUESTS * GEN
+    print(f"  served {SERVE_REQUESTS} requests in {n_batches} batches of "
+          f"{SERVE_SLOTS}, {n_tok} new tokens in {wall:.3f} s "
+          f"({n_tok / wall:.1f} tok/s); flash_attention launches "
+          f"{launches['flash_attention']} = {n_attn} ATTN layers x "
+          f"{n_batches} prefills, all causal on wgmma_bf16, none in decode; "
+          f"peak memory {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB)",
+          flush=True)
+    print(f"  req0: {tokens[0].tolist()}", flush=True)
+
+    batch = {"tokens": prompts[:SERVE_SLOTS], "patches": patches[0]}
+    with torch.inference_mode():
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill(params, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        prefill_ms = sorted(times)[1] * 1e3
+        nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for pos in range(PROMPT_LEN, ctx_len):
+            nxt, logits, cache = decode(params, nxt, pos, cache)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) / GEN * 1e3
+        print(f"  prefill {SERVE_SLOTS}x{PROMPT_LEN} with {cfg.n_patches} "
+              f"patches a row: {prefill_ms:.2f} ms (median of 3); decode: "
+              f"{decode_ms:.3f} ms/step at batch {SERVE_SLOTS}", flush=True)
+        print_profile(f"prefill {SERVE_SLOTS}x{PROMPT_LEN}", *profile_ms(
+            lambda: prefill(params, batch)))
+        print_profile(f"decode step at batch {SERVE_SLOTS}", *profile_ms(
+            lambda: decode(params, nxt, ctx_len - 1, cache)))
+        del cache
+    cross = cross_attention_ms(cfg, params, patches[0], prefill_ms)
+    del params
+    torch.cuda.empty_cache()
+    return launches, routes, {"prefill_ms": prefill_ms,
+                              "decode_ms": decode_ms,
+                              "tokens_per_s": n_tok / wall,
+                              "peak_bytes": peak, "cross": cross}
+
+
+def phase_consistency_vision(arch: str = VISION_ARCH,
+                             n_layers: int = VISION_CONSIST_LAYERS,
+                             seq: int = VISION_CONSIST_SEQ):
+    """Prefill of ``seq`` - 4 tokens with their image, then 3 decode
+    steps, in float32 at full width and ``n_layers`` layers: the logits on
+    the card (flash's scalar_f32 route, cuBLAS) against the CPU's plain
+    versions from the same weights, every gate at GATE and every norm
+    drawn; the negative control feeds the card another image's patches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import batch_for
+    from repro_torch.data.frontends import vision_patches
+    from repro_torch.models import registry as R
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.tree import tree_map
+    phase(f"consistency {arch}")
+    cfg = dataclasses.replace(get_arch(arch), n_layers=n_layers,
+                              dtype="float32")
+    # drawn on the card (fast), then copied to the CPU
+    params = R.init_params(cfg, 0, device="cuda", param_dtype=torch.float32)
+    set_gates(params)
+    p_cpu = tree_map(lambda t: t.cpu(), params)
+    draw_norms(p_cpu)
+    params = tree_map(lambda t: t.cuda(), p_cpu)
+    batch = batch_for(cfg, ShapeSpec("consistency", seq, 1, "train"),
+                      seed=1)
+    toks = batch["tokens"]
+    other = vision_patches(1, cfg.n_patches, cfg.frontend_dim, seed=99)
+
+    def run(device, p, patches):
+        with torch.inference_mode():
+            logits, cache = R.prefill(p, cfg, {"tokens": toks[:, :seq - 4],
+                                               "patches": patches},
+                                      cache_len=seq, device=device)
+            out = [logits.cpu()]
+            for t in range(seq - 4, seq - 1):
+                logits, cache = R.decode_step(p, cfg, toks[:, t:t + 1], t,
+                                              cache, device=device)
+                out.append(logits.cpu())
+        return torch.stack(out)
+
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    card = run("cuda", params, batch["patches"])
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = kernel_launches()
+    n_attn = layer_counts(cfg).get("attn", 0)
+    check(launches["flash_attention"] == n_attn,
+          f"the float32 prefill launched {launches}")
+    check_routes(kernel_routes(), launches,
+                 {"flash_attention": "scalar_f32"}, f"consistency {arch}")
+    bad = run("cuda", params, other)
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cpu = run("cpu", p_cpu, batch["patches"])
+    cpu_s = time.perf_counter() - t0
+    scale = float(cpu.abs().max())
+    rel = float((card - cpu).abs().max()) / scale
+    rel_bad = float((bad - cpu).abs().max()) / scale
+    print(f"  {n_layers} layers {layer_counts(cfg)} at full width, float32, "
+          f"gates {GATE}, norms drawn: prefill({seq - 4}) + 3 decode steps "
+          f"with {cfg.n_patches} patches, card vs cpu max rel err "
+          f"{rel:.3e} (tol {CONSISTENCY_RTOL:.0e}); another image's patches "
+          f"on the card: {rel_bad:.3e}; card {card_s:.2f} s, cpu "
+          f"{cpu_s:.2f} s", flush=True)
+    check(rel <= CONSISTENCY_RTOL, f"card and cpu disagree: {rel}")
+    check(rel_bad > CONSISTENCY_RTOL,
+          f"another image's patches pass the tolerance ({rel_bad})")
+    return {"rel_err": rel, "other_patches_rel_err": rel_bad}
+
+
+def time_encode(cfg, params):
+    """One ``forward_logits`` encode of ENCODE_BATCH x TRAIN_SEQ frames
+    under ``inference_mode``, on bf16 copies of the trained weights (what
+    an encoder serves from): the median of 3 calls, each launching the
+    flash kernel once a layer, not causal."""
+    from repro_torch.data import batch_for
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.models import registry as R
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.tree import tree_map
+    batch = batch_for(cfg, ShapeSpec("encode", TRAIN_SEQ, ENCODE_BATCH,
+                                     "train"), seed=2)
+    frames = {"frames": torch.as_tensor(batch["frames"], device="cuda")}
+    p16 = tree_map(lambda t: t.detach().to(torch.bfloat16), params)
+    masks, restore = record_flash_masks()
+    times = []
+    try:
+        with torch.inference_mode():
+            for _ in range(3):
+                before = fa_kernel.LAUNCHES
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = R.forward_logits(p16, cfg, frames, device="cuda")
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                check(fa_kernel.LAUNCHES - before == cfg.n_layers,
+                      f"the encode launched flash "
+                      f"{fa_kernel.LAUNCHES - before} times")
+    finally:
+        restore()
+    check(masks == {("forward", False): 3 * cfg.n_layers},
+          f"encode flash launches by (pass, causal) {masks}")
+    check(tuple(out.shape) == (ENCODE_BATCH, TRAIN_SEQ, cfg.vocab_size)
+          and bool(torch.isfinite(out).all()),
+          f"encode output {tuple(out.shape)} not finite or misshapen")
+    ms = sorted(times)[1] * 1e3
+    print(f"  encode (forward_logits, inference_mode, bf16 weights) "
+          f"{ENCODE_BATCH} x {TRAIN_SEQ} frames: {ms:.2f} ms (median of "
+          f"3), {ENCODE_BATCH * TRAIN_SEQ / (ms / 1e3):.0f} frames/s; "
+          f"{cfg.n_layers} flash launches a call, not causal", flush=True)
+    del p16, out
+    return {"encode_ms": ms}
 
 
 def main() -> int:
@@ -2265,6 +2740,12 @@ def main() -> int:
         XLSTM_ARCH, XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_SEQ, profile=False)
     phase_train_consistency(XLSTM_ARCH, XLSTM_CONSIST_LAYERS,
                             RECURRENT_CONSIST_SEQ)
+    vision_launches, routes[VISION_ARCH], _ = phase_serve_vision()
+    phase_consistency_vision()
+    audio_train, audio_train_routes, _ = phase_train(AUDIO_ARCH,
+                                                     extra=time_encode)
+    phase_train_consistency(AUDIO_ARCH, AUDIO_CONSIST_LAYERS,
+                            AUDIO_CONSIST_SEQ)
 
     kernels = [
         {"name": "flash_attention", "route": "cuda",
@@ -2282,14 +2763,21 @@ def main() -> int:
              MOE_ARCH: moe_launches["flash_attention"],
              GRIFFIN_ARCH: griffin_launches["flash_attention"],
              XLSTM_ARCH: xlstm_launches["flash_attention"],
+             VISION_ARCH: vision_launches["flash_attention"],
              f"{ARCH} train": train_launches["flash_attention"],
-             f"{GRIFFIN_ARCH} train": griffin_train["flash_attention"]},
+             f"{GRIFFIN_ARCH} train": griffin_train["flash_attention"],
+             f"{AUDIO_ARCH} train": audio_train["flash_attention"]},
          "launches_by_route": {
              **{arch: r["flash_attention"] for arch, r in routes.items()},
              f"{ARCH} train": train_routes["flash_attention"],
-             f"{GRIFFIN_ARCH} train": griffin_train_routes["flash_attention"]},
+             f"{GRIFFIN_ARCH} train": griffin_train_routes["flash_attention"],
+             f"{AUDIO_ARCH} train": audio_train_routes["flash_attention"]},
          "at_granite_shape": fa_timing["granite-prefill"],
-         "at_griffin_shape": fa_timing["griffin-prefill"]},
+         "at_griffin_shape": fa_timing["griffin-prefill"],
+         # llama-3.2-vision's prefill (GQA 32/8, Dh 128) and hubert's train
+         # shape (16/16, Dh 80 padded to 120, not causal)
+         "at_vision_shape": fa_timing["vision-prefill"],
+         "at_hubert_train_shape": fa_timing["hubert-train"]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention_bwd.cu",
@@ -2300,16 +2788,19 @@ def main() -> int:
          # launches on its path, minicpm-2b training (4 steps and an eval),
          # all on wgmma_bf16 (checked in the train phase); times at that
          # path's shape (B 1, S 4096, 36 heads of 64), and at
-         # recurrentgemma's train shape and minicpm's, granite's and
-         # recurrentgemma's prefill shapes
+         # recurrentgemma's and hubert-xlarge's train shapes and minicpm's,
+         # granite's and recurrentgemma's prefill shapes
          "launches": train_launches["flash_attention_bwd"],
          "launches_by_route": {
              f"{ARCH} train": train_routes["flash_attention_bwd"],
              f"{GRIFFIN_ARCH} train":
-                 griffin_train_routes["flash_attention_bwd"]},
+                 griffin_train_routes["flash_attention_bwd"],
+             f"{AUDIO_ARCH} train":
+                 audio_train_routes["flash_attention_bwd"]},
          "launches_by_path": {
              f"{ARCH} train": train_launches["flash_attention_bwd"],
-             f"{GRIFFIN_ARCH} train": griffin_train["flash_attention_bwd"]},
+             f"{GRIFFIN_ARCH} train": griffin_train["flash_attention_bwd"],
+             f"{AUDIO_ARCH} train": audio_train["flash_attention_bwd"]},
          **bwd_timing},
         {"name": "moe_gmm", "route": "cuda",
          "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",

@@ -1,6 +1,6 @@
 """Deterministic synthetic corpus + document packing (a copy of
-``repro/data/synthetic.py`` for text models, kept in the port so that it
-imports nothing of the JAX package; the same seed gives the same batches).
+``repro/data/synthetic.py``, kept in the port so that it imports nothing of
+the JAX package; the same seed gives the same batches).
 
 Zipfian unigram tokens with per-document Markov drift give a corpus that is
 (a) reproducible from a seed, (b) compressible enough that training loss
@@ -8,7 +8,9 @@ visibly decreases within a few hundred steps.
 
 The pipeline is host-side numpy (a CPU input pipeline feeding the card),
 sharded per host, with packing into fixed ``seq_len`` rows using EOS
-separators.  Audio and vision inputs come with their slices of the port.
+separators.  Audio batches carry frame embeddings, cluster labels and a
+35% prediction mask instead of tokens; vision batches add patch
+embeddings (``repro_torch.data.frontends``).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Dict, Iterator
 
 import numpy as np
 
+from repro_torch.data.frontends import audio_frames, vision_patches
 from repro_torch.models.config import ArchConfig, ShapeSpec
 
 EOS = 0
@@ -67,17 +70,28 @@ def pack_documents(doc_iter: Iterator[np.ndarray], seq_len: int,
 def batch_for(cfg: ArchConfig, shape: ShapeSpec, *, seed: int = 0,
               host_id: int = 0, n_hosts: int = 1,
               step: int = 0) -> Dict[str, np.ndarray]:
-    """One deterministic global batch (host's shard) for (arch, shape)."""
-    if cfg.modality != "text":
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.modality} batches come with the port's "
-            f"{cfg.modality} slice")
+    """One deterministic global batch (host's shard) for (arch, shape).
+
+    Text: tokens and next-token labels.  Audio (masked prediction):
+    frames, cluster-id labels and a mask over 35% of the frames, no
+    tokens.  Vision: tokens and labels plus ``n_patches`` patches a row."""
     B = shape.global_batch // n_hosts
     S = shape.seq_len
+    if cfg.modality == "audio":
+        rng = np.random.default_rng((seed, step, 77))
+        labels = rng.integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
+        mask = (rng.random((B, S)) < 0.35).astype(np.float32)
+        return {"frames": audio_frames(B, S, cfg.frontend_dim,
+                                       seed=seed + step),
+                "labels": labels, "mask": mask}
     corpus = SyntheticCorpus(cfg.vocab_size, seed=seed)
     start = (step * shape.global_batch + host_id * B) * 4  # doc stride
     packed = pack_documents(corpus.documents(start), S, B)
-    return {"tokens": packed[:, :-1], "labels": packed[:, 1:]}
+    batch = {"tokens": packed[:, :-1], "labels": packed[:, 1:]}
+    if cfg.modality == "vision":
+        batch["patches"] = vision_patches(B, cfg.n_patches, cfg.frontend_dim,
+                                          seed=seed + step)
+    return batch
 
 
 def make_batch_iter(cfg: ArchConfig, shape: ShapeSpec, *, seed: int = 0,

@@ -9,6 +9,11 @@
         --arch granite-moe-3b-a800m --moe-dispatch gather  # MoE, on the GPU
 
 Static-batch synchronous decode (all slots advance one position per step).
+Text models only: an encoder-only model has no decode step, and a vision
+model's prefill needs image patches, which a request here does not carry
+(as in the reference's loop); both are refused with the reason.  A vision
+model serves through ``make_prefill_step`` and ``make_serve_step``, with
+the patches in the prefill batch.
 Requests are packed into fixed slots; finished slots are refilled from the
 queue (continuous batching at slot granularity).  Step for step the same
 loop as the reference: left-padded prompts, one shared position counter,
@@ -40,6 +45,17 @@ class Request:
     t_done: Optional[float] = None
 
 
+def check_servable(cfg) -> None:
+    """Raise ValueError for a model this loop cannot serve."""
+    if cfg.encoder_only:
+        raise ValueError(f"{cfg.name} is encoder-only: no decode step")
+    if cfg.modality == "vision":
+        raise ValueError(
+            f"{cfg.name} is a vision model: its prefill needs image patches, "
+            f"which these requests do not carry; serve it through "
+            f"make_prefill_step / make_serve_step with a \"patches\" batch")
+
+
 def serve(cfg, requests: List[Request], *, slots: int = 4,
           ctx_len: int = 512, seed: int = 0, params=None,
           moe_dispatch: str = "einsum", device=None):
@@ -49,8 +65,10 @@ def serve(cfg, requests: List[Request], *, slots: int = 4,
     hands in weights converted from the JAX package instead.
     ``moe_dispatch`` goes to both steps: "gather" runs MoE layers through
     the grouped expert-FFN kernel, "einsum" (the reference's default)
-    through one-hot dispatch.
+    through one-hot dispatch.  Raises ValueError for an encoder-only or a
+    vision model (``check_servable``).
     """
+    check_servable(cfg)
     device = resolve_device(device)
     with torch.inference_mode():
         if params is None:
@@ -118,8 +136,10 @@ def main(argv=None):
     cfg = get_arch(args.arch)
     if args.smoke and not args.arch.endswith("-smoke"):
         cfg = cfg.reduced()
-    if cfg.encoder_only:
-        raise SystemExit(f"{cfg.name} is encoder-only: no decode step")
+    try:
+        check_servable(cfg)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
     device = resolve_device(args.device)
     rng = np.random.default_rng(args.seed)
     t0 = time.time()

@@ -1,12 +1,17 @@
 """Decoder stack of the model zoo (PyTorch port of
 ``repro/models/transformer.py``).
 
-The port covers ATTN / SWA / LOCAL self-attention and the Griffin RG-LRU
-recurrent block (``repro_torch.models.rglru``), each with a gated (or
-plain) MLP or a mixture of experts (``repro_torch.models.moe``), and the
-xLSTM mLSTM and sLSTM blocks (``repro_torch.models.xlstm``), which have no
-separate FFN.  Cross-attention and the audio encoder raise
-``NotImplementedError`` naming the slice that ports them.
+The port covers every block kind of the reference: ATTN / SWA / LOCAL
+self-attention (causal, or not for an encoder-only model), CROSS (gated
+cross-attention from the tokens to a vision model's patch memory) and the
+Griffin RG-LRU recurrent block (``repro_torch.models.rglru``), each with a
+gated (or plain) MLP or a mixture of experts (``repro_torch.models.moe``),
+and the xLSTM mLSTM and sLSTM blocks (``repro_torch.models.xlstm``), which
+have no separate FFN.  Inputs are tokens (text), tokens plus patch
+embeddings (vision: ``memory = patches @ vis_proj``, computed once per
+forward) or frame embeddings (audio: ``frames @ frontend``, no token
+embedding; trained by masked prediction of cluster labels, with no decode
+step).
 
 Layouts differ from the JAX package in one way: where JAX stacks the layers
 of each pattern position under ``params["blocks"]`` (leading
@@ -14,7 +19,8 @@ of each pattern position under ``params["blocks"]`` (leading
 keeps one dict per layer in depth order, ``params["layers"][n]``, of kind
 ``block_pattern[n % pattern_period]``.  ``repro_torch.convert`` maps
 between the two.  The decode cache follows the same per-layer layout:
-{"k", "v"} for an attention layer, {"h", "conv"} for an RG-LRU layer,
+{"k", "v"} for a self-attention layer, {"ck", "cv"} (the patch memory's
+keys and values) for a CROSS layer, {"h", "conv"} for an RG-LRU layer,
 {"C", "n", "m", "conv"} for an mLSTM and {"h", "c", "n", "m", "conv"} for an
 sLSTM layer.
 
@@ -23,6 +29,8 @@ it is read only by MoE layers):
   init_params(cfg, seed, device=, param_dtype=)    -> params
   forward_train(params, cfg, batch, moe_dispatch=, aux_weight=, device=)
                                                    -> (loss, metrics)
+  (a batch holds "tokens" and "labels", plus "patches" for vision; or
+  "frames", "labels" and "mask" for audio)
   forward_logits(params, cfg, batch, moe_dispatch=, device=) -> (B, S, V)
   prefill(params, cfg, batch, cache_len=, moe_dispatch=, device=)
                                                    -> (last_logits, cache)
@@ -45,9 +53,9 @@ from repro_torch.device import check_on_device, resolve_device, torch_dtype
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.config import (ATTN, SWA, LOCAL, CROSS, MLSTM, SLSTM,
                                        RGLRU, ArchConfig)
-from repro_torch.models.layers import (decode_attention_block, dense,
-                                       gated_mlp, is_gated_act, rms_norm,
-                                       rope)
+from repro_torch.models.layers import (attention, decode_attention_block,
+                                       dense, gated_mlp, is_gated_act,
+                                       rms_norm, rope)
 from repro_torch.models.moe import moe_block
 from repro_torch.models.rglru import (RGLRU_C, apply_rglru, d_rnn,
                                       decode_rglru, init_state_rglru)
@@ -58,24 +66,21 @@ from repro_torch.models.xlstm import (CONV_K, apply_mlstm, apply_slstm,
 
 _SELF_ATTN = (ATTN, SWA, LOCAL)
 _RECURRENT = (RGLRU, MLSTM, SLSTM)
-_SUPPORTED = _SELF_ATTN + _RECURRENT
-_LATER_SLICE = {CROSS: "the cross-attention (vision) slice"}
+_KINDS = _SELF_ATTN + (CROSS,) + _RECURRENT
+_MODALITIES = ("text", "audio", "vision")
 XENT_CHUNK = 512  # sequence chunk of the fused logits + loss
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError for what this slice of the port lacks."""
-    if cfg.modality == "audio" or cfg.encoder_only:
-        raise NotImplementedError(
-            f"{cfg.name}: the audio encoder is ported in a later slice")
+    """Raise ValueError on a block kind or modality the model does not
+    know, as the reference's block dispatch does."""
     for kind in cfg.block_pattern:
-        if kind not in _SUPPORTED:
-            raise NotImplementedError(
-                f"{cfg.name}: {kind!r} blocks are ported in "
-                f"{_LATER_SLICE.get(kind, 'a later slice')}")
-    if cfg.modality != "text":
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.modality} inputs are ported in a later slice")
+        if kind not in _KINDS:
+            raise ValueError(f"{cfg.name}: unknown block kind {kind!r}; "
+                             f"known: {', '.join(_KINDS)}")
+    if cfg.modality not in _MODALITIES:
+        raise ValueError(f"{cfg.name}: unknown modality {cfg.modality!r}; "
+                         f"known: {', '.join(_MODALITIES)}")
 
 
 def layer_kind(cfg: ArchConfig, n: int) -> str:
@@ -104,8 +109,11 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
     reference's.  So do the RG-LRU's ``lam``, ``b_a`` and ``b_i`` and the
     xLSTM gate biases (the reference's gates are float32 sums in a bf16
     model too), and the sLSTM's recurrent ``r_*``, which the reference
-    reads in float32.  The numbers differ from ``jax.random``'s; parity
-    tests convert JAX params instead.
+    reads in float32, and a CROSS layer's scalar ``gate`` (0 at init, as in
+    the reference: a fresh model's cross path adds nothing).  An audio
+    model has a ``frontend`` (frontend_dim x d) and no ``embed``; a vision
+    model adds ``vis_proj`` (frontend_dim x d).  The numbers differ from
+    ``jax.random``'s; parity tests convert JAX params instead.
     On the ``meta`` device nothing is drawn or allocated.
     """
     check_supported(cfg)
@@ -197,6 +205,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
             p = {"mix": {"ln": zeros(d), "wq": lin(d, H * Dh),
                          "wk": lin(d, KH * Dh), "wv": lin(d, KH * Dh),
                          "wo": lin(H * Dh, d, out_scale)}}
+            if kind == CROSS:
+                p["mix"]["gate"] = zeros(dtype=torch.float32)
         if cfg.is_moe:
             p["ffn"] = moe()
         elif f > 0:
@@ -206,10 +216,15 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
                 p["ffn"]["w3"] = lin(d, f)
         return p
 
-    # std d^-1/2: lookups are rescaled by sqrt(d) when tied, and the tied
-    # head then produces O(1) logits (MiniCPM-style mup scaling)
-    params: Dict[str, Any] = {
-        "embed": normal((cfg.vocab_size, d), d ** -0.5)}
+    params: Dict[str, Any] = {}
+    if cfg.modality == "audio":
+        params["frontend"] = lin(cfg.frontend_dim, d)
+    else:
+        # std d^-1/2: lookups are rescaled by sqrt(d) when tied, and the
+        # tied head then produces O(1) logits (MiniCPM-style mup scaling)
+        params["embed"] = normal((cfg.vocab_size, d), d ** -0.5)
+    if cfg.modality == "vision":
+        params["vis_proj"] = lin(cfg.frontend_dim, d)
     params["layers"] = [layer(layer_kind(cfg, n))
                         for n in range(cfg.n_layers)]
     params["final_ln"] = zeros(d)
@@ -223,6 +238,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
 # ---------------------------------------------------------------------------
 
 def _self_attn(x, p, cfg, *, positions, window):
+    """Causal unless the model is encoder-only."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     B, S, _ = h.shape
     H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -232,8 +248,43 @@ def _self_attn(x, p, cfg, *, positions, window):
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     # the CUDA kernel on the GPU, its plain version on the CPU
-    o = flash_attention(q, k, v, causal=True, window=window)
+    o = flash_attention(q, k, v, causal=not cfg.encoder_only, window=window)
     return x + dense(o.reshape(B, S, H * Dh), p["wo"]), (k, v)
+
+
+def _gated_out(x, p, o):
+    """x + tanh(gate) * (o @ wo), the gate cast to x's dtype first."""
+    B, S = o.shape[:2]
+    o = dense(o.reshape(B, S, -1), p["wo"])
+    return x + torch.tanh(p["gate"].to(x.dtype)) * o
+
+
+def _cross_attn(x, p, cfg, *, memory):
+    """Gated cross-attention: queries from the normed x, keys and values
+    from ``memory`` (B, P, d), no mask and no rotary embedding.  The plain
+    ``attention`` computes it (the flash kernel takes S_k = S_q only), as
+    the reference computes it outside its Pallas kernel.  Returns (x,
+    (k, v)), the memory's keys and values for the decode cache."""
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    B, S, _ = h.shape
+    H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    P = memory.shape[1]
+    q = dense(h, p["wq"]).reshape(B, S, H, Dh)
+    k = dense(memory, p["wk"]).reshape(B, P, KH, Dh)
+    v = dense(memory, p["wv"]).reshape(B, P, KH, Dh)
+    return _gated_out(x, p, attention(q, k, v, causal=False)), (k, v)
+
+
+def _decode_cross_attn(x, p, cfg, cache):
+    """One token's cross-attention against the cached memory keys and
+    values (cast to x's dtype, as the reference does); the cache is
+    read only."""
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    B = h.shape[0]
+    q = dense(h, p["wq"]).reshape(B, 1, cfg.n_heads, cfg.head_dim)
+    o = attention(q, cache["ck"].to(x.dtype), cache["cv"].to(x.dtype),
+                  causal=False)
+    return _gated_out(x, p, o), cache
 
 
 def _apply_ffn(x, p, cfg, moe_dispatch):
@@ -244,13 +295,15 @@ def _apply_ffn(x, p, cfg, moe_dispatch):
     return x + gated_mlp(h, p, cfg.act), 0.0
 
 
-def _apply_layer(x, layer, kind, cfg, positions, moe_dispatch,
+def _apply_layer(x, memory, layer, kind, cfg, positions, moe_dispatch,
                  collect_kv: bool):
     """Returns (x, aux, (k, v) or recurrent state or None)."""
     if kind in _RECURRENT:
         out = _APPLY_RECURRENT[kind](x, layer["mix"], cfg,
                                      return_state=collect_kv)
         x, kv = out if collect_kv else (out, None)
+    elif kind == CROSS:
+        x, kv = _cross_attn(x, layer["mix"], cfg, memory=memory)
     else:
         x, kv = _self_attn(x, layer["mix"], cfg, positions=positions,
                            window=_window_for(kind, cfg))
@@ -271,9 +324,10 @@ def _dots_policy(ctx, op, *args, **kwargs):
         CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _stack_forward(params, cfg, x, positions, moe_dispatch, *,
+def _stack_forward(params, cfg, x, memory, positions, moe_dispatch, *,
                    collect_kv: bool = False, remat: str = "none"):
-    """Runs every layer in depth order.
+    """Runs every layer in depth order; ``memory`` (a vision model's
+    projected patches, else None) feeds the CROSS layers.
 
     ``remat`` is the reference's ``cfg.remat`` for training: "full" keeps
     only each layer's input and recomputes the layer in the backward,
@@ -289,8 +343,8 @@ def _stack_forward(params, cfg, x, positions, moe_dispatch, *,
     kvs: Optional[List[Any]] = [] if collect_kv else None
     aux = 0.0
     for n, layer in enumerate(params["layers"]):
-        args = (x, layer, layer_kind(cfg, n), cfg, positions, moe_dispatch,
-                collect_kv)
+        args = (x, memory, layer, layer_kind(cfg, n), cfg, positions,
+                moe_dispatch, collect_kv)
         if remat == "none":
             x, a, kv = _apply_layer(*args)
         else:
@@ -317,7 +371,7 @@ def _tokens(tokens, device) -> torch.Tensor:
     return torch.as_tensor(tokens, device=device).long()
 
 
-def _embed(params, cfg, tokens):
+def _embed_tokens(params, cfg, tokens):
     dt = torch_dtype(cfg.dtype)
     x = F.embedding(tokens, params["embed"]).to(dt)
     if cfg.tie_embeddings:
@@ -326,17 +380,40 @@ def _embed(params, cfg, tokens):
     return x
 
 
+def _project(inputs, w, dt, device):
+    """Frontend embeddings (B, n, frontend_dim) @ w, in the activation
+    dtype (inputs rounded to it first, as the reference does)."""
+    return dense(torch.as_tensor(inputs, device=device).to(dt), w)
+
+
+def _embed(params, cfg, batch, device):
+    """(x: (B, S, d) activations, memory: (B, P, d) or None) of a batch:
+    audio frames through the frontend, else tokens through the embedding;
+    a vision model's patches through ``vis_proj``."""
+    dt = torch_dtype(cfg.dtype)
+    if cfg.modality == "audio":
+        x = _project(batch["frames"], params["frontend"], dt, device)
+    else:
+        x = _embed_tokens(params, cfg, _tokens(batch["tokens"], device))
+    memory = None
+    if cfg.modality == "vision":
+        memory = _project(batch["patches"], params["vis_proj"], dt, device)
+    return x, memory
+
+
 def _unembed(x, params, cfg):
     if cfg.tie_embeddings:
         return F.linear(x, params["embed"].to(x.dtype))
     return x @ params["head"].to(x.dtype)
 
 
-def _prepare(params, cfg, tokens, device):
+def _prepare(params, cfg, device) -> torch.device:
+    """The device the call runs on; raises if the params lie elsewhere
+    (checked on ``final_ln``, which every model has)."""
     check_supported(cfg)
     device = resolve_device(device)
-    check_on_device(params["embed"], device, "params")
-    return _tokens(tokens, device)
+    check_on_device(params["final_ln"], device, "params")
+    return device
 
 
 # ---------------------------------------------------------------------------
@@ -388,18 +465,20 @@ def softmax_xent_from_hidden(x, head, labels, mask=None, *,
 def forward_train(params, cfg: ArchConfig, batch, *,
                   moe_dispatch: str = "einsum", aux_weight: float = 0.01,
                   device=None):
-    """Training forward: next-token LM loss.  batch: tokens and labels
-    (B, S), and optionally a (B, S) mask.
+    """Training forward: next-token LM loss, or an audio model's masked
+    prediction.  batch: tokens and labels (B, S) (plus patches for
+    vision), or frames, cluster-id labels and the (B, S) mask of the
+    frames to predict (audio); a text batch may carry a mask too.
 
     Layers are recomputed in the backward as ``cfg.remat`` says.  Returns
     (total, {"nll", "aux", "acc"}); total adds ``aux_weight * aux /
     n_layers`` to the loss for an MoE model, as the reference does."""
-    tokens = _prepare(params, cfg, batch["tokens"], device)
-    labels = _tokens(batch["labels"], tokens.device)
-    x = _embed(params, cfg, tokens)
+    device = _prepare(params, cfg, device)
+    labels = _tokens(batch["labels"], device)
+    x, memory = _embed(params, cfg, batch, device)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, aux, _ = _stack_forward(params, cfg, x, positions, moe_dispatch,
-                               remat=cfg.remat)
+    x, aux, _ = _stack_forward(params, cfg, x, memory, positions,
+                               moe_dispatch, remat=cfg.remat)
     aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     mask = batch.get("mask")
@@ -413,11 +492,13 @@ def forward_train(params, cfg: ArchConfig, batch, *,
 
 def forward_logits(params, cfg: ArchConfig, batch, *,
                    moe_dispatch: str = "einsum", device=None):
-    """Full-sequence logits (no cache) — used by eval / tests."""
-    tokens = _prepare(params, cfg, batch["tokens"], device)
-    x = _embed(params, cfg, tokens)
+    """Full-sequence logits (no cache): eval, tests, and an audio model's
+    encoding.  batch as ``forward_train``'s, without labels."""
+    device = _prepare(params, cfg, device)
+    x, memory = _embed(params, cfg, batch, device)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, _, _ = _stack_forward(params, cfg, x, positions, moe_dispatch)
+    x, _, _ = _stack_forward(params, cfg, x, memory, positions,
+                             moe_dispatch)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     return _unembed(x, params, cfg)
 
@@ -428,13 +509,16 @@ def _cache_len(kind: str, cfg: ArchConfig, ctx_len: int) -> int:
 
 
 def init_cache(cfg: ArchConfig, B: int, ctx_len: int, *, device=None):
-    """Zeroed decode cache: {"layers": [{"k", "v": (B, L, KH, Dh)} or a
+    """Zeroed decode cache: {"layers": [{"k", "v": (B, L, KH, Dh)},
+    {"ck", "cv": (B, n_patches, KH, Dh)} for a CROSS layer, or a
     recurrent layer's state, ...]}: RG-LRU {"h": (B, D) float32, "conv":
     (B, CONV_K - 1, D)}, mLSTM {"C", "n", "m" float32, "conv"}, sLSTM
     {"h", "c", "n", "m" float32, "conv"} (``repro_torch.models.xlstm``).
 
-    k, v and conv are bf16 whatever ``cfg.dtype`` is, as in the reference;
-    ``prefill`` makes k and v in ``cfg.dtype`` (conv stays bf16)."""
+    k, v, ck, cv and conv are bf16 whatever ``cfg.dtype`` is, as in the
+    reference; ``prefill`` makes k, v, ck and cv in ``cfg.dtype`` (conv
+    stays bf16).  An encoder-only model gets the plain k/v cache, as the
+    reference builds it, though it has no decode step."""
     check_supported(cfg)
     device = resolve_device(device)
     KH, Dh = cfg.n_kv_heads, cfg.head_dim
@@ -444,12 +528,13 @@ def init_cache(cfg: ArchConfig, B: int, ctx_len: int, *, device=None):
         if kind in _RECURRENT:
             layers.append(_INIT_RECURRENT[kind](cfg, B, device=device))
             continue
-        L = _cache_len(kind, cfg, ctx_len)
-        layers.append({
-            "k": torch.zeros((B, L, KH, Dh), dtype=torch.bfloat16,
-                             device=device),
-            "v": torch.zeros((B, L, KH, Dh), dtype=torch.bfloat16,
-                             device=device)})
+        if kind == CROSS:
+            names, L = ("ck", "cv"), cfg.n_patches
+        else:
+            names, L = ("k", "v"), _cache_len(kind, cfg, ctx_len)
+        layers.append({name: torch.zeros((B, L, KH, Dh),
+                                         dtype=torch.bfloat16, device=device)
+                       for name in names})
     return {"layers": layers}
 
 
@@ -459,17 +544,24 @@ def decode_step(params, cfg: ArchConfig, tokens, pos: int, cache, *,
 
     Returns (logits: (B, V), cache).  The cache's tensors, attention k/v
     and recurrent state alike, are updated in place; the returned cache
-    holds the same tensors.
+    holds the same tensors.  A CROSS layer reads its ``ck``/``cv``, which
+    ``prefill`` filled from the patches.  An encoder-only (audio) model
+    has no decode step: ValueError, as in the reference.
     """
-    tokens = _prepare(params, cfg, tokens, device)
+    if cfg.modality == "audio":
+        raise ValueError(f"{cfg.name}: encoder-only arch has no decode step")
+    device = _prepare(params, cfg, device)
     pos = int(pos)
-    x = _embed(params, cfg, tokens)
+    x = _embed_tokens(params, cfg, _tokens(tokens, device))
     layers = []
     for n, layer in enumerate(params["layers"]):
         kind = layer_kind(cfg, n)
         if kind in _RECURRENT:
             x, new = _DECODE_RECURRENT[kind](x, layer["mix"], cfg,
                                              cache["layers"][n])
+        elif kind == CROSS:
+            x, new = _decode_cross_attn(x, layer["mix"], cfg,
+                                        cache["layers"][n])
         else:
             x, new = decode_attention_block(
                 x, layer["mix"], cfg, cache["layers"][n], pos,
@@ -486,18 +578,19 @@ def prefill(params, cfg: ArchConfig, batch, *,
             device=None):
     """Full-context forward that also materialises the decode cache.
 
-    Returns (last_token_logits: (B, V), cache).  Each attention layer's
-    cache is sized ``cache_len`` (default: context length), or its window
-    when smaller, and holds the (windowed, ring-rotated) keys/values in
-    ``cfg.dtype``; a recurrent layer's is its state after the last token,
-    as the reference keeps it.
+    Returns (last_token_logits: (B, V), cache).  Each self-attention
+    layer's cache is sized ``cache_len`` (default: context length), or its
+    window when smaller, and holds the (windowed, ring-rotated)
+    keys/values in ``cfg.dtype``; a CROSS layer's holds the patch memory's
+    keys and values (``ck``, ``cv``) in ``cfg.dtype``; a recurrent layer's
+    is its state after the last token, as the reference keeps it.
     """
-    tokens = _prepare(params, cfg, batch["tokens"], device)
-    x = _embed(params, cfg, tokens)
+    device = _prepare(params, cfg, device)
+    x, memory = _embed(params, cfg, batch, device)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
-    x, _, kvs = _stack_forward(params, cfg, x, positions, moe_dispatch,
-                               collect_kv=True)
+    x, _, kvs = _stack_forward(params, cfg, x, memory, positions,
+                               moe_dispatch, collect_kv=True)
     x = rms_norm(x[:, -1], params["final_ln"], cfg.norm_eps)
     logits = _unembed(x, params, cfg)
 
@@ -518,6 +611,10 @@ def prefill(params, cfg: ArchConfig, batch, *,
         kind = layer_kind(cfg, n)
         if kind in _RECURRENT:
             layers.append(kv)           # recurrent state dict, verbatim
+            continue
+        if kind == CROSS:
+            layers.append({"ck": kv[0].to(dt).contiguous(),
+                           "cv": kv[1].to(dt).contiguous()})
             continue
         L = _cache_len(kind, cfg, L_default)
         layers.append({"k": fit(kv[0], L), "v": fit(kv[1], L)})

@@ -13,6 +13,8 @@ import pytest
 import torch
 
 from repro_torch.configs import get_arch
+from repro_torch.convert import flatten_with_paths
+from repro_torch.data import batch_for
 from repro_torch.kernels.flash_attention import kernel, ops, ref
 from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
 from repro_torch.kernels.mlstm_scan import ops as ml_ops
@@ -24,6 +26,8 @@ from repro_torch.kernels.rglru_scan import kernel as rg_kernel
 from repro_torch.kernels.rglru_scan import ops as rg_ops
 from repro_torch.kernels.rglru_scan import ref as rg_ref
 from repro_torch.models import registry as R
+from repro_torch.models.config import ShapeSpec
+from repro_torch.tree import tree_map
 
 pytestmark = pytest.mark.gpu
 
@@ -74,6 +78,8 @@ def _qkv(B, S, H, KH, Dh, dtype, seed=0):
     (4, 1000, 16, 1, 256, True, 2048),   # recurrentgemma-9b LOCAL prefill
     (1, 2304, 16, 1, 256, True, 2048),   # MQA, the window bites
     (2, 136, 4, 1, 256, True, 0),
+    (4, 1000, 32, 8, 128, True, 0),      # llama-3.2-vision-11b prefill
+    (1, 4096, 16, 16, 80, False, 0),     # hubert-xlarge train, Dh -> 120
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_kernel_matches_plain(B, S, H, KH, Dh, causal, window, dtype):
@@ -257,6 +263,43 @@ def test_model_on_gpu_matches_plain_on_cpu():
     assert kernel.LAUNCHES == before + cfg.n_layers
     off = R.forward_logits(params, cfg, {"tokens": toks}, device="cpu")
     assert float((on.cpu() - off).abs().max()) < 1e-3
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "hubert-xlarge"])
+def test_vision_and_audio_models_on_gpu_match_plain_on_cpu(arch):
+    """Loss and every gradient of a float32 training forward with the
+    flash kernel (causal self-attention beside cross-attention; or not
+    causal, head dim 16 padded to 64) against the plain versions on the
+    CPU, norms and gates drawn non-zero so that each path counts."""
+    _need_cuda()
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
+    params = R.init_params(cfg, 0, device="cpu", param_dtype=torch.float32)
+    g = torch.Generator().manual_seed(1)
+    for name, t in flatten_with_paths(params).items():
+        if name.endswith("ln']"):
+            t.copy_(0.1 * torch.randn(t.shape, generator=g))
+        elif name.endswith("['gate']"):
+            t.fill_(0.7)
+    batch = batch_for(cfg, ShapeSpec("t", 150, 2, "train"), seed=0)
+    n_attn = sum(kind == "attn" for kind in cfg.block_pattern) * \
+        cfg.n_layers // cfg.pattern_period
+
+    def run(device):
+        p = tree_map(lambda t: t.to(device).requires_grad_(), params)
+        loss, _ = R.forward_train(p, cfg, batch, device=device)
+        loss.backward()
+        return float(loss.detach()), {k: t.grad.cpu() for k, t in
+                             flatten_with_paths(p).items()}
+    before = kernel.LAUNCHES, kernel.BWD_LAUNCHES
+    loss, grads = run("cuda")
+    assert (kernel.LAUNCHES, kernel.BWD_LAUNCHES) == \
+        (before[0] + n_attn, before[1] + n_attn)
+    want_loss, want = run("cpu")
+    assert abs(loss - want_loss) <= 1e-4 * abs(want_loss)
+    top = max(float(w.abs().max()) for w in want.values())
+    for name, w in want.items():
+        scale = max(float(w.abs().max()), 1e-3 * top)
+        assert float((grads[name] - w).abs().max()) <= 1e-4 * scale, name
 
 
 def _gmm_inputs(E, C, d, f, gated, dtype, pad=0, seed=0):
@@ -835,6 +878,7 @@ def _bwd_check(q, k, v, do, causal, window, grads, o):
     (2, 65, 4, 2, 16, True, 0),         # padded to 64 by the wrapper
     (2, 63, 4, 4, 80, False, 0),        # padded to 120
     (1, 200, 4, 2, 64, False, 40),
+    (1, 4096, 16, 16, 80, False, 0),    # hubert-xlarge's training shape
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_backward_matches_plain(B, S, H, KH, Dh, causal, window,

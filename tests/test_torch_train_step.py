@@ -71,7 +71,14 @@ def _close(got, want, rtol, atol=0.0):
 
 @pytest.mark.parametrize("accum", [1, 2])
 def test_train_step_matches_jax(setup, accum):
-    jc, tc, jp, batches = setup
+    assert_train_steps_match_jax(*setup, accum)
+
+
+def assert_train_steps_match_jax(jc, tc, jp, batches, accum,
+                                 param_atol=PARAM_ATOL):
+    """``make_train_step`` of the port and of JAX from the same float32
+    weights ``jp`` (a JAX tree) over ``batches``: metrics, moments and
+    weights (within ``param_atol``) after the last step."""
     jstep = jax.jit(JS.make_train_step(jc, JaxAdamWConfig(**OPT),
                                        accum_steps=accum))
     tstep = S.make_train_step(tc, AdamWConfig(**OPT), accum_steps=accum,
@@ -89,7 +96,7 @@ def test_train_step_matches_jax(setup, accum):
             w = float(jm[k])
             assert abs(float(tm[k]) - w) <= METRIC_RTOL * max(1.0, abs(w)), \
                 (k, float(tm[k]), w)
-    assert int(topt.step) == 2
+    assert int(topt.step) == len(batches)
     step, m, v = opt_state_to_jax(tc, topt)
     assert int(step) == int(jopt.step)
     _close(flatten_with_paths(m),
@@ -98,7 +105,7 @@ def test_train_step_matches_jax(setup, accum):
            flatten_with_paths(jax.tree.map(np.asarray, jopt.v)), MOMENT_RTOL)
     _close(flatten_with_paths(params_to_jax(tc, tparams)),
            flatten_with_paths(jax.tree.map(np.asarray, jparams)), 0.0,
-           PARAM_ATOL)
+           param_atol)
 
 
 def test_eval_step_matches_jax(setup):
@@ -168,7 +175,8 @@ def _decay_configs(arch):
 
 
 @pytest.mark.parametrize("grads", ["zero", "small"])
-@pytest.mark.parametrize("arch", ["minicpm-2b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["minicpm-2b", "recurrentgemma-9b",
+                                  "llama-3.2-vision-11b", "hubert-xlarge"])
 def test_adamw_decay_matches_jax(arch, grads):
     jc, tc = _decay_configs(arch)
     jp = jax.jit(lambda key: JR.init_params(key, jc)[0])(jax.random.key(0))
@@ -187,6 +195,13 @@ def test_adamw_decay_matches_jax(arch, grads):
         for name in ("lam", "b_a", "b_i"):
             assert mask[f"['layers'][0]['mix']['{name}']"]
             assert not mask[f"['layers'][{last}]['mix']['{name}']"]
+    if arch == "llama-3.2-vision-11b":
+        # a CROSS layer's 0-dim gate is (n_scan_blocks,) stacked: rank 1
+        cross = tc.block_pattern.index("cross")
+        assert not mask[f"['layers'][{cross}]['mix']['gate']"]
+        assert mask["['vis_proj']"]
+    if arch == "hubert-xlarge":
+        assert mask["['frontend']"] and "['embed']" not in mask
     rng = np.random.default_rng(7)
     jparams = jax.tree.map(jnp.asarray, params_to_jax(tc, tparams))
     jopt, topt = jax_adamw_init(jparams), adamw_init(tparams)
@@ -194,8 +209,8 @@ def test_adamw_decay_matches_jax(arch, grads):
     decay = decay_mask(tc, tparams)
     for _ in range(DECAY_STEPS):
         g = tree_map(lambda t: torch.zeros_like(t) if grads == "zero" else
-                     torch.from_numpy(1e-3 * rng.standard_normal(
-                         t.shape, dtype=np.float32)), tparams)
+                     torch.from_numpy(np.asarray(1e-3 * rng.standard_normal(
+                         t.shape, dtype=np.float32))), tparams)
         jparams, jopt, _ = jax_adamw_update(
             jax.tree.map(jnp.asarray, params_to_jax(tc, g)), jopt, jparams,
             jcfg)
