@@ -75,7 +75,17 @@ a non-zero exit:
                 against its plain backward, the train shape timed beside
                 its bound (fixed at chunks of 64, as both routes are held
                 to it), with each pass of the wgmma route and the scalar
-                bf16 route's total beside it
+                bf16 route's total beside it; and moe_gmm under grad
+                (kernel_bwd moe_gmm: ``ExpertFFNFunction``, the kernel's
+                forward and plain grouped products as its backward) on
+                every route, gated and not, bucket fills with pads that
+                hold data and an expert no token reached, at granite-moe's
+                train shape (E 40, C 1024, d 1536, f 512, a routing's
+                32768 live rows) and prefill shape: dxe, dw1, dw3, dw2
+                against the plain backward and autograd of the plain
+                forward, dxe 0 on the pads; the train shape timed (the
+                function's forward and backward, its backward, plain
+                autograd's forward and backward) beside the bound
 4. serve        full-width minicpm-2b (40 layers, bf16, random weights from a
                 seed) serves 8 requests of 1000 prompt tokens through
                 ``repro_torch.launch.serve.serve``; every prefill layer must
@@ -164,6 +174,41 @@ a non-zero exit:
                 frames, 48 flash launches, not causal
 21. train consistency  hubert-xlarge, 2 layers, float32, S 512; the
                 negative control flips the mask
+22. train       granite-moe-3b-a800m at full width, 4 layers, as phase 12,
+                through the gather dispatch and the einsum dispatch from
+                one init at capacity factor E / k = 5 (no pair drops):
+                their losses within MOE_DISPATCH_RTOL of each other step by
+                step, both falling; every gather step 16 moe_gmm launches
+                (4 layers x 2 microbatches x forward and recompute, on
+                wgmma_bf16), 8 backward calls and 16 flash forward
+                launches, no moe_gmm launch on einsum; after step 1 every
+                expert of every layer and every router column has a
+                non-zero gradient
+23. train       granite-moe-3b-a800m at full width and depth (32 layers,
+                3.374 B params) through the gather dispatch at its
+                config's capacity factor: the loss after step 4 below
+                step 1's, and the batch nll (each microbatch's, evaluated
+                before and after the steps) falling; step times, tokens/s,
+                peak memory, and a profiled step with the moe_gmm
+                forward's and the plain backward's shares; then the
+                einsum dispatch from the same init, its curves beside
+24. train consistency  granite-moe, 2 layers, float32, S 512, capacity
+                factor E / k: the gather step on the card against the
+                CPU's plain step within 2e-5, and against einsum on the card
+25. pipeline    the §5 single-cell pipeline's step bodies
+                (``repro_torch.pipeline``) in the engine's order, each tool
+                made by its factory from the declarative document's
+                arguments: mkfastq, every sample's count (tiny_lm training:
+                flash forward and backward), seurat (flash forward and
+                k-means), singler, then the aggregate, whose summary must
+                cover every sample; at the document's own arguments (32
+                samples, d_model 48) and at 8 samples of 64 x 1024 tokens,
+                d_model 1024, vocab 32768, 16 steps; per step kind the
+                seconds, the flash launches and the device-busy share
+26. pipeline consistency  one sample's count (4 steps) and seurat in
+                float32 at d_model 256, card against CPU from one init:
+                per-step losses, embeddings (the untrained model's as the
+                control) and cluster assignments
 
 Earlier serve paths run at full depth; if the run outgrows its time, their
 depth is what gets cut first.
@@ -1006,7 +1051,7 @@ def time_moe_kernel(xe, p, act, err):
     kernel_ms = cuda_ms(lambda: ops.expert_ffn(xe, p, act))
     plain_ms = cuda_ms(lambda: ref.reference_expert_ffn(xe, p, act), iters=5)
     # yardstick only: no single PyTorch call computes this function, and the
-    # port never calls bmm for the expert products
+    # port's forward never calls bmm for the expert products
     fn = act_fn(act)
     yard_ms = cuda_ms(lambda: torch.bmm(
         fn(torch.bmm(xe, p["w1"])) * torch.bmm(xe, p["w3"]), p["w2"]))
@@ -1804,6 +1849,164 @@ def time_mlstm_bwd(xs, h, stats, dh, err, route):
             "scalar_bf16_ms": scalar_ms}
 
 
+# moe_gmm's autograd function (the kernel's forward, plain grouped products
+# as its backward) against the backward by formula in float32 on the same
+# upcast inputs, and against autograd of the plain forward, each gradient
+# relative to the plain one's max |.| (floored at 1e-3 of the largest):
+#  * bf16: the function's products round a1, a3, dh and every output to
+#    bf16 (2**-9 of the value each), ~7e-3 of the scale in all; 2e-2 is
+#    the bar, as for the forward;
+#  * float32: summation order only (no TF32); 1e-4.
+GMM_BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# (name, E, C, d, f, act, gated, tokens): the fills of a seeded top-8
+# routing of ``tokens`` tokens, clamped to C (granite's train shape: one
+# microbatch of 4096 tokens at capacity factor 1.25, and its prefill of
+# 4 x 1000), or, with None, random fills with an empty bucket, a full one
+# and an expert no token reached; the rows past each fill hold data (the
+# function's contract lets a pad row hold anything)
+GMM_BWD_CASES = [
+    ("granite-train", 40, 1024, 1536, 512, "swiglu", True, 4096),
+    ("granite-prefill", 40, 1000, 1536, 512, "swiglu", True, 4000),
+    ("ragged-136", 4, 136, 256, 512, "swiglu", True, None),
+    ("odd-d-f", 3, 100, 211, 333, "swiglu", True, None),
+    ("geglu-200", 8, 200, 200, 328, "geglu", True, None),
+    ("relu2-no-w3", 6, 130, 136, 72, "relu2", False, None),
+    ("gelu-no-w3", 5, 40, 64, 64, "gelu", False, None),
+]
+
+
+def random_fills(E, C, gen):
+    counts = torch.randint(0, C + 1, (E,), generator=gen, device="cuda")
+    counts[0], counts[-1] = 0, C
+    counts[1::5] = 0
+    return counts.to(torch.int32)
+
+
+def phase_kernel_moe_bwd():
+    """moe_gmm under grad: ``ExpertFFNFunction``'s gradients against the
+    plain backward and autograd of the plain forward on every route, pads
+    with data in them; granite's train shape timed.  Returns the timing."""
+    from repro_torch.kernels.moe_gmm import kernel, ops, ref
+    phase("kernel_bwd moe_gmm")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    result = None
+    for name, E, C, d, f, act, gated, tokens in GMM_BWD_CASES:
+        if tokens is None:
+            counts = random_fills(E, C, gen)
+        else:
+            counts = routed_fills(E, tokens, 8, gen)[0].clamp(max=C)
+        n_live = int(counts.sum())
+        x32 = torch.randn((E, C, d), generator=gen, device="cuda")
+        p32 = {"w1": torch.randn((E, d, f), generator=gen, device="cuda")
+               / math.sqrt(d),
+               "w2": torch.randn((E, f, d), generator=gen, device="cuda")
+               / math.sqrt(f)}
+        if gated:
+            p32["w3"] = torch.randn((E, d, f), generator=gen,
+                                    device="cuda") / math.sqrt(d)
+        dy32 = torch.randn((E, C, d), generator=gen, device="cuda")
+        pads = ~ref.live_rows(x32, counts)
+        names = ["w1", "w3", "w2"] if gated else ["w1", "w2"]
+        for dtype in (torch.bfloat16, torch.float32):
+            xe = x32.to(dtype).requires_grad_()
+            masters = {k: w.clone().requires_grad_() for k, w in p32.items()}
+            dy = dy32.to(dtype)
+            route = gmm_route(dtype, d, f)
+            before = kernel.LAUNCHES_BY_ROUTE[route], kernel.BWD_CALLS
+            y = ops.expert_ffn(xe, masters, act, counts)
+            check(y.grad_fn is not None,
+                  f"moe_gmm {name}: no grad_fn under grad")
+            got = torch.autograd.grad(y, [xe] + [masters[k] for k in names],
+                                      dy)
+            torch.cuda.synchronize()
+            check((kernel.LAUNCHES_BY_ROUTE[route], kernel.BWD_CALLS) ==
+                  (before[0] + 1, before[1] + 1),
+                  f"moe_gmm {name} {dtype}: not one launch on {route} and "
+                  f"one backward call")
+            # both references in float32 on the inputs the function saw
+            x_in = xe.detach().float()
+            p_in = {k: w.to(dtype).float() for k, w in p32.items()}
+            dxe, dw1, dw3, dw2 = ref.reference_expert_ffn_bwd(
+                x_in, p_in, dy.float(), act, counts)
+            want = [dxe, dw1] + ([dw3] if gated else []) + [dw2]
+            leaves = {k: w.clone().requires_grad_() for k, w in p_in.items()}
+            x_auto = x_in.clone().requires_grad_()
+            auto = torch.autograd.grad(
+                ref.reference_expert_ffn(x_auto, leaves, act, counts),
+                [x_auto] + [leaves[k] for k in names], dy.float())
+            errs = grad_errors(got, want)
+            errs_auto = grad_errors(got, auto)
+            err = max(float((g.float() - w).abs().max())
+                      for g, w in zip(got, want))
+            tol = GMM_BWD_TOL[dtype]
+            rels = " ".join(f"d{k} {e:.2e}"
+                            for k, e in zip(["xe"] + names, errs))
+            print(f"  {name:16s} {str(dtype):15s} E={E} C={C} d={d} f={f} "
+                  f"{act}{'' if gated else ' no w3'}, {n_live} live rows "
+                  f"({route} forward, plain backward): rel errs {rels} "
+                  f"against the plain backward, max {max(errs_auto):.2e} "
+                  f"against autograd (tol {tol:.0e})", flush=True)
+            check(all(math.isfinite(e) and e <= tol
+                      for e in errs + errs_auto),
+                  f"moe_gmm backward {name} {dtype}: errors {errs}, "
+                  f"against autograd {errs_auto} (tol {tol})")
+            check(not got[0][pads].any(),
+                  f"moe_gmm backward {name} {dtype}: dxe is not 0 on a pad")
+            if name == "granite-train" and dtype == torch.bfloat16:
+                result = time_moe_bwd(xe.detach(), p32, dy, act, counts,
+                                      n_live, err)
+            del xe, masters, got, want, auto, leaves, x_auto, x_in, p_in
+        del x32, p32, dy32
+        torch.cuda.empty_cache()
+    return result
+
+
+def time_moe_bwd(xe, p32, dy, act, counts, n_live, err):
+    """At granite's train shape in bf16: the function's forward and
+    backward, its backward alone, the kernel's forward alone, and plain
+    autograd's forward and backward, by CUDA events in this call, beside
+    the bound of the backward (six products over the live rows at the bf16
+    rate, or its bytes) and of forward and backward (nine)."""
+    from repro_torch.kernels.moe_gmm import ops, ref
+    E, C, d = xe.shape
+    f = p32["w1"].shape[-1]
+    w = {k: t.to(xe.dtype).requires_grad_() for k, t in p32.items()}
+    x = xe.requires_grad_()
+    leaves = [x, w["w1"], w["w3"], w["w2"]]
+    fn_ms = cuda_ms(lambda: torch.autograd.grad(
+        ops.expert_ffn(x, w, act, counts), leaves, dy), iters=10)
+    bwd_ms = cuda_ms(lambda: ref.reference_expert_ffn_bwd(
+        x.detach(), w, dy, act, counts), iters=10)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: ops.expert_ffn(x, w, act, counts),
+                         iters=10)
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(
+        ref.reference_expert_ffn(x, w, act, counts), leaves, dy), iters=10)
+    elem = xe.element_size()
+    flops = 6 * 2.0 * n_live * d * f
+    nbytes = elem * (3 * n_live * d + 6 * E * d * f)
+    t_ops, t_bytes = flops / PEAK_FLOPS[xe.dtype], nbytes / HBM_BYTES_PER_S
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    fb_bound_ms = max(1.5 * t_ops, (nbytes + elem * (2 * n_live * d + 3 * E
+                                                     * d * f))
+                      / HBM_BYTES_PER_S) * 1e3
+    print(f"  timing at granite's train shape (E={E} C={C} d={d} f={f} "
+          f"{xe.dtype}, {n_live} live rows): the function forward + "
+          f"backward {fn_ms:.4f} ms (its backward, plain grouped products "
+          f"with h recomputed, {bwd_ms:.4f} ms; the kernel's forward "
+          f"{fwd_ms:.4f} ms); plain autograd forward + backward "
+          f"{plain_ms:.4f} ms; bound of the backward {bound_ms:.4f} ms by "
+          f"{bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), of "
+          f"forward + backward {fb_bound_ms:.4f} ms", flush=True)
+    return {"route": "plain torch.bmm (cuBLAS), h recomputed",
+            "max_abs_err": err, "ms": bwd_ms, "fwd_bwd_ms": fn_ms,
+            "kernel_fwd_ms": fwd_ms, "plain_fwd_bwd_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "fwd_bwd_bound_ms": fb_bound_ms, "library_ms": None,
+            "live_rows": n_live}
+
+
 def layer_counts(cfg) -> dict:
     """{block kind: number of layers} of a config's pattern."""
     counts: dict = {}
@@ -2068,11 +2271,12 @@ def _kernel_modules():
 
 
 def kernel_launches() -> dict:
-    """Every kernel's launch count, each backward apart."""
+    """Every kernel's launch count, each backward apart (moe_gmm's: the
+    calls of its autograd function's backward, plain grouped products)."""
     fa, gmm, rg, ml = _kernel_modules()
     return {"flash_attention": fa.LAUNCHES,
             "flash_attention_bwd": fa.BWD_LAUNCHES, "moe_gmm": gmm.LAUNCHES,
-            "rglru_scan": rg.LAUNCHES, "rglru_scan_bwd": rg.BWD_LAUNCHES,
+            "moe_gmm_bwd": gmm.BWD_CALLS, "rglru_scan": rg.LAUNCHES, "rglru_scan_bwd": rg.BWD_LAUNCHES,
             "mlstm_scan": ml.LAUNCHES, "mlstm_scan_bwd": ml.BWD_LAUNCHES}
 
 
@@ -2093,13 +2297,17 @@ def reset_kernel_launches() -> None:
         module.reset_launches()
 
 
-def step_launches(cfg, microbatches: int, backward: bool) -> dict:
+def step_launches(cfg, microbatches: int, backward: bool,
+                  moe_dispatch: str = "einsum") -> dict:
     """The launches of one train step (``backward``) or eval step: per
     microbatch and layer a forward, and under full remat its recompute and
-    one backward."""
+    one backward; moe_gmm's only with the gather dispatch (every layer of
+    an MoE model has its MoE block)."""
     counts = layer_counts(cfg)
     layers = {"flash_attention": sum(counts.get(k, 0) for k in
                                      ("attn", "swa", "local")),
+              "moe_gmm": cfg.n_layers if cfg.is_moe and
+              moe_dispatch == "gather" else 0,
               "rglru_scan": counts.get("rglru", 0),
               "mlstm_scan": counts.get("mlstm", 0)}
     want = {k: 0 for k in kernel_launches()}
@@ -2114,12 +2322,12 @@ def step_launches(cfg, microbatches: int, backward: bool) -> dict:
 
 # the route every launch of a bf16 model's train step takes
 TRAIN_ROUTES = {"flash_attention": "wgmma_bf16",
-                "flash_attention_bwd": "wgmma_bf16",
+                "flash_attention_bwd": "wgmma_bf16", "moe_gmm": "wgmma_bf16",
                 "rglru_scan": "fused_bias", "rglru_scan_bwd": "fused_bias",
                 "mlstm_scan": "wgmma_bf16", "mlstm_scan_bwd": "wgmma_bf16"}
 # the routes of the float32 consistency step
 CONSIST_ROUTES = {"flash_attention": "scalar_f32",
-                  "flash_attention_bwd": "scalar_f32",
+                  "flash_attention_bwd": "scalar_f32", "moe_gmm": "scalar_f32",
                   "rglru_scan": "fused_bias", "rglru_scan_bwd": "fused_bias",
                   "mlstm_scan": "scalar_f32", "mlstm_scan_bwd": "scalar_f32"}
 
@@ -2133,24 +2341,36 @@ def check_routes(routes, launches, expected, what):
 
 
 def phase_train(arch: str = ARCH, n_layers=None, seq: int = TRAIN_SEQ,
-                profile: bool = True, extra=None):
+                profile: bool = True, extra=None,
+                moe_dispatch: str = "einsum", capacity_factor=None,
+                microbatch_nll: bool = False):
     """Four AdamW steps of full-width ``arch`` (``n_layers`` layers, or its
     full depth) at ``seq``, then an eval step, through ``make_train_step``
     / ``make_eval_step``; every flash launch causal unless the model is
     encoder-only; ``extra(cfg, params)`` runs on the trained weights, its
-    dict kept under "extra".  Returns ({kernel: launches over the steps
-    and the eval}, {kernel: launches by route}, {step metrics and
-    times})."""
+    dict kept under "extra".  An MoE model trains with ``moe_dispatch`` at
+    ``capacity_factor`` (None: its config's); after the first step every
+    expert of every layer and every router column must hold a non-zero
+    first moment, so a gradient lost to the step's zero fill shows, and
+    the expert FFN's backward calls are timed by CUDA events.  With
+    ``microbatch_nll`` each microbatch's nll is evaluated on the initial
+    and on the trained weights (kept under "nll_before" and "nll_after").
+    Returns ({kernel: launches over the steps and the eval}, {kernel:
+    launches by route}, {step metrics and times})."""
     from repro_torch.configs import get_arch, get_schedule
     from repro_torch.data import batch_for
     from repro_torch.launch.steps import make_eval_step, make_train_step
     from repro_torch.models import registry as R
     from repro_torch.models.config import ShapeSpec
     from repro_torch.optim import AdamWConfig, adamw_init
-    phase(f"train {arch}")
     cfg = get_arch(arch)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    if capacity_factor is not None:
+        cfg = dataclasses.replace(cfg, capacity_factor=capacity_factor)
+    moe_note = f" moe_dispatch={moe_dispatch} capacity_factor=" \
+        f"{cfg.capacity_factor} {cfg.n_layers} layers" if cfg.is_moe else ""
+    phase(f"train {arch}{moe_note}")
     check(cfg.remat == "full" and cfg.dtype == "bfloat16",
           f"{cfg.name} trains with remat={cfg.remat} in {cfg.dtype}")
     torch.cuda.synchronize()
@@ -2175,14 +2395,26 @@ def phase_train(arch: str = ARCH, n_layers=None, seq: int = TRAIN_SEQ,
           f"{ocfg.schedule} lr {ocfg.lr} warmup {ocfg.warmup_steps} of "
           f"{ocfg.total_steps}; init {time.perf_counter() - t0:.2f} s",
           flush=True)
-    step_fn = make_train_step(cfg, ocfg, accum_steps=TRAIN_ACCUM,
-                              device="cuda")
-    want = step_launches(cfg, TRAIN_ACCUM, backward=True)
+    step_fn = make_train_step(cfg, ocfg, moe_dispatch=moe_dispatch,
+                              accum_steps=TRAIN_ACCUM, device="cuda")
+    eval_fn = make_eval_step(cfg, moe_dispatch=moe_dispatch, device="cuda")
+
+    def nll_by_microbatch():
+        mb = TRAIN_BATCH // TRAIN_ACCUM
+        return [float(eval_fn(params, {k: v[j * mb:(j + 1) * mb]
+                                       for k, v in batch.items()})["nll"])
+                for j in range(TRAIN_ACCUM)]
+    nll_before = nll_by_microbatch() if microbatch_nll else None
+    want = step_launches(cfg, TRAIN_ACCUM, backward=True,
+                         moe_dispatch=moe_dispatch)
     unit = "frames" if cfg.modality == "audio" else "tokens"
     opt_ms, restore_opt = time_adamw()
+    bwd_events, restore_bwd = time_expert_bwd()
     reset_kernel_launches()
     masks, restore = record_flash_masks()
     history = []
+    if cfg.is_moe:
+        routed, restore_routing = record_routing()
     for i in range(TRAIN_STEPS):
         before = kernel_launches()
         torch.cuda.synchronize()
@@ -2200,12 +2432,20 @@ def phase_train(arch: str = ARCH, n_layers=None, seq: int = TRAIN_SEQ,
         m["ms"] = ms
         m["tokens_per_s"] = TRAIN_BATCH * seq / (ms / 1e3)
         m["adamw_ms"] = opt_ms[-1]
+        m["expert_bwd_ms"] = sum(a.elapsed_time(b) for a, b in bwd_events)
+        bwd_events.clear()
         history.append(m)
+        moe_ms = f", {m['expert_bwd_ms']:.1f} in the expert FFN's " \
+            f"backward" if cfg.is_moe and moe_dispatch == "gather" else ""
         print(f"  step {i + 1}: loss {m['loss']:.5f} nll {m['nll']:.5f} "
               f"acc {m['acc']:.4f} grad_norm {m['grad_norm']:.4f} lr "
-              f"{m['lr']:.3e}; {ms:.1f} ms ({opt_ms[-1]:.1f} in AdamW), "
-              f"{m['tokens_per_s']:.1f} {unit}/s; launches {delta}",
-              flush=True)
+              f"{m['lr']:.3e}; {ms:.1f} ms ({opt_ms[-1]:.1f} in AdamW"
+              f"{moe_ms}), {m['tokens_per_s']:.1f} {unit}/s; launches "
+              f"{delta}", flush=True)
+        if i == 0 and cfg.is_moe:
+            restore_routing()
+            m["idle_experts"] = check_expert_moments(cfg, params, opt,
+                                                     routed)
     restore_opt()
     check(history[-1]["loss"] < history[0]["loss"],
           f"the loss did not fall over {TRAIN_STEPS} steps on one batch: "
@@ -2214,14 +2454,14 @@ def phase_train(arch: str = ARCH, n_layers=None, seq: int = TRAIN_SEQ,
     before = kernel_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ev = {k: float(v) for k, v in
-          make_eval_step(cfg, device="cuda")(params, batch).items()}
+    ev = {k: float(v) for k, v in eval_fn(params, batch).items()}
     torch.cuda.synchronize()
     eval_ms = (time.perf_counter() - t0) * 1e3
     delta = {k: v - before[k] for k, v in kernel_launches().items()}
     check(all(math.isfinite(v) for v in ev.values()),
           f"eval: a metric is not finite: {ev}")
-    check(delta == step_launches(cfg, TRAIN_ACCUM, backward=False),
+    check(delta == step_launches(cfg, TRAIN_ACCUM, backward=False,
+                                 moe_dispatch=moe_dispatch),
           f"the eval step launched {delta}")
     restore()
     launches = kernel_launches()
@@ -2233,6 +2473,8 @@ def phase_train(arch: str = ARCH, n_layers=None, seq: int = TRAIN_SEQ,
                    ("backward", "flash_attention_bwd")) if launches[key]}
     check(masks == want_masks, f"train {cfg.name}: flash launches by (pass, "
           f"causal) {masks}, expected {want_masks}")
+    # on the weights of the 4 steps (the profiled step below is a 5th)
+    nll_after = nll_by_microbatch() if microbatch_nll else None
     steady = [h["ms"] for h in history[1:]]
     print(f"  eval: loss {ev['loss']:.5f} nll {ev['nll']:.5f} acc "
           f"{ev['acc']:.4f}; {eval_ms:.1f} ms; loss {history[0]['loss']:.5f}"
@@ -2245,11 +2487,25 @@ def phase_train(arch: str = ARCH, n_layers=None, seq: int = TRAIN_SEQ,
           f"launches by (pass, causal) {masks}", flush=True)
     if profile:
         # where the time goes: one more step, under the profiler
-        print_profile("train step", *profile_ms(
-            lambda: step_fn(params, opt, batch)))
+        wall, busy, top, port = profile_ms(
+            lambda: step_fn(params, opt, batch))
+        print_profile("train step", wall, busy, top, port)
+        if bwd_events:
+            bwd_ms = sum(a.elapsed_time(b) for a, b in bwd_events)
+            print(f"    the expert FFN's backward (plain grouped products, "
+                  f"CUDA events): {bwd_ms:.3f} ms over {len(bwd_events)} "
+                  f"calls, {bwd_ms / busy:.1%} of device busy", flush=True)
+    restore_bwd()
     out = {"steps": history, "eval": ev, "eval_ms": eval_ms,
            "peak_bytes": peak}
-    del opt, batch, step_fn
+    if microbatch_nll:
+        out["nll_before"], out["nll_after"] = nll_before, nll_after
+        print(f"  nll by microbatch: before training "
+              f"{[round(v, 5) for v in out['nll_before']]} (mean "
+              f"{np.mean(out['nll_before']):.5f}), after {TRAIN_STEPS} steps "
+              f"{[round(v, 5) for v in out['nll_after']]} (mean "
+              f"{np.mean(out['nll_after']):.5f})", flush=True)
+    del opt, batch, step_fn, eval_fn
     torch.cuda.empty_cache()
     if extra is not None:
         out["extra"] = extra(cfg, params)
@@ -2259,21 +2515,29 @@ def phase_train(arch: str = ARCH, n_layers=None, seq: int = TRAIN_SEQ,
 
 
 def phase_train_consistency(arch: str = ARCH, n_layers: int = CONSIST_LAYERS,
-                            seq: int = CONSIST_SEQ):
+                            seq: int = CONSIST_SEQ, tol: float = TRAIN_RTOL,
+                            moe_dispatch: str = "einsum"):
     """One float32 training step's loss and gradients on the card against
     the same on the CPU, at full width and ``n_layers`` layers, every norm
     scale drawn (0 at init, where a fault in a norm cannot show), with the
     labels shifted by one position (an audio model: its mask flipped) as
-    the negative control."""
+    the negative control.  An MoE model runs ``moe_dispatch`` at capacity
+    factor E / k, where no (token, expert) pair drops; with the gather
+    dispatch the card's einsum step is also held against its gather
+    step."""
     from repro_torch.configs import get_arch
     from repro_torch.convert import flatten_with_paths
     from repro_torch.data import batch_for
     from repro_torch.models import registry as R
     from repro_torch.models.config import ShapeSpec
     from repro_torch.tree import tree_map
-    phase(f"train consistency {arch}")
     cfg = dataclasses.replace(get_arch(arch), n_layers=n_layers,
                               dtype="float32")
+    if cfg.is_moe:
+        cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    phase(f"train consistency {arch}" + (
+        f" moe_dispatch={moe_dispatch}" if cfg.is_moe else ""))
     params = R.init_params(cfg, 0, device="cpu", param_dtype=torch.float32)
     draw_norms(params)
     batch = batch_for(cfg, ShapeSpec("consistency", seq, 1, "train"),
@@ -2285,10 +2549,11 @@ def phase_train_consistency(arch: str = ARCH, n_layers: int = CONSIST_LAYERS,
         control = "labels shifted by one"
         bad_batch = dict(batch, labels=np.roll(batch["labels"], 1, axis=1))
 
-    def run(device, b):
+    def run(device, b, dispatch=moe_dispatch):
         p = tree_map(lambda t: t.detach().to(device).requires_grad_(True),
                      params)
-        loss, _ = R.forward_train(p, cfg, b, device=device)
+        loss, _ = R.forward_train(p, cfg, b, moe_dispatch=dispatch,
+                                  device=device)
         loss.backward()
         return float(loss.detach()), {k: t.grad.detach().cpu() for k, t in
                                       flatten_with_paths(p).items()}
@@ -2303,7 +2568,7 @@ def phase_train_consistency(arch: str = ARCH, n_layers: int = CONSIST_LAYERS,
     torch.cuda.synchronize()
     gpu_s = time.perf_counter() - t0
     launches = kernel_launches()
-    want = step_launches(cfg, 1, backward=True)
+    want = step_launches(cfg, 1, backward=True, moe_dispatch=moe_dispatch)
     check(launches == want,
           f"the float32 step launched {launches}, expected {want}")
     check_routes(kernel_routes(), launches, CONSIST_ROUTES,
@@ -2327,15 +2592,30 @@ def phase_train_consistency(arch: str = ARCH, n_layers: int = CONSIST_LAYERS,
     print(f"  {cfg.n_layers} layers {layer_counts(cfg)} at full width, "
           f"float32, S={seq}: loss card {loss_gpu:.6f} cpu {loss_cpu:.6f} "
           f"(rel err {loss_err:.3e}); max rel grad err over {len(g_cpu)} "
-          f"leaves {err:.3e} (tol {TRAIN_RTOL:.0e}); {control}: "
+          f"leaves {err:.3e} (tol {tol:.0e}); {control}: "
           f"{err_bad:.3e}; card {gpu_s:.2f} s, cpu {cpu_s:.2f} s; launches "
           f"{launches}; norms drawn", flush=True)
-    check(loss_err <= TRAIN_RTOL, f"the loss disagrees: {loss_err}")
-    check(err <= TRAIN_RTOL, f"the gradients disagree: {err}")
-    check(err_bad > TRAIN_RTOL,
-          f"{control}: passes the tolerance ({err_bad})")
+    check(loss_err <= tol, f"the loss disagrees: {loss_err}")
+    check(err <= tol, f"the gradients disagree: {err}")
+    check(err_bad > tol, f"{control}: passes the tolerance ({err_bad})")
+    out = {"rel_err": err, "shifted_rel_err": err_bad}
+    if cfg.is_moe and moe_dispatch == "gather":
+        before = kernel_launches()["moe_gmm"]
+        loss_ein, g_ein = run("cuda", batch, "einsum")
+        check(kernel_launches()["moe_gmm"] == before,
+              "the einsum step launched moe_gmm")
+        err_ein = rel(g_gpu, g_ein)
+        loss_err_ein = abs(loss_gpu - loss_ein) / abs(loss_ein)
+        print(f"  card gather against card einsum: loss rel err "
+              f"{loss_err_ein:.3e}, max rel grad err {err_ein:.3e} (tol "
+              f"{tol:.0e})", flush=True)
+        check(loss_err_ein <= tol and err_ein <= tol,
+              f"gather and einsum disagree on the card: loss "
+              f"{loss_err_ein}, gradients {err_ein}")
+        out["einsum_rel_err"] = err_ein
+        del g_ein
     del params, g_gpu, g_cpu, g_bad
-    return {"rel_err": err, "shifted_rel_err": err_bad}
+    return out
 
 
 def record_flash_masks():
@@ -2359,6 +2639,84 @@ def record_flash_masks():
     def restore():
         kernel.launch, kernel.launch_bwd = real["forward"], real["backward"]
     return counts, restore
+
+
+def record_routing():
+    """Count each MoE layer's routed (token, expert) pairs from now on, by
+    wrapping ``moe.router_topk`` (both dispatches call it through the
+    module), keyed by the router weight's storage; returns ({data_ptr: (E,)
+    counts}, a function that restores it)."""
+    from repro_torch.models import moe
+    real = moe.router_topk
+    counts: dict = {}
+
+    def counted(x, wr, k):
+        w, idx, aux = real(x, wr, k)
+        c = torch.bincount(idx.reshape(-1), minlength=wr.shape[-1])
+        key = wr.data_ptr()
+        counts[key] = counts[key] + c if key in counts else c
+        return w, idx, aux
+    moe.router_topk = counted
+
+    def restore():
+        moe.router_topk = real
+    return counts, restore
+
+
+def check_expert_moments(cfg, params, opt, routed) -> dict:
+    """After the first AdamW step: every layer's expert leaves (w1, w3, w2)
+    and router have a non-zero first moment (0.1 of the gradient), which a
+    gradient lost to the train step's zero fill would leave at 0; and
+    exactly the experts some token was routed to in that step (``routed``,
+    from ``record_routing``) have one in each expert leaf, since at random
+    init a layer's tokens can all avoid an expert, which then has no
+    gradient in either dispatch.  Every router column has one (the aux
+    loss reaches each).  Returns {layer: experts no token reached}."""
+    idle = {}
+    for i, (layer, m) in enumerate(zip(params["layers"], opt.m["layers"])):
+        reached = routed[layer["ffn"]["router"].data_ptr()] > 0
+        for name in ("w1", "w3", "w2"):
+            has = m["ffn"][name].abs().flatten(1).amax(1) > 0
+            check(bool(has.any()), f"layer {i} {name}: no gradient")
+            check(torch.equal(has, reached),
+                  f"layer {i} {name}: experts with a gradient "
+                  f"{has.nonzero().flatten().tolist()}, routed to "
+                  f"{reached.nonzero().flatten().tolist()}")
+        cols = m["ffn"]["router"].abs().amax(0)
+        check(bool((cols > 0).all()),
+              f"layer {i}: router columns "
+              f"{(cols == 0).nonzero().flatten().tolist()} got no gradient")
+        if not bool(reached.all()):
+            idle[i] = (~reached).nonzero().flatten().tolist()
+    print(f"  after step 1: every layer's w1, w3, w2 and router has a "
+          f"gradient; exactly the routed experts do ({cfg.n_layers} layers "
+          f"x {cfg.n_experts}); experts no token reached, by layer: "
+          f"{idle}", flush=True)
+    return idle
+
+
+def time_expert_bwd():
+    """Record a pair of CUDA events around each call of the expert FFN's
+    backward from now on (``ref.reference_expert_ffn_bwd``, which the
+    autograd function calls through its module); returns (the list of
+    (start, end) pairs it appends to, a function that restores it)."""
+    from repro_torch.kernels.moe_gmm import ref
+    real = ref.reference_expert_ffn_bwd
+    events: list = []
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+        return out
+    ref.reference_expert_ffn_bwd = timed
+
+    def restore():
+        ref.reference_expert_ffn_bwd = real
+    return events, restore
 
 
 def time_adamw():
@@ -2695,6 +3053,238 @@ def time_encode(cfg, params):
     return {"encode_ms": ms}
 
 
+# granite-moe's training: both dispatches at equal depth, then the gather
+# dispatch at full depth
+MOE_TRAIN_LAYERS = 4
+# gather against einsum, step by step, relative to einsum's loss: from one
+# init at capacity factor E / k (no pair drops) the two compute the same
+# function, in bf16 with other roundings (other bucket shapes, h rounded
+# to bf16 in the kernel, another combine order) and router near-ties
+# (C15); `python3 tools/moe_dispatch_cpu.py` (granite's routing at d 256,
+# 2 layers, bf16, on the CPU) puts the two within 2e-4 of the loss over
+# four steps, and the same run with the experts' gradients dropped 4-6%
+# apart at steps 2-4: 1e-2 sits between the two
+MOE_DISPATCH_RTOL = 1e-2
+# the float32 train step of granite-moe (2 layers, S 512) on the card,
+# gather against the CPU's plain step and against einsum on the card
+MOE_CONSIST_LAYERS, MOE_CONSIST_SEQ, MOE_TRAIN_RTOL = 2, 512, 2e-5
+
+
+def phase_train_moe_dispatches():
+    """Phase 22: granite-moe at full width, MOE_TRAIN_LAYERS layers, as
+    phase 12, gather and einsum from one init at capacity factor E / k:
+    their losses within MOE_DISPATCH_RTOL step by step, both falling."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(MOE_ARCH)
+    cf = cfg.n_experts / cfg.top_k
+    runs = {d: phase_train(MOE_ARCH, MOE_TRAIN_LAYERS, moe_dispatch=d,
+                           capacity_factor=cf, profile=False)
+            for d in ("gather", "einsum")}
+    curves = {d: [(h["loss"], h["nll"]) for h in out["steps"]]
+              for d, (_, _, out) in runs.items()}
+    rels = [abs(g[0] - e[0]) / abs(e[0])
+            for g, e in zip(curves["gather"], curves["einsum"])]
+    print(f"  {MOE_TRAIN_LAYERS} layers, capacity factor {cf}: (loss, nll) "
+          f"a step, gather {curves['gather']}, einsum {curves['einsum']}; "
+          f"loss rel diff a step {[f'{r:.2e}' for r in rels]} (tol "
+          f"{MOE_DISPATCH_RTOL:.0e})", flush=True)
+    check(all(r <= MOE_DISPATCH_RTOL for r in rels),
+          f"gather and einsum losses differ: {rels}")
+    return runs["gather"], curves
+
+
+def phase_train_moe_full():
+    """Phase 23: granite-moe at full width and depth through the gather
+    dispatch at its config's capacity factor, each microbatch's nll
+    evaluated before and after the steps; then the einsum dispatch from
+    the same init, the same way, for comparison.  The gather run's loss
+    and its batch nll (the mean over both microbatches) must fall.  The
+    last microbatch's nll is printed and not checked: at full depth this
+    recipe fits the first microbatch (-2 nats over the 3 updates) at the
+    second's expense on both dispatches, so it rises there whichever
+    dispatch computes the step (PERF.md)."""
+    launches, routes, out = phase_train(MOE_ARCH, moe_dispatch="gather",
+                                        microbatch_nll=True)
+    before, after = np.mean(out["nll_before"]), np.mean(out["nll_after"])
+    check(after < before,
+          f"granite-moe gather: the batch nll did not fall over "
+          f"{TRAIN_STEPS} steps: {before} -> {after}")
+    _, _, einsum = phase_train(MOE_ARCH, moe_dispatch="einsum",
+                               profile=False, microbatch_nll=True)
+    def curve(steps):
+        return [(round(h["loss"], 5), round(h["nll"], 5)) for h in steps]
+    print(f"  full depth, (loss, last microbatch's nll) a step: gather "
+          f"{curve(out['steps'])}, einsum {curve(einsum['steps'])}",
+          flush=True)
+    return launches, routes, out
+
+
+# the §5 pipeline at a size where a count step does real work: 8 samples of
+# 64 rows of 1024 tokens, tiny_lm at d_model 1024 (4 heads of 256, so the
+# flash kernel pads nothing) and a 32768-token vocabulary, 16 steps of 8 rows
+PIPELINE_REAL = dict(n_samples=8, rows_per_sample=64, seq_len=1024,
+                     train_steps=16, batch=8, vocab=32768, d_model=1024)
+PIPELINE_KINDS = ("mkfastq", "count", "seurat", "singler", "aggregate")
+
+
+def phase_pipeline(label: str, doc):
+    """Phase 25: the port's §5 step bodies in the engine's order (every
+    sample's count, then seurat, then singler, then the aggregate),
+    each tool made by its factory from the declarative document's
+    arguments as the engine makes it.  Per step kind: seconds, flash
+    launches (a count invocation 2 forward and 2 backward a train step:
+    2 layers, remat "none"; a seurat invocation 2 forward) and the
+    device-busy share of one profiled invocation."""
+    from repro_torch import pipeline
+    phase(f"pipeline {label}")
+    tools = doc["tools"]
+    steps = doc["workflows"]["single-cell-scatter"]["steps"]
+    n = steps["/mkfastq"]["streams"]["shard"]
+    train_steps = tools["count"]["implementation"]["args"]["train_steps"]
+    fns = {kind: getattr(pipeline, tools[kind]["implementation"]["factory"])(
+        **tools[kind]["implementation"].get("args", {}))
+        for kind in PIPELINE_KINDS}
+    want = {"count": {"flash_attention": 2 * train_steps,
+                      "flash_attention_bwd": 2 * train_steps},
+            "seurat": {"flash_attention": 2, "flash_attention_bwd": 0}}
+    seconds = {kind: 0.0 for kind in PIPELINE_KINDS}
+    launches = {kind: {"flash_attention": 0, "flash_attention_bwd": 0}
+                for kind in PIPELINE_KINDS}
+    reset_kernel_launches()
+
+    def call(kind, inputs, tag=None):
+        before = kernel_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fns[kind](inputs, {} if tag is None else {"tag": (tag,)})
+        torch.cuda.synchronize()
+        seconds[kind] += time.perf_counter() - t0
+        after = kernel_launches()
+        delta = {k: after[k] - before[k] for k in after}
+        for k in launches[kind]:
+            launches[kind][k] += delta[k]
+        expect = {k: want.get(kind, {}).get(k, 0) for k in delta}
+        check(delta == expect, f"pipeline {kind} invocation {tag}: "
+              f"launched {delta}, expected {expect}")
+        return out
+
+    shards = call("mkfastq", {"seed": 0})["shard"]
+    counted = [call("count", {"shard": shards[i]}, i) for i in range(n)]
+    clusters = [call("seurat", {"shard": shards[i],
+                                "model": counted[i]["model"]}, i)
+                for i in range(n)]
+    labels = [call("singler", {"clusters": c["clusters"]}, i)
+              for i, c in enumerate(clusters)]
+    summary = call("aggregate", {"labels": [lab["labels"]
+                                            for lab in labels]})["summary"]
+    check_routes(kernel_routes(), kernel_launches(), TRAIN_ROUTES,
+                 f"pipeline {label}")
+    losses = [c["stats"]["losses"] for c in counted]
+    check(all(len(ls) == train_steps and all(map(math.isfinite, ls))
+              for ls in losses), f"pipeline {label}: count losses {losses}")
+    n_clusters = len(clusters[0]["clusters"]["centroids"])
+    check(summary["n_samples"] == n and
+          int(summary["type_counts"].sum()) == n * n_clusters and
+          math.isfinite(summary["mean_confidence"]),
+          f"pipeline {label}: the summary {summary} does not cover the "
+          f"{n} samples")
+    busy = {}
+    for kind, inputs in (("count", {"shard": shards[0]}),
+                         ("seurat", {"shard": shards[0],
+                                     "model": counted[0]["model"]})):
+        wall, dev, _, _ = profile_ms(lambda: fns[kind](inputs,
+                                                       {"tag": (0,)}))
+        busy[kind] = dev / wall if wall > 0 else float("nan")
+    rows, seq = shards[0].shape[0], shards[0].shape[1] - 1
+    print(f"  {n} samples of {rows} x {seq} tokens; count {train_steps} "
+          f"steps each; summary: {n} samples, type counts "
+          f"{summary['type_counts'].tolist()}, mean confidence "
+          f"{summary['mean_confidence']:.4f}; count losses, first sample "
+          f"{[round(v, 5) for v in losses[0]]}", flush=True)
+    for kind in PIPELINE_KINDS:
+        share = f", device busy {busy[kind]:.1%} of one profiled " \
+            f"invocation" if kind in busy else ""
+        calls = 1 if kind in ("mkfastq", "aggregate") else n
+        print(f"  {kind:9s}: {seconds[kind]:.3f} s over {calls} "
+              f"invocations ({seconds[kind] / calls * 1e3:.1f} ms each); "
+              f"flash launches {launches[kind]}{share}", flush=True)
+    return {"seconds": seconds, "launches": launches, "busy": busy,
+            "losses": losses, "summary": summary}
+
+
+# phase 26: one sample's count and seurat in float32, card against CPU,
+# from one init, at d_model 256 (4 heads of 64, flash's scalar_f32 route)
+PIPE_CONSIST = dict(vocab=4096, d_model=256, rows=16, seq=256, steps=4,
+                    batch=4, chain=1)
+# the per-step losses: float32 sums in other orders, and AdamW, which
+# moves an element by ~lr whatever its gradient's size, over 4 steps:
+# ~1e-6 apart; TRAIN_RTOL is the bar.  The embeddings (mean logits of the
+# trained weights) relative to their max |.|: the weights differ by at most
+# ~1e-2 lr where a gradient is of rounding size, ~1e-5 of the embeddings;
+# training moves them by ~1e-2 (the untrained init's embeddings, the
+# control), so 1e-3
+PIPE_EMBED_RTOL = 1e-3
+
+
+def phase_pipeline_consistency():
+    from repro_torch import pipeline
+    from repro_torch.convert import params_to_jax
+    from repro_torch.tree import tree_map
+    phase("pipeline consistency")
+    c = PIPE_CONSIST
+    cfg = dataclasses.replace(pipeline.tiny_lm(vocab=c["vocab"],
+                                               d_model=c["d_model"]),
+                              dtype="float32")
+    shard = pipeline.mkfastq_tool(1, c["rows"], c["seq"], c["vocab"])(
+        {"seed": 3}, {})["shard"][0]
+    init = pipeline.init_model(cfg, c["chain"], "cpu")
+    def run(dev, steps=c["steps"]):
+        """(per-step losses, seurat's clusters) of count and seurat on
+        ``dev`` from the init."""
+        params = tree_map(lambda t: t.clone().to(dev), init)
+        params, losses = pipeline.train_shard(params, shard, cfg, steps,
+                                              c["batch"], dev)
+        seurat = pipeline._seurat_fn(c["chain"], cfg, device=dev)
+        return losses, seurat({"shard": shard,
+                               "model": params_to_jax(cfg, params)},
+                              {})[f"clusters{c['chain']}"]
+
+    reset_kernel_launches()
+    l_gpu, cl_gpu = run("cuda")
+    want = {k: 0 for k in kernel_launches()}
+    want.update(flash_attention=2 * c["steps"] + 2,
+                flash_attention_bwd=2 * c["steps"])
+    check(kernel_launches() == want,
+          f"pipeline consistency: launched {kernel_launches()}")
+    check_routes(kernel_routes(), kernel_launches(), CONSIST_ROUTES,
+                 "pipeline consistency")
+    l_cpu, cl_cpu = run("cpu")
+    _, untrained = run("cpu", steps=0)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+    scale = float(np.abs(cl_cpu["embeddings"]).max())
+    emb_err = float(np.abs(cl_gpu["embeddings"] -
+                           cl_cpu["embeddings"]).max()) / scale
+    emb_ctl = float(np.abs(cl_gpu["embeddings"] -
+                           untrained["embeddings"]).max()) / scale
+    same = bool(np.array_equal(cl_gpu["assign"], cl_cpu["assign"]))
+    print(f"  tiny_lm d_model {c['d_model']} vocab {c['vocab']}, float32, "
+          f"{c['rows']} rows of {c['seq']} tokens, {c['steps']} steps of "
+          f"{c['batch']}: losses card {[round(v, 6) for v in l_gpu]} cpu "
+          f"{[round(v, 6) for v in l_cpu]} (max rel err {loss_err:.3e}, "
+          f"tol {TRAIN_RTOL:.0e}); embeddings max rel err {emb_err:.3e} "
+          f"(tol {PIPE_EMBED_RTOL:.0e}), against the untrained model's "
+          f"{emb_ctl:.3e}; cluster assignments equal: {same} "
+          f"{cl_gpu['assign'].tolist()}", flush=True)
+    check(loss_err <= TRAIN_RTOL, f"the count losses disagree: {loss_err}")
+    check(emb_err <= PIPE_EMBED_RTOL, f"the embeddings disagree: {emb_err}")
+    check(emb_ctl > PIPE_EMBED_RTOL,
+          f"the untrained model's embeddings pass the tolerance ({emb_ctl})")
+    check(same, "the cluster assignments differ")
+    check(l_gpu[-1] < l_gpu[0], f"the count loss did not fall: {l_gpu}")
+    return {"loss_rel_err": loss_err, "embed_rel_err": emb_err,
+            "untrained_embed_rel_err": emb_ctl}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this runs on the GPU",
@@ -2708,6 +3298,7 @@ def main() -> int:
     rg_bwd_timing = phase_kernel_rglru_bwd()
     ml_bwd_timing = phase_kernel_mlstm_bwd()
     gmm_timing = phase_kernel_moe()
+    gmm_bwd_timing = phase_kernel_moe_bwd()
     rg_timing = phase_kernel_rglru()
     ml_timing = phase_kernel_mlstm()
     routes = {}     # {arch: {kernel: launches by route}}
@@ -2746,6 +3337,17 @@ def main() -> int:
                                                      extra=time_encode)
     phase_train_consistency(AUDIO_ARCH, AUDIO_CONSIST_LAYERS,
                             AUDIO_CONSIST_SEQ)
+    phase_train_moe_dispatches()
+    moe_train, moe_train_routes, _ = phase_train_moe_full()
+    phase_train_consistency(MOE_ARCH, MOE_CONSIST_LAYERS, MOE_CONSIST_SEQ,
+                            tol=MOE_TRAIN_RTOL, moe_dispatch="gather")
+    from repro_torch import pipeline
+    phase_pipeline("streamflow_doc_declarative_hybrid's own arguments",
+                   pipeline.streamflow_doc_declarative_hybrid())
+    pipe_real = phase_pipeline(
+        f"at {PIPELINE_REAL}",
+        pipeline.streamflow_doc_declarative_hybrid(**PIPELINE_REAL))
+    phase_pipeline_consistency()
 
     kernels = [
         {"name": "flash_attention", "route": "cuda",
@@ -2766,7 +3368,10 @@ def main() -> int:
              VISION_ARCH: vision_launches["flash_attention"],
              f"{ARCH} train": train_launches["flash_attention"],
              f"{GRIFFIN_ARCH} train": griffin_train["flash_attention"],
-             f"{AUDIO_ARCH} train": audio_train["flash_attention"]},
+             f"{AUDIO_ARCH} train": audio_train["flash_attention"],
+             f"{MOE_ARCH} train": moe_train["flash_attention"],
+             "pipeline": sum(v["flash_attention"]
+                             for v in pipe_real["launches"].values())},
          "launches_by_route": {
              **{arch: r["flash_attention"] for arch, r in routes.items()},
              f"{ARCH} train": train_routes["flash_attention"],
@@ -2800,16 +3405,26 @@ def main() -> int:
          "launches_by_path": {
              f"{ARCH} train": train_launches["flash_attention_bwd"],
              f"{GRIFFIN_ARCH} train": griffin_train["flash_attention_bwd"],
-             f"{AUDIO_ARCH} train": audio_train["flash_attention_bwd"]},
+             f"{AUDIO_ARCH} train": audio_train["flash_attention_bwd"],
+             f"{MOE_ARCH} train": moe_train["flash_attention_bwd"]},
          **bwd_timing},
         {"name": "moe_gmm", "route": "cuda",
          "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
          "replaces": "src/repro/kernels/moe_gmm/kernel.py:55",
          # launches on granite-moe's serving, all on wgmma_bf16 (checked in
          # its serve phase); times at its prefill shape with every row live,
-         # and in "at_decode_routed" at its decode with a routing's fills
+         # and in "at_decode_routed" at its decode with a routing's fills;
+         # under grad it runs in ExpertFFNFunction, whose backward is plain
+         # grouped products ("backward": its calls in full-depth gather
+         # training and its times at granite's train shape)
          "launches": moe_launches["moe_gmm"],
-         "launches_by_route": routes[MOE_ARCH]["moe_gmm"], **gmm_timing},
+         "launches_by_route": routes[MOE_ARCH]["moe_gmm"],
+         "launches_by_path": {
+             MOE_ARCH: moe_launches["moe_gmm"],
+             f"{MOE_ARCH} train": moe_train["moe_gmm"]},
+         "launches_by_route_train": moe_train_routes["moe_gmm"],
+         "backward": {"calls": moe_train["moe_gmm_bwd"], **gmm_bwd_timing},
+         **gmm_timing},
         {"name": "rglru_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan/kernel.py:55",

@@ -21,7 +21,6 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import List, Optional
 
-import torch
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_ROOT = KERNELS_DIR.parents[2] / "build" / "repro_torch"
@@ -121,18 +120,6 @@ def load_library() -> ctypes.CDLL:
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
-
-
-def check_no_grad(what: str, tensors, advice: str) -> None:
-    """Raise if grad mode is on and any of ``tensors`` requires grad.
-
-    For a kernel with no backward yet: its outputs are filled through
-    ctypes and carry no ``grad_fn``, so ``backward()`` would pass over
-    it and leave everything upstream of it without its gradient."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(f"{what}: the CUDA kernel has no backward yet, so "
-                           f"its output would carry no gradient; {advice}")
 
 
 def check_launch(err: int, what: str) -> None:

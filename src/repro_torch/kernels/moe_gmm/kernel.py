@@ -28,13 +28,17 @@ ACT_CODE = {"swiglu": 0, "geglu": 1, "gelu": 1, "relu2": 2}
 
 LAUNCHES = 0    # launch() calls in this process; reset by whoever reads it
 LAUNCHES_BY_ROUTE = {route: 0 for route in ROUTES}
+# backward calls of ops.ExpertFFNFunction (plain grouped products, no
+# kernel of this module), counted with the launches
+BWD_CALLS = 0
 
 _fn = None
 
 
 def reset_launches() -> None:
-    global LAUNCHES
+    global LAUNCHES, BWD_CALLS
     LAUNCHES = 0
+    BWD_CALLS = 0
     for route in LAUNCHES_BY_ROUTE:
         LAUNCHES_BY_ROUTE[route] = 0
 

@@ -15,12 +15,21 @@ catching an error:
   (TMA's strides are multiples of 16 bytes) and xe and the weights on
   16-byte boundaries;
 * other bf16 takes ``wmma_bf16``, WMMA fragments on plain loads.
+
+Under grad mode, with an input that requires grad, the kernel runs inside
+``ExpertFFNFunction``, whose backward is ``ref.reference_expert_ffn_bwd``:
+grouped products (cuBLAS ``bmm``) on the buckets with h recomputed, as the
+JAX package differentiates its plain einsums (its Pallas kernel has no
+gradient).  The weights are cast to ``xe.dtype`` outside the function, so
+autograd carries their gradient back to float32 master weights.
+Otherwise (serving, under ``no_grad`` or ``inference_mode``) the kernel
+runs on its own.
 """
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
-from repro_torch.kernels import build
 from repro_torch.kernels.moe_gmm import kernel, ref
 
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
@@ -85,20 +94,7 @@ def kernel_route(xe, w1, w3, w2) -> str:
     return "wgmma_bf16" if tma_ok else "wmma_bf16"
 
 
-def expert_ffn(xe, p, act: str = "swiglu", counts=None):
-    """xe: (E, C, d); p: {w1: (E,d,f), w3: (E,d,f)?, w2: (E,f,d)};
-    counts: int32 (E,) fills of the buckets, or None."""
-    _check_shapes(xe, p, act, counts)
-    w3 = p.get("w3")
-    if all(t.device.type == "cpu"
-           for t in (xe, p["w1"], p["w2"], w3, counts) if t is not None):
-        return ref.reference_expert_ffn(xe, p, act, counts)
-    build.check_no_grad(
-        "moe_gmm", (xe, p["w1"], p["w2"], w3),
-        "call it under torch.no_grad() (serving), or train MoE with "
-        "moe_dispatch='einsum'")
-    w1, w2 = p["w1"].to(xe.dtype), p["w2"].to(xe.dtype)
-    w3 = None if w3 is None else w3.to(xe.dtype)
+def _forward(xe, w1, w3, w2, counts, act):
     check_kernel_args(xe, w1, w3, w2, counts)
     E, C, _ = xe.shape
     # fresh allocations: 16-byte aligned, as TMA needs
@@ -107,3 +103,40 @@ def expert_ffn(xe, p, act: str = "swiglu", counts=None):
     kernel.launch(xe, w1, w3, w2, h, y, counts, act=act,
                   route=kernel_route(xe, w1, w3, w2))
     return y
+
+
+class ExpertFFNFunction(torch.autograd.Function):
+    """The kernel's forward, and the plain grouped products as its
+    backward, on xe and weights of one dtype (w3 may be None)."""
+
+    @staticmethod
+    def forward(ctx, xe, w1, w3, w2, counts, act: str):
+        y = _forward(xe, w1, w3, w2, counts, act)
+        ctx.save_for_backward(xe, w1, w3, w2, counts)
+        ctx.act = act
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        xe, w1, w3, w2, counts = ctx.saved_tensors
+        kernel.BWD_CALLS += 1
+        dxe, dw1, dw3, dw2 = ref.reference_expert_ffn_bwd(
+            xe, {"w1": w1, "w3": w3, "w2": w2}, dy, ctx.act, counts)
+        return dxe, dw1, dw3, dw2, None, None
+
+
+def expert_ffn(xe, p, act: str = "swiglu", counts=None):
+    """xe: (E, C, d); p: {w1: (E,d,f), w3: (E,d,f)?, w2: (E,f,d)};
+    counts: int32 (E,) fills of the buckets, or None."""
+    _check_shapes(xe, p, act, counts)
+    w3 = p.get("w3")
+    if all(t.device.type == "cpu"
+           for t in (xe, p["w1"], p["w2"], w3, counts) if t is not None):
+        return ref.reference_expert_ffn(xe, p, act, counts)
+    w1, w2 = p["w1"].to(xe.dtype), p["w2"].to(xe.dtype)
+    w3 = None if w3 is None else w3.to(xe.dtype)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (xe, w1, w3, w2)):
+        return ExpertFFNFunction.apply(xe, w1, w3, w2, counts, act)
+    return _forward(xe, w1, w3, w2, counts, act)

@@ -66,8 +66,28 @@ _ACTS = {"swiglu": F.silu, "geglu": _gelu_tanh, "gelu": _gelu_tanh,
          "relu2": _relu2}
 
 
+def _relu2_bwd(grad, x):
+    return grad * (2.0 * F.relu(x))
+
+
+def _gelu_tanh_bwd(grad, x):
+    return torch.ops.aten.gelu_backward(grad, x, approximate="tanh")
+
+
+# grad * act'(x) for each activation of _ACTS, by the same names: the
+# fused backward ops autograd itself runs for them
+_ACT_BWDS = {"swiglu": torch.ops.aten.silu_backward,
+             "geglu": _gelu_tanh_bwd, "gelu": _gelu_tanh_bwd,
+             "relu2": _relu2_bwd}
+
+
 def act_fn(name: str):
     return _ACTS[name]
+
+
+def act_bwd_fn(name: str):
+    """``(grad, x) -> grad * act'(x)``, the backward of ``act_fn(name)``."""
+    return _ACT_BWDS[name]
 
 
 def is_gated_act(name: str) -> bool:

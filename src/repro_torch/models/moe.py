@@ -11,7 +11,8 @@ Two dispatch strategies, selectable per call, as in the reference:
   expert-FFN kernel (``repro_torch.kernels.moe_gmm``): the CUDA kernel on a
   GPU tensor, its plain version on a CPU tensor.  Each bucket's fill goes
   with it, so that the kernel skips the pad rows (and an expert no token
-  reached).  This is the serving path.
+  reached).  This is the serving path; it trains too, through the
+  kernel's autograd function (``gmm_ops.ExpertFFNFunction``).
 
 Every MoE model is gated whatever ``cfg.act`` says: the reference's
 ``_init_moe`` always makes ``w3`` and ``_expert_ffn`` always uses it.
@@ -19,7 +20,8 @@ Every MoE model is gated whatever ``cfg.act`` says: the reference's
 The combine of the gather path is deterministic: the reference scatter-adds
 each (token, k) contribution into its token's row; here each token's k
 contributions are gathered as ``(T, k, d)`` and summed over k, the same sum
-without atomics.
+without atomics.  Both gathers of the path (tokens into buckets, bucket rows
+back to pairs) gather in their backward too (``_Rows``).
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.models.layers import act_fn, rms_norm
@@ -142,7 +145,7 @@ def _apply_experts_grouped(xe, p, cfg):
 
 
 # ---------------------------------------------------------------------------
-# gather dispatch — the serving path, through the grouped expert-FFN kernel
+# gather dispatch — through the grouped expert-FFN kernel
 # ---------------------------------------------------------------------------
 
 def moe_gather(x, p, cfg):
@@ -158,21 +161,51 @@ def moe_gather(x, p, cfg):
     flat_e = idx.reshape(-1)                                 # (T*k,)
     slot, routed = _slots_and_counts(flat_e, E)
     keep = slot < C
-    tok_id = torch.arange(T, device=x.device).repeat_interleave(k)
-    # token ids into (E, C) buckets, T (the zero pad row) where empty;
-    # dropped pairs write to a sink entry past the buckets
-    bucket = torch.full((E * C + 1,), T, dtype=torch.long, device=x.device)
-    bucket[torch.where(keep, flat_e * C + slot, E * C)] = tok_id
+    n = T * k
+    # each pair's row of the (E*C) buckets, E*C (none) if dropped; each
+    # bucket row's token (T: the zero pad row) and pair (n: none)
+    row = torch.where(keep, flat_e * C + slot, E * C)
+    token = torch.full((E * C + 1,), T, dtype=torch.long, device=x.device)
+    token[row] = torch.arange(T, device=x.device).repeat_interleave(k)
+    pair = torch.full((E * C + 1,), n, dtype=torch.long, device=x.device)
+    pair[row] = torch.arange(n, device=x.device)
     xpad = torch.cat([x, x.new_zeros((1, d))])
-    xe = xpad[bucket[:E * C].reshape(E, C)]                  # (E, C, d)
+    # the pad row's k (no) uses, after the tokens' k pairs each
+    uses = torch.cat([row, row.new_full((k,), E * C)])
+    xe = _Rows.apply(xpad, token[:E * C], uses, k).reshape(E, C, d)
     # slots are ranks, so each bucket's filled slots are its first
     # min(routed, C): the kernel skips the pad rows after them
     fill = torch.clamp(routed, max=C).to(torch.int32)
     ye = gmm_ops.expert_ffn(xe, p, cfg.act, fill)
-    # combine: each token owns k consecutive pairs; sum them, no atomics
+    # combine: each token owns k consecutive pairs; sum them, no atomics.
+    # A dropped pair reads some row and is weighted 0.
     wk = torch.where(keep, w.reshape(-1).to(x.dtype), 0.0)
-    src = ye[flat_e, slot.clamp(0, C - 1)] * wk[:, None]
-    return src.reshape(T, k, d).sum(1), aux
+    src = _Rows.apply(ye.reshape(E * C, d), flat_e * C + slot.clamp(0, C - 1),
+                      pair[:E * C], 1)
+    return (src * wk[:, None]).reshape(T, k, d).sum(1), aux
+
+
+class _Rows(torch.autograd.Function):
+    """``src[index]``, whose backward is a gather too: ``uses`` lists, for
+    each row of src in turn, the k output rows it went to (``len(out)``
+    where fewer; a row read where the result is weighted 0 need not be
+    listed), and a row's gradient is the sum of theirs.  So no gradient is
+    summed by index into a shared row (the backward of ``src[index]``
+    serialises on the pad row every empty slot reads), and no atomics."""
+
+    @staticmethod
+    def forward(ctx, src, index, uses, k: int):
+        ctx.save_for_backward(uses)
+        ctx.k = k
+        return src[index]
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        (uses,) = ctx.saved_tensors
+        d = dout.shape[-1]
+        g = torch.cat([dout, dout.new_zeros((1, d))])[uses]
+        return g.reshape(-1, ctx.k, d).sum(1), None, None, None
 
 
 def moe_block(x, p, cfg, *, dispatch: str = "einsum"):

@@ -42,7 +42,8 @@ def test_port_file_imports_no_jax_and_nothing_of_repro(path):
 
 def test_port_files_were_found():
     names = {p.name for p in PORT_FILES}
-    assert {"transformer.py", "ops.py", "serve.py", "chip_smoke.py"} <= names
+    assert {"transformer.py", "ops.py", "serve.py", "pipeline.py",
+            "chip_smoke.py"} <= names
 
 
 def _env(**extra):

@@ -996,23 +996,84 @@ def test_flash_serving_writes_no_lse():
     assert o.grad_fn is not None
 
 
-def test_kernels_without_a_backward_refuse_grad_on_cuda():
-    """moe_gmm, the one kernel still without a backward, raises under grad
-    rather than return an output with no gradient path, and runs under
-    no_grad."""
+def test_moe_gmm_under_grad_has_a_grad_fn_and_serves_without_it():
+    """moe_gmm under grad returns a y with a grad_fn (its autograd
+    function); under no_grad and inference_mode it launches as it serves,
+    one launch, no grad_fn."""
     _need_cuda()
     xe, p = _gmm_inputs(4, 16, 64, 64, True, torch.bfloat16)
-    calls = {"moe_gmm": lambda: gmm_ops.expert_ffn(xe, p, "swiglu")}
     for t in (xe, p["w1"]):
         t.requires_grad_()
-    for name, call in calls.items():
-        with pytest.raises(RuntimeError, match="no backward yet"):
-            call()
-        with torch.no_grad():
-            call()
-        with torch.inference_mode():
-            call()
+    for mode in (torch.no_grad, torch.inference_mode):
+        before = gmm_kernel.LAUNCHES, gmm_kernel.BWD_CALLS
+        with mode():
+            y = gmm_ops.expert_ffn(xe, p, "swiglu")
+        assert y.grad_fn is None
+        assert (gmm_kernel.LAUNCHES, gmm_kernel.BWD_CALLS) == \
+            (before[0] + 1, before[1])
+    before = gmm_kernel.LAUNCHES, gmm_kernel.BWD_CALLS
+    y = gmm_ops.expert_ffn(xe, p, "swiglu")
+    assert y.grad_fn is not None
+    y.float().sum().backward()
     torch.cuda.synchronize()
+    assert (gmm_kernel.LAUNCHES, gmm_kernel.BWD_CALLS) == \
+        (before[0] + 1, before[1] + 1)
+    assert xe.grad is not None and p["w1"].grad is not None
+    assert p["w2"].grad is None          # not a leaf that requires grad
+
+
+# ExpertFFNFunction's gradients against the plain backward by formula in
+# float32 on the same (upcast) inputs, each relative to the plain one's max
+# |.|: bf16 rounds a1, a3, dh and each product's output to bf16 (2**-9 of
+# the value each; ~7e-3 of the scale measured in CPU bf16 at these
+# shapes); float32 differs in summation order only.
+GMM_BWD_RTOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+@pytest.mark.parametrize("E,C,d,f,act,gated,dtype", [
+    (6, 130, 256, 384, "swiglu", True, torch.bfloat16),     # wgmma_bf16
+    (5, 40, 64, 64, "gelu", False, torch.bfloat16),
+    (3, 100, 211, 333, "swiglu", True, torch.bfloat16),     # wmma_bf16
+    (6, 130, 136, 72, "relu2", False, torch.float32),       # scalar_f32
+    (4, 64, 128, 96, "geglu", True, torch.float32),
+])
+def test_moe_gmm_grads_match_the_plain_backward(E, C, d, f, act, gated,
+                                                dtype):
+    """Through expert_ffn under grad: float32 masters cast to the input's
+    dtype, bucket fills with an empty and a full bucket, data left in the
+    pad rows; the gradients against ``reference_expert_ffn_bwd`` in
+    float32, dxe exactly 0 on the pads."""
+    _need_cuda()
+    counts = _bucket_counts(E, C, seed=E * C)
+    xe, p = _gmm_inputs(E, C, d, f, gated, torch.float32, seed=C)
+    pads = ~gmm_ref.live_rows(xe, counts)
+    x = xe.to(dtype).requires_grad_()
+    masters = {k: w.clone().requires_grad_() for k, w in p.items()}
+    route = gmm_ops.kernel_route(x, masters["w1"].to(dtype),
+                                 masters["w3"].to(dtype) if gated else None,
+                                 masters["w2"].to(dtype))
+    assert route == _gmm_route(dtype, d, f)
+    before = gmm_kernel.LAUNCHES_BY_ROUTE[route], gmm_kernel.BWD_CALLS
+    y = gmm_ops.expert_ffn(x, masters, act, counts)
+    dy = torch.randn(y.shape, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(1))
+    y.backward(dy.to(dtype))
+    torch.cuda.synchronize()
+    assert (gmm_kernel.LAUNCHES_BY_ROUTE[route], gmm_kernel.BWD_CALLS) == \
+        (before[0] + 1, before[1] + 1)
+    want = gmm_ref.reference_expert_ffn_bwd(
+        x.detach().float(), {k: w.to(dtype).float() for k, w in p.items()},
+        dy.to(dtype).float(), act, counts)
+    got = (x.grad, masters["w1"].grad,
+           masters["w3"].grad if gated else None, masters["w2"].grad)
+    for name, g, w in zip(("dxe", "dw1", "dw3", "dw2"), got, want):
+        assert (g is None) == (w is None), name
+        if w is not None:
+            assert torch.isfinite(g).all(), name
+            rel = float((g.float() - w).abs().max() / w.abs().max())
+            assert rel <= GMM_BWD_RTOL[dtype], (name, rel)
+    assert masters["w1"].grad.dtype == torch.float32
+    assert not x.grad[pads].any()
 
 
 # --------------------------------------------------------------------------

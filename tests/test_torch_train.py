@@ -71,12 +71,13 @@ def _jax_loss_and_grads(jc, jp, batch):
             flatten_with_paths(jax.tree.map(np.asarray, grads)))
 
 
-def port_loss_and_grads(tc, tp, batch, remat=None):
+def port_loss_and_grads(tc, tp, batch, remat=None, moe_dispatch="einsum"):
     """(loss, metrics, {JAX path: gradient}) of the port on the CPU."""
     if remat is not None:
         tc = dataclasses.replace(tc, remat=remat)
     tp = tree_map(lambda p: p.detach().clone().requires_grad_(True), tp)
-    loss, metrics = R.forward_train(tp, tc, batch, device="cpu")
+    loss, metrics = R.forward_train(tp, tc, batch, moe_dispatch=moe_dispatch,
+                                    device="cpu")
     loss.backward()
     grads = tree_map(lambda p: p.grad if p.grad is not None
                      else torch.zeros_like(p), tp)

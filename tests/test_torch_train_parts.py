@@ -30,7 +30,6 @@ from repro_torch.convert import (flatten_with_paths, opt_state_from_jax,
                                  opt_state_to_jax, params_from_jax,
                                  params_to_jax)
 from repro_torch.data import PrefetchLoader, make_batch_iter
-from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -377,17 +376,6 @@ def test_flash_bwd_splits_fill_the_card(B, S, H, KH, Dh, want):
     G = H // KH
     per = -(-G // splits)
     assert (splits - 1) * per < G <= splits * per
-
-
-def test_grad_guard_refuses_only_under_grad():
-    t = torch.zeros(2, requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward yet"):
-        build.check_no_grad("k", (t, None), "use no_grad")
-    with torch.no_grad():
-        build.check_no_grad("k", (t,), "use no_grad")
-    with torch.inference_mode():
-        build.check_no_grad("k", (torch.zeros(2),), "use no_grad")
-    build.check_no_grad("k", (torch.zeros(2),), "use no_grad")
 
 
 # --------------------------------------------------------------------------

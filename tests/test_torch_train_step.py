@@ -203,7 +203,11 @@ def test_adamw_decay_matches_jax(arch, grads):
     if arch == "hubert-xlarge":
         assert mask["['frontend']"] and "['embed']" not in mask
     rng = np.random.default_rng(7)
-    jparams = jax.tree.map(jnp.asarray, params_to_jax(tc, tparams))
+    # a copy: the numpy arrays of params_to_jax share the torch tensors'
+    # memory (an unstacked leaf such as hubert's frontend), jnp.asarray
+    # can alias them on the CPU, and adamw_update writes tparams in place,
+    # racing the asynchronous JAX update that reads them
+    jparams = jax.tree.map(jnp.array, params_to_jax(tc, tparams))
     jopt, topt = jax_adamw_init(jparams), adamw_init(tparams)
     jcfg, tcfg = JaxAdamWConfig(**DECAY_OPT), AdamWConfig(**DECAY_OPT)
     decay = decay_mask(tc, tparams)

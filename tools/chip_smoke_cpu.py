@@ -5,18 +5,21 @@ reduced configs, before a chip call.
     PYTHONPATH=src python3 tools/chip_smoke_cpu.py [PHASE ...]
 
 PHASE is any of ``serve-vision``, ``consistency-vision``, ``train-audio``,
-``train-consistency-audio`` and ``train-consistency`` (minicpm-2b); by
+``train-consistency-audio``, ``train-consistency`` (minicpm-2b),
+``kernel-bwd-moe``, ``train-moe`` (gather against einsum), ``train-moe-full``,
+``train-consistency-moe``, ``pipeline`` and ``pipeline-consistency``; by
 default all of them.  The script runs a copy of chip_smoke.py with every
 ``"cuda"`` made ``"cpu"`` and ``torch.cuda``'s memory and synchronisation
 calls stubbed, every architecture replaced by its ``-smoke`` config (remat
 "full", as the train phases require) and the serving and encode sizes cut.
-The flash kernel's ``launch`` and ``launch_bwd`` are replaced by functions
-that fill their outputs from the plain versions (``ref``) and count their
-launches by route, and CPU tensors are routed through the wrapper's
-kernel path and its autograd function, so that every launch check of
-these phases runs as it does on the card.  Only the flash kernel is
-faked: phases that launch moe_gmm, rglru_scan or mlstm_scan are not
-rehearsed here.  Timings are CPU times and mean nothing.
+The flash kernel's ``launch`` and ``launch_bwd``, and moe_gmm's
+``launch``, are replaced by functions that fill their outputs from the
+plain versions (``ref``) and count their launches by route, and CPU
+tensors are routed through the wrappers' kernel paths and their autograd
+functions, so that every launch check of these phases runs as it does on
+the card.  Phases that launch rglru_scan or mlstm_scan are not rehearsed
+here.  The pipeline's tools, made without a device, run on the CPU.
+Timings are CPU times and mean nothing.
 """
 from __future__ import annotations
 
@@ -31,12 +34,17 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
 
-from repro_torch import configs  # noqa: E402
+from repro_torch import configs, pipeline  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel, ops, ref  # noqa: E402
+from repro_torch.kernels.moe_gmm import kernel as gmm_kernel  # noqa: E402
+from repro_torch.kernels.moe_gmm import ops as gmm_ops  # noqa: E402
+from repro_torch.kernels.moe_gmm import ref as gmm_ref  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 
 PHASES = ("serve-vision", "consistency-vision", "train-audio",
-          "train-consistency-audio", "train-consistency")
+          "train-consistency-audio", "train-consistency", "kernel-bwd-moe",
+          "train-moe", "train-moe-full", "train-consistency-moe",
+          "pipeline", "pipeline-consistency")
 
 
 def fake_launch(q, k, v, out, *, causal, window, scale=None, lse=None):
@@ -79,10 +87,33 @@ def flash_on_the_cpu(q, k, v, *, causal=True, window=0):
         out[..., :head_dim].contiguous()
 
 
+def fake_gmm_launch(xe, w1, w3, w2, h, y, counts, *, act, route):
+    y.copy_(gmm_ref.reference_expert_ffn(
+        xe, {"w1": w1, "w3": w3, "w2": w2}, act, counts))
+    gmm_kernel.LAUNCHES += 1
+    gmm_kernel.LAUNCHES_BY_ROUTE[route] += 1
+
+
+def gmm_on_the_cpu(xe, p, act="swiglu", counts=None):
+    """``ops.expert_ffn`` without its CPU branch and device checks."""
+    gmm_ops._check_shapes(xe, p, act, counts)
+    w1, w2 = p["w1"].to(xe.dtype), p["w2"].to(xe.dtype)
+    w3 = None if p.get("w3") is None else p["w3"].to(xe.dtype)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (xe, w1, w3, w2)):
+        return gmm_ops.ExpertFFNFunction.apply(xe, w1, w3, w2, counts, act)
+    return gmm_ops._forward(xe, w1, w3, w2, counts, act)
+
+
 def load_chip_smoke():
     """chip_smoke.py's namespace, rewritten for the CPU at smoke size."""
     kernel.launch, kernel.launch_bwd = fake_launch, fake_launch_bwd
     ops.flash_attention = transformer.flash_attention = flash_on_the_cpu
+    gmm_kernel.launch = fake_gmm_launch
+    gmm_ops.check_kernel_args = lambda *a, **k: None
+    gmm_ops.expert_ffn = gmm_on_the_cpu
+    pipeline.resolve_device = lambda device=None: torch.device(
+        "cpu" if device is None else device)
     full = configs.get_arch
 
     def get_arch(name):
@@ -102,7 +133,18 @@ def load_chip_smoke():
     exec(compile(src, path, "exec"), ns)
     ns["cuda_ms"] = lambda fn, iters=20, warmup=3: (fn(), 1.0)[1]
     ns["profile_ms"] = lambda fn: (fn(), (1.0, 0.0, [], {}))[1]
-    ns.update(PROMPT_LEN=40, GEN=4, ENCODE_BATCH=2, TRAIN_SEQ=64)
+    ns["time_expert_bwd"] = lambda: ([], lambda: None)
+    ns.update(PROMPT_LEN=40, GEN=4, ENCODE_BATCH=2, TRAIN_SEQ=64,
+              PIPELINE_REAL=dict(n_samples=2, rows_per_sample=8,
+                                 seq_len=64, train_steps=3, batch=4,
+                                 vocab=512, d_model=64),
+              PIPE_CONSIST=dict(vocab=512, d_model=64, rows=8, seq=64,
+                                steps=4, batch=4, chain=1))
+    ns["GMM_BWD_CASES"] = [
+        ("granite-train", 8, 48, 64, 32, "swiglu", True, 96),
+        ("ragged-36", 4, 36, 64, 128, "swiglu", True, None),
+        ("odd-d-f", 3, 20, 21, 33, "geglu", True, None),
+        ("relu2-no-w3", 6, 30, 40, 24, "relu2", False, None)]
     return ns
 
 
@@ -123,6 +165,19 @@ def main(argv=None) -> int:
             cs["AUDIO_ARCH"], cs["AUDIO_CONSIST_LAYERS"], 32),
         "train-consistency": lambda: cs["phase_train_consistency"](
             cs["ARCH"], cs["CONSIST_LAYERS"], 32),
+        "kernel-bwd-moe": lambda: cs["phase_kernel_moe_bwd"](),
+        "train-moe": lambda: cs["phase_train_moe_dispatches"](),
+        "train-moe-full": lambda: cs["phase_train_moe_full"](),
+        "train-consistency-moe": lambda: cs["phase_train_consistency"](
+            cs["MOE_ARCH"], cs["MOE_CONSIST_LAYERS"], 32,
+            tol=cs["MOE_TRAIN_RTOL"], moe_dispatch="gather"),
+        "pipeline": lambda: [cs["phase_pipeline"](
+            "the port's hybrid document", doc) for doc in (
+                pipeline.streamflow_doc_declarative_hybrid(
+                    n_samples=3, rows_per_sample=8, seq_len=32),
+                pipeline.streamflow_doc_declarative_hybrid(
+                    **cs["PIPELINE_REAL"]))],
+        "pipeline-consistency": lambda: cs["phase_pipeline_consistency"](),
     }
     t0 = time.perf_counter()
     for name in which:
