@@ -19,17 +19,20 @@ a non-zero exit:
                 bf16 and float32, within the stated tolerances; at the
                 serving shapes also kernel, plain and library (or yardstick)
                 times and the card's bound for the same work (flash
-                attention at minicpm's, granite-moe's, recurrentgemma's and
-                llama-3.2-vision's prefill shapes and hubert-xlarge's train
-                shape, with kernel / SDPA as a factor; at hubert's head dim
+                attention at minicpm's, granite-moe's, recurrentgemma's,
+                llama-3.2-vision's and deepseek-coder-33b's prefill shapes,
+                h2o-danube-3-4b's past its window (S 5000, beside masked
+                SDPA) and hubert-xlarge's train shape, with kernel / SDPA
+                as a factor; at hubert's head dim
                 of 80, which the wrapper pads to 120, also the kernel alone
                 on inputs padded beforehand); bf16 flash
                 attention runs on the wgmma route, float32 on the scalar
                 one; moe_gmm likewise (bf16 that TMA cannot address on its
                 WMMA route), timed at granite-moe's prefill with every row
-                live and at its decode with a routing's bucket fills (only
-                the touched experts' weights streamed), with the launches
-                per route; mlstm_scan likewise (bf16 that TMA cannot
+                live and at its and mixtral-8x7b's decode with a routing's
+                bucket fills (only the touched experts' weights streamed),
+                with the launches per route; mlstm_scan likewise (bf16
+                that TMA cannot
                 address on its scalar bf16 route), each case on the route
                 its dtype and shape pick, with each pass of the wgmma route
                 timed at the serving shape beside the scalar bf16 kernel,
@@ -209,6 +212,26 @@ a non-zero exit:
                 float32 at d_model 256, card against CPU from one init:
                 per-step losses, embeddings (the untrained model's as the
                 control) and cluster assignments
+27-34. serve and consistency, in turn, for the other four zoo configs
+                (ZOO_ARCHS), each served as phase 4 serves minicpm-2b and
+                with its launches checked the same way: h2o-danube-3-4b
+                (24 layers, SWA window 4096, head dim 120) on prompts of
+                5000 tokens, so that prefill ring-rotates its cache of 4096
+                slots and decode wraps it; minitron-8b (32 layers, the
+                non-gated relu2 MLP, an untied head of 256000 rows);
+                deepseek-coder-33b (62 layers, 62.1 GiB of bf16 weights,
+                56 query heads over 8 KV heads); mixtral-8x7b cut to 24 of
+                its 32 layers (65.4 GiB) through gather, every MoE call of
+                every prefill and decode step on moe_gmm's wgmma route.
+                Each served model is freed before its consistency phase,
+                which draws a float32 model of 2 layers at full width
+                (norms drawn): prefill + 3 decode steps against
+                forward_logits (B 1, S 4200 for the two windowed configs,
+                past the window; B 2, S 200 else), the off-by-one position
+                as the control, flash and moe_gmm on scalar_f32, mixtral
+                with no (token, expert) pair dropped at capacity factor
+                E / k; then forward_logits on the card against the CPU's
+                plain path at B 1, S 128
 
 Earlier serve paths run at full depth; if the run outgrows its time, their
 depth is what gets cut first.
@@ -370,6 +393,25 @@ GATE = 0.5
 # training step at 2 layers, S 512
 VISION_CONSIST_LAYERS, VISION_CONSIST_SEQ = 5, 512
 AUDIO_CONSIST_LAYERS, AUDIO_CONSIST_SEQ = 2, 512
+# the other four zoo configs, each served as phase 4 serves minicpm-2b:
+# (arch, depth, MoE dispatch, prompt tokens; None for full depth and
+# PROMPT_LEN).  h2o-danube-3-4b takes prompts of SWA_PROMPT_LEN tokens,
+# past its window of 4096, so that prefill ring-rotates the cache and
+# decode wraps it.  mixtral-8x7b's 32 layers are 87 GiB of bf16 weights,
+# more than the card: 24 layers are 65.4 GiB.  It serves through gather
+# (einsum's groups do not divide every T)
+SWA_PROMPT_LEN = 5000
+MIXTRAL_SERVE_LAYERS = 24
+ZOO_ARCHS = (("h2o-danube-3-4b", None, "einsum", SWA_PROMPT_LEN),
+             ("minitron-8b", None, "einsum", None),
+             ("deepseek-coder-33b", None, "einsum", None),
+             ("mixtral-8x7b", MIXTRAL_SERVE_LAYERS, "gather", None))
+# their float32 consistency: a model of ZOO_CONSIST_LAYERS layers at full
+# width drawn anew (a float32 copy of deepseek-coder-33b would be 124 GiB),
+# at B 2, S 200, or for the two windowed configs at B 1, SWA_CONSIST_SEQ
+# past the window; then its forward_logits on the card against the CPU's
+# at B 1, CPU_CHECK_SEQ
+ZOO_CONSIST_LAYERS, SWA_CONSIST_SEQ, CPU_CHECK_SEQ = 2, 4200, 128
 
 
 def phase(name: str) -> None:
@@ -566,9 +608,14 @@ KERNEL_CASES = [
     ("non-causal-136", 2, 136, 4, 4, 120, False, 0),
     ("vision-prefill", 4, 1000, 32, 8, 128, True, 0),
     ("hubert-train", 1, TRAIN_SEQ, 16, 16, 80, False, 0),
+    # deepseek-coder-33b's prefill: a GQA group of 7 (56 over 8 heads)
+    ("deepseek-prefill", 4, 1000, 56, 8, 128, True, 0),
+    # h2o-danube-3-4b's prefill past its window of 4096, at head dim 120
+    ("h2o-long-prefill", 4, SWA_PROMPT_LEN, 32, 8, 120, True, 4096),
 ]
 TIMED_CASES = ("minicpm-prefill", "granite-prefill", "griffin-prefill",
-               "vision-prefill", "hubert-train")
+               "vision-prefill", "hubert-train", "deepseek-prefill",
+               "h2o-long-prefill")
 
 
 def phase_kernel():
@@ -633,24 +680,35 @@ def time_kernel(q, k, v, causal, window, err):
     plain_ms = cuda_ms(lambda: ref.reference_attention(
         q, k, v, causal=causal, window=window), iters=5)
     # yardstick only: one PyTorch call computing the same function; the
-    # port never calls it
+    # port never calls it.  Where the window bites, is_causal alone would
+    # attend beyond it, so SDPA gets the band as a boolean mask (masked
+    # SDPA, on another backend), as in sdpa_bwd_call
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal, enable_gqa=H != KH))
+    sdpa_name = "sdpa"
+    if 0 < window < S:
+        sdpa_name = "masked sdpa"
+        band = band_mask(S, window, causal, q.device)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=band, enable_gqa=H != KH), iters=5)
+        del band
+    else:
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=H != KH))
     bound_ms, bound_by, flops, nbytes = attention_bound(
         B, S, H, KH, Dh, causal, window, q.dtype)
     print(f"  timing at B={B} S={S} H={H} KH={KH} Dh={Dh} window={window} "
           f"{q.dtype}: kernel "
-          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-          f"{library_ms:.4f} ms, kernel / sdpa {kernel_ms / library_ms:.2f}x; "
+          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, {sdpa_name} "
+          f"{library_ms:.4f} ms, kernel / {sdpa_name} "
+          f"{kernel_ms / library_ms:.2f}x; "
           f"bound {bound_ms * 1e3:.2f} us by {bound_by} "
           f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)"
           + (f"; the kernel alone on inputs padded to Dh "
              f"{ops.kernel_head_dim(Dh)}: {padded['padded_kernel_ms']:.4f} "
              f"ms" if padded else ""), flush=True)
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, **padded}
+            "library_ms": library_ms, "library": sdpa_name,
+            "bound_ms": bound_ms, "bound_by": bound_by, **padded}
 
 
 def attention_bwd_bound(B, S, H, KH, Dh, causal, window, dtype):
@@ -797,6 +855,17 @@ def phase_kernel_bwd():
     return timing
 
 
+def band_mask(S, window, causal, device):
+    """(S, S) bool: True where query i may see key j under the window (and
+    the causal mask), for SDPA's ``attn_mask``."""
+    pos = torch.arange(S, device=device)
+    dist = pos[:, None] - pos[None, :]
+    band = dist < window
+    if causal:
+        band &= dist >= 0
+    return band
+
+
 def sdpa_bwd_call(q, k, v, do, causal, window):
     """(a call of ``torch.autograd.grad`` of SDPA on (B, S, heads, Dh) q,
     k, v and dO, whether it takes an explicit mask): a yardstick only, the
@@ -811,13 +880,9 @@ def sdpa_bwd_call(q, k, v, do, causal, window):
                   for t in (q, k, v))
     masked = 0 < window < S
     if masked:
-        pos = torch.arange(S, device=q.device)
-        dist = pos[:, None] - pos[None, :]
-        band = dist < window
-        if causal:
-            band &= dist >= 0
-        ot = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
-                                            enable_gqa=H != KH)
+        ot = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=band_mask(S, window, causal, q.device),
+            enable_gqa=H != KH)
     else:
         ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                             enable_gqa=H != KH)
@@ -900,10 +965,14 @@ GMM_CASES = [
     ("geglu-136", 4, 136, 256, 512, "geglu", True, 17),
     ("relu2-no-w3", 4, 136, 256, 512, "relu2", False, 17),
 ]
-# granite-moe's decode with served routing: 4 tokens routed top-8 of 40
-# experts by a seeded router, the buckets (C 8) filled to each expert's
-# count and zero after, the fills handed to the kernel as ``counts``
-GMM_DECODE_ROUTED = ("granite-decode-routed", 40, 4, 8, 1536, 512)
+# (name, E, top k, T, C, d, f): a decode step's buckets with served
+# routing, T tokens routed top-k of E experts by a seeded router, the
+# buckets (C 8, the least capacity) filled to each expert's count and zero
+# after, the fills handed to the kernel as ``counts``: granite-moe's, and
+# mixtral-8x7b's (every touched expert's 3 x 4096 x 14336 weights read)
+GMM_DECODE_ROUTED = ("granite-decode-routed", 40, 8, 4, 8, 1536, 512)
+GMM_MIXTRAL_DECODE_ROUTED = ("mixtral-decode-routed", 8, 2, 4, 8, 4096,
+                             14336)
 
 
 def gmm_route(dtype, d, f) -> str:
@@ -980,7 +1049,10 @@ def phase_kernel_moe():
             del xe, p
         del x32, p32
         torch.cuda.empty_cache()
-    result["at_decode_routed"] = phase_kernel_moe_decode(gen)
+    result["at_decode_routed"] = phase_kernel_moe_decode(
+        gen, GMM_DECODE_ROUTED)
+    result["at_mixtral_decode_routed"] = phase_kernel_moe_decode(
+        gen, GMM_MIXTRAL_DECODE_ROUTED)
     print(f"  moe_gmm launches by route in this phase: "
           f"{dict(kernel.LAUNCHES_BY_ROUTE)}", flush=True)
     return result
@@ -996,29 +1068,32 @@ def routed_fills(E, T, k, gen):
     return counts, int((counts > 0).sum())
 
 
-def phase_kernel_moe_decode(gen):
-    """GMM_DECODE_ROUTED in bf16 and float32 against the plain version,
-    and the bf16 kernel's time there beside two bounds: every expert's
-    weights, and the touched experts' only."""
-    from repro_torch.kernels.moe_gmm import ops
-    name, E, T, C, d, f = GMM_DECODE_ROUTED
-    counts, touched = routed_fills(E, T, 8, gen)
+def phase_kernel_moe_decode(gen, case):
+    """A routed decode case (as GMM_DECODE_ROUTED) in bf16 and float32
+    against the plain version, and the bf16 kernel's and plain version's
+    times there beside two bounds: every expert's weights, and the touched
+    experts' only."""
+    from repro_torch.kernels.moe_gmm import ops, ref
+    name, E, k, T, C, d, f = case
+    counts, touched = routed_fills(E, T, k, gen)
     rows = torch.arange(C, device="cuda")
     live = (rows[None, :] < counts[:, None])[..., None]
     x32 = torch.randn((E, C, d), generator=gen, device="cuda") * live
-    p32 = {k: torch.randn(s, generator=gen, device="cuda") / math.sqrt(s[1])
-           for k, s in (("w1", (E, d, f)), ("w3", (E, d, f)),
+    p32 = {n: torch.randn(s, generator=gen, device="cuda") / math.sqrt(s[1])
+           for n, s in (("w1", (E, d, f)), ("w3", (E, d, f)),
                         ("w2", (E, f, d)))}
     n_live = int(counts.sum())
     result = None
     for dtype in (torch.bfloat16, torch.float32):
         xe = x32.to(dtype)
-        p = {k: w.to(dtype) for k, w in p32.items()}
+        p = {n: w.to(dtype) for n, w in p32.items()}
         err = run_gmm_case(name, xe, p, "swiglu", counts,
                            f"{n_live} live rows in {touched} of {E} experts")
         if dtype == torch.bfloat16:
             kernel_ms = cuda_ms(lambda: ops.expert_ffn(xe, p, "swiglu",
                                                        counts), iters=50)
+            plain_ms = cuda_ms(lambda: ref.reference_expert_ffn(
+                xe, p, "swiglu", counts), iters=10)
             all_ms, all_by, _, _ = gmm_bound(E, C, d, f, True, dtype)
             # the least the card could do: the touched experts' weights,
             # the live rows of xe read and of y written
@@ -1030,15 +1105,18 @@ def phase_kernel_moe_decode(gen):
             bound_by = "bytes" if t_bytes >= t_ops else "operations"
             print(f"  timing at {name} (E={E} C={C} d={d} f={f} {dtype}, "
                   f"{n_live} live rows, {touched} experts touched): kernel "
-                  f"{kernel_ms:.4f} ms; bound over the touched experts "
-                  f"{bound_ms * 1e3:.2f} us by {bound_by} "
-                  f"({nbytes / 1e6:.2f} MB), over all {E} experts "
-                  f"{all_ms * 1e3:.2f} us by {all_by}", flush=True)
+                  f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms; bound over "
+                  f"the touched experts {bound_ms * 1e3:.2f} us by "
+                  f"{bound_by} ({nbytes / 1e6:.2f} MB), over all {E} "
+                  f"experts {all_ms * 1e3:.2f} us by {all_by}", flush=True)
             result = {"max_abs_err": err, "ms": kernel_ms,
+                      "plain_ms": plain_ms, "library_ms": None,
                       "bound_ms": bound_ms, "bound_by": bound_by,
                       "bound_all_experts_ms": all_ms,
                       "touched_experts": touched, "live_rows": n_live}
         del xe, p
+    del x32, p32
+    torch.cuda.empty_cache()
     return result
 
 
@@ -2017,12 +2095,13 @@ def layer_counts(cfg) -> dict:
 
 
 def phase_serve(arch: str, moe_dispatch: str = "einsum",
-                profile_len: int = PROMPT_LEN):
-    """Serve SERVE_REQUESTS requests of ``arch`` at full width through
-    ``serve()``; returns (cfg, params, launches of each kernel, {kernel:
-    launches by route} of flash_attention, moe_gmm, rglru_scan and
-    mlstm_scan).  The
-    profiled prefill takes the first ``profile_len`` prompt tokens."""
+                profile_len=None, prompt_len=None, n_layers=None):
+    """Serve SERVE_REQUESTS requests of ``prompt_len`` tokens (default
+    PROMPT_LEN) of ``arch`` at full width, depth cut to ``n_layers`` if
+    given, through ``serve()``; returns (cfg, params, launches of each
+    kernel, {kernel: launches by route} of flash_attention, moe_gmm,
+    rglru_scan and mlstm_scan).  The profiled prefill takes the first
+    ``profile_len`` prompt tokens (default: all of them)."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.mlstm_scan import kernel as ml_kernel
@@ -2031,21 +2110,29 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum",
     from repro_torch.launch.serve import Request, serve
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import registry as R
-    phase(f"serve {arch}")
+    prompt_len = prompt_len or PROMPT_LEN
+    profile_len = profile_len or prompt_len
     cfg = get_arch(arch)
+    cut = ""
+    if n_layers is not None:
+        cut = f", depth cut to {n_layers} of {cfg.n_layers} layers"
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    phase(f"serve {arch}{cut}")
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     params = R.init_params(cfg, 0, device="cuda")
     torch.cuda.synchronize()
     n_params = R.count_params_analytic(cfg)
     active = R.count_params_analytic(cfg, active_only=True)
-    print(f"  {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+    print(f"  {cfg.name}: {cfg.n_layers} layers{cut}, d={cfg.d_model}, "
           f"{n_params / 1e9:.3f} B params ({active / 1e9:.3f} B active) in "
-          f"{cfg.dtype}, init {time.perf_counter() - t0:.2f} s; "
+          f"{cfg.dtype}, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"on the card, init {time.perf_counter() - t0:.2f} s; "
           f"moe_dispatch={moe_dispatch}", flush=True)
     rng = np.random.default_rng(0)
-    reqs = [Request(i, rng.integers(1, cfg.vocab_size, size=PROMPT_LEN)
+    reqs = [Request(i, rng.integers(1, cfg.vocab_size, size=prompt_len)
                     .astype(np.int32), GEN) for i in range(SERVE_REQUESTS)]
-    ctx_len = PROMPT_LEN + GEN
+    ctx_len = prompt_len + GEN
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2151,13 +2238,15 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum",
         nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for pos in range(PROMPT_LEN, ctx_len):
+        window_note = check_window_cache(cfg, cache, prompt_len, ctx_len)
+        for pos in range(prompt_len, ctx_len):
             nxt, logits, cache = decode(params, nxt, pos, cache)
         torch.cuda.synchronize()
         decode_ms = (time.perf_counter() - t0) / GEN * 1e3
-        print(f"  prefill {SERVE_SLOTS}x{PROMPT_LEN}: {prefill_ms:.2f} ms "
+        print(f"  prefill {SERVE_SLOTS}x{prompt_len}: {prefill_ms:.2f} ms "
               f"(median of 3); decode: {decode_ms:.3f} ms/step at batch "
-              f"{SERVE_SLOTS}", flush=True)
+              f"{SERVE_SLOTS}, logits {tuple(logits.shape)}{window_note}",
+              flush=True)
         # where the time goes: one prefill batch and one decode step
         print_profile(f"prefill {SERVE_SLOTS}x{profile_len}", *profile_ms(
             lambda: prefill(params, {"tokens": toks[:, :profile_len]})))
@@ -2167,6 +2256,26 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum",
                                    "moe_gmm": gmm_routes,
                                    "rglru_scan": rg_routes,
                                    "mlstm_scan": ml_routes}
+
+
+def check_window_cache(cfg, cache, prompt_len: int, ctx_len: int) -> str:
+    """Checks that every windowed layer's cache holds min(window, ctx_len)
+    slots; where the prompt passes the window, returns a note that prefill
+    ring-rotated it and decode wraps (else "")."""
+    windowed = [n for n in range(cfg.n_layers)
+                if cfg.block_pattern[n % cfg.pattern_period]
+                in ("swa", "local")]
+    if not windowed:
+        return ""
+    slots = {cache["layers"][n]["k"].shape[1] for n in windowed}
+    want = min(cfg.window, ctx_len)
+    check(slots == {want}, f"windowed layers' caches hold {slots} slots, "
+          f"expected {want}")
+    if prompt_len <= cfg.window:
+        return ""
+    return (f"; {len(windowed)} windowed layers' caches of {want} slots: "
+            f"prefill of {prompt_len} tokens ring-rotated, decode from "
+            f"position {prompt_len} writes slot {prompt_len % want}")
 
 
 def count_drops(drops: list):
@@ -2192,18 +2301,25 @@ def count_drops(drops: list):
 
 
 def phase_consistency(cfg, params, moe_dispatch: str = "einsum",
-                      tol: float = CONSISTENCY_RTOL):
+                      tol: float = CONSISTENCY_RTOL, n_layers=None,
+                      B: int = 2, S: int = 200):
     """prefill + decode_step against forward_logits in float32; the
     negative control decodes at a position off by one, or, in a model with
     no attention layer (it reads no position), feeds each decode step the
-    previous token."""
+    previous token.
+
+    With ``params`` None (the served model freed before) the phase copies
+    nothing: it draws its own float32 model at full width, depth cut to
+    ``n_layers``, from seed 0 on the card with every norm scale drawn,
+    checks the launches and routes of its kernels, and also holds that
+    model's forward_logits on the card against the CPU's plain path at
+    B 1, S CPU_CHECK_SEQ."""
     from repro_torch.models import registry as R
-    phase(f"consistency {cfg.name}")
+    from repro_torch.tree import tree_map
     kinds = layer_counts(cfg)
     control = "position" if any(kinds.get(k) for k in ("attn", "swa",
                                                         "local")) else "token"
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    B, S = 2, 200
     if cfg.is_moe:
         # capacity depends on T, so with drops prefill(S-4) and
         # forward_logits(S) would route different batches.  At this
@@ -2211,13 +2327,27 @@ def phase_consistency(cfg, params, moe_dispatch: str = "einsum",
         # experts differ), so no slot reaches C; the run counts the drops.
         cfg32 = dataclasses.replace(
             cfg32, capacity_factor=cfg.n_experts / cfg.top_k)
-    p32 = {k: ([{g: {n: w.float() for n, w in sub.items()}
-                 for g, sub in layer.items()} for layer in v]
-               if k == "layers" else v.float())
-           for k, v in params.items()}
+    if params is None:
+        cfg32 = dataclasses.replace(cfg32, n_layers=n_layers)
+        phase(f"consistency {cfg.name}, {n_layers} of {cfg.n_layers} layers")
+        torch.cuda.empty_cache()
+        p32 = R.init_params(cfg32, 0, device="cuda",
+                            param_dtype=torch.float32)
+        draw_norms(p32)
+        print(f"  a float32 model of {n_layers} layers at full width, "
+              f"{R.count_params_analytic(cfg32) / 1e9:.3f} B params, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the "
+              f"card, norms drawn", flush=True)
+    else:
+        phase(f"consistency {cfg.name}")
+        p32 = {k: ([{g: {n: w.float() for n, w in sub.items()}
+                     for g, sub in layer.items()} for layer in v]
+                   if k == "layers" else v.float())
+               for k, v in params.items()}
     rng = np.random.default_rng(1)
     toks = rng.integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
     drops: list = []
+    notes: list = []
 
     def run(shift: int) -> float:
         pos_shift, tok_shift = (shift, 0) if control == "position" else \
@@ -2228,6 +2358,8 @@ def phase_consistency(cfg, params, moe_dispatch: str = "einsum",
             logits, cache = R.prefill(p32, cfg32, {"tokens": toks[:, :S - 4]},
                                       cache_len=S, moe_dispatch=moe_dispatch,
                                       device="cuda")
+            if not notes:
+                notes.append(check_window_cache(cfg32, cache, S - 4, S))
             err = float((logits - full[:, S - 5]).abs().max())
             for t in range(S - 4, S - 1):
                 tok = toks[:, t - tok_shift:t - tok_shift + 1]
@@ -2238,6 +2370,8 @@ def phase_consistency(cfg, params, moe_dispatch: str = "einsum",
                 err = max(err, float((logits - full[:, t]).abs().max()))
             return err / float(full.abs().max())
 
+    if params is None:
+        reset_kernel_launches()
     if cfg.is_moe and moe_dispatch == "gather":
         restore = count_drops(drops)
         try:
@@ -2245,21 +2379,77 @@ def phase_consistency(cfg, params, moe_dispatch: str = "einsum",
         finally:
             restore()
         # forward, prefill and 3 decode steps through every MoE layer
-        check(len(drops) == 5 * cfg.n_layers and not any(drops),
+        check(len(drops) == 5 * cfg32.n_layers and not any(drops),
               f"{sum(drops)} pairs dropped in {len(drops)} MoE calls")
         print(f"  capacity factor {cfg32.capacity_factor}: 0 of the "
               f"(token, expert) pairs dropped in {len(drops)} MoE calls",
               flush=True)
     else:
         rel = run(0)
+    if params is None:
+        # forward and prefill launch flash in every attention layer, the
+        # decode steps none; gather's every MoE call moe_gmm; all float32
+        launches = kernel_launches()
+        n_attn = sum(layer_counts(cfg32).get(k, 0)
+                     for k in ("attn", "swa", "local"))
+        n_gmm = 5 * cfg32.n_layers if moe_dispatch == "gather" else 0
+        check(launches["flash_attention"] == 2 * n_attn and
+              launches["moe_gmm"] == n_gmm,
+              f"the float32 check launched {launches}, expected "
+              f"flash_attention {2 * n_attn}, moe_gmm {n_gmm}")
+        check_routes(kernel_routes(), launches,
+                     {"flash_attention": "scalar_f32",
+                      "moe_gmm": "scalar_f32"}, f"consistency {cfg.name}")
     rel_bad = run(1)
     print(f"  B={B} S={S}: prefill({S - 4}) + 3 decode steps vs "
           f"forward_logits, float32: max rel err {rel:.3e} "
-          f"(tol {tol:.0e}); off-by-one {control}: {rel_bad:.3e}",
-          flush=True)
+          f"(tol {tol:.0e}); off-by-one {control}: {rel_bad:.3e}"
+          f"{notes[0]}", flush=True)
     check(rel <= tol, f"decode disagrees with forward: {rel}")
     check(rel_bad > tol,
           f"an off-by-one {control} passes the tolerance ({rel_bad})")
+    if params is not None:
+        return
+    toks = rng.integers(0, cfg.vocab_size,
+                        size=(1, CPU_CHECK_SEQ)).astype(np.int32)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        card = R.forward_logits(p32, cfg32, {"tokens": toks},
+                                moe_dispatch=moe_dispatch,
+                                device="cuda").cpu()
+        card_s = time.perf_counter() - t0
+        p_cpu = tree_map(lambda t: t.cpu(), p32)
+        del p32
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cpu = R.forward_logits(p_cpu, cfg32, {"tokens": toks},
+                               moe_dispatch=moe_dispatch, device="cpu")
+        cpu_s = time.perf_counter() - t0
+    rel_cpu = float((card - cpu).abs().max()) / float(cpu.abs().max())
+    print(f"  B=1 S={CPU_CHECK_SEQ}: forward_logits on the card vs the "
+          f"CPU's plain path, float32: max rel err {rel_cpu:.3e} (tol "
+          f"{tol:.0e}); card {card_s:.2f} s, cpu {cpu_s:.2f} s", flush=True)
+    check(rel_cpu <= tol, f"card and cpu disagree: {rel_cpu}")
+
+
+def phase_zoo():
+    """Each of ZOO_ARCHS served (phase_serve), its served model freed,
+    then its depth-cut float32 consistency (phase_consistency); returns
+    ({arch: launches of each kernel}, {arch: {kernel: launches by
+    route}})."""
+    from repro_torch.configs import get_arch
+    launches, routes = {}, {}
+    for arch, n_layers, dispatch, prompt_len in ZOO_ARCHS:
+        swa = get_arch(arch).attention == "swa"
+        cfg, params, launches[arch], routes[arch] = phase_serve(
+            arch, moe_dispatch=dispatch, prompt_len=prompt_len,
+            n_layers=n_layers)
+        del params
+        torch.cuda.empty_cache()
+        phase_consistency(cfg, None, moe_dispatch=dispatch,
+                          n_layers=ZOO_CONSIST_LAYERS, B=1 if swa else 2,
+                          S=SWA_CONSIST_SEQ if swa else 200)
+    return launches, routes
 
 
 def _kernel_modules():
@@ -3348,6 +3538,8 @@ def main() -> int:
         f"at {PIPELINE_REAL}",
         pipeline.streamflow_doc_declarative_hybrid(**PIPELINE_REAL))
     phase_pipeline_consistency()
+    zoo_launches, zoo_routes = phase_zoo()
+    routes.update(zoo_routes)
 
     kernels = [
         {"name": "flash_attention", "route": "cuda",
@@ -3371,7 +3563,9 @@ def main() -> int:
              f"{AUDIO_ARCH} train": audio_train["flash_attention"],
              f"{MOE_ARCH} train": moe_train["flash_attention"],
              "pipeline": sum(v["flash_attention"]
-                             for v in pipe_real["launches"].values())},
+                             for v in pipe_real["launches"].values()),
+             **{arch: n["flash_attention"]
+                for arch, n in zoo_launches.items()}},
          "launches_by_route": {
              **{arch: r["flash_attention"] for arch, r in routes.items()},
              f"{ARCH} train": train_routes["flash_attention"],
@@ -3382,7 +3576,11 @@ def main() -> int:
          # llama-3.2-vision's prefill (GQA 32/8, Dh 128) and hubert's train
          # shape (16/16, Dh 80 padded to 120, not causal)
          "at_vision_shape": fa_timing["vision-prefill"],
-         "at_hubert_train_shape": fa_timing["hubert-train"]},
+         "at_hubert_train_shape": fa_timing["hubert-train"],
+         # deepseek-coder-33b's prefill (GQA 56/8, a group of 7) and
+         # h2o-danube-3-4b's past its window (B 4, S 5000, Dh 120)
+         "at_deepseek_shape": fa_timing["deepseek-prefill"],
+         "at_h2o_long_shape": fa_timing["h2o-long-prefill"]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention_bwd.cu",
@@ -3413,15 +3611,22 @@ def main() -> int:
          "replaces": "src/repro/kernels/moe_gmm/kernel.py:55",
          # launches on granite-moe's serving, all on wgmma_bf16 (checked in
          # its serve phase); times at its prefill shape with every row live,
-         # and in "at_decode_routed" at its decode with a routing's fills;
-         # under grad it runs in ExpertFFNFunction, whose backward is plain
-         # grouped products ("backward": its calls in full-depth gather
+         # and in "at_decode_routed" at its decode with a routing's fills
+         # (mixtral-8x7b's in "at_mixtral_decode_routed"); under grad it
+         # runs in ExpertFFNFunction, whose backward is plain grouped
+         # products ("backward": its calls in full-depth gather
          # training and its times at granite's train shape)
          "launches": moe_launches["moe_gmm"],
          "launches_by_route": routes[MOE_ARCH]["moe_gmm"],
          "launches_by_path": {
              MOE_ARCH: moe_launches["moe_gmm"],
-             f"{MOE_ARCH} train": moe_train["moe_gmm"]},
+             f"{MOE_ARCH} train": moe_train["moe_gmm"],
+             **{arch: n["moe_gmm"] for arch, n in zoo_launches.items()
+                if n["moe_gmm"]}},
+         "launches_by_route_by_path": {
+             arch: routes[arch]["moe_gmm"] for arch in
+             (MOE_ARCH, *(a for a, n in zoo_launches.items()
+                          if n["moe_gmm"]))},
          "launches_by_route_train": moe_train_routes["moe_gmm"],
          "backward": {"calls": moe_train["moe_gmm_bwd"], **gmm_bwd_timing},
          **gmm_timing},

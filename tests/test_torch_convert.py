@@ -24,9 +24,13 @@ def _pair(case):
     if case == "attn-swa-tail":            # 2 scanned periods + 1 tail layer
         return JaxArchConfig(**_TAIL), ArchConfig(**_TAIL)
     j, t = jax_arch(case).reduced(), torch_arch(case).reduced()
-    if case == "h2o-danube-3-4b":          # untied head, GQA
+    if case in ("h2o-danube-3-4b", "minitron-8b"):   # untied head, GQA
         j = dataclasses.replace(j, n_kv_heads=2)
         t = dataclasses.replace(t, n_kv_heads=2)
+    if case == "deepseek-coder-33b":       # its GQA group of 7
+        group7 = dict(d_model=112, n_heads=7, n_kv_heads=1, head_dim=16)
+        j = dataclasses.replace(j, **group7)
+        t = dataclasses.replace(t, **group7)
     return j, t
 
 
@@ -38,7 +42,8 @@ def _jax_tree(jc):
 @pytest.mark.parametrize("case", ["minicpm-2b", "h2o-danube-3-4b",
                                   "attn-swa-tail", "granite-moe-3b-a800m",
                                   "mixtral-8x7b", "recurrentgemma-9b",
-                                  "xlstm-1.3b"])
+                                  "xlstm-1.3b", "minitron-8b",
+                                  "deepseek-coder-33b"])
 def test_round_trip_is_exact_and_covers_every_key(case):
     jc, tc = _pair(case)
     tree = _jax_tree(jc)

@@ -80,6 +80,9 @@ def _qkv(B, S, H, KH, Dh, dtype, seed=0):
     (2, 136, 4, 1, 256, True, 0),
     (4, 1000, 32, 8, 128, True, 0),      # llama-3.2-vision-11b prefill
     (1, 4096, 16, 16, 80, False, 0),     # hubert-xlarge train, Dh -> 120
+    (4, 1000, 56, 8, 128, True, 0),      # deepseek-coder-33b: a group of 7
+    (2, 137, 14, 2, 128, True, 40),      # a group of 7, ragged, windowed
+    (2, 5000, 32, 8, 120, True, 4096),   # h2o-danube-3-4b past its window
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_kernel_matches_plain(B, S, H, KH, Dh, causal, window, dtype):

@@ -66,3 +66,21 @@ def test_cli_serves_a_smoke_arch_on_the_cpu(capsys):
     assert len(done) == 3 and all(len(r.generated) == 3 for r in done)
     out = capsys.readouterr().out
     assert "arch=minicpm-2b-smoke device=cpu requests=3 new_tokens=9" in out
+
+
+def test_serve_batched_torch_example_serves_reduced_mixtral_on_the_cpu(
+        capsys):
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(__file__), "..", "examples",
+                        "serve_batched_torch.py")
+    spec = importlib.util.spec_from_file_location("serve_batched_torch",
+                                                  path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    done = example.main(["--device", "cpu"])
+    assert sorted(r.rid for r in done) == list(range(8))
+    assert all(len(r.generated) == 16 for r in done)
+    out = capsys.readouterr().out
+    assert "arch=mixtral-8x7b-smoke device=cpu requests=8 new_tokens=128" \
+        in out

@@ -16,7 +16,10 @@ from repro_torch.configs import get_arch as torch_arch
 from repro_torch.convert import (cache_to_jax, flatten_with_paths,
                                  params_from_jax, params_to_jax)
 from repro_torch.models import config as TC
+from repro_torch.models import layers as TL
 from repro_torch.models import registry as R
+from repro_torch.tree import tree_leaves
+from test_torch_vision import draw_nonzero
 
 # float32: same math, other op order, 2-4 layers -> ~1e-6 of O(10) logits.
 # bf16: activations round to 8 mantissa bits at different points in the two
@@ -36,7 +39,18 @@ CASES = {
     # GQA (reduced() leaves H = KH = 4) with sliding window 64 < S
     "h2o-danube-3-4b": lambda get: dataclasses.replace(
         get("h2o-danube-3-4b").reduced(), n_kv_heads=2),
+    # the non-gated relu2 MLP and an untied head, GQA 4/2
+    "minitron-8b": lambda get: dataclasses.replace(
+        get("minitron-8b").reduced(), n_kv_heads=2),
+    # 56 query heads over 8 KV heads is a group of 7, which reduced()
+    # (MHA, 4 heads) loses: 7 heads of 16 over one KV head keep it
+    "deepseek-coder-33b": lambda get: dataclasses.replace(
+        get("deepseek-coder-33b").reduced(), d_model=112, n_heads=7,
+        n_kv_heads=1, head_dim=16),
 }
+# cases whose norm scales are drawn non-zero before conversion: at init
+# they are 0, where a fault in a norm or its placement does not show
+DRAWN = ("minitron-8b", "deepseek-coder-33b")
 
 
 # jit: one compile per function beats op-by-op dispatch of the reference
@@ -60,7 +74,8 @@ def _configs(case, dtype):
 def _setup(case, dtype):
     jc, tc = _configs(case, dtype)
     jp, _ = JR.init_params(jax.random.key(0), jc)
-    tp = params_from_jax(tc, jax.tree.map(np.asarray, jp))
+    jp = draw_nonzero(jp) if case in DRAWN else jax.tree.map(np.asarray, jp)
+    tp = params_from_jax(tc, jp)
     return jc, tc, jp, tp
 
 
@@ -72,7 +87,9 @@ def _f32(a):
 # each case in float32, and the served dtype once
 @pytest.mark.parametrize("case,dtype", [
     ("minicpm-2b", "float32"), ("h2o-danube-3-4b", "float32"),
-    ("attn-swa-tail", "float32"), ("minicpm-2b", "bfloat16")])
+    ("attn-swa-tail", "float32"), ("minicpm-2b", "bfloat16"),
+    ("minitron-8b", "float32"), ("minitron-8b", "bfloat16"),
+    ("deepseek-coder-33b", "float32"), ("deepseek-coder-33b", "bfloat16")])
 def test_forward_prefill_decode_match_jax(case, dtype):
     jc, tc, jp, tp = _setup(case, dtype)
     tol = TOL[dtype]
@@ -128,7 +145,8 @@ def _decode_vs_forward(tc, tp, toks, *, pos_shift=0, cache_edit=None):
     return err
 
 
-@pytest.mark.parametrize("case", ["minicpm-2b", "h2o-danube-3-4b"])
+@pytest.mark.parametrize("case", ["minicpm-2b", "h2o-danube-3-4b",
+                                  "minitron-8b", "deepseek-coder-33b"])
 def test_decode_matches_forward_and_catches_position_and_slot_faults(case):
     _, tc, _, tp = _setup(case, "float32")
     toks = np.random.default_rng(1).integers(
@@ -148,7 +166,8 @@ def test_decode_matches_forward_and_catches_position_and_slot_faults(case):
 
 @pytest.mark.parametrize("arch", ["minicpm-2b", "h2o-danube-3-4b",
                                   "granite-moe-3b-a800m", "mixtral-8x7b",
-                                  "recurrentgemma-9b", "xlstm-1.3b"])
+                                  "recurrentgemma-9b", "xlstm-1.3b",
+                                  "minitron-8b", "deepseek-coder-33b"])
 def test_param_count_matches_jax(arch):
     assert R.count_params_analytic(torch_arch(arch)) == \
         JR.count_params_analytic(jax_arch(arch))
@@ -176,6 +195,39 @@ def test_init_matches_jax_shapes_and_scales(case):
             assert got[key].std() == pytest.approx(want[key].std(), rel=0.1)
         elif not want[key].any():                 # norm weights start at 0
             assert not got[key].any(), key
+
+
+# the four configs chip_smoke.py serves at full size since they first ran
+# on the card: what init allocates there, counted on the meta device
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "minitron-8b",
+                                  "deepseek-coder-33b", "mixtral-8x7b"])
+def test_full_size_init_on_meta_matches_the_jax_count(arch):
+    leaves = tree_leaves(R.init_params(torch_arch(arch), 0, device="meta"))
+    assert all(t.is_meta for t in leaves)
+    assert sum(t.numel() for t in leaves) == \
+        JR.count_params_analytic(jax_arch(arch))
+
+
+# relu in place of relu2, or the MLP run as gated (a w3 added), moves the
+# logits far past the bar that the true MLP meets
+@pytest.mark.parametrize("fault", ["relu", "gated"])
+def test_minitron_mlp_faults_miss_the_tolerance(fault, monkeypatch):
+    jc, tc, jp, tp = _setup("minitron-8b", "float32")
+    toks = np.random.default_rng(2).integers(
+        0, jc.vocab_size, (2, 24)).astype(np.int32)
+    want = _f32(_jax_forward(jp, jc, {"tokens": jnp.asarray(toks)}))
+    got = R.forward_logits(tp, tc, {"tokens": toks}, device="cpu")
+    assert np.abs(_f32(got) - want).max() < TOL["float32"]
+    if fault == "relu":
+        monkeypatch.setitem(TL._ACTS, "relu2", torch.nn.functional.relu)
+    else:
+        gen = torch.Generator().manual_seed(0)
+        for layer in tp["layers"]:
+            w1 = layer["ffn"]["w1"]
+            layer["ffn"]["w3"] = torch.randn(w1.shape, generator=gen) * \
+                w1.shape[0] ** -0.5
+    bad = R.forward_logits(tp, tc, {"tokens": toks}, device="cpu")
+    assert np.abs(_f32(bad) - want).max() > 10 * TOL["float32"]
 
 
 def test_init_is_seeded_and_in_cfg_dtype():

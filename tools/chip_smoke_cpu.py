@@ -7,8 +7,13 @@ reduced configs, before a chip call.
 PHASE is any of ``serve-vision``, ``consistency-vision``, ``train-audio``,
 ``train-consistency-audio``, ``train-consistency`` (minicpm-2b),
 ``kernel-bwd-moe``, ``train-moe`` (gather against einsum), ``train-moe-full``,
-``train-consistency-moe``, ``pipeline`` and ``pipeline-consistency``; by
-default all of them.  The script runs a copy of chip_smoke.py with every
+``train-consistency-moe``, ``pipeline``, ``pipeline-consistency`` and
+``zoo`` (phases 27-34: h2o-danube-3-4b on prompts past its window,
+minitron-8b, deepseek-coder-33b and mixtral-8x7b through gather at
+MIXTRAL_SERVE_LAYERS layers, each served, freed, then its float32
+consistency on a model drawn anew at ZOO_CONSIST_LAYERS layers, past the
+window for the two windowed configs, and card against CPU); by default all
+of them.  The script runs a copy of chip_smoke.py with every
 ``"cuda"`` made ``"cpu"`` and ``torch.cuda``'s memory and synchronisation
 calls stubbed, every architecture replaced by its ``-smoke`` config (remat
 "full", as the train phases require) and the serving and encode sizes cut.
@@ -44,7 +49,7 @@ from repro_torch.models import transformer  # noqa: E402
 PHASES = ("serve-vision", "consistency-vision", "train-audio",
           "train-consistency-audio", "train-consistency", "kernel-bwd-moe",
           "train-moe", "train-moe-full", "train-consistency-moe",
-          "pipeline", "pipeline-consistency")
+          "pipeline", "pipeline-consistency", "zoo")
 
 
 def fake_launch(q, k, v, out, *, causal, window, scale=None, lse=None):
@@ -124,6 +129,7 @@ def load_chip_smoke():
     for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
         setattr(torch.cuda, name, lambda *a, **k: None)
     torch.cuda.max_memory_allocated = lambda *a, **k: 0
+    torch.cuda.memory_allocated = lambda *a, **k: 0
 
     path = os.path.join(ROOT, "chip_smoke.py")
     with open(path) as f:
@@ -139,7 +145,10 @@ def load_chip_smoke():
                                  seq_len=64, train_steps=3, batch=4,
                                  vocab=512, d_model=64),
               PIPE_CONSIST=dict(vocab=512, d_model=64, rows=8, seq=64,
-                                steps=4, batch=4, chain=1))
+                                steps=4, batch=4, chain=1),
+              # past the -smoke configs' window of 64 (h2o's prompts keep
+              # their 5000 tokens)
+              SWA_CONSIST_SEQ=72, CPU_CHECK_SEQ=16)
     ns["GMM_BWD_CASES"] = [
         ("granite-train", 8, 48, 64, 32, "swiglu", True, 96),
         ("ragged-36", 4, 36, 64, 128, "swiglu", True, None),
@@ -178,6 +187,7 @@ def main(argv=None) -> int:
                 pipeline.streamflow_doc_declarative_hybrid(
                     **cs["PIPELINE_REAL"]))],
         "pipeline-consistency": lambda: cs["phase_pipeline_consistency"](),
+        "zoo": lambda: cs["phase_zoo"](),
     }
     t0 = time.perf_counter()
     for name in which:
