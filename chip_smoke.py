@@ -233,6 +233,31 @@ a non-zero exit:
                 E / k; then forward_logits on the card against the CPU's
                 plain path at B 1, S 128
 
+35. train compressed  minicpm-2b at full width, 4 layers, as phase 12:
+                4 steps of ``make_train_step_dp_compressed`` (the int8
+                error-feedback all-reduce, ``optim.compression``) on a
+                one-rank NCCL group beside 4 plain steps from the same init
+                and batch: step 1's loss the same bits, every parameter
+                after step 1 within 2 lr of the plain step's (and the
+                reference test's 5e-2), the gradient used plus the new
+                error equal to the gradient plus the old error on every
+                leaf within float32 rounding, the loss falling, phase 12's
+                launches per layer on wgmma_bf16, one int32 NCCL all-reduce
+                a leaf; both steps' times and the all-reduce's share
+36. train driver  ``examples/train_e2e_torch.py`` through
+                ``launch/train.py`` on the card (minicpm-2b -smoke, batch
+                8 x 128): 60 steps straight, and 40 steps then a second run
+                that resumes from the checkpoint at 40 to 60; both final
+                checkpoints the same bits; seconds a step, to save and to
+                restore
+37. dryrun      ``launch/dryrun.py``'s count of phase 12's step on ``meta``
+                (no allocation): model FLOPs, counted FLOPs and their
+                ratio, each kernel's counted calls equal to phase 12's
+                launches a step, the predicted memory of the arguments
+                beside phase 12's peak, and model FLOPs over (phase 12's
+                step seconds x the bf16 peak) with the card's name and
+                power limit
+
 Earlier serve paths run at full depth; if the run outgrows its time, their
 depth is what gets cut first.
 
@@ -256,11 +281,16 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel
-# is the larger of its bytes over the memory rate and its FLOPs over the
-# peak rate for its input type.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# The bound of a kernel (``launch.mesh.bound``) is the larger of its bytes
+# over the card's memory rate and its FLOPs over the peak rate for its
+# input type (the H100's published peaks, in ``launch.mesh``); each
+# kernel's FLOPs and bytes come from its package's ``cost.work`` and
+# ``cost.bwd_work``.
+from repro_torch.kernels.flash_attention import cost as fa_cost  # noqa: E402
+from repro_torch.kernels.mlstm_scan import cost as ml_cost  # noqa: E402
+from repro_torch.kernels.moe_gmm import cost as gmm_cost  # noqa: E402
+from repro_torch.kernels.rglru_scan import cost as rg_cost  # noqa: E402
+from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS, bound  # noqa: E402
 
 # Tolerances of kernel against plain version, both on the same inputs and the
 # plain version computing in float32 (inputs upcast):
@@ -309,10 +339,6 @@ XLSTM_CONSISTENCY_RTOL = 1e-2
 # of exp / expm1 / sqrt and a fused multiply-add per step, which the
 # recurrence (a < 1) does not amplify.
 RGLRU_RTOL = 1e-5
-# operations per (b, t, d) element: two sigmoids (3 each), the rate
-# product, exp, the doubling, expm1, negation, sqrt, two products and the
-# recurrence's multiply-add (2)
-RGLRU_OPS_PER_ELEM = 16
 
 # flash_attention's backward against its plain version (explicit formulas
 # in float32 on the same q, k, v, o, dO), dq, dk and dv each relative to the
@@ -510,26 +536,6 @@ def print_profile(label, wall, busy, top, port):
               f"{ms / busy:.1%} of device busy", flush=True)
 
 
-def attention_bound(B, S, H, KH, Dh, causal, window, dtype):
-    """(bound_ms, bound_by, flops, bytes) of one attention on the card.
-
-    FLOPs count the (query, key) pairs this mask leaves (4*Dh per pair: the
-    score and the weighted sum of V); bytes count q, k, v read once and o
-    written once.
-    """
-    qpos = np.arange(S)
-    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(S, int)
-    hi = qpos + 1 if causal else np.full(S, S)
-    pairs = int(np.sum(hi - lo))
-    flops = 4.0 * B * H * Dh * pairs
-    elem = torch.tensor([], dtype=dtype).element_size()
-    nbytes = elem * (2 * B * S * H * Dh + 2 * B * S * KH * Dh)
-    t_ops = flops / PEAK_FLOPS[dtype]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations"), flops, nbytes
-
-
 def phase_device() -> str:
     phase("device")
     check(torch.cuda.is_available(), "no CUDA device")
@@ -694,8 +700,8 @@ def time_kernel(q, k, v, causal, window, err):
     else:
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=H != KH))
-    bound_ms, bound_by, flops, nbytes = attention_bound(
-        B, S, H, KH, Dh, causal, window, q.dtype)
+    bound_ms, bound_by, flops, nbytes = bound(fa_cost.work(
+        B, S, H, KH, Dh, causal, window, q.dtype), q.dtype)
     print(f"  timing at B={B} S={S} H={H} KH={KH} Dh={Dh} window={window} "
           f"{q.dtype}: kernel "
           f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, {sdpa_name} "
@@ -709,25 +715,6 @@ def time_kernel(q, k, v, causal, window, err):
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library": sdpa_name,
             "bound_ms": bound_ms, "bound_by": bound_by, **padded}
-
-
-def attention_bwd_bound(B, S, H, KH, Dh, causal, window, dtype):
-    """(bound_ms, bound_by, flops, bytes) of one attention backward.
-
-    FLOPs: five products of 2*Dh per visible (query, key) pair (q k^T,
-    P^T dO, dO V^T, dS^T Q, dS K); bytes: q, k, v, o, dO and the row
-    log-sum-exp read once, dq, dk, dv written once."""
-    qpos = np.arange(S)
-    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(S, int)
-    hi = qpos + 1 if causal else np.full(S, S)
-    pairs = int(np.sum(hi - lo))
-    flops = 10.0 * B * H * Dh * pairs
-    elem = torch.tensor([], dtype=dtype).element_size()
-    nbytes = elem * (4 * B * S * H * Dh + 4 * B * S * KH * Dh) + 4 * B * H * S
-    t_ops = flops / PEAK_FLOPS[dtype]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations"), flops, nbytes
 
 
 # (name, B, S, H, KH, Dh, causal, window): the train phases' own shapes
@@ -921,8 +908,8 @@ def time_kernel_bwd(q, k, v, do, causal, window, err):
     library_ms = cuda_ms(sdpa, iters=10)
     del sdpa
     sdpa_name = "masked sdpa" if masked else "sdpa"
-    bound_ms, bound_by, flops, nbytes = attention_bwd_bound(
-        B, S, H, KH, Dh, causal, window, q.dtype)
+    bound_ms, bound_by, flops, nbytes = bound(fa_cost.bwd_work(
+        B, S, H, KH, Dh, causal, window, q.dtype), q.dtype)
     print(f"  backward timing at B={B} S={S} H={H} KH={KH} Dh={Dh} "
           f"(kernel Dh {kdh}) window={window} {q.dtype} (splits "
           f"{kernel.bwd_splits(B, S, H, KH, kdh, sms)}): kernel "
@@ -934,22 +921,6 @@ def time_kernel_bwd(q, k, v, do, causal, window, err):
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library": sdpa_name}
-
-
-def gmm_bound(E, C, d, f, gated, dtype):
-    """(bound_ms, bound_by, flops, bytes) of one expert FFN on the card.
-
-    FLOPs are 2*E*C*d*f per product (three with a gate, two without);
-    bytes count xe, the weights and y once each (not the h workspace,
-    which an ideal kernel keeps on chip)."""
-    n_up = 2 if gated else 1
-    flops = 2.0 * E * C * d * f * (n_up + 1)
-    elem = torch.tensor([], dtype=dtype).element_size()
-    nbytes = elem * (2 * E * C * d + (n_up + 1) * E * d * f)
-    t_ops = flops / PEAK_FLOPS[dtype]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations"), flops, nbytes
 
 
 # (name, E, C, d, f, act, gated, pad): the last ``pad`` rows of each bucket
@@ -1038,8 +1009,8 @@ def phase_kernel_moe():
         for dtype in (torch.bfloat16, torch.float32):
             xe = x32.to(dtype)
             p = {k: w.to(dtype) for k, w in p32.items()}
-            bound_ms, bound_by, _, _ = gmm_bound(E, C - pad, d, f, gated,
-                                                 dtype)
+            bound_ms, bound_by, _, _ = bound(gmm_cost.work(
+                E, C - pad, d, f, gated, dtype), dtype)
             err = run_gmm_case(
                 name, xe, p, act, None,
                 f"bound over the {C - pad} real rows {bound_ms * 1e3:.2f} "
@@ -1094,13 +1065,14 @@ def phase_kernel_moe_decode(gen, case):
                                                        counts), iters=50)
             plain_ms = cuda_ms(lambda: ref.reference_expert_ffn(
                 xe, p, "swiglu", counts), iters=10)
-            all_ms, all_by, _, _ = gmm_bound(E, C, d, f, True, dtype)
+            all_ms, all_by, _, _ = bound(gmm_cost.work(E, C, d, f, True,
+                                                        dtype), dtype)
             # the least the card could do: the touched experts' weights,
             # the live rows of xe read and of y written
             nbytes = 2 * (2 * n_live * d + 3 * touched * d * f)
             flops = 6.0 * n_live * d * f
             t_ops = flops / PEAK_FLOPS[dtype]
-            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_bytes = nbytes / HBM_BW
             bound_ms = max(t_ops, t_bytes) * 1e3
             bound_by = "bytes" if t_bytes >= t_ops else "operations"
             print(f"  timing at {name} (E={E} C={C} d={d} f={f} {dtype}, "
@@ -1133,7 +1105,8 @@ def time_moe_kernel(xe, p, act, err):
     fn = act_fn(act)
     yard_ms = cuda_ms(lambda: torch.bmm(
         fn(torch.bmm(xe, p["w1"])) * torch.bmm(xe, p["w3"]), p["w2"]))
-    bound_ms, bound_by, flops, nbytes = gmm_bound(E, C, d, f, True, xe.dtype)
+    bound_ms, bound_by, flops, nbytes = bound(
+        gmm_cost.work(E, C, d, f, True, xe.dtype), xe.dtype)
     print(f"  timing at E={E} C={C} d={d} f={f} {xe.dtype}: kernel "
           f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, yardstick (3 bmm + "
           f"act, not a port) {yard_ms:.4f} ms; bound {bound_ms * 1e3:.2f} us "
@@ -1142,24 +1115,6 @@ def time_moe_kernel(xe, p, act, err):
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": None, "bmm_yardstick_ms": yard_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
-
-
-def rglru_bound(B, S, D, x_dtype, g_dtype, with_h0, fused):
-    """(bound_ms, bound_by, flops, bytes) of one RG-LRU scan on the card.
-
-    Bytes count x, ga, gx, lam (the biases b_a and b_i on the fused route,
-    and h0) read once and y, h_last written once; operations are
-    RGLRU_OPS_PER_ELEM float32 operations per (b, t, d) element."""
-    size = {torch.float32: 4, torch.bfloat16: 2}
-    n = B * S * D
-    nbytes = (n * (size[x_dtype] + 2 * size[g_dtype] + 4) + 4 * D
-              + (8 * D if fused else 0)
-              + 4 * B * D * (2 if with_h0 else 1))
-    flops = float(RGLRU_OPS_PER_ELEM * n)
-    t_ops = flops / PEAK_FLOPS[torch.float32]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations"), flops, nbytes
 
 
 # (name, B, S, D, x dtype, gate dtype, with h0, route).  The first two are
@@ -1239,8 +1194,8 @@ def phase_kernel_rglru():
         scale = float(wy.abs().max())
         err = max(float((y - wy).abs().max()), float((h - wh).abs().max()))
         rel = err / scale if scale > 0 else err
-        bound_ms, bound_by, _, _ = rglru_bound(B, S, D, x_dt, g_dt, with_h0,
-                                               bool(bias))
+        bound_ms, bound_by, _, _ = bound(rg_cost.work(
+            B, S, D, x_dt, g_dt, with_h0, bool(bias)), torch.float32)
         print(f"  {name:19s} x {str(x_dt):14s} gates {str(g_dt):14s} "
               f"B={B} S={S} D={D} h0={with_h0} ({route}): "
               f"max_abs_err={err:.3e} max|y|={scale:.3e} rel={rel:.3e} "
@@ -1300,8 +1255,8 @@ def time_rglru_kernel(x, lam, ga, gx, bias, route, err):
     kernel_ms = cuda_ms(lambda: ops.rglru(x, lam, ga, gx, **bias))
     plain_ms = cuda_ms(lambda: ref.reference_rglru(x, lam, ga, gx, **bias),
                        iters=3, warmup=1)
-    bound_ms, bound_by, flops, nbytes = rglru_bound(
-        B, S, D, x.dtype, ga.dtype, False, bool(bias))
+    bound_ms, bound_by, flops, nbytes = bound(rg_cost.work(
+        B, S, D, x.dtype, ga.dtype, False, bool(bias)), torch.float32)
     print(f"  timing at B={B} S={S} D={D} x {x.dtype} gates {ga.dtype} "
           f"({route}): kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"library: none; bound {bound_ms * 1e3:.2f} us by {bound_by} "
@@ -1309,28 +1264,6 @@ def time_rglru_kernel(x, lam, ga, gx, bias, route, err):
           f"{bound_ms / kernel_ms:.1%} of it", flush=True)
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
-
-
-def mlstm_bound(B, S, H, Dh, dtype, with_init):
-    """(bound_ms, bound_by, flops, bytes) of one chunkwise mLSTM on the card.
-
-    Bytes count q, k, v, ig, fg (and an initial state) read once and h, C,
-    n, m written once.  FLOPs count the least work of the function, whatever
-    chunk an evaluation takes: per (b, h), q C and the state update
-    (k g)^T v, 4 S Dh^2 at any chunk, plus the intra-chunk q k^T and W v
-    over the (query, key) pairs the causal mask leaves, 2 S (T + 1) Dh at
-    chunk T, least at T = 1 (the sequential form: 4 S Dh); at the peak rate
-    of the input type, as the other kernels' bounds."""
-    size = {torch.float32: 4, torch.bfloat16: 2}
-    n = B * S * H * Dh
-    state = 4 * (B * H * Dh * Dh + B * H * Dh + B * H)
-    nbytes = (3 * n * size[dtype] + 4 * n + 2 * 4 * B * S * H
-              + state * (2 if with_init else 1))
-    flops = 4.0 * B * H * S * Dh * (Dh + 1)
-    t_ops = flops / PEAK_FLOPS[dtype]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations"), flops, nbytes
 
 
 # (name, B, S, H, Dh, q/k/v dtype, with init_state, stress); the first is
@@ -1441,7 +1374,8 @@ def phase_kernel_mlstm():
                                          init_state=init)
         rels = rel_errs((h,) + state, (wh,) + wstate)
         h_err = float((h - wh).abs().max())
-        bound_ms, bound_by, _, _ = mlstm_bound(B, S, H, Dh, dtype, with_init)
+        bound_ms, bound_by, _, _ = bound(ml_cost.work(
+            B, S, H, Dh, dtype, with_init), dtype)
         print(f"  {name:17s} {str(dtype):15s} B={B} S={S} H={H} Dh={Dh} "
               f"init={with_init} ({route}): max_abs_err(h)={h_err:.3e} "
               f"max|h|={float(wh.abs().max()):.3e} rel " + " ".join(
@@ -1519,8 +1453,8 @@ def time_mlstm_kernel(xs, err):
     passes = kernel_passes_ms(lambda: ops.mlstm_chunkwise(
         *xs, chunk=MLSTM_PLAIN_CHUNK), r"mlstm_\w+(<[^()]*>)?")
     ws = kernel.workspace_bytes(B, S, H, Dh, route)
-    bound_ms, bound_by, flops, nbytes = mlstm_bound(B, S, H, Dh,
-                                                    xs[0].dtype, False)
+    bound_ms, bound_by, flops, nbytes = bound(ml_cost.work(
+        B, S, H, Dh, xs[0].dtype, False), xs[0].dtype)
     print(f"  timing at B={B} S={S} H={H} Dh={Dh} q/k/v {xs[0].dtype} gates "
           f"{xs[3].dtype} ({route}): kernel {kernel_ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, library: none, scalar_bf16 kernels "
@@ -1550,10 +1484,6 @@ def time_mlstm_kernel(xs, err):
 #    and their segments, the per-channel sums over B * S from per-block
 #    partials); ~1e-6 apart, 1e-4 is the bar.
 RGLRU_BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
-# float32 operations per (b, t, d) element of the backward: the gates
-# (two sigmoids, expm1, sqrt: 12), the carry (2), dlog_a (7), dga (4),
-# dgx (5), dx (2), three partial sums (3)
-RGLRU_BWD_OPS_PER_ELEM = 35
 
 # (name, B, S, D, h0, dh_last, fused biases, x and ga off a 16-byte
 # boundary), each run with bf16 and with float32 x and gates: the train
@@ -1588,21 +1518,6 @@ RGLRU_BWD_CASES = [
 # float64, at most twice the plain version's own error, or 1e-4 where that
 # is larger
 RGLRU_BWD_ORACLE_CASE = ("long-memory-4096", 2, 4096, 512)
-
-
-def rglru_bwd_bound(B, S, D, dtype, fused):
-    """(bound_ms, bound_by, flops, bytes) of one RG-LRU backward: x, ga,
-    gx (``dtype``), the forward's y and dy (float32), lam and the biases
-    read once; dx, dga, dgx (``dtype``), dlam and the biases' gradients
-    written once; RGLRU_BWD_OPS_PER_ELEM float32 operations an element."""
-    size = torch.tensor([], dtype=dtype).element_size()
-    n = B * S * D
-    nbytes = n * (6 * size + 8) + 4 * D * (4 if fused else 2)
-    flops = float(RGLRU_BWD_OPS_PER_ELEM * n)
-    t_ops = flops / PEAK_FLOPS[torch.float32]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations"), flops, nbytes
 
 
 def rglru_grads(x, lam, ga, gx, h0, b_a, b_i, dy, dh_last):
@@ -1742,8 +1657,8 @@ def time_rglru_bwd(x, lam, ga, gx, b_a, b_i, y, dy, err):
     passes = kernel_passes_ms(run, r"rglru_bwd\w*")
     plain_ms = cuda_ms(lambda: ref.reference_rglru_bwd(
         x, lam, ga, gx, y, dy, b_a=b_a, b_i=b_i), iters=2, warmup=1)
-    bound_ms, bound_by, flops, nbytes = rglru_bwd_bound(B, S, D, x.dtype,
-                                                        b_a is not None)
+    bound_ms, bound_by, flops, nbytes = bound(rg_cost.bwd_work(
+        B, S, D, x.dtype, b_a is not None), torch.float32)
     print(f"  backward timing at B={B} S={S} D={D} {x.dtype} (fused_bias): "
           f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library: "
           f"none; bound {bound_ms * 1e3:.2f} us by {bound_by} "
@@ -1788,23 +1703,6 @@ MLSTM_BWD_CASES = [
     ("dh-1600", 1, 100, 1, 1600, False, None),
     ("dh-37", 2, 150, 1, 37, True, None),
 ]
-
-
-def mlstm_bwd_bound(B, S, H, Dh, dtype, chunk):
-    """(bound_ms, bound_by, flops, bytes) of one mLSTM backward.  FLOPs: per
-    (b, h) the five state products (C's update, C dnum, D's update, D v,
-    D^T k), 10 S Dh^2, and the five products over the pairs a chunk of
-    ``chunk`` steps leaves under the causal mask, 5 S (chunk + 1) Dh; at the
-    peak rate of the input type.  Bytes: q, k, v, h, dh, ig, fg and the row
-    statistics read once, dq, dk, dv, dig and the row sums written once."""
-    size = torch.tensor([], dtype=dtype).element_size()
-    n = B * S * H * Dh
-    nbytes = n * (6 * size + 8) + 4 * B * S * H * 6
-    flops = float(B * H) * (10.0 * S * Dh * Dh + 5.0 * S * (chunk + 1) * Dh)
-    t_ops = flops / PEAK_FLOPS[dtype]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations"), flops, nbytes
 
 
 def phase_kernel_mlstm_bwd():
@@ -1883,12 +1781,6 @@ def phase_kernel_mlstm_bwd():
     return timing
 
 
-# The bound of the mLSTM backward counts the chunk's own pairs at chunks of
-# 64, whatever chunk a route takes, so that the routes' times (and the
-# scalar route's earlier ones) are held to one yardstick.
-MLSTM_BWD_BOUND_CHUNK = 64
-
-
 def time_mlstm_bwd(xs, h, stats, dh, err, route):
     """The backward on ``route`` (each of its passes by the profiler), the
     scalar bf16 route on the same inputs and the plain backward, at the
@@ -1909,15 +1801,15 @@ def time_mlstm_bwd(xs, h, stats, dh, err, route):
         q, k, v, ig, fg, h, stats, dh), iters=2, warmup=1)
     passes = kernel_passes_ms(run, r"mlstm_(bwd_\w+|gates_kernel|"
                                    r"states_kernel|qk_kernel)(<[^()]*>)?", 3)
-    bound_ms, bound_by, flops, nbytes = mlstm_bwd_bound(
-        B, S, H, Dh, q.dtype, MLSTM_BWD_BOUND_CHUNK)
+    bound_ms, bound_by, flops, nbytes = bound(ml_cost.bwd_work(
+        B, S, H, Dh, q.dtype), q.dtype)
     f32_bound_ms = flops / PEAK_FLOPS[torch.float32] * 1e3
     print(f"  backward timing at B={B} S={S} H={H} Dh={Dh} {q.dtype} "
           f"({route}, chunk {kernel.bwd_chunk(route)}): kernel "
           f"{kernel_ms:.4f} ms, scalar_bf16 {scalar_ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, library: none; bound {bound_ms * 1e3:.2f} us "
           f"by {bound_by} ({flops / 1e9:.2f} GFLOP at chunks of "
-          f"{MLSTM_BWD_BOUND_CHUNK}, {nbytes / 1e6:.2f} MB; "
+          f"{ml_cost.BWD_CHUNK}, {nbytes / 1e6:.2f} MB; "
           f"{f32_bound_ms:.3f} ms at the float32 rate); passes "
           + (", ".join(f"{k} {v:.4f} ms" for k, v in passes.items())
              or "not measured"), flush=True)
@@ -2061,14 +1953,12 @@ def time_moe_bwd(xe, p32, dy, act, counts, n_live, err):
     plain_ms = cuda_ms(lambda: torch.autograd.grad(
         ref.reference_expert_ffn(x, w, act, counts), leaves, dy), iters=10)
     elem = xe.element_size()
-    flops = 6 * 2.0 * n_live * d * f
-    nbytes = elem * (3 * n_live * d + 6 * E * d * f)
-    t_ops, t_bytes = flops / PEAK_FLOPS[xe.dtype], nbytes / HBM_BYTES_PER_S
-    bound_ms = max(t_ops, t_bytes) * 1e3
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    bound_ms, bound_by, flops, nbytes = bound(gmm_cost.bwd_work(
+        n_live, E, d, f, True, xe.dtype), xe.dtype)
+    t_ops = flops / PEAK_FLOPS[xe.dtype]
     fb_bound_ms = max(1.5 * t_ops, (nbytes + elem * (2 * n_live * d + 3 * E
                                                      * d * f))
-                      / HBM_BYTES_PER_S) * 1e3
+                      / HBM_BW) * 1e3
     print(f"  timing at granite's train shape (E={E} C={C} d={d} f={f} "
           f"{xe.dtype}, {n_live} live rows): the function forward + "
           f"backward {fn_ms:.4f} ms (its backward, plain grouped products "
@@ -2983,7 +2873,7 @@ def cross_attention_ms(cfg, params, patches, prefill_ms):
                           iters=10)
     flops = 4.0 * B * H * Dh * S * P
     nbytes = 2 * (2 * B * S * H * Dh + 2 * B * P * KH * Dh)
-    bound_ms = max(flops / PEAK_FLOPS[dt], nbytes / HBM_BYTES_PER_S) * 1e3
+    bound_ms = max(flops / PEAK_FLOPS[dt], nbytes / HBM_BW) * 1e3
     print(f"  cross-attention at B={B} S_q={S} S_k={P} H={H} KH={KH} "
           f"Dh={Dh} (CUDA events): the block {block_ms:.4f} ms, its plain "
           f"attention {attn_ms:.4f} ms (bound {bound_ms:.4f} ms, "
@@ -3475,6 +3365,305 @@ def phase_pipeline_consistency():
             "untrained_embed_rel_err": emb_ctl}
 
 
+# phases 35-37: the data-parallel step with the int8 error-feedback
+# all-reduce, the train driver with a save and a resume, and the dry run's
+# count of phase 12's step.  COMPRESSED_LAYERS cuts minicpm-2b's depth for
+# the compressed step, which runs beside a plain step from the same init;
+# the driver trains the -smoke config as examples/train_e2e_torch.py does
+COMPRESSED_LAYERS = 4
+DRIVER_STEPS, DRIVER_CUT = 60, 40
+# the reference test's bar on every parameter after step 1 of the
+# compressed and the plain step (tests/test_dp_compress.py)
+COMPRESSED_PARAM_TOL = 5e-2
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_train_compressed():
+    """Phase 35: minicpm-2b at full width, COMPRESSED_LAYERS layers, as
+    phase 12 (float32 masters, bf16 compute, remat "full", 2 microbatches
+    of 1 x TRAIN_SEQ, its recipe): TRAIN_STEPS steps of
+    ``make_train_step_dp_compressed`` on a one-rank NCCL group beside
+    TRAIN_STEPS plain steps from the same init on the same batch.  Step
+    1's loss must be the same bits, every parameter after step 1 within
+    the reference test's bars and within 2 lr of the plain step's (AdamW
+    moves a weight by at most about lr a step), the error feedback exact
+    on every leaf (the gradient used plus the new error equals the
+    gradient plus the old error, within float32 rounding), the loss
+    falling, every step's launches those of phase 12's per layer on
+    wgmma_bf16, and one NCCL all-reduce of an int32 payload a leaf a
+    step.  Returns {"plain_ms", "compressed_ms", "all_reduce_ms"}."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch, get_schedule
+    from repro_torch.data import batch_for
+    from repro_torch.launch import steps
+    from repro_torch.models import registry as R
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import AdamWConfig, adamw_init, compression
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_arch(ARCH), n_layers=COMPRESSED_LAYERS)
+    phase(f"train compressed {ARCH} {cfg.n_layers} layers")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    calls = {"int32": 0, "other": 0}
+    all_reduce = dist.all_reduce
+    ef_all_reduce = compression.all_reduce_int8_with_ef
+    identity = []       # worst |used + new error - (grad + old error)| bars
+    ar_events = []
+
+    def counting_all_reduce(t, *args, **kwargs):
+        calls["int32" if t.dtype == torch.int32 else "other"] += 1
+        return all_reduce(t, *args, **kwargs)
+
+    def checked_ef_all_reduce(grads, errors, group=None):
+        targets = [g.float() + e for g, e in zip(tree_leaves(grads),
+                                                 tree_leaves(errors))]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        used, new = ef_all_reduce(grads, errors, group)
+        end.record()
+        ar_events.append((start, end))
+        eps = torch.finfo(torch.float32).eps
+        for u, n, t in zip(tree_leaves(used), tree_leaves(new), targets):
+            err = float((u.float() + n - t).abs().max())
+            bar = 4 * eps * max(float(t.abs().max()), 1e-30)
+            identity.append(err / bar)
+        return used, new
+    dist.all_reduce = counting_all_reduce
+    compression.all_reduce_int8_with_ef = checked_ef_all_reduce
+    try:
+        params = R.init_params(cfg, 0, device="cuda",
+                               param_dtype=torch.float32)
+        plain = tree_map(lambda p: p.detach().clone(), params)
+        opt, opt_plain = adamw_init(params), adamw_init(plain)
+        errors = steps.init_ef_errors(params)
+        shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+        batch = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in batch_for(cfg, shape, seed=0, step=0).items()}
+        ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                           total_steps=TRAIN_STEPS,
+                           schedule=get_schedule(ARCH))
+        plain_step = steps.make_train_step(cfg, ocfg,
+                                           accum_steps=TRAIN_ACCUM,
+                                           device="cuda")
+        comp_step = steps.make_train_step_dp_compressed(
+            cfg, ocfg, accum_steps=TRAIN_ACCUM, device="cuda")
+        n_leaves = len(tree_leaves(params))
+        want = step_launches(cfg, TRAIN_ACCUM, backward=True)
+        print(f"  {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+              f"{R.count_params_analytic(cfg) / 1e9:.3f} B params in "
+              f"{n_leaves} leaves; one-rank NCCL group; batch "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ} as {TRAIN_ACCUM} microbatches",
+              flush=True)
+        reset_kernel_launches()
+        history = []
+        for i in range(TRAIN_STEPS):
+            row = {}
+            for name, run in (
+                    ("plain", lambda: plain_step(plain, opt_plain, batch)),
+                    ("compressed", lambda: comp_step(params, opt, errors,
+                                                     batch))):
+                before = kernel_launches()
+                calls.update(int32=0, other=0)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = run()
+                torch.cuda.synchronize()
+                row[name + "_ms"] = (time.perf_counter() - t0) * 1e3
+                metrics = out[-1]
+                row[name] = {k: float(v) for k, v in metrics.items()}
+                delta = {k: v - before[k] for k, v in
+                         kernel_launches().items()}
+                check(delta == want, f"{name} step {i + 1} launched "
+                      f"{delta}, expected {want}")
+                if name == "compressed":
+                    check(calls["int32"] == n_leaves,
+                          f"compressed step {i + 1}: {calls['int32']} "
+                          f"int32 all-reduces for {n_leaves} leaves")
+                    row["all_reduce_ms"] = ar_events[-1][0].elapsed_time(
+                        ar_events[-1][1])
+            if i == 0:
+                # the reference's bar is 1e-3; from one init and one batch
+                # the port's two steps give the same bits
+                lp, lc = row["plain"]["loss"], row["compressed"]["loss"]
+                check(lp == lc, f"step 1's loss differs: plain {lp!r}, "
+                      f"compressed {lc!r}")
+                with torch.no_grad():
+                    d = max(float((a - b).abs().max()) for a, b in zip(
+                        tree_leaves(params), tree_leaves(plain)))
+                lr = row["compressed"]["lr"]
+                bar = min(COMPRESSED_PARAM_TOL, 2 * lr * (1 + 1e-3))
+                print(f"  after step 1: loss {lc!r} on both (the same "
+                      f"bits); largest parameter difference {d:.3e} "
+                      f"(bar {bar:.3e}: 2 lr = {2 * lr:.3e} and the "
+                      f"reference's {COMPRESSED_PARAM_TOL})", flush=True)
+                check(d <= bar, f"after step 1 a parameter differs by {d}")
+            history.append(row)
+            print(f"  step {i + 1}: plain loss {row['plain']['loss']:.5f} "
+                  f"{row['plain_ms']:.1f} ms; compressed loss "
+                  f"{row['compressed']['loss']:.5f} "
+                  f"{row['compressed_ms']:.1f} ms, the all-reduce "
+                  f"{row['all_reduce_ms']:.2f} ms "
+                  f"({row['all_reduce_ms'] / row['compressed_ms']:.1%})",
+                  flush=True)
+        check(max(identity) <= 1.0, f"error feedback: worst leaf at "
+              f"{max(identity):.3f} of its float32 bar")
+        losses = [h["compressed"]["loss"] for h in history]
+        check(losses[-1] < losses[0], f"compressed loss did not fall: "
+              f"{losses}")
+        routes = kernel_routes()
+        check_routes(routes, kernel_launches(), TRAIN_ROUTES,
+                     "train compressed")
+        steady = history[1:]
+        out = {k: float(np.median([h[k] for h in steady]))
+               for k in ("plain_ms", "compressed_ms", "all_reduce_ms")}
+        print(f"  error feedback: worst leaf {max(identity):.3f} of its bar "
+              f"(4 float32 eps of the leaf's max |grad + error|); "
+              f"{n_leaves} int32 all-reduces a step; median after step 1: "
+              f"plain {out['plain_ms']:.1f} ms, compressed "
+              f"{out['compressed_ms']:.1f} ms, its all-reduce "
+              f"{out['all_reduce_ms']:.2f} ms "
+              f"({out['all_reduce_ms'] / out['compressed_ms']:.1%}); "
+              f"launches by route {routes}", flush=True)
+        return out
+    finally:
+        dist.all_reduce = all_reduce
+        compression.all_reduce_int8_with_ef = ef_all_reduce
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+
+
+def phase_train_driver():
+    """Phase 36: ``examples/train_e2e_torch.py``'s path through
+    ``launch/train.py`` on the card (minicpm-2b -smoke, batch 8 x 128,
+    a checkpoint every 40 steps): DRIVER_STEPS steps straight, and
+    DRIVER_CUT steps then a second run that resumes from the checkpoint at
+    DRIVER_CUT and ends at DRIVER_STEPS.  Both runs' final checkpoints must
+    hold the same bits in every leaf (the flash backward is deterministic);
+    the seconds a step, to save and to restore are printed."""
+    import importlib.util
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.store import latest_step, load_checkpoint
+    from repro_torch.configs import get_arch
+    from repro_torch.models import registry as R
+    from repro_torch.optim import adamw_init
+    phase("train driver")
+    spec = importlib.util.spec_from_file_location(
+        "train_e2e_torch", os.path.join(ROOT, "examples",
+                                        "train_e2e_torch.py"))
+    e2e = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(e2e)
+    with tempfile.TemporaryDirectory() as tmp:
+        straight, cut = os.path.join(tmp, "straight"), os.path.join(tmp,
+                                                                    "cut")
+        args = ["--steps", str(DRIVER_STEPS)]
+        t0 = time.perf_counter()
+        e2e.main(args + ["--ckpt-dir", straight])
+        straight_s = time.perf_counter() - t0
+        e2e.main(args + ["--ckpt-dir", cut, "--stop-at", str(DRIVER_CUT)])
+        check(latest_step(cut) == DRIVER_CUT,
+              f"the cut run ended at step {latest_step(cut)}")
+        t0 = time.perf_counter()
+        resumed = e2e.main(args + ["--ckpt-dir", cut])
+        resumed_s = time.perf_counter() - t0
+        check(resumed and resumed[0]["step"] == DRIVER_CUT + 1,
+              f"the second run did not resume at step {DRIVER_CUT + 1}")
+        a = load_checkpoint(straight, latest_step(straight))
+        b = load_checkpoint(cut, latest_step(cut))
+        check(a[0] == b[0] == DRIVER_STEPS, f"final steps {a[0]}, {b[0]}")
+        diff = {k: float((a[1][k].double() - b[1][k].double()).abs().max())
+                for k in a[1]}
+        worst = max(diff, key=diff.get)
+        print(f"  straight against resumed at step {DRIVER_STEPS}: "
+              f"{len(diff)} leaves, {sum(v > 0 for v in diff.values())} "
+              f"differ; largest difference {diff[worst]:.3e} ({worst})",
+              flush=True)
+        check(diff[worst] == 0.0, f"the resumed run's {worst} differs from "
+              f"the straight run's by {diff[worst]}")
+        # save and restore timed on the trained state
+        cfg = get_arch(ARCH + "-smoke")
+        params = R.init_params(cfg, 0, device="cuda",
+                               param_dtype=torch.float32)
+        templates = {"params": params, "opt": adamw_init(params)}
+        mgr = CheckpointManager(straight, cfg)
+        t0 = time.perf_counter()
+        _, trees, _ = mgr.restore_latest(templates)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        CheckpointManager(os.path.join(tmp, "again"), cfg).save(
+            DRIVER_STEPS, trees)
+        save_s = time.perf_counter() - t0
+    out = {"straight_s": straight_s, "step_s": straight_s / DRIVER_STEPS,
+           "resumed_s": resumed_s, "save_s": save_s,
+           "restore_s": restore_s}
+    print(f"  {DRIVER_STEPS} steps straight in {straight_s:.2f} s "
+          f"({out['step_s']:.4f} s a step, start-up and saves included); "
+          f"the resumed run's {DRIVER_STEPS - DRIVER_CUT} steps in "
+          f"{resumed_s:.2f} s; save {save_s:.3f} s, restore "
+          f"{restore_s:.3f} s ({cfg.name}, "
+          f"{R.count_params_analytic(cfg):,} params, float32 weights and "
+          f"moments)", flush=True)
+    return out
+
+
+def phase_dryrun(card: str, train_out: dict):
+    """Phase 37: ``launch/dryrun.py``'s count of phase 12's step on
+    ``meta`` (minicpm-2b at full depth, TRAIN_BATCH x TRAIN_SEQ as
+    TRAIN_ACCUM microbatches, remat "full"): model FLOPs, the counted
+    FLOPs and their ratio, each kernel's counted calls (which must equal
+    the launches phase 12 checked each step), the predicted memory of the
+    step's arguments, beside phase 12's measured step time and peak
+    memory, and model FLOPs over (step seconds x the card's bf16 peak)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16
+    from repro_torch.models.config import ShapeSpec
+    phase(f"dryrun {ARCH}")
+    cfg = get_arch(ARCH)
+    t0 = time.perf_counter()
+    rec = lower_cell(ARCH, ShapeSpec("phase12", TRAIN_SEQ, TRAIN_BATCH,
+                                     "train"), accum_steps=TRAIN_ACCUM)
+    count_s = time.perf_counter() - t0
+    calls = {k: v["calls"] for k, v in rec["counted"]["kernels"].items()}
+    want = {k: v for k, v in step_launches(cfg, TRAIN_ACCUM,
+                                           backward=True).items() if v}
+    check(calls == want, f"dryrun: counted kernel calls {calls}, phase 12 "
+          f"launched {want} a step")
+    ro, mem = rec["roofline"], rec["memory"]
+    step_s = float(np.median([s["ms"] for s in train_out["steps"][1:]])) \
+        / 1e3
+    share = ro["model_flops"] / (step_s * PEAK_FLOPS_BF16)
+    print(f"  counted on meta in {count_s:.1f} s: model FLOPs "
+          f"{ro['model_flops']:.4e}, counted "
+          f"{ro['counted_flops_global']:.4e} (model / counted {ro['useful_ratio']:.4f}), traffic "
+          f"{rec['counted']['traffic_bytes']:.4e} B; kernel calls {calls} "
+          f"= phase 12's launches a step; bound {ro['bound_s']:.4f} s by "
+          f"{ro['dominant']}", flush=True)
+    print(f"  memory: arguments {mem['argument_size_in_bytes'] / 2**30:.2f} "
+          f"GiB predicted ({mem['argument_parts']}), temporaries "
+          f"{mem['temp_size_in_bytes'] / 2**30:.2f} GiB (an estimate); "
+          f"phase 12's peak {train_out['peak_bytes'] / 2**30:.2f} GiB",
+          flush=True)
+    print(f"  phase 12's step {step_s:.4f} s (median after the first): "
+          f"model FLOPs / (step s x {PEAK_FLOPS_BF16:.3e}) = {share:.2%} "
+          f"on {card}", flush=True)
+    return {"step_s": step_s, "model_flops": ro["model_flops"],
+            "counted_flops": ro["counted_flops_global"],
+            "useful_ratio": ro["useful_ratio"], "share_of_peak": share,
+            "argument_bytes": mem["argument_size_in_bytes"],
+            "temp_bytes_estimate": mem["temp_size_in_bytes"],
+            "peak_bytes": train_out["peak_bytes"], "calls": calls}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this runs on the GPU",
@@ -3511,7 +3700,7 @@ def main() -> int:
     phase_consistency(cfg, params, tol=XLSTM_CONSISTENCY_RTOL)
     del params
     torch.cuda.empty_cache()
-    train_launches, train_routes, _ = phase_train()
+    train_launches, train_routes, train_out = phase_train()
     phase_train_consistency()
     griffin_train, griffin_train_routes, _ = phase_train(
         GRIFFIN_ARCH, GRIFFIN_TRAIN_LAYERS)
@@ -3540,6 +3729,9 @@ def main() -> int:
     phase_pipeline_consistency()
     zoo_launches, zoo_routes = phase_zoo()
     routes.update(zoo_routes)
+    phase_train_compressed()
+    phase_train_driver()
+    phase_dryrun(card, train_out)
 
     kernels = [
         {"name": "flash_attention", "route": "cuda",

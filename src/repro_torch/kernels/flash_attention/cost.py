@@ -1,0 +1,35 @@
+"""The work of one flash-attention call, forward and backward: (FLOPs,
+bytes) from its shapes, for the card's bound (``launch.mesh.bound``) and
+the step count (``distributed.flops``)."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def visible_pairs(S: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs the mask leaves over one head's S x S."""
+    qpos = np.arange(S)
+    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(S, int)
+    hi = qpos + 1 if causal else np.full(S, S)
+    return int(np.sum(hi - lo))
+
+
+def work(B, S, H, KH, Dh, causal, window, dtype):
+    """(flops, bytes) of one attention: 4*Dh FLOPs per visible (query, key)
+    pair (the score and the weighted sum of V); q, k, v read once and o
+    written once."""
+    flops = 4.0 * B * H * Dh * visible_pairs(S, causal, window)
+    elem = torch.tensor([], dtype=dtype).element_size()
+    nbytes = elem * (2 * B * S * H * Dh + 2 * B * S * KH * Dh)
+    return flops, nbytes
+
+
+def bwd_work(B, S, H, KH, Dh, causal, window, dtype):
+    """(flops, bytes) of one attention backward: five products of 2*Dh per
+    visible (query, key) pair (q k^T, P^T dO, dO V^T, dS^T Q, dS K); q, k,
+    v, o, dO and the row log-sum-exp read once, dq, dk, dv written once."""
+    flops = 10.0 * B * H * Dh * visible_pairs(S, causal, window)
+    elem = torch.tensor([], dtype=dtype).element_size()
+    nbytes = elem * (4 * B * S * H * Dh + 4 * B * S * KH * Dh) + 4 * B * H * S
+    return flops, nbytes

@@ -20,6 +20,11 @@ log-sum-exp, and the backward is the hand-written kernel of
 stay outside the function, so autograd carries the gradient through them
 (and drops a padded head dim's extra columns).  Otherwise (serving, under
 ``no_grad`` or ``inference_mode``) the forward writes no log-sum-exp.
+
+On ``meta`` tensors it computes nothing and returns an empty output of the
+right shape.  Under a ``distributed.flops.FlopCounter`` each call, and
+each backward, counts by ``cost.work`` and ``cost.bwd_work`` on every
+device.
 """
 from __future__ import annotations
 
@@ -29,7 +34,8 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from repro_torch.kernels.flash_attention import kernel, ref
+from repro_torch.distributed import flops
+from repro_torch.kernels.flash_attention import cost, kernel, ref
 
 SUPPORTED_HEAD_DIMS = (64, 120, 128, 256)
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
@@ -125,29 +131,50 @@ class FlashAttentionFunction(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dout = dout.to(q.dtype).contiguous()
-        if dout.dtype == torch.bfloat16 and dout.data_ptr() % 16:
-            dout = dout.clone()
-        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-        kernel.launch_bwd(q, k, v, out, dout, lse, torch.empty_like(lse),
-                          dq, dk, dv, causal=ctx.causal, window=ctx.window,
-                          scale=ctx.scale)
+        B, S, H, _ = q.shape
+        # the head dim before padding, whose 1/sqrt the wrapper passed
+        head_dim = round(ctx.scale ** -2)
+        with flops.recorded("flash_attention_bwd", lambda: cost.bwd_work(
+                B, S, H, k.shape[2], head_dim, ctx.causal, ctx.window,
+                q.dtype)):
+            dout = dout.to(q.dtype).contiguous()
+            if dout.dtype == torch.bfloat16 and dout.data_ptr() % 16:
+                dout = dout.clone()
+            dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+            kernel.launch_bwd(q, k, v, out, dout, lse, torch.empty_like(lse),
+                              dq, dk, dv, causal=ctx.causal,
+                              window=ctx.window, scale=ctx.scale)
         return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q: (B, S, H, Dh); k, v: (B, S, KH, Dh) -> (B, S, H, Dh)."""
     _check_shapes(q, k, v, window)
-    if all(t.device.type == "cpu" for t in (q, k, v)):
+    B, S, H, head_dim = q.shape
+    shape = (B, S, H, k.shape[2], head_dim, causal, window, q.dtype)
+    devices = {t.device.type for t in (q, k, v)}
+    if devices == {"meta"} or (devices == {"cpu"} and flops.counting()):
+        def plain(q, k, v):
+            if "meta" in devices:
+                return (torch.empty(q.shape, dtype=q.dtype, device=q.device),)
+            return (ref.reference_attention(q, k, v, causal=causal,
+                                            window=window),)
+        return flops.counted_call(
+            "flash_attention", lambda: cost.work(*shape),
+            lambda: cost.bwd_work(*shape), plain, (q, k, v),
+            meta="meta" in devices)[0]
+    if devices == {"cpu"}:
         return ref.reference_attention(q, k, v, causal=causal, window=window)
-    check_kernel_args(q, k, v)
-    head_dim = q.shape[3]
-    scale = 1.0 / math.sqrt(head_dim)
-    q, k, v = kernel_layout(q, k, v)
-    check_alignment(q, k, v)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        out = FlashAttentionFunction.apply(q, k, v, causal, window, scale)
-    else:
-        out, _ = _forward(q, k, v, causal, window, scale, with_lse=False)
-    return out if head_dim == out.shape[3] else \
-        out[..., :head_dim].contiguous()
+    with flops.recorded("flash_attention", lambda: cost.work(*shape)):
+        check_kernel_args(q, k, v)
+        scale = 1.0 / math.sqrt(head_dim)
+        q, k, v = kernel_layout(q, k, v)
+        check_alignment(q, k, v)
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            out = FlashAttentionFunction.apply(q, k, v, causal, window,
+                                               scale)
+        else:
+            out, _ = _forward(q, k, v, causal, window, scale, with_lse=False)
+        return out if head_dim == out.shape[3] else \
+            out[..., :head_dim].contiguous()

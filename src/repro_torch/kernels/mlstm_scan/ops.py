@@ -30,13 +30,19 @@ No gradient flows into or out of the state: a gradient that reaches the
 final (C, n, m) raises, as does an ``init_state`` that requires grad.
 Otherwise (serving, under ``no_grad`` or ``inference_mode``) the forward
 writes no statistics.
+
+On ``meta`` tensors it computes nothing and returns empty outputs of the
+right shapes.  Under a ``distributed.flops.FlopCounter`` each call, and
+each backward, counts by ``cost.work`` and ``cost.bwd_work`` on every
+device.
 """
 from __future__ import annotations
 
 import torch
 from torch.autograd.function import once_differentiable
 
-from repro_torch.kernels.mlstm_scan import kernel, ref
+from repro_torch.distributed import flops
+from repro_torch.kernels.mlstm_scan import cost, kernel, ref
 
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -146,36 +152,62 @@ class MLSTMScanFunction(torch.autograd.Function):
         q, k, v, ig, fg, C0, n0, m0, h, m_t, den = ctx.saved_tensors
         if dh is None:
             return (None,) * 9
-        dh = dh.float().contiguous()
-        if dh.data_ptr() % 16:   # a view off TMA's and float4's alignment
-            dh = dh.clone()
-        init = None if C0 is None else (C0, n0, m0)
-        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-        dig, rows = torch.empty_like(ig), torch.empty_like(ig)
-        kernel.launch_bwd(q, k, v, ig, fg, init, h, (m_t, den), dh, dq, dk,
-                          dv, dig, rows, ctx.route)
-        return (dq, dk, dv, dig, fg_grad(fg, dig, rows), None, None, None,
-                None)
+        with flops.recorded("mlstm_scan_bwd", lambda: cost.bwd_work(
+                *q.shape, q.dtype)):
+            dh = dh.float().contiguous()
+            if dh.data_ptr() % 16:   # a view off TMA's and float4's alignment
+                dh = dh.clone()
+            init = None if C0 is None else (C0, n0, m0)
+            dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+            dig, rows = torch.empty_like(ig), torch.empty_like(ig)
+            kernel.launch_bwd(q, k, v, ig, fg, init, h, (m_t, den), dh, dq,
+                              dk, dv, dig, rows, ctx.route)
+            dfg = fg_grad(fg, dig, rows)
+        return dq, dk, dv, dig, dfg, None, None, None, None
 
 
 def mlstm_chunkwise(q, k, v, ig, fg, *, chunk: int = 64, init_state=None):
     """The chunkwise mLSTM; see ``ref.reference_mlstm``."""
     _check_shapes(q, k, v, ig, fg, chunk, init_state)
     ts = [q, k, v, ig, fg] + list(init_state or ())
-    if all(t.device.type == "cpu" for t in ts):
+    shape = (*q.shape, q.dtype)
+
+    def work():
+        return cost.work(*shape, init_state is not None)
+
+    def bwd_work():
+        return cost.bwd_work(*shape)
+    devices = {t.device.type for t in ts}
+    if devices == {"meta"} or (devices == {"cpu"} and flops.counting()):
+        def plain(q, k, v, ig, fg, *init):
+            if "meta" in devices:
+                B, _, H, Dh = q.shape
+                f32 = dict(dtype=torch.float32, device=q.device)
+                return (torch.empty(q.shape, **f32),
+                        torch.empty((B, H, Dh, Dh), **f32),
+                        torch.empty((B, H, Dh), **f32),
+                        torch.empty((B, H), **f32))
+            h, state = ref.reference_mlstm(q, k, v, ig, fg, chunk=chunk,
+                                           init_state=init or None)
+            return (h, *state)
+        h, C, n, m = flops.counted_call("mlstm_scan", work, bwd_work, plain,
+                                        ts, meta="meta" in devices)
+        return h, (C, n, m)
+    if devices == {"cpu"}:
         return ref.reference_mlstm(q, k, v, ig, fg, chunk=chunk,
                                    init_state=init_state)
-    # the gates and the state are read in float32, as the reference casts
-    # them
-    ig, fg = ig.float(), fg.float()
-    if init_state is not None:
-        init_state = tuple(t.float() for t in init_state)
-    check_kernel_args(q, k, v, ig, fg, init_state)
-    route = kernel_route(q, k, v)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        h, C, n, m = MLSTMScanFunction.apply(
-            q, k, v, ig, fg, *(init_state or (None, None, None)), route)
-        return h, (C, n, m)
-    h, state, _ = _forward(q, k, v, ig, fg, init_state, route,
-                           with_stats=False)
-    return h, state
+    with flops.recorded("mlstm_scan", work):
+        # the gates and the state are read in float32, as the reference
+        # casts them
+        ig, fg = ig.float(), fg.float()
+        if init_state is not None:
+            init_state = tuple(t.float() for t in init_state)
+        check_kernel_args(q, k, v, ig, fg, init_state)
+        route = kernel_route(q, k, v)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+            h, C, n, m = MLSTMScanFunction.apply(
+                q, k, v, ig, fg, *(init_state or (None, None, None)), route)
+            return h, (C, n, m)
+        h, state, _ = _forward(q, k, v, ig, fg, init_state, route,
+                               with_stats=False)
+        return h, state

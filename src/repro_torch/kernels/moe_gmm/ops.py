@@ -24,13 +24,21 @@ gradient).  The weights are cast to ``xe.dtype`` outside the function, so
 autograd carries their gradient back to float32 master weights.
 Otherwise (serving, under ``no_grad`` or ``inference_mode``) the kernel
 runs on its own.
+
+On ``meta`` tensors it computes nothing and returns an empty output of the
+right shape.  Under a ``distributed.flops.FlopCounter`` each call, and
+each backward, counts by ``cost.work`` and ``cost.bwd_work`` on every
+device, over all E * C rows of the buckets: how many of them are live is
+data, which ``meta`` does not have, so the count takes the rows the
+capacity fixes (the kernel skips the pads on the card).
 """
 from __future__ import annotations
 
 import torch
 from torch.autograd.function import once_differentiable
 
-from repro_torch.kernels.moe_gmm import kernel, ref
+from repro_torch.distributed import flops
+from repro_torch.kernels.moe_gmm import cost, kernel, ref
 
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 _MAX_EXPERTS = 65535    # the scalar and WMMA kernels' grid.z
@@ -121,8 +129,11 @@ class ExpertFFNFunction(torch.autograd.Function):
     def backward(ctx, dy):
         xe, w1, w3, w2, counts = ctx.saved_tensors
         kernel.BWD_CALLS += 1
-        dxe, dw1, dw3, dw2 = ref.reference_expert_ffn_bwd(
-            xe, {"w1": w1, "w3": w3, "w2": w2}, dy, ctx.act, counts)
+        E, C, d = xe.shape
+        with flops.recorded("moe_gmm_bwd", lambda: cost.bwd_work(
+                E * C, E, d, w1.shape[2], w3 is not None, xe.dtype)):
+            dxe, dw1, dw3, dw2 = ref.reference_expert_ffn_bwd(
+                xe, {"w1": w1, "w3": w3, "w2": w2}, dy, ctx.act, counts)
         return dxe, dw1, dw3, dw2, None, None
 
 
@@ -131,12 +142,28 @@ def expert_ffn(xe, p, act: str = "swiglu", counts=None):
     counts: int32 (E,) fills of the buckets, or None."""
     _check_shapes(xe, p, act, counts)
     w3 = p.get("w3")
-    if all(t.device.type == "cpu"
-           for t in (xe, p["w1"], p["w2"], w3, counts) if t is not None):
+    E, C, d = xe.shape
+    f, gated = p["w1"].shape[2], w3 is not None
+    shape = (E, C, d, f, gated, xe.dtype)
+    devices = {t.device.type for t in (xe, p["w1"], p["w2"], w3, counts)
+               if t is not None}
+    if devices == {"meta"} or (devices == {"cpu"} and flops.counting()):
+        def plain(xe, w1, w3, w2, counts):
+            if "meta" in devices:
+                return (torch.empty(xe.shape, dtype=xe.dtype,
+                                    device=xe.device),)
+            return (ref.reference_expert_ffn(
+                xe, {"w1": w1, "w3": w3, "w2": w2}, act, counts),)
+        return flops.counted_call(
+            "moe_gmm", lambda: cost.work(*shape),
+            lambda: cost.bwd_work(E * C, E, d, f, gated, xe.dtype), plain,
+            (xe, p["w1"], w3, p["w2"], counts), meta="meta" in devices)[0]
+    if devices == {"cpu"}:
         return ref.reference_expert_ffn(xe, p, act, counts)
-    w1, w2 = p["w1"].to(xe.dtype), p["w2"].to(xe.dtype)
-    w3 = None if w3 is None else w3.to(xe.dtype)
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (xe, w1, w3, w2)):
-        return ExpertFFNFunction.apply(xe, w1, w3, w2, counts, act)
-    return _forward(xe, w1, w3, w2, counts, act)
+    with flops.recorded("moe_gmm", lambda: cost.work(*shape)):
+        w1, w2 = p["w1"].to(xe.dtype), p["w2"].to(xe.dtype)
+        w3 = None if w3 is None else w3.to(xe.dtype)
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in (xe, w1, w3, w2)):
+            return ExpertFFNFunction.apply(xe, w1, w3, w2, counts, act)
+        return _forward(xe, w1, w3, w2, counts, act)

@@ -17,13 +17,19 @@ Under grad mode, with an input that requires grad, the kernel runs inside
 and the backward is the hand-written kernel of ``csrc/rglru_scan_bwd.cu``.
 Otherwise (serving, under ``no_grad`` or ``inference_mode``) the forward
 launches as it is.
+
+On ``meta`` tensors it computes nothing and returns empty outputs of the
+right shapes.  Under a ``distributed.flops.FlopCounter`` each call, and
+each backward, counts by ``cost.work`` and ``cost.bwd_work`` on every
+device.
 """
 from __future__ import annotations
 
 import torch
 from torch.autograd.function import once_differentiable
 
-from repro_torch.kernels.rglru_scan import kernel, ref
+from repro_torch.distributed import flops
+from repro_torch.kernels.rglru_scan import cost, kernel, ref
 
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -96,18 +102,21 @@ class RGLRUScanFunction(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dy, dh_last):
         x, lam, ga, gx, h0, b_a, b_i, y = ctx.saved_tensors
-        dy = torch.zeros_like(y) if dy is None else \
-            dy.float().contiguous()
-        if dh_last is not None:
-            dh_last = dh_last.float().contiguous()
-        f32 = dict(dtype=torch.float32, device=x.device)
-        dx, dga, dgx = (torch.empty_like(t) for t in (x, ga, gx))
-        dlam = torch.empty(lam.shape, **f32)
-        db_a, db_i = (None, None) if b_a is None else \
-            (torch.empty(b_a.shape, **f32), torch.empty(b_i.shape, **f32))
-        dh0 = None if h0 is None else torch.empty(h0.shape, **f32)
-        kernel.launch_bwd(x, lam, ga, gx, b_a, b_i, h0, y, dy, dh_last, dx,
-                          dga, dgx, dlam, db_a, db_i, dh0)
+        with flops.recorded("rglru_scan_bwd", lambda: cost.bwd_work(
+                *x.shape, x.dtype, b_a is not None)):
+            dy = torch.zeros_like(y) if dy is None else \
+                dy.float().contiguous()
+            if dh_last is not None:
+                dh_last = dh_last.float().contiguous()
+            f32 = dict(dtype=torch.float32, device=x.device)
+            dx, dga, dgx = (torch.empty_like(t) for t in (x, ga, gx))
+            dlam = torch.empty(lam.shape, **f32)
+            db_a, db_i = (None, None) if b_a is None else \
+                (torch.empty(b_a.shape, **f32),
+                 torch.empty(b_i.shape, **f32))
+            dh0 = None if h0 is None else torch.empty(h0.shape, **f32)
+            kernel.launch_bwd(x, lam, ga, gx, b_a, b_i, h0, y, dy, dh_last,
+                              dx, dga, dgx, dlam, db_a, db_i, dh0)
         return dx, dlam, dga, dgx, dh0, db_a, db_i
 
 
@@ -115,13 +124,35 @@ def rglru(x, lam, ga, gx, h0=None, *, b_a=None, b_i=None):
     """RG-LRU gates and recurrence; see ``ref.reference_rglru``."""
     _check_shapes(x, lam, ga, gx, h0, b_a, b_i)
     ts = (x, lam, ga, gx, h0, b_a, b_i)
-    if all(t.device.type == "cpu" for t in ts if t is not None):
+    fused = b_a is not None
+    shape = (*x.shape, x.dtype)
+
+    def work():
+        return cost.work(*shape, ga.dtype, h0 is not None, fused)
+
+    def bwd_work():
+        return cost.bwd_work(*shape, fused)
+    devices = {t.device.type for t in ts if t is not None}
+    if devices == {"meta"} or (devices == {"cpu"} and flops.counting()):
+        def plain(x, lam, ga, gx, h0, b_a, b_i):
+            if "meta" in devices:
+                B, _, D = x.shape
+                return (torch.empty(x.shape, dtype=torch.float32,
+                                    device=x.device),
+                        torch.empty((B, D), dtype=torch.float32,
+                                    device=x.device))
+            return ref.reference_rglru(x, lam, ga, gx, h0, b_a=b_a,
+                                       b_i=b_i)
+        return flops.counted_call("rglru_scan", work, bwd_work, plain, ts,
+                                  meta="meta" in devices)
+    if devices == {"cpu"}:
         return ref.reference_rglru(x, lam, ga, gx, h0, b_a=b_a, b_i=b_i)
-    # lam and h0 are read in float32, as the reference casts them
-    lam = lam.float()
-    h0 = None if h0 is None else h0.float()
-    check_kernel_args(x, lam, ga, gx, h0, b_a, b_i)
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in ts):
-        return RGLRUScanFunction.apply(x, lam, ga, gx, h0, b_a, b_i)
-    return _forward(x, lam, ga, gx, h0, b_a, b_i)
+    with flops.recorded("rglru_scan", work):
+        # lam and h0 are read in float32, as the reference casts them
+        lam = lam.float()
+        h0 = None if h0 is None else h0.float()
+        check_kernel_args(x, lam, ga, gx, h0, b_a, b_i)
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in ts):
+            return RGLRUScanFunction.apply(x, lam, ga, gx, h0, b_a, b_i)
+        return _forward(x, lam, ga, gx, h0, b_a, b_i)

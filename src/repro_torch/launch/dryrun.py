@@ -1,0 +1,230 @@
+"""Dry run of the port: one roofline record per (arch x shape) cell on one
+H100 (PyTorch port of ``repro/launch/dryrun.py``).
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch minicpm-2b \
+        --shape train_4k --out build/dryrun
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out DIR
+
+Each cell builds the full-width, full-depth model on the ``meta`` device
+and runs its step there at the cell's whole global batch, under
+``distributed.flops.FlopCounter``: a training step (``forward_train``, its
+backward with the config's remat, and AdamW), a prefill, or one decode
+step against a cache of the shape's length.  Nothing is allocated and no
+GPU is needed: this is an analysis of shapes, as ``count_params_analytic``
+is.  The record holds the counted FLOPs and bytes (each kernel by its own
+work), the memory of the step's arguments (parameters, their gradients
+and the AdamW moments, the batch or the cache: exact, from shapes) and
+the peak of its live temporaries (an estimate), and the roofline terms
+against ``launch.mesh``'s figures.  ``launch/roofline.py`` turns the
+records into a table.  A cell that does not apply is written as a record
+with its ``skip`` reason.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import time
+import traceback
+from typing import Any, Dict, Optional, Union
+
+import torch
+
+from repro_torch.configs import ARCH_IDS, get_arch, get_schedule
+from repro_torch.distributed.flops import FlopCounter
+from repro_torch.launch.mesh import HBM_BW, NVLINK_BW, PEAK_FLOPS_BF16
+from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
+                                      make_train_step)
+from repro_torch.models import registry as R
+from repro_torch.models.config import SHAPES_BY_NAME, ShapeSpec, skip_reason
+from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.tree import tree_leaves
+
+MESH = "1xH100"
+META = torch.device("meta")
+
+
+def _nbytes(tree) -> int:
+    return sum(t.nbytes for t in tree_leaves(tree))
+
+
+def _batch(cfg, B: int, S: int, train: bool) -> Dict[str, torch.Tensor]:
+    """The cell's inputs on ``meta``, as ``input_specs`` describes them."""
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=META)
+    batch = {}
+    if cfg.modality == "audio":
+        batch["frames"] = empty((B, S, cfg.frontend_dim), torch.bfloat16)
+        if train:
+            batch["mask"] = empty((B, S), torch.float32)
+    else:
+        batch["tokens"] = empty((B, S), torch.int32)
+    if train:
+        batch["labels"] = empty((B, S), torch.int32)
+    if cfg.modality == "vision":
+        batch["patches"] = empty((B, cfg.n_patches, cfg.frontend_dim),
+                                 torch.bfloat16)
+    return batch
+
+
+def lower_cell(arch: str, shape: Union[str, ShapeSpec], *,
+               accum_steps: int = 1, moe_dispatch: str = "gather",
+               remat: Optional[str] = None) -> Dict[str, Any]:
+    """Count one cell's step on ``meta``; returns the JSON-able record.
+
+    ``shape`` is a name of ``SHAPES_BY_NAME`` or a ``ShapeSpec`` of its
+    own."""
+    cfg = get_arch(arch)
+    if remat is not None:
+        cfg = dataclasses.replace(cfg, remat=remat)
+    if isinstance(shape, str):
+        shape = SHAPES_BY_NAME[shape]
+    B, S = shape.global_batch, shape.seq_len
+    rec: Dict[str, Any] = {
+        "arch": arch, "shape": shape.name, "kind": shape.kind, "batch": B,
+        "seq_len": S, "n_layers": cfg.n_layers, "mesh": MESH, "chips": 1,
+        "accum_steps": accum_steps, "moe_dispatch": moe_dispatch,
+        "remat": cfg.remat,
+    }
+    reason = skip_reason(cfg, shape) if shape.name in SHAPES_BY_NAME \
+        else None
+    if reason:
+        rec["skip"] = reason
+        return rec
+
+    t0 = time.time()
+    train = shape.kind == "train"
+    # training keeps float32 master weights; serving cfg.dtype weights
+    params = R.init_params(cfg, device=META,
+                           param_dtype=torch.float32 if train else None)
+    memory = {"parameters": _nbytes(params)}
+    counter = FlopCounter()
+    if train:
+        opt = adamw_init(params)
+        batch = _batch(cfg, B, S, train=True)
+        memory.update(gradients=sum(4 * p.numel()
+                                    for p in tree_leaves(params)),
+                      optimizer=_nbytes([opt.m, opt.v]) + 4,
+                      inputs=_nbytes(batch))
+        for p in tree_leaves(params):
+            # a parameter's gradient is an argument of the step, not a
+            # temporary of it
+            p.requires_grad_(True).register_post_accumulate_grad_hook(
+                lambda p: counter.exclude(p.grad))
+        step = make_train_step(
+            cfg, AdamWConfig(schedule=get_schedule(arch)),
+            moe_dispatch=moe_dispatch, accum_steps=accum_steps, device=META)
+        with counter:
+            step(params, opt, batch)
+        tokens = shape.tokens
+    elif shape.kind == "prefill":
+        batch = _batch(cfg, B, S, train=False)
+        memory["inputs"] = _nbytes(batch)
+        step = make_prefill_step(cfg, moe_dispatch=moe_dispatch,
+                                 device=META)
+        with counter, torch.inference_mode():
+            step(params, batch)
+        tokens = shape.tokens
+    else:           # one new token a row against a cache of S positions
+        cache = R.init_cache(cfg, B, S, device=META)
+        tokens = torch.empty((B, 1), dtype=torch.int32, device=META)
+        memory.update(cache=_nbytes(cache), inputs=tokens.nbytes)
+        step = make_serve_step(cfg, moe_dispatch=moe_dispatch, device=META)
+        with counter, torch.inference_mode():
+            step(params, tokens, S - 1, cache)
+        tokens = B
+    rec["count_s"] = round(time.time() - t0, 2)
+
+    tot = counter.totals
+    rec["memory"] = {
+        "argument_size_in_bytes": sum(memory.values()),
+        "argument_parts": memory,
+        "temp_size_in_bytes": tot.peak_live_bytes,
+        "temp_is_estimate": True,
+    }
+    rec["counted"] = {
+        "flops": tot.flops,
+        "traffic_bytes": tot.traffic_bytes,
+        "kernels": {k: dataclasses.asdict(v)
+                    for k, v in sorted(tot.kernels.items())},
+        "collective_wire_bytes": dict(tot.collective_bytes),
+        "total_wire_bytes": tot.total_wire_bytes,
+    }
+    model_fl = R.model_flops(cfg, tokens, train=train)
+    compute_s = tot.flops / PEAK_FLOPS_BF16
+    memory_s = tot.traffic_bytes / HBM_BW
+    collective_s = tot.total_wire_bytes / NVLINK_BW
+    terms = {"compute": compute_s, "memory": memory_s,
+             "collective": collective_s}
+    bound_s = max(terms.values())
+    rec["roofline"] = {
+        "model_flops": model_fl,
+        "counted_flops_global": tot.flops,
+        "useful_ratio": model_fl / tot.flops if tot.flops else 0.0,
+        "compute_s": compute_s,
+        "memory_s": memory_s,
+        "collective_s": collective_s,
+        "dominant": max(terms, key=terms.get),
+        "bound_s": bound_s,
+        "roofline_frac": (model_fl / PEAK_FLOPS_BF16) / max(bound_s, 1e-12),
+    }
+    return rec
+
+
+def run_cell(arch, shape_name, out_dir, suffix: str = "", **kw):
+    name = f"{arch}__{shape_name}__{MESH}" + (f"__{suffix}" if suffix
+                                              else "")
+    try:
+        rec = lower_cell(arch, shape_name, **kw)
+    except Exception as e:  # a failure here is a fault of the port
+        rec = {"arch": arch, "shape": shape_name, "mesh": MESH,
+               "error": repr(e), "traceback": traceback.format_exc()}
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, name + ".json"), "w") as f:
+            json.dump(rec, f, indent=1)
+    status = ("SKIP " + rec["skip"] if "skip" in rec else
+              "ERROR " + rec["error"] if "error" in rec else
+              f"ok count={rec['count_s']}s "
+              f"dom={rec['roofline']['dominant']}")
+    print(f"[dryrun] {name}: {status}", flush=True)
+    return rec
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_IDS + ["all"], default=None)
+    ap.add_argument("--shape", default=None,
+                    choices=list(SHAPES_BY_NAME) + ["all"])
+    ap.add_argument("--all", action="store_true",
+                    help="every (arch x shape) cell")
+    ap.add_argument("--accum-steps", type=int, default=1)
+    ap.add_argument("--moe-dispatch", default="gather",
+                    choices=["einsum", "gather"])
+    ap.add_argument("--remat", default=None, choices=["full", "dots", "none"])
+    ap.add_argument("--suffix", default="",
+                    help="artifact-name suffix for variants")
+    ap.add_argument("--out", default="build/dryrun")
+    args = ap.parse_args(argv)
+
+    archs = ARCH_IDS if (args.all or args.arch in (None, "all")) \
+        else [args.arch]
+    shapes = (list(SHAPES_BY_NAME) if (args.all or args.shape in
+                                       (None, "all")) else [args.shape])
+    t0 = time.time()
+    n_err = 0
+    for a in archs:
+        for s in shapes:
+            rec = run_cell(a, s, args.out, args.suffix,
+                           accum_steps=args.accum_steps,
+                           moe_dispatch=args.moe_dispatch, remat=args.remat)
+            n_err += "error" in rec
+    print(f"[dryrun] {len(archs) * len(shapes)} cells in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    if n_err:
+        raise SystemExit(f"{n_err} cell(s) failed")
+
+
+if __name__ == "__main__":
+    main()

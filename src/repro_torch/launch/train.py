@@ -42,6 +42,11 @@ def main(argv=None):
     ap.add_argument("--accum", type=int, default=1)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--stop-at", type=int, default=None,
+                    help="end the run after this step, with a checkpoint "
+                         "there, as a run cut short would; the schedule "
+                         "still spans --steps, so a run that resumes from "
+                         "it goes on as one straight run")
     ap.add_argument("--log-every", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--metrics-out", default=None)
@@ -79,8 +84,10 @@ def main(argv=None):
                                             start_step=step0), depth=2)
     history = []
     t_last = time.time()
+    end = args.steps if args.stop_at is None else min(args.stop_at,
+                                                       args.steps)
     try:
-        for step in range(step0, args.steps):
+        for step in range(step0, end):
             params, opt, metrics = train_step(params, opt, next(loader))
             if (step + 1) % args.log_every == 0 or step == step0:
                 m = {k: float(v) for k, v in metrics.items()}
@@ -98,7 +105,7 @@ def main(argv=None):
     finally:
         loader.close()
     if mgr is not None:
-        mgr.save(args.steps, {"params": params, "opt": opt},
+        mgr.save(end, {"params": params, "opt": opt},
                  meta={"arch": cfg.name, "seed": args.seed})
     if args.metrics_out:
         with open(args.metrics_out, "w") as f:

@@ -28,7 +28,6 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
@@ -47,7 +46,10 @@ def router_topk(x, wr, k: int) -> Tuple[torch.Tensor, torch.Tensor,
     # Switch-style load-balancing auxiliary loss
     E = wr.shape[-1]
     me = probs.mean(0)
-    ce = F.one_hot(idx, E).float().sum(1).mean(0)
+    # each token's share of its k (distinct) experts: the one-hot of idx
+    # summed over k, without one_hot, whose check of idx's range reads
+    # the data (a host sync on the card; no value on ``meta``)
+    ce = torch.zeros_like(probs).scatter_(-1, idx, 1.0).mean(0)
     aux = E * torch.sum(me * ce)
     return w, idx, aux
 

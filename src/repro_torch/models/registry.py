@@ -21,12 +21,15 @@ init_cache = tf.init_cache
 
 
 def _numel(tree, cfg: ArchConfig, active_only: bool,
-           path: Tuple[str, ...] = ()) -> int:
+           path: Tuple[str, ...] = (), skip_lookup: bool = False) -> int:
     if isinstance(tree, dict):
-        return sum(_numel(v, cfg, active_only, path + (k,))
+        return sum(_numel(v, cfg, active_only, path + (k,), skip_lookup)
                    for k, v in tree.items())
     if isinstance(tree, (list, tuple)):
-        return sum(_numel(v, cfg, active_only, path) for v in tree)
+        return sum(_numel(v, cfg, active_only, path, skip_lookup)
+                   for v in tree)
+    if skip_lookup and path[0] == "embed" and not cfg.tie_embeddings:
+        return 0                            # a pure lookup, no matmul
     n = tree.numel()
     if active_only and cfg.is_moe and "ffn" in path and \
             path[-1] in ("w1", "w2", "w3"):
@@ -40,3 +43,22 @@ def count_params_analytic(cfg: ArchConfig, active_only: bool = False) -> int:
     ``active_only`` scales MoE expert tensors by top_k / E (the share of
     them each token runs through)."""
     return _numel(tf.init_params(cfg, device="meta"), cfg, active_only)
+
+
+def count_flops_params(cfg: ArchConfig, active_only: bool = True) -> int:
+    """N for the 6 N D model-FLOPs estimate: the parameters that take part
+    in a matrix product per token.  The untied embedding's lookup does no
+    FLOPs and is left out; a tied head reuses the table, which then counts
+    once.  ``active_only`` scales expert tensors by top_k / E."""
+    return _numel(tf.init_params(cfg, device="meta"), cfg, active_only,
+                  skip_lookup=True)
+
+
+def model_flops(cfg: ArchConfig, tokens: int, *, train: bool = True) -> float:
+    """MODEL_FLOPS = 6 N D for a training step (forward and backward), 2 N D
+    for inference (forward)."""
+    return (6.0 if train else 2.0) * count_flops_params(cfg) * tokens
+
+
+def param_bytes(cfg: ArchConfig, dtype_bytes: int = 4) -> int:
+    return count_params_analytic(cfg) * dtype_bytes

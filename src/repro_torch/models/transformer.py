@@ -50,6 +50,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.device import check_on_device, resolve_device, torch_dtype
+from repro_torch.distributed import flops
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.config import (ATTN, SWA, LOCAL, CROSS, MLSTM, SLSTM,
                                        RGLRU, ArchConfig)
@@ -452,12 +453,19 @@ def softmax_xent_from_hidden(x, head, labels, mask=None, *,
     labels = labels.long()
     mask = torch.ones((B, S), device=x.device) if mask is None else \
         mask.float()
-    tot = cnt = cor = torch.zeros((), device=x.device)
-    for s0 in range(0, S, chunk):
-        sl = slice(s0, min(s0 + chunk, S))
-        t, m, c = checkpoint(_chunk_loss, x[:, sl], head, labels[:, sl],
-                             mask[:, sl], z_weight, use_reentrant=False)
-        tot, cnt, cor = tot + t, cnt + m, cor + c
+    sums = [torch.zeros((), device=x.device)] * 3     # loss, weight, hits
+
+    def add(s0, s1):
+        parts = checkpoint(_chunk_loss, x[:, s0:s1], head, labels[:, s0:s1],
+                           mask[:, s0:s1], z_weight, use_reentrant=False)
+        sums[:] = [a + b for a, b in zip(sums, parts)]
+    # the whole chunks (``flops.loop``: one chunk times their number under
+    # a FlopCounter), then the remainder
+    for i in flops.loop(S // chunk):
+        add(i * chunk, (i + 1) * chunk)
+    if S % chunk:
+        add(S - S % chunk, S)
+    tot, cnt, cor = sums
     den = torch.clamp(cnt, min=1.0)
     return tot / den, cor / den
 

@@ -31,6 +31,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import flops
 from repro_torch.kernels.mlstm_scan import ops as mlstm_ops
 from repro_torch.models.layers import act_fn, dense, rms_norm
 
@@ -300,7 +301,8 @@ def _slstm_scan(zx, ix, fx, ox, p, H, Dh, init):
     Returns (hs (B, S, H, Dh) float32, (h, c, n, m)).  A plain loop over t:
     the four recurrent products ``h @ r_*`` are one batched product over
     the concatenated ``r_*`` (read in float32), which sums each output
-    element as the four would."""
+    element as the four would.  Its steps are ``flops.loop``'s: counted
+    as one step times S under a ``FlopCounter``."""
     r = torch.cat([p[n].float() for n in ("r_z", "r_i", "r_f", "r_o")],
                   dim=-1)                                  # (H, Dh, 4 Dh)
     B, S = zx.shape[:2]
@@ -309,7 +311,7 @@ def _slstm_scan(zx, ix, fx, ox, p, H, Dh, init):
         .transpose(0, 1).contiguous()
     h, c, n, m = init
     hs = torch.empty((S, B, H, Dh), dtype=torch.float32, device=zx.device)
-    for t in range(S):
+    for t in flops.loop(S):
         rec = torch.einsum("bhi,hij->bhj", h, r).reshape(B, H, 4, Dh)
         pre = xs[t] + rec
         zt = torch.tanh(pre[:, :, 0])

@@ -1,0 +1,65 @@
+"""Int8 gradient compression with error feedback (PyTorch port of
+``repro/optim/compression.py``).
+
+Quantising the data-parallel all-reduce's payload to int8 cuts the bytes
+each rank sends 4x against float32; error feedback keeps the optimizer
+unbiased over time: the quantisation residual is added to the next step's
+gradient.  ``quantize_int8``, ``dequantize_int8`` and
+``ef_compress_update`` are pure functions; ``all_reduce_int8_with_ef``
+is the all-reduce over a ``torch.distributed`` process group that the
+reference runs with ``psum`` over its "pod" mesh axis.
+"""
+from __future__ import annotations
+
+from typing import Any, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.tree import tree_leaves, tree_map
+
+
+def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-tensor int8 quantisation.  Returns (q, scale)."""
+    x = x.float()
+    scale = torch.clamp(torch.max(torch.abs(x)), min=1e-12) / 127.0
+    q = torch.clamp(torch.round(x / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.float() * scale
+
+
+def ef_compress_update(grad: torch.Tensor, error: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Error-feedback compression of one tensor: (q, scale, new_error),
+    where q * scale approximates grad + error and new_error is the residual
+    carried to the next step."""
+    target = grad.float() + error
+    q, scale = quantize_int8(target)
+    return q, scale, target - dequantize_int8(q, scale)
+
+
+def all_reduce_int8_with_ef(grads: Any, errors: Any, group=None):
+    """All-reduce a gradient tree over ``group`` in int8 with error
+    feedback.  Returns (mean gradients, new errors), trees like ``grads``.
+
+    Each rank quantises grad + error; the int8 payloads are summed as int32
+    (no overflow below 2**24 ranks) by one ``all_reduce`` a leaf, and the
+    scales by one ``all_reduce`` of them all; each sum is dequantised with
+    the mean of the ranks' scales, an approximation that is exact when the
+    scales agree and whose residual lands in the errors otherwise."""
+    n = dist.get_world_size(group)
+    parts = [ef_compress_update(g, e) for g, e in
+             zip(tree_leaves(grads), tree_leaves(errors))]
+    scales = torch.stack([scale for _, scale, _ in parts])
+    dist.all_reduce(scales, group=group)
+    means = []
+    for (q, _, _), ssum, g in zip(parts, scales, tree_leaves(grads)):
+        qsum = q.to(torch.int32)
+        dist.all_reduce(qsum, group=group)
+        means.append((qsum.float() * (ssum / n) / n).to(g.dtype))
+    means, new = iter(means), iter([e for _, _, e in parts])
+    return (tree_map(lambda _: next(means), grads),
+            tree_map(lambda _: next(new), grads))

@@ -76,12 +76,17 @@ def test_wrapper_rejects_negative_window():
 
 
 def test_non_cpu_tensor_goes_to_the_kernel_checks_never_the_plain_path():
+    """Tensors off the CPU never reach the plain version: on mixed devices
+    the wrapper goes to the kernel's checks and raises; all on ``meta`` it
+    takes the meta route, which computes and launches nothing."""
     q = torch.zeros(1, 8, 2, 64, device="meta")
     before = kernel.LAUNCHES
     with pytest.raises(ValueError, match="one CUDA device"):
-        ops.flash_attention(q, q, q)
-    with pytest.raises(ValueError, match="one CUDA device"):
         ops.flash_attention(torch.zeros(1, 8, 2, 64), q, q)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ops.flash_attention(q, torch.zeros(1, 8, 2, 64), q)
+    out = ops.flash_attention(q, q, q)
+    assert out.device.type == "meta" and out.shape == q.shape
     assert kernel.LAUNCHES == before
 
 

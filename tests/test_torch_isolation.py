@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, and the smoke script
-refuses to run without a GPU."""
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and no example twin (``examples/*_torch.py``) imports
+JAX or the JAX package, and the smoke script refuses to run without a
+GPU."""
 import ast
 import os
 import pathlib
@@ -11,7 +12,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py"))
 
 
 def _imported_modules(path):
@@ -43,7 +44,8 @@ def test_port_file_imports_no_jax_and_nothing_of_repro(path):
 def test_port_files_were_found():
     names = {p.name for p in PORT_FILES}
     assert {"transformer.py", "ops.py", "serve.py", "pipeline.py",
-            "chip_smoke.py"} <= names
+            "chip_smoke.py", "train_e2e_torch.py",
+            "serve_batched_torch.py"} <= names
 
 
 def _env(**extra):

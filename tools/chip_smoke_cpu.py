@@ -7,9 +7,12 @@ reduced configs, before a chip call.
 PHASE is any of ``serve-vision``, ``consistency-vision``, ``train-audio``,
 ``train-consistency-audio``, ``train-consistency`` (minicpm-2b),
 ``kernel-bwd-moe``, ``train-moe`` (gather against einsum), ``train-moe-full``,
-``train-consistency-moe``, ``pipeline``, ``pipeline-consistency`` and
-``zoo`` (phases 27-34: h2o-danube-3-4b on prompts past its window,
-minitron-8b, deepseek-coder-33b and mixtral-8x7b through gather at
+``train-consistency-moe``, ``pipeline``, ``pipeline-consistency``,
+``train-compressed`` (phase 35, on a one-rank gloo group where the card
+has NCCL), ``train-driver`` (phase 36, the train driver on the CPU),
+``dryrun`` (phase 12's minicpm-2b step at smoke size, then phase 37's
+count of it on ``meta``) and ``zoo`` (phases 27-34: h2o-danube-3-4b on
+prompts past its window, minitron-8b, deepseek-coder-33b and mixtral-8x7b through gather at
 MIXTRAL_SERVE_LAYERS layers, each served, freed, then its float32
 consistency on a model drawn anew at ZOO_CONSIST_LAYERS layers, past the
 window for the two windowed configs, and card against CPU); by default all
@@ -44,12 +47,14 @@ from repro_torch.kernels.flash_attention import kernel, ops, ref  # noqa: E402
 from repro_torch.kernels.moe_gmm import kernel as gmm_kernel  # noqa: E402
 from repro_torch.kernels.moe_gmm import ops as gmm_ops  # noqa: E402
 from repro_torch.kernels.moe_gmm import ref as gmm_ref  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 
 PHASES = ("serve-vision", "consistency-vision", "train-audio",
           "train-consistency-audio", "train-consistency", "kernel-bwd-moe",
           "train-moe", "train-moe-full", "train-consistency-moe",
-          "pipeline", "pipeline-consistency", "zoo")
+          "pipeline", "pipeline-consistency", "zoo", "train-compressed",
+          "train-driver", "dryrun")
 
 
 def fake_launch(q, k, v, out, *, causal, window, scale=None, lse=None):
@@ -78,8 +83,14 @@ def fake_launch_bwd(q, k, v, out, dout, lse, dsum, dq, dk, dv, *, causal,
     kernel.BWD_LAUNCHES_BY_ROUTE[kernel.BWD_ROUTES[q.dtype]] += 1
 
 
+REAL_FLASH = ops.flash_attention
+
+
 def flash_on_the_cpu(q, k, v, *, causal=True, window=0):
-    """``ops.flash_attention`` without its CPU branch and device checks."""
+    """``ops.flash_attention`` without its CPU branch and device checks
+    (on ``meta``, the wrapper itself, as the dry run counts it)."""
+    if q.device.type == "meta":
+        return REAL_FLASH(q, k, v, causal=causal, window=window)
     ops._check_shapes(q, k, v, window)
     head_dim = q.shape[3]
     scale = 1.0 / math.sqrt(head_dim)
@@ -110,6 +121,22 @@ def gmm_on_the_cpu(xe, p, act="swiglu", counts=None):
     return gmm_ops._forward(xe, w1, w3, w2, counts, act)
 
 
+class CPUEvent:
+    """``torch.cuda.Event`` on the host's clock."""
+
+    def __init__(self, enable_timing=False):
+        self.t = None
+
+    def record(self, stream=None):
+        self.t = time.perf_counter()
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end):
+        return (end.t - self.t) * 1e3
+
+
 def load_chip_smoke():
     """chip_smoke.py's namespace, rewritten for the CPU at smoke size."""
     kernel.launch, kernel.launch_bwd = fake_launch, fake_launch_bwd
@@ -117,8 +144,8 @@ def load_chip_smoke():
     gmm_kernel.launch = fake_gmm_launch
     gmm_ops.check_kernel_args = lambda *a, **k: None
     gmm_ops.expert_ffn = gmm_on_the_cpu
-    pipeline.resolve_device = lambda device=None: torch.device(
-        "cpu" if device is None else device)
+    pipeline.resolve_device = train.resolve_device = \
+        lambda device=None: torch.device("cpu" if device is None else device)
     full = configs.get_arch
 
     def get_arch(name):
@@ -126,15 +153,17 @@ def load_chip_smoke():
             return full(name)
         return dataclasses.replace(full(name).reduced(), remat="full")
     configs.get_arch = get_arch
-    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache",
+                 "set_device"):
         setattr(torch.cuda, name, lambda *a, **k: None)
+    torch.cuda.Event = CPUEvent
     torch.cuda.max_memory_allocated = lambda *a, **k: 0
     torch.cuda.memory_allocated = lambda *a, **k: 0
 
     path = os.path.join(ROOT, "chip_smoke.py")
     with open(path) as f:
-        src = f.read().replace('"cuda"', '"cpu"').replace(".cuda()",
-                                                          ".cpu()")
+        src = f.read().replace('"cuda"', '"cpu"').replace(
+            ".cuda()", ".cpu()").replace('"nccl"', '"gloo"')
     ns = {"__name__": "chip_smoke_cpu", "__file__": path}
     exec(compile(src, path, "exec"), ns)
     ns["cuda_ms"] = lambda fn, iters=20, warmup=3: (fn(), 1.0)[1]
@@ -188,6 +217,11 @@ def main(argv=None) -> int:
                     **cs["PIPELINE_REAL"]))],
         "pipeline-consistency": lambda: cs["phase_pipeline_consistency"](),
         "zoo": lambda: cs["phase_zoo"](),
+        "train-compressed": lambda: cs["phase_train_compressed"](),
+        "train-driver": lambda: cs["phase_train_driver"](),
+        "dryrun": lambda: cs["phase_dryrun"](
+            "CPU rehearsal", cs["phase_train"](
+                seq=cs["TRAIN_SEQ"], profile=False)[2]),
     }
     t0 = time.perf_counter()
     for name in which:
