@@ -257,6 +257,22 @@ a non-zero exit:
                 beside phase 12's peak, and model FLOPs over (phase 12's
                 step seconds x the bf16 peak) with the card's name and
                 power limit
+38. pipeline engine  run right after phase 26: the same two documents
+                through the port's StreamFlow engine (``repro_torch.core``:
+                ``load_streamflow_file``, ``StreamFlowExecutor.from_config``
+                without speculation, ``run`` from seed 0), the occam mesh
+                site's steps under its CUDA device and the cloud site's on
+                the card too; against phase 25 from the same seed: each
+                sample's cluster assignments and the type counts equal, the
+                mean confidence, the count losses and every count model
+                within stated bars (the bits expected equal); the flash
+                launches as totals over the run (n (2 steps + 2) forward, n
+                2 steps backward, all on wgmma_bf16, no other kernel); every
+                invocation done at attempt 0, none speculative, each count
+                and seurat invocation's resource printed; the makespan
+                beside phase 25's serial sum, the data manager's transfers
+                per kind and per link, the peak memory, and at the
+                document's size the device-busy share of one profiled run
 
 Earlier serve paths run at full depth; if the run outgrows its time, their
 depth is what gets cut first.
@@ -266,13 +282,16 @@ last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -3289,7 +3308,9 @@ def phase_pipeline(label: str, doc):
               f"invocations ({seconds[kind] / calls * 1e3:.1f} ms each); "
               f"flash launches {launches[kind]}{share}", flush=True)
     return {"seconds": seconds, "launches": launches, "busy": busy,
-            "losses": losses, "summary": summary}
+            "losses": losses, "summary": summary,
+            "assign": [c["clusters"]["assign"] for c in clusters],
+            "models": [c["model"] for c in counted]}
 
 
 # phase 26: one sample's count and seurat in float32, card against CPU,
@@ -3363,6 +3384,200 @@ def phase_pipeline_consistency():
     check(l_gpu[-1] < l_gpu[0], f"the count loss did not fall: {l_gpu}")
     return {"loss_rel_err": loss_err, "embed_rel_err": emb_err,
             "untrained_embed_rel_err": emb_ctl}
+
+
+# phase 38: the §5 workflow through the port's StreamFlow engine, held to
+# phase 25's hand-ordered run from the same seed.  Each invocation runs the
+# same ops on the same inputs in the same order as there; the engine's
+# threads interleave invocations on the one stream but share no tensor, and
+# every op on the path is deterministic (the flash kernels by design, bit
+# for bit on a repeat in phase 3; GEMMs, the embedding's backward and the
+# loss's reductions on the card), so the bits are expected equal.  The bars
+# bound the report should an op reorder a float32 sum: the count losses
+# within TRAIN_RTOL, the mean confidence within ENGINE_CONF_ATOL, every
+# leaf of every count model within ENGINE_PARAM_ATOL (float32 masters of
+# scale ~2e-2); cluster assignments and type counts must be equal
+ENGINE_CONF_ATOL = 1e-6
+ENGINE_PARAM_ATOL = 1e-5
+
+
+@contextlib.contextmanager
+def recorded_tools(module, factories):
+    """Wrap each named tool factory of ``module`` so that the step bodies
+    it makes record their outputs by scatter tag ({factory: {tag:
+    outputs}}), returned unchanged; the engine imports the factory by name
+    when it loads a document."""
+    seen = {name: {} for name in factories}
+    lock = threading.Lock()
+    real = {name: getattr(module, name) for name in factories}
+
+    def wrap(name):
+        @functools.wraps(real[name])
+        def factory(*args, **kwargs):
+            body = real[name](*args, **kwargs)
+
+            def run(inputs, ctx):
+                out = body(inputs, ctx)
+                with lock:
+                    seen[name][ctx.get("tag", (0,))[0]] = out
+                return out
+            return run
+        return factory
+
+    for name in factories:
+        setattr(module, name, wrap(name))
+    try:
+        yield seen
+    finally:
+        for name, fn in real.items():
+            setattr(module, name, fn)
+
+
+def run_engine(doc):
+    """The entry points a user calls: load the document, build the
+    executor from it, run its workflow from seed 0.  (executor, result)."""
+    from repro_torch.core import (FaultConfig, StreamFlowExecutor,
+                                  load_streamflow_file)
+    cfg = load_streamflow_file(doc)
+    entry = cfg.workflows["single-cell-scatter"]
+    ex = StreamFlowExecutor.from_config(
+        cfg, fault=FaultConfig(speculative=False))
+    res = ex.run(entry.workflow, entry.bindings, inputs={"seed": 0})
+    torch.cuda.synchronize()
+    return ex, res
+
+
+def transfer_links(res) -> dict:
+    """{(kind, source site, target site): [transfers, bytes]}."""
+    links = {}
+    for t in res.transfers:
+        key = (t.kind, None if t.src is None else t.src.split(":")[0],
+               t.dst.split(":")[0])
+        n, b = links.get(key, (0, 0))
+        links[key] = (n + 1, b + t.bytes)
+    return links
+
+
+def leaf_diffs(got, want) -> list:
+    """max |got - want| of each leaf of two models in the JAX layout."""
+    from repro_torch.convert import flatten_with_paths
+    g, w = flatten_with_paths(got), flatten_with_paths(want)
+    check(sorted(g) == sorted(w), f"model leaves {sorted(g)} != {sorted(w)}")
+    return [0.0 if np.array_equal(g[k], w[k]) else
+            float(np.abs(np.asarray(g[k], np.float64) -
+                         np.asarray(w[k], np.float64)).max()) for k in w]
+
+
+def phase_pipeline_engine(label: str, doc, hand: dict, profile: bool):
+    """Phase 38: ``doc`` through ``repro_torch.core`` (load, executor,
+    run), against phase 25's run of the same document (``hand``)."""
+    from repro_torch import pipeline
+    phase(f"pipeline engine {label}")
+    steps = doc["workflows"]["single-cell-scatter"]["steps"]
+    n = steps["/mkfastq"]["streams"]["shard"]
+    train_steps = doc["tools"]["count"]["implementation"]["args"][
+        "train_steps"]
+    reset_kernel_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with recorded_tools(pipeline, ("count_tool", "seurat_tool")) as seen:
+        ex, res = run_engine(doc)
+    peak = torch.cuda.max_memory_allocated()
+    launches, routes = kernel_launches(), kernel_routes()
+    want = {k: 0 for k in launches}
+    want.update(flash_attention=n * (2 * train_steps + 2),
+                flash_attention_bwd=n * 2 * train_steps)
+    check(launches == want, f"pipeline engine {label}: launched {launches}, "
+          f"expected {want}")
+    check_routes(routes, launches, TRAIN_ROUTES, f"pipeline engine {label}")
+
+    # where the work ran: every invocation once, done at attempt 0
+    kinds = {}
+    for e in res.events:
+        kinds.setdefault(e.step.split("@")[0], []).append(e)
+    check({k: len(v) for k, v in kinds.items()} ==
+          {"/mkfastq": 1, "/count": n, "/seurat": n, "/singler": n,
+           "/aggregate": 1}, f"pipeline engine {label}: invocations "
+          f"{ {k: len(v) for k, v in kinds.items()} }")
+    bad = [(e.step, e.status, e.attempt, e.speculative) for e in res.events
+           if e.status != "completed" or e.attempt != 0 or e.speculative]
+    check(not bad, f"pipeline engine {label}: retried, speculative or "
+          f"unfinished invocations {bad}")
+    for kind in ("/count", "/seurat"):
+        placed = sorted((int(e.step.split("@")[1]), e.resource)
+                        for e in kinds[kind])
+        print(f"  {kind[1:]} invocations: " + ", ".join(
+            f"{i} on {resource}" for i, resource in placed), flush=True)
+    t0 = min(e.start for e in res.events)
+    print("  timeline (s from the first start: first start - last end, "
+          "summed invocation seconds): " + "; ".join(
+              f"{kind[1:]} {min(e.start for e in evs) - t0:.3f} - "
+              f"{max(e.end for e in evs) - t0:.3f}, "
+              f"{sum(e.end - e.start for e in evs):.3f}"
+              for kind, evs in kinds.items()), flush=True)
+
+    # the same result as phase 25
+    summary = res.outputs["summary"]
+    losses = [s["losses"] for s in res.outputs["stats"]]
+    check(summary["n_samples"] == n and len(losses) == n,
+          f"pipeline engine {label}: the summary {summary} or the "
+          f"{len(losses)} stats do not cover the {n} samples")
+    check(np.array_equal(summary["type_counts"],
+                         hand["summary"]["type_counts"]),
+          f"pipeline engine {label}: type counts "
+          f"{summary['type_counts'].tolist()} against phase 25's "
+          f"{hand['summary']['type_counts'].tolist()}")
+    conf_err = abs(summary["mean_confidence"] -
+                   hand["summary"]["mean_confidence"])
+    check(conf_err <= ENGINE_CONF_ATOL,
+          f"pipeline engine {label}: mean confidence off by {conf_err}")
+    same_assign = [bool(np.array_equal(seen["seurat_tool"][i]["clusters"][
+        "assign"], hand["assign"][i])) for i in range(n)]
+    check(all(same_assign), f"pipeline engine {label}: cluster assignments "
+          f"differ from phase 25's in samples "
+          f"{[i for i, s in enumerate(same_assign) if not s]}")
+    loss_err = max(abs(a - b) / abs(b) for got, want_ in
+                   zip(losses, hand["losses"]) for a, b in zip(got, want_))
+    check(loss_err <= TRAIN_RTOL,
+          f"pipeline engine {label}: count losses off by {loss_err}")
+    param_err = [max(leaf_diffs(seen["count_tool"][i]["model"],
+                                hand["models"][i])) for i in range(n)]
+    check(max(param_err) <= ENGINE_PARAM_ATOL,
+          f"pipeline engine {label}: count models off by {param_err}")
+    bits = sum(e == 0.0 for e in param_err)
+    print(f"  against phase 25: assignments equal in {n} of {n} samples, "
+          f"type counts {summary['type_counts'].tolist()} equal; mean "
+          f"confidence {summary['mean_confidence']!r} (off by "
+          f"{conf_err:.3e}); count losses max rel err {loss_err:.3e} "
+          f"({'the same bits' if loss_err == 0 else 'not the same bits'}); "
+          f"count models the same bits in {bits} of {n} samples, max abs "
+          f"err {max(param_err):.3e}", flush=True)
+
+    # what the engine did
+    serial = sum(hand["seconds"].values())
+    print(f"  makespan {res.wall_seconds:.3f} s through the engine; phase "
+          f"25's serial sum of step seconds {serial:.3f} s "
+          f"({res.wall_seconds / serial:.2f}x); peak memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    summary_t = ex.data.transfer_summary()
+    print("  transfers (R3 two-step vs R4 elided): " + "; ".join(
+        f"{kind} n={int(v['n'])} bytes={int(v['bytes']):,}"
+        for kind, v in sorted(summary_t.items())), flush=True)
+    for (kind, src, dst), (cnt, nbytes) in sorted(
+            transfer_links(res).items(), key=str):
+        print(f"    {kind:<11s} {str(src):>10s} -> {dst:<10s} n={cnt:3d} "
+              f"bytes={nbytes:>13,}", flush=True)
+    out = {"makespan_s": res.wall_seconds, "serial_s": serial,
+           "peak_bytes": peak, "launches": launches,
+           "transfers": {k: (int(v["n"]), int(v["bytes"]))
+                         for k, v in summary_t.items()},
+           "loss_rel_err": loss_err, "param_abs_err": max(param_err),
+           "bits_equal_models": bits}
+    if profile:
+        wall, busy, top, port = profile_ms(lambda: run_engine(doc))
+        print_profile(f"one engine run ({label})", wall, busy, top, port)
+        out["busy"] = busy / wall if wall > 0 else float("nan")
+    return out
 
 
 # phases 35-37: the data-parallel step with the int8 error-feedback
@@ -3721,12 +3936,22 @@ def main() -> int:
     phase_train_consistency(MOE_ARCH, MOE_CONSIST_LAYERS, MOE_CONSIST_SEQ,
                             tol=MOE_TRAIN_RTOL, moe_dispatch="gather")
     from repro_torch import pipeline
-    phase_pipeline("streamflow_doc_declarative_hybrid's own arguments",
-                   pipeline.streamflow_doc_declarative_hybrid())
+    own_label = "streamflow_doc_declarative_hybrid's own arguments"
+    pipe_own = phase_pipeline(own_label,
+                              pipeline.streamflow_doc_declarative_hybrid())
+    real_label = f"at {PIPELINE_REAL}"
     pipe_real = phase_pipeline(
-        f"at {PIPELINE_REAL}",
+        real_label,
         pipeline.streamflow_doc_declarative_hybrid(**PIPELINE_REAL))
     phase_pipeline_consistency()
+    phase_pipeline_engine(own_label,
+                          pipeline.streamflow_doc_declarative_hybrid(),
+                          pipe_own, profile=True)
+    engine_real = phase_pipeline_engine(
+        real_label,
+        pipeline.streamflow_doc_declarative_hybrid(**PIPELINE_REAL),
+        pipe_real, profile=False)
+    del pipe_own, pipe_real["models"]
     zoo_launches, zoo_routes = phase_zoo()
     routes.update(zoo_routes)
     phase_train_compressed()
@@ -3756,6 +3981,7 @@ def main() -> int:
              f"{MOE_ARCH} train": moe_train["flash_attention"],
              "pipeline": sum(v["flash_attention"]
                              for v in pipe_real["launches"].values()),
+             "pipeline engine": engine_real["launches"]["flash_attention"],
              **{arch: n["flash_attention"]
                 for arch, n in zoo_launches.items()}},
          "launches_by_route": {
@@ -3796,7 +4022,9 @@ def main() -> int:
              f"{ARCH} train": train_launches["flash_attention_bwd"],
              f"{GRIFFIN_ARCH} train": griffin_train["flash_attention_bwd"],
              f"{AUDIO_ARCH} train": audio_train["flash_attention_bwd"],
-             f"{MOE_ARCH} train": moe_train["flash_attention_bwd"]},
+             f"{MOE_ARCH} train": moe_train["flash_attention_bwd"],
+             "pipeline engine":
+                 engine_real["launches"]["flash_attention_bwd"]},
          **bwd_timing},
         {"name": "moe_gmm", "route": "cuda",
          "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",

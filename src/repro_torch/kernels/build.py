@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -109,16 +110,20 @@ def build() -> BuildInfo:
 
 
 _LIB: Optional[ctypes.CDLL] = None
+# the StreamFlow engine's threads can reach a first launch together: one
+# builds, the others wait for its library
+_LIB_LOCK = threading.Lock()
 
 
 def load_library() -> ctypes.CDLL:
     """The kernels' shared library, built on first use."""
     global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build().path))
-        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
-        _LIB = lib
+    with _LIB_LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build().path))
+            lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.repro_cuda_error_string.restype = ctypes.c_char_p
+            _LIB = lib
     return _LIB
 
 

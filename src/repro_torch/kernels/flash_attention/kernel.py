@@ -24,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counters
 
 # the C function's dtype code and the route it picks, by dtype
 ROUTES = {torch.bfloat16: (1, "wgmma_bf16"), torch.float32: (0, "scalar_f32")}
@@ -120,7 +120,6 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sqrt(Dh)); all contiguous (B, S, heads, Dh) on one GPU.  With ``lse``,
     a contiguous (B, H, S) float32 tensor, each row's log-sum-exp of its
     scaled scores is written there too."""
-    global LAUNCHES
     B, S, H, Dh = q.shape
     KH = k.shape[2]
     code, route = ROUTES[q.dtype]
@@ -132,8 +131,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  B, S, H, KH, Dh, int(causal), int(window), code,
                  1.0 / math.sqrt(Dh) if scale is None else scale, stream)
     build.check_launch(err, f"flash_attention kernel launch ({route})")
-    LAUNCHES += 1
-    LAUNCHES_BY_ROUTE[route] += 1
+    counters.bump(globals(), "LAUNCHES", LAUNCHES_BY_ROUTE, route)
 
 
 def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -147,7 +145,6 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dout, dq, dk, dv of one dtype (bf16 ones on 16-byte boundaries).
     ``splits`` (bf16 only; None: ``bwd_splits``) shares each KV head's
     query heads over that many blocks of the dK/dV pass."""
-    global BWD_LAUNCHES
     B, S, H, Dh = q.shape
     KH = k.shape[2]
     code = ROUTES[q.dtype][0]
@@ -170,5 +167,5 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  B, S, H, KH, Dh, int(causal), int(window), code, splits,
                  scale, stream)
     build.check_launch(err, f"flash_attention backward launch ({route})")
-    BWD_LAUNCHES += 1
-    BWD_LAUNCHES_BY_ROUTE[route] += 1
+    counters.bump(globals(), "BWD_LAUNCHES", BWD_LAUNCHES_BY_ROUTE,
+                  route)

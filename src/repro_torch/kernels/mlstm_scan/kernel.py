@@ -34,7 +34,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counters
 
 # the C function's route code, by route name
 ROUTES = {"scalar_f32": 0, "scalar_bf16": 1, "wgmma_bf16": 2}
@@ -163,7 +163,6 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ig, fg, init, h, C, n and m float32.  With ``stats``, two (B, S, H)
     float32 tensors, each row's stabiliser m_t and denominator den_t (before
     its clamp) are written there too."""
-    global LAUNCHES
     B, S, H, Dh = q.shape
     fn = _kernel_fn()
     # 16-byte aligned, as TMA needs (the caching allocator's blocks are)
@@ -180,8 +179,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    (stats[0].data_ptr(), stats[1].data_ptr())),
                  B, S, H, Dh, ROUTES[route], math.sqrt(Dh), stream)
     build.check_launch(err, f"mlstm_scan kernel launch ({route})")
-    LAUNCHES += 1
-    LAUNCHES_BY_ROUTE[route] += 1
+    counters.bump(globals(), "LAUNCHES", LAUNCHES_BY_ROUTE, route)
 
 
 def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -199,7 +197,6 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and rows (each row's sum of dS o (q~ k^T), for fg's gradient) (B, S, H)
     float32; all contiguous on one GPU, and on the wgmma route h and dh on
     16-byte boundaries."""
-    global BWD_LAUNCHES
     B, S, H, Dh = q.shape
     fn = _bwd_kernel_fn()
     ws = torch.empty((bwd_workspace_bytes(B, S, H, Dh, route),),
@@ -215,5 +212,5 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  dig.data_ptr(), rows.data_ptr(), B, S, H, Dh,
                  BWD_ROUTES[route], math.sqrt(Dh), stream)
     build.check_launch(err, f"mlstm_scan backward launch ({route})")
-    BWD_LAUNCHES += 1
-    BWD_LAUNCHES_BY_ROUTE[route] += 1
+    counters.bump(globals(), "BWD_LAUNCHES", BWD_LAUNCHES_BY_ROUTE,
+                  route)

@@ -20,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counters
 
 # the C function's route code, by route name
 ROUTES = {"scalar_f32": 0, "wmma_bf16": 1, "wgmma_bf16": 2}
@@ -60,7 +60,6 @@ def launch(xe: torch.Tensor, w1: torch.Tensor, w3: Optional[torch.Tensor],
     """y <- expert FFN of xe on ``route``, through the workspace h (E, C,
     f), rows at or past ``counts`` (int32 (E,), or None: all live) zero;
     all contiguous, of one dtype, on one GPU."""
-    global LAUNCHES
     E, C, d = xe.shape
     f = w1.shape[-1]
     fn = _kernel_fn()
@@ -72,5 +71,4 @@ def launch(xe: torch.Tensor, w1: torch.Tensor, w3: Optional[torch.Tensor],
                  None if counts is None else counts.data_ptr(),
                  E, C, d, f, ACT_CODE[act], ROUTES[route], stream)
     build.check_launch(err, f"moe_gmm kernel launch ({route})")
-    LAUNCHES += 1
-    LAUNCHES_BY_ROUTE[route] += 1
+    counters.bump(globals(), "LAUNCHES", LAUNCHES_BY_ROUTE, route)

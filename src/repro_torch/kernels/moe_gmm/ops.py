@@ -38,6 +38,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch.distributed import flops
+from repro_torch.kernels import counters
 from repro_torch.kernels.moe_gmm import cost, kernel, ref
 
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
@@ -128,7 +129,7 @@ class ExpertFFNFunction(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dy):
         xe, w1, w3, w2, counts = ctx.saved_tensors
-        kernel.BWD_CALLS += 1
+        counters.bump(vars(kernel), "BWD_CALLS")
         E, C, d = xe.shape
         with flops.recorded("moe_gmm_bwd", lambda: cost.bwd_work(
                 E * C, E, d, w1.shape[2], w3 is not None, xe.dtype)):

@@ -22,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counters
 
 ROUTES = ("fused_bias", "gates")
 
@@ -86,7 +86,6 @@ def launch(x: torch.Tensor, lam: torch.Tensor, ga: torch.Tensor,
            y: torch.Tensor, h_last: torch.Tensor) -> None:
     """(y, h_last) <- the RG-LRU scan of x; all contiguous on one GPU, lam,
     b_a, b_i (both given or both None), h0, y and h_last float32."""
-    global LAUNCHES
     B, S, D = x.shape
     route = "gates" if b_a is None else "fused_bias"
     fn = _kernel_fn()
@@ -97,8 +96,7 @@ def launch(x: torch.Tensor, lam: torch.Tensor, ga: torch.Tensor,
                  h_last.data_ptr(), B, S, D, _DTYPE_CODE[x.dtype],
                  _DTYPE_CODE[ga.dtype], stream)
     build.check_launch(err, f"rglru_scan kernel launch ({route})")
-    LAUNCHES += 1
-    LAUNCHES_BY_ROUTE[route] += 1
+    counters.bump(globals(), "LAUNCHES", LAUNCHES_BY_ROUTE, route)
 
 
 def launch_bwd(x: torch.Tensor, lam: torch.Tensor, ga: torch.Tensor,
@@ -114,7 +112,6 @@ def launch_bwd(x: torch.Tensor, lam: torch.Tensor, ga: torch.Tensor,
     ga, gx, b_a, b_i, h0 as ``launch`` took them, y, dy, dh_last, dlam,
     db_a, db_i (given with the biases) and dh0 (or None) float32, dx in x's
     dtype, dga and dgx in ga's; all contiguous on one GPU."""
-    global BWD_LAUNCHES
     B, S, D = x.shape
     route = "gates" if b_a is None else "fused_bias"
     fn = _bwd_kernel_fn()
@@ -129,5 +126,5 @@ def launch_bwd(x: torch.Tensor, lam: torch.Tensor, ga: torch.Tensor,
                  _ptr(db_a), _ptr(db_i), _ptr(dh0), B, S, D,
                  _DTYPE_CODE[x.dtype], _DTYPE_CODE[ga.dtype], stream)
     build.check_launch(err, f"rglru_scan backward launch ({route})")
-    BWD_LAUNCHES += 1
-    BWD_LAUNCHES_BY_ROUTE[route] += 1
+    counters.bump(globals(), "BWD_LAUNCHES", BWD_LAUNCHES_BY_ROUTE,
+                  route)

@@ -20,9 +20,10 @@ they are: its declarative frontend imports a tool's factory by module and
 name and merges a step's ``args`` over the tool's, and
 ``streamflow_doc_declarative_hybrid`` / ``_chains`` here are the JAX
 package's documents with ``implementation.module`` naming this module.
-The workflow builders that make engine objects (``build_workflow``,
-``build_scatter_workflow``) stay out of the port, which imports nothing of
-the JAX package.
+The Python workflow builders (``build_workflow``,
+``build_scatter_workflow``) make the port's own engine objects
+(``repro_torch.core``), so a document whose ``type: python`` workflow
+names this module runs on the port's engine.
 
 The count step emits its model in the JAX package's layout
 (``convert.params_to_jax``, numpy), so either package's seurat step reads
@@ -40,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.convert import params_from_jax, params_to_jax
+from repro_torch.core.workflow import Requirements, Step, Workflow
 from repro_torch.data.synthetic import SyntheticCorpus, pack_documents
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_train_step
@@ -221,6 +223,96 @@ def _aggregate_fn():
             "type_counts": np.bincount(types).astype(np.int64),
             "mean_confidence": float(conf.mean())}}
     return fn
+
+
+# ---------------------------------------------------------------------------
+# Workflow builders (referenced from StreamFlow files' python workflows):
+# the JAX package's, on the port's engine objects and bodies
+# ---------------------------------------------------------------------------
+
+def build_workflow(n_chains: int = 6, rows_per_chain: int = 32,
+                   seq_len: int = 128, train_steps: int = 6,
+                   batch: int = 8, vocab: int = 512, d_model: int = 64,
+                   device: Optional[str] = None) -> Workflow:
+    """The hand-unrolled pipeline: one splitter, then ``n_chains`` chains
+    of count, seurat and singler steps."""
+    cfg = tiny_lm(vocab=vocab, d_model=d_model)
+    wf = Workflow("single-cell")
+    wf.add_step(Step(
+        path="/mkfastq",
+        fn=_split_fn(n_chains, rows_per_chain, seq_len, vocab),
+        inputs={"seed": "seed"},
+        outputs=tuple(f"shard{i}" for i in range(n_chains)),
+        requirements=Requirements(cores=1, memory_gb=1),
+    ))
+    for i in range(n_chains):
+        wf.add_step(Step(
+            path=f"/chains/{i}/count",
+            fn=_count_fn(i, cfg, train_steps, batch, device),
+            inputs={"shard": f"shard{i}"},
+            outputs=(f"model{i}", f"stats{i}"),
+            requirements=Requirements(cores=1, memory_gb=2),
+        ))
+        wf.add_step(Step(
+            path=f"/chains/{i}/seurat",
+            fn=_seurat_fn(i, cfg, device=device),
+            inputs={"shard": f"shard{i}", "model": f"model{i}"},
+            outputs=(f"clusters{i}",),
+            requirements=Requirements(cores=1, memory_gb=2),
+        ))
+        wf.add_step(Step(
+            path=f"/chains/{i}/singler",
+            fn=_singler_fn(i),
+            inputs={"clusters": f"clusters{i}"},
+            outputs=(f"labels{i}",),
+            requirements=Requirements(cores=1, memory_gb=1),
+        ))
+    wf.validate()
+    return wf
+
+
+def build_scatter_workflow(n_samples: int = 32, rows_per_sample: int = 12,
+                           seq_len: int = 64, train_steps: int = 2,
+                           batch: int = 4, vocab: int = 256,
+                           d_model: int = 48, declare_scatter: bool = True,
+                           device: Optional[str] = None) -> Workflow:
+    """The pipeline as a 5-step scatter/gather graph: ``/mkfastq`` emits a
+    ``shard`` stream of ``n_samples`` tokens, the three per-sample steps
+    scatter over their stream slots and ``/aggregate`` gathers ``labels``.
+    With ``declare_scatter=False`` the steps carry only the stream widths
+    and the StreamFlow file's ``scatter:`` block declares the rest."""
+    cfg = tiny_lm(vocab=vocab, d_model=d_model)
+    dec = (lambda *slots: tuple(slots)) if declare_scatter \
+        else (lambda *slots: ())
+    wf = Workflow("single-cell-scatter")
+    wf.add_step(Step(
+        path="/mkfastq",
+        fn=_split_stream_fn(n_samples, rows_per_sample, seq_len, vocab),
+        inputs={"seed": "seed"},
+        outputs=("shard",), streams={"shard": n_samples},
+        requirements=Requirements(cores=1, memory_gb=1)))
+    wf.add_step(Step(
+        path="/count", fn=_count_stream_fn(cfg, train_steps, batch, device),
+        inputs={"shard": "shard"}, outputs=("model", "stats"),
+        scatter=dec("shard"),
+        requirements=Requirements(cores=1, memory_gb=2)))
+    wf.add_step(Step(
+        path="/seurat", fn=_seurat_stream_fn(cfg, device=device),
+        inputs={"shard": "shard", "model": "model"},
+        outputs=("clusters",), scatter=dec("shard", "model"),
+        requirements=Requirements(cores=1, memory_gb=2)))
+    wf.add_step(Step(
+        path="/singler", fn=_singler_stream_fn(),
+        inputs={"clusters": "clusters"}, outputs=("labels",),
+        scatter=dec("clusters"),
+        requirements=Requirements(cores=1, memory_gb=1)))
+    wf.add_step(Step(
+        path="/aggregate", fn=_aggregate_fn(),
+        inputs={"labels": "labels"}, outputs=("summary",),
+        gather=dec("labels"),
+        requirements=Requirements(cores=1, memory_gb=1)))
+    wf.validate()
+    return wf
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,8 @@ PHASE is any of ``serve-vision``, ``consistency-vision``, ``train-audio``,
 ``train-consistency-audio``, ``train-consistency`` (minicpm-2b),
 ``kernel-bwd-moe``, ``train-moe`` (gather against einsum), ``train-moe-full``,
 ``train-consistency-moe``, ``pipeline``, ``pipeline-consistency``,
+``pipeline-engine`` (phase 25 then phase 38 on two small documents: the
+§5 workflow through the port's engine, held to the hand-ordered run),
 ``train-compressed`` (phase 35, on a one-rank gloo group where the card
 has NCCL), ``train-driver`` (phase 36, the train driver on the CPU),
 ``dryrun`` (phase 12's minicpm-2b step at smoke size, then phase 37's
@@ -22,11 +24,13 @@ calls stubbed, every architecture replaced by its ``-smoke`` config (remat
 "full", as the train phases require) and the serving and encode sizes cut.
 The flash kernel's ``launch`` and ``launch_bwd``, and moe_gmm's
 ``launch``, are replaced by functions that fill their outputs from the
-plain versions (``ref``) and count their launches by route, and CPU
+plain versions (``ref``) and count their launches by route (through
+``kernels.counters``, as the engine's threads launch at once), and CPU
 tensors are routed through the wrappers' kernel paths and their autograd
 functions, so that every launch check of these phases runs as it does on
 the card.  Phases that launch rglru_scan or mlstm_scan are not rehearsed
-here.  The pipeline's tools, made without a device, run on the CPU.
+here.  The pipeline's tools, made without a device, and the engine's mesh
+sites, given none, run on the CPU.
 Timings are CPU times and mean nothing.
 """
 from __future__ import annotations
@@ -43,6 +47,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import torch  # noqa: E402
 
 from repro_torch import configs, pipeline  # noqa: E402
+from repro_torch.core.connectors import mesh  # noqa: E402
+from repro_torch.kernels import counters  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel, ops, ref  # noqa: E402
 from repro_torch.kernels.moe_gmm import kernel as gmm_kernel  # noqa: E402
 from repro_torch.kernels.moe_gmm import ops as gmm_ops  # noqa: E402
@@ -53,7 +59,8 @@ from repro_torch.models import transformer  # noqa: E402
 PHASES = ("serve-vision", "consistency-vision", "train-audio",
           "train-consistency-audio", "train-consistency", "kernel-bwd-moe",
           "train-moe", "train-moe-full", "train-consistency-moe",
-          "pipeline", "pipeline-consistency", "zoo", "train-compressed",
+          "pipeline", "pipeline-consistency", "pipeline-engine", "zoo",
+          "train-compressed",
           "train-driver", "dryrun")
 
 
@@ -66,8 +73,8 @@ def fake_launch(q, k, v, out, *, causal, window, scale=None, lse=None):
     if lse is not None:
         lse.copy_(ref.reference_attention_lse(qs, k.float(), causal=causal,
                                               window=window))
-    kernel.LAUNCHES += 1
-    kernel.LAUNCHES_BY_ROUTE[kernel.ROUTES[q.dtype][1]] += 1
+    counters.bump(vars(kernel), "LAUNCHES", kernel.LAUNCHES_BY_ROUTE,
+                  kernel.ROUTES[q.dtype][1])
 
 
 def fake_launch_bwd(q, k, v, out, dout, lse, dsum, dq, dk, dv, *, causal,
@@ -79,8 +86,8 @@ def fake_launch_bwd(q, k, v, out, dout, lse, dsum, dq, dk, dv, *, causal,
     dq.copy_(dqs * c)
     dk.copy_(dks)
     dv.copy_(dvs)
-    kernel.BWD_LAUNCHES += 1
-    kernel.BWD_LAUNCHES_BY_ROUTE[kernel.BWD_ROUTES[q.dtype]] += 1
+    counters.bump(vars(kernel), "BWD_LAUNCHES", kernel.BWD_LAUNCHES_BY_ROUTE,
+                  kernel.BWD_ROUTES[q.dtype])
 
 
 REAL_FLASH = ops.flash_attention
@@ -106,8 +113,8 @@ def flash_on_the_cpu(q, k, v, *, causal=True, window=0):
 def fake_gmm_launch(xe, w1, w3, w2, h, y, counts, *, act, route):
     y.copy_(gmm_ref.reference_expert_ffn(
         xe, {"w1": w1, "w3": w3, "w2": w2}, act, counts))
-    gmm_kernel.LAUNCHES += 1
-    gmm_kernel.LAUNCHES_BY_ROUTE[route] += 1
+    counters.bump(vars(gmm_kernel), "LAUNCHES", gmm_kernel.LAUNCHES_BY_ROUTE,
+                  route)
 
 
 def gmm_on_the_cpu(xe, p, act="swiglu", counts=None):
@@ -144,7 +151,7 @@ def load_chip_smoke():
     gmm_kernel.launch = fake_gmm_launch
     gmm_ops.check_kernel_args = lambda *a, **k: None
     gmm_ops.expert_ffn = gmm_on_the_cpu
-    pipeline.resolve_device = train.resolve_device = \
+    pipeline.resolve_device = train.resolve_device = mesh.resolve_device = \
         lambda device=None: torch.device("cpu" if device is None else device)
     full = configs.get_arch
 
@@ -216,6 +223,14 @@ def main(argv=None) -> int:
                 pipeline.streamflow_doc_declarative_hybrid(
                     **cs["PIPELINE_REAL"]))],
         "pipeline-consistency": lambda: cs["phase_pipeline_consistency"](),
+        "pipeline-engine": lambda: [cs["phase_pipeline_engine"](
+            "the port's hybrid document", doc(), cs["phase_pipeline"](
+                "the port's hybrid document", doc()), profile=True)
+            for doc in (
+                lambda: pipeline.streamflow_doc_declarative_hybrid(
+                    n_samples=3, rows_per_sample=8, seq_len=32),
+                lambda: pipeline.streamflow_doc_declarative_hybrid(
+                    **cs["PIPELINE_REAL"]))],
         "zoo": lambda: cs["phase_zoo"](),
         "train-compressed": lambda: cs["phase_train_compressed"](),
         "train-driver": lambda: cs["phase_train_driver"](),
