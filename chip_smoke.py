@@ -273,6 +273,38 @@ a non-zero exit:
                 beside phase 25's serial sum, the data manager's transfers
                 per kind and per link, the peak memory, and at the
                 document's size the device-busy share of one profiled run
+39. pipeline service  run right after phase 38: a ``WorkflowService``
+                over the hybrid document's models (occam a mesh site on
+                the GPU, garr_cloud a local site), two tenants of share 1,
+                two runs at a time, one pool of sites, no cache; dict
+                documents through ``submit_document``, lab_b's with an
+                ``analyze:`` gate.  (a) seeds 0 and 1 for each tenant at
+                the document's size, under the profiler: every run
+                COMPLETE, the seed-0 runs phase 38's result (type counts,
+                mean confidence, count losses under its bars, on each
+                run's own outputs), the seed-1 runs each other's, 2 pooled
+                deploys, the flash totals 4 x phase 38's on wgmma_bf16;
+                (b) a journaled seed-0 run cancelled once its journal holds
+                SERVICE_CANCEL_AFTER completed invocations, beside a seed-1
+                run that completes: CANCELED within
+                SERVICE_CANCEL_LIMIT_S, the journal ``cancelled``, and a
+                new executor's resume to phase 38's result that re-runs no
+                journaled invocation and launches flash for the others
+                only; (c) one seed-0 run a tenant at PIPELINE_REAL at
+                once, each phase 38's result, 2 x its launches; (d) the
+                analyzer's makespan lower bound from each phase 38 run's
+                least invocation seconds a step at most that run's span,
+                and the bound from phase 25's standalone seconds beside
+                it; each run's makespan, each batch's wall time, peak
+                memory and batch (a)'s device-busy share
+40. pipeline recovery  ``streamflow_doc_scatter_hybrid`` (the python
+                builder, plan-identical to the declarative document) at
+                the document's size, journaled with its payloads: a tick
+                hook kills the driver once RECOVERY_CRASH_AFTER
+                invocations have completed, with kernels in flight; a new
+                executor resumes from the journal path alone to phase
+                38's result, re-running no journaled invocation, its
+                flash launches those of the re-run counts and seurats
 
 Earlier serve paths run at full depth; if the run outgrows its time, their
 depth is what gets cut first.
@@ -491,16 +523,20 @@ PORT_KERNELS = (("flash_attention_bwd", "flash_bwd"),
                 ("mlstm_scan_bwd", "mlstm_bwd"), ("mlstm_scan", "mlstm_"))
 
 
-def profile_ms(fn):
+def profile_ms(fn, host_ops: bool = True):
     """(wall ms, device-busy ms, top kernels, {port kernel: (ms, launches)})
     of one call, by torch.profiler.
 
     Device-busy is the sum of the kernels' device times; the profiler's own
-    overhead inflates the wall time, so read the share, not the wall."""
+    overhead inflates the wall time, so read the share, not the wall.
+    ``host_ops=False`` records the device's activity only, which keeps a
+    long multi-threaded call's trace small."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3468,6 +3504,18 @@ def leaf_diffs(got, want) -> list:
                          np.asarray(w[k], np.float64)).max()) for k in w]
 
 
+def least_invocation_seconds(events) -> dict:
+    """{declared step: the least seconds of its completed invocations}:
+    per-step costs that overestimate nothing (benchmarks/bench_analyze.py's
+    calibration)."""
+    least = {}
+    for e in events:
+        if e.status == "completed":
+            step = e.step.split("@")[0]
+            least[step] = min(least.get(step, math.inf), e.end - e.start)
+    return least
+
+
 def phase_pipeline_engine(label: str, doc, hand: dict, profile: bool):
     """Phase 38: ``doc`` through ``repro_torch.core`` (load, executor,
     run), against phase 25's run of the same document (``hand``)."""
@@ -3572,12 +3620,476 @@ def phase_pipeline_engine(label: str, doc, hand: dict, profile: bool):
            "transfers": {k: (int(v["n"]), int(v["bytes"]))
                          for k, v in summary_t.items()},
            "loss_rel_err": loss_err, "param_abs_err": max(param_err),
-           "bits_equal_models": bits}
+           "bits_equal_models": bits,
+           # what phases 39 and 40 hold their runs to
+           "summary": summary, "losses": losses,
+           "span_s": max(e.end for e in res.events) - t0,
+           "least_s": least_invocation_seconds(res.events)}
     if profile:
         wall, busy, top, port = profile_ms(lambda: run_engine(doc))
         print_profile(f"one engine run ({label})", wall, busy, top, port)
         out["busy"] = busy / wall if wall > 0 else float("nan")
     return out
+
+
+# phases 39-40: the §5 workflow through the port's multi-tenant service
+# and through a crash and a resume, each run held to phase 38's result from
+# the same seed under phase 38's bars.  Two tenants of equal share, two runs
+# at a time, one pool of sites (kept until the service closes), no cache
+SERVICE_TENANTS = ("lab_a", "lab_b")
+SERVICE_BLOCK = {"max_concurrent": 2,
+                 "pool": {"enabled": True, "keepalive_s": None},
+                 "tenants": {t: {"share": 1.0} for t in SERVICE_TENANTS}}
+SERVICE_CANCEL_AFTER = 8       # completed invocations before the cancel
+SERVICE_CANCEL_LIMIT_S = 60.0  # from the cancel to CANCELED
+SERVICE_WAIT_S = 300.0         # the longest wait for any batch
+RECOVERY_CRASH_AFTER = 12      # completed invocations before the crash
+JOURNAL_DIR = os.path.join(ROOT, "build", "chip_smoke")
+
+
+class DriverKilled(BaseException):
+    """Raised from a tick hook: the driver dies with work in flight."""
+
+
+class TrackedBodies:
+    """Wrap step-body factories of a module so that the bodies they make
+    count themselves while they run: after a cancel or a crash, the
+    invocations the engine abandoned still run on its worker threads, and
+    their launches must land before the next launch count starts."""
+
+    def __init__(self, module, factories):
+        self.module, self.active = module, 0
+        self.real = {name: getattr(module, name) for name in factories}
+        self.cond = threading.Condition()
+
+    def _wrap(self, real):
+        @functools.wraps(real)
+        def factory(*args, **kwargs):
+            body = real(*args, **kwargs)
+
+            def run(inputs, ctx):
+                with self.cond:
+                    self.active += 1
+                try:
+                    return body(inputs, ctx)
+                finally:
+                    with self.cond:
+                        self.active -= 1
+                        self.cond.notify_all()
+            return run
+        return factory
+
+    def __enter__(self):
+        for name, real in self.real.items():
+            setattr(self.module, name, self._wrap(real))
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self.real.items():
+            setattr(self.module, name, real)
+
+    def wait_idle(self, timeout: float) -> None:
+        with self.cond:
+            idle = self.cond.wait_for(lambda: self.active == 0, timeout)
+        check(idle, f"{self.active} abandoned step bodies still running "
+              f"after {timeout} s")
+
+
+def check_pipeline_result(what: str, outputs: dict, want: dict) -> dict:
+    """A run's own outputs (summary, per-sample stats) against ``want``
+    (phase 38's result, or another run's) under phase 38's bars: type
+    counts equal, mean confidence within ENGINE_CONF_ATOL, each count loss
+    within TRAIN_RTOL."""
+    summary = outputs["summary"]
+    losses = [s["losses"] for s in outputs["stats"]]
+    n = want["summary"]["n_samples"]
+    check(summary["n_samples"] == n and len(losses) == n,
+          f"{what}: the summary {summary} or the {len(losses)} stats do not "
+          f"cover the {n} samples")
+    check(np.array_equal(summary["type_counts"],
+                         want["summary"]["type_counts"]),
+          f"{what}: type counts {summary['type_counts'].tolist()} against "
+          f"{want['summary']['type_counts'].tolist()}")
+    conf_err = abs(summary["mean_confidence"] -
+                   want["summary"]["mean_confidence"])
+    check(conf_err <= ENGINE_CONF_ATOL,
+          f"{what}: mean confidence off by {conf_err}")
+    loss_err = max(abs(a - b) / abs(b) for got, ref in
+                   zip(losses, want["losses"]) for a, b in zip(got, ref))
+    check(loss_err <= TRAIN_RTOL, f"{what}: count losses off by {loss_err}")
+    return {"summary": summary, "losses": losses, "conf_err": conf_err,
+            "loss_err": loss_err,
+            "same_bits": conf_err == 0 and loss_err == 0}
+
+
+def flash_totals(launches: dict) -> dict:
+    return {k: launches[k] for k in ("flash_attention",
+                                     "flash_attention_bwd")}
+
+
+def check_launches(what: str, want: dict) -> dict:
+    """The launches since the last reset: exactly ``want``'s flash counts,
+    no other kernel, all on TRAIN_ROUTES."""
+    launches, routes = kernel_launches(), kernel_routes()
+    expect = {k: 0 for k in launches}
+    expect.update(want)
+    check(launches == expect, f"{what}: launched {launches}, expected "
+          f"{expect}")
+    check_routes(routes, launches, TRAIN_ROUTES, what)
+    return flash_totals(launches)
+
+
+def rerun_launches(rerun, train_steps: int) -> dict:
+    """The flash launches of re-running ``rerun``'s invocations: a count
+    2 forward and 2 backward a train step, a seurat 2 forward."""
+    counts = sum(p.split("@")[0] == "/count" for p in rerun)
+    seurats = sum(p.split("@")[0] == "/seurat" for p in rerun)
+    return {"flash_attention": counts * 2 * train_steps + seurats * 2,
+            "flash_attention_bwd": counts * 2 * train_steps}
+
+
+def analyzed_bound(cfg, costs: dict) -> dict:
+    """The analyzer's cost report of ``cfg``'s one workflow with
+    ``costs`` (declared step -> seconds) and no default cost."""
+    from repro_torch.core.analyzer import analyze
+    report = analyze(cfg, step_costs=costs, default_cost_s=0.0)
+    check(not report.errors(), f"the analyzer finds errors: "
+          f"{[str(d) for d in report.errors()]}")
+    return next(iter(report.cost.values()))
+
+
+def service_doc(doc: dict, gated: bool) -> dict:
+    doc = dict(doc, service=SERVICE_BLOCK)
+    if gated:
+        doc["analyze"] = {"fail_on": "error"}
+    return doc
+
+
+def run_batch(svc, submissions, profile: bool):
+    """Submit ``[(doc, tenant, seed, submit kwargs)]`` through
+    ``submit_document`` and wait for all of them: (run ids, wall seconds,
+    peak bytes, device-busy share or None)."""
+    reset_kernel_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rids = []
+
+    def go():
+        for doc, tenant, seed, kw in submissions:
+            rids.append(svc.submit_document(doc, inputs={"seed": seed},
+                                            tenant=tenant, **kw))
+        for rid in rids:
+            svc.wait(rid, timeout=SERVICE_WAIT_S)
+        torch.cuda.synchronize()
+
+    busy = None
+    if profile:
+        # the wall from the first submission to the last run's end, without
+        # the profiler's processing of the trace afterwards
+        wall_ms, busy_ms, top, port = profile_ms(go, host_ops=False)
+        print_profile("batch (a), the whole batch, device activity only",
+                      wall_ms, busy_ms, top, port)
+        busy = busy_ms / wall_ms if wall_ms > 0 else float("nan")
+        wall = wall_ms / 1e3
+    else:
+        t0 = time.perf_counter()
+        go()
+        wall = time.perf_counter() - t0
+    return rids, wall, torch.cuda.max_memory_allocated(), busy
+
+
+def print_runs(svc, rids, seeds):
+    infos = [svc.status(r) for r in rids]
+    t0 = min(i.started_at for i in infos)
+    for rid, seed, info in zip(rids, seeds, infos):
+        res = svc.result(rid)
+        print(f"    {rid} ({info.tenant}, seed {seed}): {info.state}, "
+              f"admitted at {info.started_at - t0:.3f} s, finished at "
+              f"{info.finished_at - t0:.3f} s, makespan "
+              f"{res.wall_seconds:.3f} s", flush=True)
+
+
+def phase_pipeline_service(own: dict, real: dict, hand_own: dict,
+                           doc_own: dict, doc_real: dict):
+    """Phase 39: a ``WorkflowService`` over the hybrid document's models,
+    two tenants, four runs at the document's size (a), a cancel and a
+    resume (b), two runs at PIPELINE_REAL (c), and the analyzer's bound
+    against phase 38's spans (d).  ``own`` / ``real``: phase 38's results
+    at the two sizes; ``hand_own``: phase 25's at the document's size."""
+    from repro_torch import pipeline
+    from repro_torch.core import (CANCELED, COMPLETE, ExecutionJournal,
+                                  FaultConfig, StreamFlowExecutor,
+                                  WorkflowService, load_streamflow_file)
+    from repro_torch.core.analyzer import analyze
+    phase("pipeline service")
+    train_steps = doc_own["tools"]["count"]["implementation"]["args"][
+        "train_steps"]
+    n = own["summary"]["n_samples"]
+    svc = WorkflowService(load_streamflow_file(service_doc(doc_own, False)),
+                          fault=FaultConfig(speculative=False))
+    out = {}
+    part_s = {}
+    t_part = time.perf_counter()
+
+    # (a) four runs at the document's size: seeds 0 and 1 for each tenant,
+    # lab_b's documents carrying the analyze: gate (d), two at a time
+    subs = [(service_doc(doc_own, tenant == "lab_b"), tenant, seed, {})
+            for seed in (0, 1) for tenant in SERVICE_TENANTS]
+    rids, wall, peak, busy = run_batch(svc, subs, profile=True)
+    states = [svc.status(r).state for r in rids]
+    check(states == [COMPLETE] * 4, f"pipeline service (a): states {states}")
+    totals = check_launches("pipeline service (a)", {
+        k: 4 * v for k, v in flash_totals(own["launches"]).items()})
+    results = [check_pipeline_result(
+        f"pipeline service (a) {rid}", svc.result(rid).outputs, own)
+        for rid, (_, _, seed, _) in zip(rids, subs) if seed == 0]
+    seed1 = [svc.result(rid).outputs for rid, (_, _, seed, _) in
+             zip(rids, subs) if seed == 1]
+    first = {"summary": seed1[0]["summary"],
+             "losses": [s["losses"] for s in seed1[0]["stats"]]}
+    pair = check_pipeline_result("pipeline service (a) seed 1, lab_b "
+                                 "against lab_a", seed1[1], first)
+    check(svc.pool.deploy_count == 2,
+          f"pipeline service (a): {svc.pool.deploy_count} deploys")
+    makespans = [svc.result(r).wall_seconds for r in rids]
+    print(f"  (a) 4 runs of {n} samples, 2 at a time, under the profiler: "
+          f"all COMPLETE; the seed-0 runs phase 38's result ("
+          f"{'the same bits' if all(r['same_bits'] for r in results) else 'within the bars'}"
+          f"; max loss rel err {max(r['loss_err'] for r in results):.3e}), "
+          f"the seed-1 runs each other's ("
+          f"{'the same bits' if pair['same_bits'] else 'within the bars'}); "
+          f"flash launches {totals}; pool deploys "
+          f"{svc.pool.deploy_count}", flush=True)
+    print_runs(svc, rids, [seed for _, _, seed, _ in subs])
+    print(f"  (a) batch wall {wall:.3f} s under the profiler, device "
+          f"activity only (phase 38's "
+          f"makespan {own['makespan_s']:.3f} s a run, x 4 = "
+          f"{4 * own['makespan_s']:.3f} s), peak memory "
+          f"{peak / 2**30:.2f} GiB, device busy {busy:.1%} of the batch",
+          flush=True)
+    out["a"] = {"wall_s": wall, "makespans_s": makespans,
+                "peak_bytes": peak, "busy": busy, "launches": totals}
+    part_s["a"], t_part = time.perf_counter() - t_part, time.perf_counter()
+
+    # (b) a fifth run, journaled with its payloads, cancelled once its
+    # journal holds SERVICE_CANCEL_AFTER completed invocations, beside a
+    # seed-1 run of the other tenant; then resumed by a new executor
+    os.makedirs(JOURNAL_DIR, exist_ok=True)
+    journal = os.path.join(JOURNAL_DIR, "service_cancel.jsonl")
+    if os.path.exists(journal):
+        os.unlink(journal)
+    reset_kernel_launches()
+    with TrackedBodies(pipeline, ("count_tool", "seurat_tool")) as bodies:
+        victim = svc.submit_document(
+            doc_own, inputs={"seed": 0}, tenant="lab_a",
+            checkpoint={"journal_path": journal, "include_payloads": True})
+        other = svc.submit_document(doc_own, inputs={"seed": 1},
+                                    tenant="lab_b")
+        deadline = time.time() + SERVICE_WAIT_S
+        done = 0
+        while True:
+            check(not svc.status(victim).terminal,
+                  f"pipeline service (b): {victim} ended "
+                  f"{svc.status(victim).state} before its cancel")
+            check(time.time() < deadline, "pipeline service (b): the "
+                  f"journal holds {done} completed invocations after "
+                  f"{SERVICE_WAIT_S} s")
+            if os.path.exists(journal):
+                done = len(ExecutionJournal.replay(journal).completed_steps)
+                if done >= SERVICE_CANCEL_AFTER:
+                    break
+            time.sleep(0.1)
+        t_cancel = time.time()
+        svc.cancel(victim)
+        info = svc.wait(victim, timeout=SERVICE_CANCEL_LIMIT_S)
+        to_cancel = time.time() - t_cancel
+        check(info.state == CANCELED,
+              f"pipeline service (b): {victim} is {info.state}")
+        check(svc.wait(other, timeout=SERVICE_WAIT_S).state == COMPLETE,
+              f"pipeline service (b): {other} is {svc.status(other).state}")
+        check_pipeline_result(f"pipeline service (b) {other}",
+                              svc.result(other).outputs, first)
+        bodies.wait_idle(SERVICE_WAIT_S)
+    state = ExecutionJournal.replay(journal)
+    check(state.cancelled, "pipeline service (b): the journal holds no "
+          "cancelled state")
+    journaled = set(state.completed_steps)
+
+    reset_kernel_launches()
+    cfg = load_streamflow_file(doc_own)
+    entry = cfg.workflows["single-cell-scatter"]
+    ex = StreamFlowExecutor.from_config(cfg,
+                                        fault=FaultConfig(speculative=False))
+    t0 = time.perf_counter()
+    res = ex.resume(journal, entry.workflow, entry.bindings)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    rerun = {e.step for e in res.events if e.status == "completed"}
+    check(not rerun & journaled, f"pipeline service (b): the resume re-ran "
+          f"completed invocations {sorted(rerun & journaled)}")
+    check(rerun | journaled == set(entry.workflow.expand().steps),
+          "pipeline service (b): the resume left invocations undone")
+    resumed = check_launches("pipeline service (b) resume",
+                             rerun_launches(rerun, train_steps))
+    check_pipeline_result("pipeline service (b) resume", res.outputs, own)
+    print(f"  (b) {victim} cancelled with {len(journaled)} invocations "
+          f"journaled completed ({done} when the cancel was sent); CANCELED "
+          f"{to_cancel:.3f} s after the cancel; {other} COMPLETE, seed 1's "
+          f"result; a new executor resumed {len(rerun)} invocations in "
+          f"{resume_s:.3f} s to phase 38's result, flash launches "
+          f"{resumed}, none for a journaled invocation", flush=True)
+    out["b"] = {"journaled": len(journaled), "rerun": len(rerun),
+                "cancel_s": to_cancel, "resume_s": resume_s,
+                "launches": resumed}
+    part_s["b"], t_part = time.perf_counter() - t_part, time.perf_counter()
+
+    # (c) PIPELINE_REAL: one seed-0 run a tenant, at the same time
+    subs = [(doc_real, tenant, 0, {}) for tenant in SERVICE_TENANTS]
+    rids, wall, peak, _ = run_batch(svc, subs, profile=False)
+    states = [svc.status(r).state for r in rids]
+    check(states == [COMPLETE] * 2, f"pipeline service (c): states {states}")
+    real_totals = check_launches("pipeline service (c)", {
+        k: 2 * v for k, v in flash_totals(real["launches"]).items()})
+    for rid in rids:
+        check_pipeline_result(f"pipeline service (c) {rid}",
+                              svc.result(rid).outputs, real)
+    check(svc.pool.deploy_count == 2,
+          f"pipeline service: {svc.pool.deploy_count} deploys over the runs")
+    makespans = [svc.result(r).wall_seconds for r in rids]
+    print(f"  (c) 2 runs at {PIPELINE_REAL} at once: both phase 38's result; "
+          f"flash launches {real_totals}; batch wall {wall:.3f} s (phase "
+          f"38's makespan {real['makespan_s']:.3f} s a run), peak memory "
+          f"{peak / 2**30:.2f} GiB; pool deploys over all runs "
+          f"{svc.pool.deploy_count}", flush=True)
+    print_runs(svc, rids, [0, 0])
+    out["c"] = {"wall_s": wall, "makespans_s": makespans,
+                "peak_bytes": peak, "launches": real_totals}
+    svc.close(timeout=SERVICE_WAIT_S)
+    part_s["c"], t_part = time.perf_counter() - t_part, time.perf_counter()
+
+    # (d) the analyzer: the gate admitted lab_b's runs in (a); its makespan
+    # lower bound from each phase 38 run's least invocation seconds must
+    # not exceed that run's span; from phase 25's seconds, printed only
+    report = analyze(load_streamflow_file(service_doc(doc_own, True)))
+    check(not report.errors(), f"pipeline service (d): the gated document "
+          f"has errors {[str(d) for d in report.errors()]}")
+    bounds = {}
+    for label, doc, run in (("the document's size", doc_own, own),
+                            ("PIPELINE_REAL", doc_real, real)):
+        cost = analyzed_bound(load_streamflow_file(doc), run["least_s"])
+        lb = cost["makespan_lower_bound_s"]
+        check(lb <= run["span_s"], f"pipeline service (d) {label}: the "
+              f"lower bound {lb} s exceeds the measured span "
+              f"{run['span_s']} s")
+        bounds[label] = (lb, run["span_s"])
+        print(f"  (d) {label}: makespan lower bound {lb:.3f} s (critical "
+              f"path {cost['critical_path_s']:.3f} s, total work "
+              f"{cost['total_work_s']:.3f} s over "
+              f"{cost['max_parallel_slots']} slots) <= phase 38's span "
+              f"{run['span_s']:.3f} s ({run['span_s'] / lb:.2f}x)",
+              flush=True)
+    alone = {f"/{kind}": hand_own["seconds"][kind] /
+             (1 if kind in ("mkfastq", "aggregate") else n)
+             for kind in PIPELINE_KINDS}
+    cost = analyzed_bound(load_streamflow_file(doc_own), alone)
+    lb = cost["makespan_lower_bound_s"]
+    print(f"  (d) from phase 25's standalone seconds a step "
+          f"{ {k: round(v, 5) for k, v in alone.items()} }: bound "
+          f"{lb:.3f} s; phase 38's span {own['span_s']:.3f} s is "
+          f"{own['span_s'] / lb:.2f}x it; warnings of the gated document: "
+          f"{sorted({d.code for d in report.warnings()})}", flush=True)
+    out["d"] = {"bounds": bounds, "standalone_bound_s": lb}
+    out["launches"] = {k: totals[k] + real_totals[k] for k in totals}
+    part_s["d"] = time.perf_counter() - t_part
+    print("  the phase's seconds: " + ", ".join(
+        f"({k}) {v:.1f}" for k, v in part_s.items()), flush=True)
+    out["part_s"] = part_s
+    return out
+
+
+def scatter_args(doc: dict) -> dict:
+    """``streamflow_doc_scatter_hybrid``'s arguments for the declarative
+    document ``doc``: the two documents then plan the same."""
+    tools = doc["tools"]
+    sites = doc["models"]
+    return {"n_samples": doc["workflows"]["single-cell-scatter"]["steps"][
+                "/mkfastq"]["streams"]["shard"],
+            "hpc_replicas": sites["occam"]["config"]["services"][
+                "cellranger"]["replicas"],
+            "cloud_replicas": sites["garr_cloud"]["config"]["services"][
+                "r_env"]["replicas"],
+            "policy": doc["scheduling"]["policy"],
+            **{k: v for k, v in tools["mkfastq"]["implementation"][
+                "args"].items() if k != "n_samples"},
+            **tools["count"]["implementation"]["args"]}
+
+
+def phase_pipeline_recovery(own: dict, doc_own: dict):
+    """Phase 40: ``streamflow_doc_scatter_hybrid`` (the python builder) at
+    ``doc_own``'s size, journaled with its payloads; the driver dies at a
+    tick once RECOVERY_CRASH_AFTER invocations have completed, and a new
+    executor resumes from the journal alone."""
+    from repro_torch import pipeline
+    from repro_torch.core import (ExecutionJournal, FaultConfig,
+                                  StreamFlowExecutor, load_streamflow_file)
+    phase("pipeline recovery")
+    os.makedirs(JOURNAL_DIR, exist_ok=True)
+    journal = os.path.join(JOURNAL_DIR, "recovery.jsonl")
+    if os.path.exists(journal):
+        os.unlink(journal)
+    args = scatter_args(doc_own)
+    doc = pipeline.streamflow_doc_scatter_hybrid(**args)
+    doc["checkpoint"] = {"journal_path": journal, "include_payloads": True}
+    train_steps = args["train_steps"]
+    def crash(tick, completed):
+        if len(completed) >= RECOVERY_CRASH_AFTER:
+            raise DriverKilled(f"{len(completed)} invocations completed")
+
+    t0 = time.perf_counter()
+    # the builder makes the step bodies when the document loads
+    with TrackedBodies(pipeline, ("_count_stream_fn",
+                                  "_seurat_stream_fn")) as bodies:
+        cfg = load_streamflow_file(doc)
+        entry = cfg.workflows["single-cell"]
+        ex = StreamFlowExecutor.from_config(
+            cfg, fault=FaultConfig(speculative=False))
+        ex.tick_hook = crash
+        try:
+            ex.run(entry.workflow, entry.bindings, inputs={"seed": 0})
+            check(False, "pipeline recovery: the driver did not die")
+        except DriverKilled:
+            pass
+        running = bodies.active
+        bodies.wait_idle(SERVICE_WAIT_S)
+    crash_s = time.perf_counter() - t0
+    journaled = set(ExecutionJournal.replay(journal).completed_steps)
+    check(len(journaled) >= RECOVERY_CRASH_AFTER, f"pipeline recovery: "
+          f"{len(journaled)} completed invocations journaled")
+
+    reset_kernel_launches()
+    ex2 = StreamFlowExecutor.from_config(load_streamflow_file(doc),
+                                         fault=FaultConfig(speculative=False))
+    t0 = time.perf_counter()
+    res = ex2.resume(journal)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    rerun = {e.step for e in res.events if e.status == "completed"}
+    check(not rerun & journaled, f"pipeline recovery: the resume re-ran "
+          f"completed invocations {sorted(rerun & journaled)}")
+    check(rerun | journaled == set(entry.workflow.expand().steps),
+          "pipeline recovery: the resume left invocations undone")
+    launches = check_launches("pipeline recovery",
+                              rerun_launches(rerun, train_steps))
+    got = check_pipeline_result("pipeline recovery", res.outputs, own)
+    print(f"  the driver died after {crash_s:.3f} s with "
+          f"{len(journaled)} invocations journaled completed and {running} "
+          f"step bodies in flight; a new executor resumed from the journal "
+          f"alone: {len(rerun)} invocations in {resume_s:.3f} s, flash "
+          f"launches {launches}, none for a journaled invocation; phase "
+          f"38's result ({'the same bits' if got['same_bits'] else 'within the bars'})",
+          flush=True)
+    return {"journaled": len(journaled), "rerun": len(rerun),
+            "resume_s": resume_s, "launches": launches}
 
 
 # phases 35-37: the data-parallel step with the int8 error-feedback
@@ -3944,14 +4456,17 @@ def main() -> int:
         real_label,
         pipeline.streamflow_doc_declarative_hybrid(**PIPELINE_REAL))
     phase_pipeline_consistency()
-    phase_pipeline_engine(own_label,
-                          pipeline.streamflow_doc_declarative_hybrid(),
-                          pipe_own, profile=True)
-    engine_real = phase_pipeline_engine(
-        real_label,
-        pipeline.streamflow_doc_declarative_hybrid(**PIPELINE_REAL),
-        pipe_real, profile=False)
-    del pipe_own, pipe_real["models"]
+    doc_own = pipeline.streamflow_doc_declarative_hybrid()
+    doc_real = pipeline.streamflow_doc_declarative_hybrid(**PIPELINE_REAL)
+    engine_own = phase_pipeline_engine(own_label, doc_own, pipe_own,
+                                       profile=True)
+    engine_real = phase_pipeline_engine(real_label, doc_real, pipe_real,
+                                        profile=False)
+    del pipe_real["models"]
+    service = phase_pipeline_service(engine_own, engine_real, pipe_own,
+                                     doc_own, doc_real)
+    recovery = phase_pipeline_recovery(engine_own, doc_own)
+    del pipe_own
     zoo_launches, zoo_routes = phase_zoo()
     routes.update(zoo_routes)
     phase_train_compressed()
@@ -3982,6 +4497,9 @@ def main() -> int:
              "pipeline": sum(v["flash_attention"]
                              for v in pipe_real["launches"].values()),
              "pipeline engine": engine_real["launches"]["flash_attention"],
+             # phase 39's batches (a) and (c), phase 40's resume
+             "pipeline service": service["launches"]["flash_attention"],
+             "pipeline recovery": recovery["launches"]["flash_attention"],
              **{arch: n["flash_attention"]
                 for arch, n in zoo_launches.items()}},
          "launches_by_route": {
@@ -4024,7 +4542,11 @@ def main() -> int:
              f"{AUDIO_ARCH} train": audio_train["flash_attention_bwd"],
              f"{MOE_ARCH} train": moe_train["flash_attention_bwd"],
              "pipeline engine":
-                 engine_real["launches"]["flash_attention_bwd"]},
+                 engine_real["launches"]["flash_attention_bwd"],
+             "pipeline service":
+                 service["launches"]["flash_attention_bwd"],
+             "pipeline recovery":
+                 recovery["launches"]["flash_attention_bwd"]},
          **bwd_timing},
         {"name": "moe_gmm", "route": "cuda",
          "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",

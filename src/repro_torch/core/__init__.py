@@ -11,8 +11,11 @@ names, pure Python, with one design change: the ``mesh`` connector runs a
 site's steps on a CUDA device (its config's ``device``; the GPU unless it
 says ``cpu``) and hands the step ``ctx["device"]`` where the reference
 hands a JAX mesh.  A dict document loads without PyYAML.  The plan-time
-analyzer (``analyzer.py``) and the multi-tenant service (``service.py``)
-are not ported yet, so their names are not exported here.
+analyzer (``analyzer.py``: the SF3xx proofs and the static cost report)
+and the multi-tenant TES-style service (``service.py``: submit, status,
+cancel, fair share and deployment pooling) are the reference's too.
+
+``__all__`` is the JAX package's, name for name.
 """
 from repro_torch.core.workflow import (Workflow, Step, Requirements, Port, Token,
                                  Invocation, InvocationPlan, match_binding,
@@ -56,6 +59,12 @@ from repro_torch.core.events import (EventSink, EventStream, RunCancelled,
                                TransferRouted, WorkflowCompleted,
                                WorkflowFailed, WorkflowCancelled,
                                TERMINAL_EVENTS)
+from repro_torch.core.service import (WorkflowService, ServiceConfig,
+                                      TenantPolicy, DeploymentPool,
+                                      PooledDeploymentManager, Run, RunInfo,
+                                      ServiceError, UnknownRunError, QUEUED,
+                                      RUNNING, COMPLETE, EXECUTOR_ERROR,
+                                      CANCELED, TERMINAL_STATES)
 from repro_torch.core.connectors import (start_external_site, get_external_site,
                                    stop_external_site)
 
@@ -100,4 +109,9 @@ __all__ = [
     "WorkflowStarted", "InvocationStateChanged", "TokenAvailable",
     "TransferRouted", "WorkflowCompleted", "WorkflowFailed",
     "WorkflowCancelled", "TERMINAL_EVENTS",
+    # service
+    "WorkflowService", "ServiceConfig", "TenantPolicy", "DeploymentPool",
+    "PooledDeploymentManager", "Run", "RunInfo", "ServiceError",
+    "UnknownRunError", "QUEUED", "RUNNING", "COMPLETE", "EXECUTOR_ERROR",
+    "CANCELED", "TERMINAL_STATES",
 ]

@@ -23,7 +23,9 @@ package's documents with ``implementation.module`` naming this module.
 The Python workflow builders (``build_workflow``,
 ``build_scatter_workflow``) make the port's own engine objects
 (``repro_torch.core``), so a document whose ``type: python`` workflow
-names this module runs on the port's engine.
+names this module runs on the port's engine: ``streamflow_doc_full_hpc``
+(Fig. 8), ``_single_service``, ``_scatter_hybrid`` and ``_hybrid``
+(Fig. 9) are the JAX package's documents of those names that do so.
 
 The count step emits its model in the JAX package's layout
 (``convert.params_to_jax``, numpy), so either package's seurat step reads
@@ -386,11 +388,173 @@ def singler_chain_tool(chain: int = 0, n_types: int = 6):
 
 
 # ---------------------------------------------------------------------------
-# The JAX package's declarative documents, with this module's tools
+# The JAX package's StreamFlow documents, naming this module's builders and
+# tools; the mesh site's steps run on the GPU unless its config says
+# ``device`` (the tests and examples set ``cpu`` there)
 # ---------------------------------------------------------------------------
 
 def _device_args(device: Optional[str]) -> dict:
     return {} if device is None else {"device": device}
+
+
+def streamflow_doc_full_hpc(n_chains: int = 6, **wf_args) -> dict:
+    """Fig. 8: everything on one HPC site (six nodes, both containers).
+    ``wf_args`` go to ``build_workflow`` (``device`` among them)."""
+    args = {"n_chains": n_chains, **wf_args}
+    return {
+        "version": "v1.0",
+        "models": {
+            "occam": {"type": "mesh", "config": {
+                "topology": {"data": 16, "model": 16},
+                "shared_store": True,            # /archive + /scratch
+                "services": {
+                    "cellranger": {"replicas": n_chains, "cores": 2,
+                                   "memory_gb": 8},
+                    "r_env": {"replicas": n_chains, "cores": 2,
+                              "memory_gb": 8},
+                }}},
+        },
+        "workflows": {
+            "single-cell": {
+                "type": "python",
+                "config": {"module": MODULE,
+                           "builder": "build_workflow", "args": args},
+                "bindings": [
+                    {"step": "/mkfastq",
+                     "target": {"model": "occam", "service": "cellranger"}},
+                    {"step": "/chains",
+                     "target": {"model": "occam", "service": "r_env"}},
+                    # deepest-path-wins: counts go to cellranger
+                    *[{"step": f"/chains/{i}/count",
+                       "target": {"model": "occam", "service": "cellranger"}}
+                      for i in range(n_chains)],
+                ],
+            }
+        },
+        "scheduling": {"policy": "data_locality"},
+    }
+
+
+def streamflow_doc_single_service(n_chains: int = 6, **wf_args) -> dict:
+    """Scheduler-bench topology: ONE pool of identical nodes with private
+    stores, every step bound to it, so placement is the policy's choice
+    alone."""
+    args = {"n_chains": n_chains, **wf_args}
+    return {
+        "version": "v1.0",
+        "models": {
+            "pool": {"type": "local", "config": {
+                "shared_store": False,
+                "services": {"node": {"replicas": n_chains, "cores": 2,
+                                      "memory_gb": 8}}}},
+        },
+        "workflows": {
+            "single-cell": {
+                "type": "python",
+                "config": {"module": MODULE,
+                           "builder": "build_workflow", "args": args},
+                "bindings": [
+                    {"step": "/",
+                     "target": {"model": "pool", "service": "node"}},
+                ],
+            }
+        },
+        "scheduling": {"policy": "data_locality"},
+    }
+
+
+def streamflow_doc_scatter_hybrid(n_samples: int = 32,
+                                  hpc_replicas: int = 8,
+                                  cloud_replicas: int = 8,
+                                  policy: str = "data_locality",
+                                  **wf_args) -> dict:
+    """Fig. 9 at its true width, scatter-style: ``build_scatter_workflow``
+    (one declared chain expanded into ``n_samples`` invocations at run
+    time) with the ``scatter:`` block of the workflow config and a
+    ``/count`` binding that lists both sites, so each count invocation is
+    placed on its own.  Plan-identical to
+    ``streamflow_doc_declarative_hybrid``."""
+    args = {"n_samples": n_samples, **wf_args}
+    return {
+        "version": "v1.0",
+        "models": {
+            "occam": {"type": "mesh", "config": {
+                "topology": {"data": 16, "model": 16},
+                "shared_store": True,
+                "services": {"cellranger": {"replicas": hpc_replicas,
+                                            "cores": 2, "memory_gb": 8}}}},
+            "garr_cloud": {"type": "local", "config": {
+                "services": {"r_env": {"replicas": cloud_replicas,
+                                       "cores": 1, "memory_gb": 4}}}},
+        },
+        "workflows": {
+            "single-cell": {
+                "type": "python",
+                "config": {"module": MODULE,
+                           "builder": "build_scatter_workflow",
+                           "args": args},
+                "scatter": [
+                    {"step": "/count", "over": ["shard"]},
+                    {"step": "/seurat", "over": ["shard", "model"]},
+                    {"step": "/singler", "over": ["clusters"]},
+                    {"step": "/aggregate", "gather": ["labels"]},
+                ],
+                "bindings": [
+                    {"step": "/mkfastq",
+                     "target": {"model": "occam", "service": "cellranger"}},
+                    {"step": "/count", "targets": [
+                        {"model": "occam", "service": "cellranger"},
+                        {"model": "garr_cloud", "service": "r_env"}]},
+                    {"step": "/",
+                     "target": {"model": "garr_cloud",
+                                "service": "r_env"}},
+                ],
+            }
+        },
+        "scheduling": {"policy": policy},
+        "topology": {
+            "routing": "direct",
+            "management": {"latency_s": 0.05, "bandwidth_mbps": 200},
+            "links": [{"source": "occam", "target": "garr_cloud",
+                       "latency_s": 0.005, "bandwidth_mbps": 2000}],
+        },
+    }
+
+
+def streamflow_doc_hybrid(n_chains: int = 6, **wf_args) -> dict:
+    """Fig. 9: CellRanger steps on the HPC site, R steps on the cloud site,
+    two models with NO shared data space (two-step copies between them)."""
+    args = {"n_chains": n_chains, **wf_args}
+    return {
+        "version": "v1.0",
+        "models": {
+            "occam": {"type": "mesh", "config": {
+                "topology": {"data": 16, "model": 16},
+                "shared_store": True,
+                "services": {"cellranger": {"replicas": n_chains,
+                                            "cores": 2, "memory_gb": 8}}}},
+            "garr_cloud": {"type": "local", "config": {
+                "services": {"r_env": {"replicas": n_chains, "cores": 1,
+                                       "memory_gb": 4}}}},
+        },
+        "workflows": {
+            "single-cell": {
+                "type": "python",
+                "config": {"module": MODULE,
+                           "builder": "build_workflow", "args": args},
+                "bindings": [
+                    {"step": "/mkfastq",
+                     "target": {"model": "occam", "service": "cellranger"}},
+                    *[{"step": f"/chains/{i}/count",
+                       "target": {"model": "occam", "service": "cellranger"}}
+                      for i in range(n_chains)],
+                    {"step": "/chains",
+                     "target": {"model": "garr_cloud", "service": "r_env"}},
+                ],
+            }
+        },
+        "scheduling": {"policy": "data_locality"},
+    }
 
 
 def streamflow_doc_declarative_hybrid(n_samples: int = 32,

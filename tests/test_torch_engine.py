@@ -73,6 +73,8 @@ def config_view(cfg, dry_run) -> dict:
 # the JAX package's documents through both loaders
 # ---------------------------------------------------------------------------
 
+CHAIN_ARGS_RUN = dict(rows_per_chain=4, seq_len=16, train_steps=1,
+                      batch=2, vocab=64, d_model=16, device="cpu")
 DOC_BUILDERS = sorted(name for name, _ in inspect.getmembers(
     JP, inspect.isfunction) if name.startswith("streamflow_doc_"))
 EXAMPLES = ["examples/singlecell_hybrid.yaml",
@@ -105,6 +107,47 @@ def test_yaml_examples_plan_the_same(path):
                        J.dry_run)
     got = config_view(T.load_streamflow_file(port_doc(doc)), T.dry_run)
     assert got == want
+
+
+@pytest.mark.parametrize("name", DOC_BUILDERS)
+def test_port_document_builders_are_the_jax_ones(name):
+    """Each of the port's ``streamflow_doc_*`` is the JAX package's
+    document of that name, its builders and tools named in the port."""
+    want = port_doc(getattr(JP, name)())
+    for tool in (want.get("tools") or {}).values():
+        tool["implementation"]["module"] = TP.MODULE
+    assert getattr(TP, name)() == want
+    # a device goes into the builders' arguments (python workflows) or the
+    # computing tools' (declarative ones), never into a site
+    doc = getattr(TP, name)(device="cpu")
+    assert "device" not in str(doc["models"])
+    for w in doc["workflows"].values():
+        if w["type"] == "python":
+            assert w["config"]["args"]["device"] == "cpu"
+    for tool in ("count", "seurat", "count_chain", "seurat_chain"):
+        if tool in doc.get("tools", {}):
+            assert doc["tools"][tool]["implementation"]["args"][
+                "device"] == "cpu"
+
+
+@pytest.mark.parametrize("name", ["streamflow_doc_full_hpc",
+                                  "streamflow_doc_hybrid",
+                                  "streamflow_doc_single_service"])
+def test_chain_documents_run_on_the_port_engine(name):
+    """The Fig. 8 / Fig. 9 documents (the hand-unrolled chains) through
+    the port's loader and executor on the CPU, each sample's chain
+    complete."""
+    doc = getattr(TP, name)(n_chains=2, **CHAIN_ARGS_RUN)
+    if "occam" in doc["models"]:
+        doc["models"]["occam"]["config"]["device"] = "cpu"
+    cfg = T.load_streamflow_file(doc)
+    entry = cfg.workflows["single-cell"]
+    res = T.StreamFlowExecutor.from_config(
+        cfg, fault=T.FaultConfig(speculative=False)).run(
+        entry.workflow, entry.bindings, inputs={"seed": 0})
+    assert sorted(res.outputs) == ["labels0", "labels1", "stats0", "stats1"]
+    assert {e.status for e in res.events} == {"completed"}
+    assert len(res.events) == 1 + 2 * 3
 
 
 def test_the_port_loader_refuses_a_jax_engine_workflow():

@@ -10,9 +10,10 @@ invalid case that the load-time checker catches raises
 with ``check: off`` every invalid case fails (or loads) the same way in
 both.
 
-The corpus' seven analysis cases (``expect.analysis: true``) fail only
-under the plan-time analyzer, which the port does not have yet: they wait
-for its slice, and this file leaves them out as a group.
+The corpus' seven analysis cases (``expect.analysis: true``) load clean in
+both and fail only under the plan-time analyzer: the port's
+``repro_torch.core.analyzer`` proves the same diagnostics as the JAX
+package's, in order, with the case's expected codes and locations.
 """
 import copy
 import glob
@@ -38,6 +39,7 @@ def _case(path):
 
 CHECKER_INVALID = [p for p in INVALID
                    if not _case(p)[1].get("analysis")]
+ANALYSIS_INVALID = [p for p in INVALID if _case(p)[1].get("analysis")]
 
 
 def _ids(paths):
@@ -52,8 +54,8 @@ def _both(doc, **kw):
 
 
 def test_the_corpus_was_found():
-    assert (len(VALID), len(CHECKER_INVALID),
-            len(INVALID) - len(CHECKER_INVALID)) == (27, 35, 7)
+    assert (len(VALID), len(CHECKER_INVALID), len(ANALYSIS_INVALID),
+            len(INVALID)) == (27, 35, 7, 42)
 
 
 @pytest.mark.parametrize("path", VALID, ids=_ids(VALID))
@@ -97,3 +99,19 @@ def _outcome(core, doc):
 def test_invalid_case_with_check_off_fails_the_same(path):
     doc, _ = _case(path)
     assert _outcome(T, port_doc(doc)) == _outcome(J, copy.deepcopy(doc))
+
+
+@pytest.mark.parametrize("path", ANALYSIS_INVALID, ids=_ids(ANALYSIS_INVALID))
+def test_analysis_case_raises_the_same_diagnostics(path):
+    doc, expect = _case(path)
+    jcfg, tcfg = _both(doc)                  # both load clean
+    want = J.analyzer.analyze(jcfg)
+    got = T.analyzer.analyze(tcfg)
+    assert _diagnostics(got) == _diagnostics(want)
+    assert sorted({d.code for d in got.diagnostics}) == \
+        sorted(expect["codes"])
+    for code, substring in (expect.get("locations") or {}).items():
+        assert any(substring in d.location for d in got.diagnostics
+                   if d.code == code), (code, substring)
+    assert all(d.code in T.analyzer.CODES and d.location and d.message
+               for d in got.diagnostics)

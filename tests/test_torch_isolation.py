@@ -53,7 +53,11 @@ def test_port_files_were_found():
     paths = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"src/repro_torch/core/executor.py",
             "src/repro_torch/core/connectors/mesh.py",
-            "examples/lm_pipeline_torch.py"} <= paths
+            "src/repro_torch/core/analyzer.py",
+            "src/repro_torch/core/service.py", "src/repro_torch/cli.py",
+            "src/repro_torch/configs/recovery_demo.py",
+            "examples/lm_pipeline_torch.py", "examples/quickstart_torch.py",
+            "examples/resume_after_crash_torch.py"} <= paths
 
 
 # a string that is a module path of the JAX package, e.g. a builder module
@@ -97,13 +101,17 @@ def test_importing_the_whole_port_loads_no_jax():
 
 def test_the_ports_engine_runs_without_jax_repro_or_yaml():
     """The chip machine's situation: neither JAX, the JAX package nor PyYAML
-    can be imported.  The port's engine imports, loads the hybrid document
-    from a dict and runs it end to end on the CPU at the test size."""
+    can be imported.  The port's engine, its service, its CLI and the
+    drill workflow import; the engine loads the hybrid document from a dict
+    and runs it end to end on the CPU at the test size, and a
+    ``WorkflowService`` runs one submission of it."""
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'repro', 'yaml'):\n"
         "    sys.modules[name] = None\n"
         "import repro_torch.core as core\n"
+        "import repro_torch.cli, repro_torch.core.service\n"
+        "import repro_torch.configs.recovery_demo\n"
         "from repro_torch import pipeline\n"
         "doc = pipeline.streamflow_doc_declarative_hybrid(\n"
         "    n_samples=3, rows_per_sample=4, seq_len=16, train_steps=1,\n"
@@ -118,6 +126,13 @@ def test_the_ports_engine_runs_without_jax_repro_or_yaml():
         "s = res.outputs['summary']\n"
         "assert s['n_samples'] == 3 and int(s['type_counts'].sum()) == 12\n"
         "assert {e.status for e in res.events} == {'completed'}\n"
+        "svc = core.WorkflowService(cfg, fault=core.FaultConfig(\n"
+        "    speculative=False))\n"
+        "rid = svc.submit_document(doc, inputs={'seed': 0}, tenant='lab_a')\n"
+        "assert svc.wait(rid, timeout=120).state == core.COMPLETE\n"
+        "got = svc.result(rid).outputs['summary']\n"
+        "assert (got['type_counts'] == s['type_counts']).all()\n"
+        "svc.close(timeout=60)\n"
         "bad = sorted(m for m in sys.modules if sys.modules[m] is not None\n"
         "             and m.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
         "                                      'yaml'))\n"

@@ -10,6 +10,10 @@ PHASE is any of ``serve-vision``, ``consistency-vision``, ``train-audio``,
 ``train-consistency-moe``, ``pipeline``, ``pipeline-consistency``,
 ``pipeline-engine`` (phase 25 then phase 38 on two small documents: the
 §5 workflow through the port's engine, held to the hand-ordered run),
+``pipeline-service`` (phases 25 and 38 on both, then phase 39: the
+service's batches, its cancel and resume, and the analyzer's bound),
+``pipeline-recovery`` (phases 25 and 38 on the smaller, then phase 40: a
+crash and a resume from the journal alone),
 ``train-compressed`` (phase 35, on a one-rank gloo group where the card
 has NCCL), ``train-driver`` (phase 36, the train driver on the CPU),
 ``dryrun`` (phase 12's minicpm-2b step at smoke size, then phase 37's
@@ -59,7 +63,8 @@ from repro_torch.models import transformer  # noqa: E402
 PHASES = ("serve-vision", "consistency-vision", "train-audio",
           "train-consistency-audio", "train-consistency", "kernel-bwd-moe",
           "train-moe", "train-moe-full", "train-consistency-moe",
-          "pipeline", "pipeline-consistency", "pipeline-engine", "zoo",
+          "pipeline", "pipeline-consistency", "pipeline-engine",
+          "pipeline-service", "pipeline-recovery", "zoo",
           "train-compressed",
           "train-driver", "dryrun")
 
@@ -174,7 +179,7 @@ def load_chip_smoke():
     ns = {"__name__": "chip_smoke_cpu", "__file__": path}
     exec(compile(src, path, "exec"), ns)
     ns["cuda_ms"] = lambda fn, iters=20, warmup=3: (fn(), 1.0)[1]
-    ns["profile_ms"] = lambda fn: (fn(), (1.0, 0.0, [], {}))[1]
+    ns["profile_ms"] = lambda fn, host_ops=True: (fn(), (1.0, 0.0, [], {}))[1]
     ns["time_expert_bwd"] = lambda: ([], lambda: None)
     ns.update(PROMPT_LEN=40, GEN=4, ENCODE_BATCH=2, TRAIN_SEQ=64,
               PIPELINE_REAL=dict(n_samples=2, rows_per_sample=8,
@@ -191,6 +196,34 @@ def load_chip_smoke():
         ("odd-d-f", 3, 20, 21, 33, "geglu", True, None),
         ("relu2-no-w3", 6, 30, 40, 24, "relu2", False, None)]
     return ns
+
+
+# the rehearsal's documents: phase 39 cancels a run after 8 completed
+# invocations and phase 40 crashes one after 12, so the smaller has 6
+# samples (20 invocations)
+SMALL_DOC = dict(n_samples=6, rows_per_sample=8, seq_len=32)
+
+
+def engine_results(cs, *sizes):
+    """(phase 25's, phase 38's result, the document) at each size."""
+    out = []
+    for args in sizes:
+        doc = pipeline.streamflow_doc_declarative_hybrid(**args)
+        hand = cs["phase_pipeline"]("the port's hybrid document", doc)
+        out.append((hand, cs["phase_pipeline_engine"](
+            "the port's hybrid document", doc, hand, profile=False), doc))
+    return out
+
+
+def rehearse_service(cs):
+    (hand, own, doc_own), (_, real, doc_real) = engine_results(
+        cs, SMALL_DOC, cs["PIPELINE_REAL"])
+    return cs["phase_pipeline_service"](own, real, hand, doc_own, doc_real)
+
+
+def rehearse_recovery(cs):
+    (_, own, doc_own), = engine_results(cs, SMALL_DOC)
+    return cs["phase_pipeline_recovery"](own, doc_own)
 
 
 def main(argv=None) -> int:
@@ -231,6 +264,8 @@ def main(argv=None) -> int:
                     n_samples=3, rows_per_sample=8, seq_len=32),
                 lambda: pipeline.streamflow_doc_declarative_hybrid(
                     **cs["PIPELINE_REAL"]))],
+        "pipeline-service": lambda: rehearse_service(cs),
+        "pipeline-recovery": lambda: rehearse_recovery(cs),
         "zoo": lambda: cs["phase_zoo"](),
         "train-compressed": lambda: cs["phase_train_compressed"](),
         "train-driver": lambda: cs["phase_train_driver"](),
