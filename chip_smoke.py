@@ -20,7 +20,8 @@ a non-zero exit:
                 serving shapes also kernel, plain and library (or yardstick)
                 times and the card's bound for the same work (flash
                 attention at minicpm's, granite-moe's, recurrentgemma's,
-                llama-3.2-vision's and deepseek-coder-33b's prefill shapes,
+                llama-3.2-vision's and deepseek-coder-33b's prefill shapes
+                and minicpm's on one rank of phase 41's (1, 4) mesh,
                 h2o-danube-3-4b's past its window (S 5000, beside masked
                 SDPA) and hubert-xlarge's train shape, with kernel / SDPA
                 as a factor; at hubert's head dim
@@ -279,7 +280,7 @@ a non-zero exit:
                 two runs at a time, one pool of sites, no cache; dict
                 documents through ``submit_document``, lab_b's with an
                 ``analyze:`` gate.  (a) seeds 0 and 1 for each tenant at
-                the document's size, under the profiler: every run
+                the document's size: every run
                 COMPLETE, the seed-0 runs phase 38's result (type counts,
                 mean confidence, count losses under its bars, on each
                 run's own outputs), the seed-1 runs each other's, 2 pooled
@@ -295,8 +296,10 @@ a non-zero exit:
                 analyzer's makespan lower bound from each phase 38 run's
                 least invocation seconds a step at most that run's span,
                 and the bound from phase 25's standalone seconds beside
-                it; each run's makespan, each batch's wall time, peak
-                memory and batch (a)'s device-busy share
+                it; each run's makespan, each batch's wall time and
+                peak memory (batch (a)'s device-busy share is not
+                measured since phase 41: the profiler's trace took ~54 s
+                to read)
 40. pipeline recovery  ``streamflow_doc_scatter_hybrid`` (the python
                 builder, plan-identical to the declarative document) at
                 the document's size, journaled with its payloads: a tick
@@ -305,6 +308,23 @@ a non-zero exit:
                 executor resumes from the journal path alone to phase
                 38's result, re-running no journaled invocation, its
                 flash launches those of the re-run counts and seurats
+41. sharded serve  run right after phase 5, on phase 4's minicpm-2b
+                (full width and depth, bf16, seed 0) under the ``base``
+                ruleset: (a) on a one-rank NCCL group and a (1, 1)
+                ("data", "model") mesh, a prefill of 4 x 1000 tokens into
+                caches of 1024 slots (sequence-sharded by
+                ``cache_specs``) and 16 greedy decode steps through
+                ``make_prefill_step`` / ``make_serve_step`` with ``mesh=``,
+                beside the same steps without a mesh: the same greedy
+                tokens, the logits' largest difference under
+                SHARDED_LOGITS_BAR, 40 flash launches a prefill on
+                wgmma_bf16 (the counts reset just before the sharded steps
+                and read just after), prefill ms (median of 3) and decode
+                ms a step both ways; (b) rank 0 of a (1, 4) mesh of a fake
+                process group (its collectives move nothing) on the card:
+                the same prefill at 9 of 36 heads a rank, its ms and flash
+                launches, one rank's compute with the collectives skipped
+                (its outputs are not checked)
 
 Earlier serve paths run at full depth; if the run outgrows its time, their
 depth is what gets cut first.
@@ -489,10 +509,17 @@ ZOO_ARCHS = (("h2o-danube-3-4b", None, "einsum", SWA_PROMPT_LEN),
 # past the window; then its forward_logits on the card against the CPU's
 # at B 1, CPU_CHECK_SEQ
 ZOO_CONSIST_LAYERS, SWA_CONSIST_SEQ, CPU_CHECK_SEQ = 2, 4200, 128
+# phase 41: caches of 1024 slots, so that cache_specs shards their sequence
+# dim; on a one-rank mesh the sharded steps run the unsharded ops on the
+# same whole tensors, so the bar only allows bf16 rounding in another order
+SHARDED_CACHE_LEN, SHARDED_LOGITS_BAR, SHARDED_TP = 1024, 2e-2, 4
+
+
+_T0 = time.perf_counter()
 
 
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} [at {time.perf_counter() - _T0:.1f} s]", flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -673,10 +700,13 @@ KERNEL_CASES = [
     ("deepseek-prefill", 4, 1000, 56, 8, 128, True, 0),
     # h2o-danube-3-4b's prefill past its window of 4096, at head dim 120
     ("h2o-long-prefill", 4, SWA_PROMPT_LEN, 32, 8, 120, True, 4096),
+    # minicpm-2b's prefill on one rank of a (1, SHARDED_TP) mesh (phase 41)
+    ("minicpm-rank-prefill", 4, 1000, 36 // SHARDED_TP, 36 // SHARDED_TP,
+     64, True, 0),
 ]
 TIMED_CASES = ("minicpm-prefill", "granite-prefill", "griffin-prefill",
                "vision-prefill", "hubert-train", "deepseek-prefill",
-               "h2o-long-prefill")
+               "h2o-long-prefill", "minicpm-rank-prefill")
 
 
 def phase_kernel():
@@ -2201,6 +2231,149 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum",
                                    "moe_gmm": gmm_routes,
                                    "rglru_scan": rg_routes,
                                    "mlstm_scan": ml_routes}
+
+
+def serve_greedy(cfg, params, toks, mesh=None):
+    """Prefill ``toks`` (SERVE_SLOTS x PROMPT_LEN) into caches of
+    SHARDED_CACHE_LEN slots three times and decode GEN greedy steps from
+    the last, through ``make_prefill_step`` / ``make_serve_step`` (with
+    ``mesh``, on it).  Returns (prefill ms, median of 3; decode ms a step;
+    the greedy tokens (GEN + 1, B); the logits, prefill's then each
+    step's, float32 on the host; the first layer's k cache)."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    prefill = make_prefill_step(cfg, cache_len=SHARDED_CACHE_LEN,
+                                device="cuda", mesh=mesh)
+    decode = make_serve_step(cfg, device="cuda", mesh=mesh)
+
+    def whole(t):
+        return t.full_tensor() if mesh is not None else t
+    with torch.inference_mode():
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        tokens, all_logits = [whole(nxt)[:, 0].cpu()], [whole(logits)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for pos in range(PROMPT_LEN, PROMPT_LEN + GEN):
+            nxt, logits, cache = decode(params, nxt, pos, cache)
+            tokens.append(whole(nxt)[:, 0].cpu())
+            all_logits.append(whole(logits))
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) / GEN * 1e3
+    return (sorted(times)[1] * 1e3, decode_ms, torch.stack(tokens),
+            torch.stack([t.float().cpu() for t in all_logits]),
+            cache["layers"][0]["k"])
+
+
+def phase_serve_sharded(cfg, params):
+    """Phase 41 (see the module docstring): minicpm-2b's prefill and greedy
+    decode on a one-rank mesh beside the same steps without one, then one
+    rank's prefill of a (1, SHARDED_TP) mesh on a fake group.  Returns
+    (the sharded run's flash launches, {"flash_attention": its launches
+    by route})."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch.dryrun import fake_group
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import registry as R
+    phase(f"sharded serve {cfg.name}")
+    rules = sharding.RULESETS["base"]
+    axes = R.logical_axes(cfg)
+    toks = np.random.default_rng(41).integers(
+        1, cfg.vocab_size, size=(SERVE_SLOTS, PROMPT_LEN)).astype(np.int32)
+    n_attn = sum(layer_counts(cfg).get(k, 0) for k in ("attn", "swa"))
+    fa_route = fa_kernel.ROUTES[torch.bfloat16][1]
+
+    # (a) a one-rank NCCL group, a (1, 1) mesh
+    plain = serve_greedy(cfg, params, toks)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_local_mesh(1)
+        placed = sharding.distribute_tree(
+            params, sharding.logical_to_specs(axes, params, mesh, rules),
+            mesh)
+        fa_kernel.reset_launches()
+        sharded = serve_greedy(cfg, placed, toks, mesh)
+        launches = {"flash_attention": fa_kernel.LAUNCHES}
+        routes = dict(fa_kernel.LAUNCHES_BY_ROUTE)
+        prefill_ms, decode_ms, tokens, logits, cache_k = sharded
+        cache_place = tuple(cache_k.placements)
+        del placed, sharded, cache_k
+    finally:
+        dist.destroy_process_group()
+    want = 3 * n_attn
+    check(launches["flash_attention"] == want,
+          f"sharded serve: flash launched {launches['flash_attention']} "
+          f"times, expected {want} = {n_attn} layers x 3 prefills")
+    check(routes == {r: want if r == fa_route else 0 for r in routes},
+          f"sharded serve: flash launches by route {routes}: bf16 must "
+          f"take {fa_route} only")
+    check(torch.equal(plain[2], tokens),
+          f"sharded serve: greedy tokens differ from the unsharded steps': "
+          f"{plain[2].T.tolist()} against {tokens.T.tolist()}")
+    err = float((plain[3] - logits).abs().max())
+    check(err <= SHARDED_LOGITS_BAR,
+          f"sharded serve: logits differ by {err:.3e} > "
+          f"{SHARDED_LOGITS_BAR}")
+    print(f"  (a) (1, 1) mesh, base ruleset, caches of {SHARDED_CACHE_LEN} "
+          f"slots placed {cache_place}: the same {GEN + 1} greedy tokens "
+          f"a row as the unsharded steps; logits' largest difference "
+          f"{err:.3e} (bar {SHARDED_LOGITS_BAR}; "
+          f"{'the same bits' if err == 0 else 'not the same bits'}); "
+          f"flash launches {launches['flash_attention']} = {n_attn} layers "
+          f"x 3 prefills, by route {routes}", flush=True)
+    print(f"  (a) prefill {SERVE_SLOTS}x{PROMPT_LEN}: {prefill_ms:.2f} ms on "
+          f"the mesh, {plain[0]:.2f} ms without (median of 3); decode: "
+          f"{decode_ms:.3f} ms/step on the mesh, {plain[1]:.3f} without, "
+          f"at batch {SERVE_SLOTS} (the difference is DTensor's host cost)",
+          flush=True)
+
+    # (b) rank 0 of a (1, SHARDED_TP) mesh of fake ranks on the card
+    with fake_group(SHARDED_TP):
+        mesh = make_local_mesh(SHARDED_TP, device_type="cuda")
+        placed = sharding.distribute_tree(
+            params, sharding.logical_to_specs(axes, params, mesh, rules),
+            mesh)
+        heads = placed["layers"][0]["mix"]["wq"].to_local().shape[1] // \
+            cfg.head_dim
+        prefill = make_prefill_step(cfg, cache_len=SHARDED_CACHE_LEN,
+                                    device="cuda", mesh=mesh)
+        with torch.inference_mode():
+            prefill(placed, {"tokens": toks})       # the first, untimed
+            fa_kernel.reset_launches()
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                prefill(placed, {"tokens": toks})
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        rank_launches = fa_kernel.LAUNCHES
+        rank_routes = dict(fa_kernel.LAUNCHES_BY_ROUTE)
+        del placed
+    torch.cuda.empty_cache()
+    check(heads * SHARDED_TP == cfg.n_heads,
+          f"sharded serve (b): {heads} heads a rank of {cfg.n_heads}")
+    check(rank_launches == 3 * n_attn and rank_routes.get(fa_route) ==
+          rank_launches, f"sharded serve (b): flash launches "
+          f"{rank_routes}, expected {3 * n_attn} on {fa_route}")
+    print(f"  (b) one rank of a (1, {SHARDED_TP}) mesh of fake ranks: "
+          f"prefill {SERVE_SLOTS}x{PROMPT_LEN} at {heads} of {cfg.n_heads} "
+          f"heads a rank {sorted(times)[1] * 1e3:.2f} ms (median of 3; one "
+          f"rank's compute with the collectives skipped, its outputs not "
+          f"checked); flash launches {rank_launches // 3} a prefill at "
+          f"({SERVE_SLOTS}, {PROMPT_LEN}, {heads}, {cfg.head_dim}), by "
+          f"route {rank_routes}", flush=True)
+    return launches, {"flash_attention": routes}
 
 
 def check_window_cache(cfg, cache, prompt_len: int, ctx_len: int) -> str:
@@ -3765,37 +3938,21 @@ def service_doc(doc: dict, gated: bool) -> dict:
     return doc
 
 
-def run_batch(svc, submissions, profile: bool):
+def run_batch(svc, submissions):
     """Submit ``[(doc, tenant, seed, submit kwargs)]`` through
     ``submit_document`` and wait for all of them: (run ids, wall seconds,
-    peak bytes, device-busy share or None)."""
+    peak bytes)."""
     reset_kernel_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rids = []
-
-    def go():
-        for doc, tenant, seed, kw in submissions:
-            rids.append(svc.submit_document(doc, inputs={"seed": seed},
-                                            tenant=tenant, **kw))
-        for rid in rids:
-            svc.wait(rid, timeout=SERVICE_WAIT_S)
-        torch.cuda.synchronize()
-
-    busy = None
-    if profile:
-        # the wall from the first submission to the last run's end, without
-        # the profiler's processing of the trace afterwards
-        wall_ms, busy_ms, top, port = profile_ms(go, host_ops=False)
-        print_profile("batch (a), the whole batch, device activity only",
-                      wall_ms, busy_ms, top, port)
-        busy = busy_ms / wall_ms if wall_ms > 0 else float("nan")
-        wall = wall_ms / 1e3
-    else:
-        t0 = time.perf_counter()
-        go()
-        wall = time.perf_counter() - t0
-    return rids, wall, torch.cuda.max_memory_allocated(), busy
+    t0 = time.perf_counter()
+    rids = [svc.submit_document(doc, inputs={"seed": seed}, tenant=tenant,
+                                **kw)
+            for doc, tenant, seed, kw in submissions]
+    for rid in rids:
+        svc.wait(rid, timeout=SERVICE_WAIT_S)
+    torch.cuda.synchronize()
+    return rids, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
 
 
 def print_runs(svc, rids, seeds):
@@ -3835,7 +3992,9 @@ def phase_pipeline_service(own: dict, real: dict, hand_own: dict,
     # lab_b's documents carrying the analyze: gate (d), two at a time
     subs = [(service_doc(doc_own, tenant == "lab_b"), tenant, seed, {})
             for seed in (0, 1) for tenant in SERVICE_TENANTS]
-    rids, wall, peak, busy = run_batch(svc, subs, profile=True)
+    # (the profiler's device trace of this batch took ~54 s to read on the
+    # card: phase 41 took its time)
+    rids, wall, peak = run_batch(svc, subs)
     states = [svc.status(r).state for r in rids]
     check(states == [COMPLETE] * 4, f"pipeline service (a): states {states}")
     totals = check_launches("pipeline service (a)", {
@@ -3852,7 +4011,7 @@ def phase_pipeline_service(own: dict, real: dict, hand_own: dict,
     check(svc.pool.deploy_count == 2,
           f"pipeline service (a): {svc.pool.deploy_count} deploys")
     makespans = [svc.result(r).wall_seconds for r in rids]
-    print(f"  (a) 4 runs of {n} samples, 2 at a time, under the profiler: "
+    print(f"  (a) 4 runs of {n} samples, 2 at a time: "
           f"all COMPLETE; the seed-0 runs phase 38's result ("
           f"{'the same bits' if all(r['same_bits'] for r in results) else 'within the bars'}"
           f"; max loss rel err {max(r['loss_err'] for r in results):.3e}), "
@@ -3861,14 +4020,12 @@ def phase_pipeline_service(own: dict, real: dict, hand_own: dict,
           f"flash launches {totals}; pool deploys "
           f"{svc.pool.deploy_count}", flush=True)
     print_runs(svc, rids, [seed for _, _, seed, _ in subs])
-    print(f"  (a) batch wall {wall:.3f} s under the profiler, device "
-          f"activity only (phase 38's "
-          f"makespan {own['makespan_s']:.3f} s a run, x 4 = "
+    print(f"  (a) batch wall {wall:.3f} s (phase 38's makespan "
+          f"{own['makespan_s']:.3f} s a run, x 4 = "
           f"{4 * own['makespan_s']:.3f} s), peak memory "
-          f"{peak / 2**30:.2f} GiB, device busy {busy:.1%} of the batch",
-          flush=True)
+          f"{peak / 2**30:.2f} GiB, device busy not measured", flush=True)
     out["a"] = {"wall_s": wall, "makespans_s": makespans,
-                "peak_bytes": peak, "busy": busy, "launches": totals}
+                "peak_bytes": peak, "launches": totals}
     part_s["a"], t_part = time.perf_counter() - t_part, time.perf_counter()
 
     # (b) a fifth run, journaled with its payloads, cancelled once its
@@ -3945,7 +4102,7 @@ def phase_pipeline_service(own: dict, real: dict, hand_own: dict,
 
     # (c) PIPELINE_REAL: one seed-0 run a tenant, at the same time
     subs = [(doc_real, tenant, 0, {}) for tenant in SERVICE_TENANTS]
-    rids, wall, peak, _ = run_batch(svc, subs, profile=False)
+    rids, wall, peak = run_batch(svc, subs)
     states = [svc.status(r).state for r in rids]
     check(states == [COMPLETE] * 2, f"pipeline service (c): states {states}")
     real_totals = check_launches("pipeline service (c)", {
@@ -4410,6 +4567,8 @@ def main() -> int:
     routes = {}     # {arch: {kernel: launches by route}}
     cfg, params, dense_launches, routes[ARCH] = phase_serve(ARCH)
     phase_consistency(cfg, params)
+    sharded_launches, routes[f"{ARCH} sharded"] = \
+        phase_serve_sharded(cfg, params)
     del params
     torch.cuda.empty_cache()
     cfg, params, moe_launches, routes[MOE_ARCH] = \
@@ -4501,7 +4660,9 @@ def main() -> int:
              "pipeline service": service["launches"]["flash_attention"],
              "pipeline recovery": recovery["launches"]["flash_attention"],
              **{arch: n["flash_attention"]
-                for arch, n in zoo_launches.items()}},
+                for arch, n in zoo_launches.items()},
+             # phase 41 (a): 3 prefills on a (1, 1) mesh
+             f"{ARCH} sharded": sharded_launches["flash_attention"]},
          "launches_by_route": {
              **{arch: r["flash_attention"] for arch, r in routes.items()},
              f"{ARCH} train": train_routes["flash_attention"],
@@ -4516,7 +4677,9 @@ def main() -> int:
          # deepseek-coder-33b's prefill (GQA 56/8, a group of 7) and
          # h2o-danube-3-4b's past its window (B 4, S 5000, Dh 120)
          "at_deepseek_shape": fa_timing["deepseek-prefill"],
-         "at_h2o_long_shape": fa_timing["h2o-long-prefill"]},
+         "at_h2o_long_shape": fa_timing["h2o-long-prefill"],
+         # minicpm-2b's prefill on one rank of phase 41's (1, 4) mesh
+         "at_minicpm_rank_shape": fa_timing["minicpm-rank-prefill"]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention_bwd.cu",

@@ -29,6 +29,7 @@ import torch
 
 from repro_torch import convert
 from repro_torch.checkpoint.msgpack_codec import packb, unpackb
+from repro_torch.distributed import sharding
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim import AdamWState
 from repro_torch.tree import tree_map
@@ -174,6 +175,17 @@ def restore_into(cfg: ArchConfig, template, leaves: Dict[str, torch.Tensor],
                     template)
 
 
+def place_tree(tree, placements, mesh):
+    """Elastic placement: each leaf of ``tree`` (whole tensors, e.g. as
+    ``restore_into`` gives them) as a DTensor on ``mesh`` with the
+    placements of the same leaf of ``placements`` (a tuple of ``Shard`` /
+    ``Replicate`` per mesh dim, as ``sharding.placements`` makes them).
+    Works whatever mesh, or none, the checkpoint was written from."""
+    return sharding.map_leaves(
+        lambda t, place: sharding.distribute_placed(t, mesh, tuple(place)),
+        tree, placements)
+
+
 class CheckpointManager:
     """Keep-last-k manager with auto-resume, for one model config."""
 
@@ -201,11 +213,20 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.root, f"step_{s:08d}"),
                           ignore_errors=True)
 
-    def restore_latest(self, templates: Dict[str, Any]):
-        """Returns (step, {name: tree}, meta) or None if no checkpoint."""
+    def restore_latest(self, templates: Dict[str, Any],
+                       placements: Optional[Dict[str, Any]] = None,
+                       mesh=None):
+        """Returns (step, {name: tree}, meta) or None if no checkpoint.
+        A name in ``placements`` comes back placed on ``mesh`` by that
+        tree of placements (``place_tree``)."""
         step = latest_step(self.root)
         if step is None:
             return None
         step, leaves, meta = load_checkpoint(self.root, step)
-        return step, {name: restore_into(self.cfg, tmpl, leaves, name)
-                      for name, tmpl in templates.items()}, meta
+        out = {}
+        for name, tmpl in templates.items():
+            tree = restore_into(self.cfg, tmpl, leaves, name)
+            if placements and name in placements:
+                tree = place_tree(tree, placements[name], mesh)
+            out[name] = tree
+        return step, out, meta

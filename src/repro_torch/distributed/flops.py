@@ -28,8 +28,16 @@ times, and so do their backward and the sums of the gradients it hands
 on; the results are then not the model's, only its counts are, and they
 equal the counts of every iteration run.
 
-Collectives move no bytes between cards on one card: ``collective_bytes``
-stays empty there.
+On a device mesh the step's tensors are DTensors.  The counter lets
+DTensor turn each op into the ops on this rank's local pieces and the
+collectives between ranks (``_c10d_functional``'s all-gather, all-reduce,
+reduce-scatter and all-to-all), and counts those: the FLOPs and bytes are
+then one card's, and each collective adds its wire bytes per rank to
+``collective_bytes`` (and its payload to the traffic) by the ring factors
+of the reference's ``_wire``: an all-reduce of b bytes over g ranks sends
+2 (g - 1) / g b, the others (g - 1) / g b, b the larger of its input and
+output.  A collective over one rank, and every op on one card, moves
+nothing between cards: ``collective_bytes`` stays empty there.
 """
 from __future__ import annotations
 
@@ -60,6 +68,7 @@ class FlopTotals:
     traffic_bytes: float = 0.0
     kernels: Dict[str, KernelCount] = field(default_factory=dict)
     collective_bytes: Dict[str, float] = field(default_factory=dict)
+    collective_calls: Dict[str, int] = field(default_factory=dict)
     peak_live_bytes: int = 0
 
     @property
@@ -71,6 +80,52 @@ class FlopTotals:
 _FACTORY_LIKE = ("empty", "zeros_like", "ones_like", "full_like",
                  "rand_like", "randn_like", "new_zeros", "new_ones",
                  "new_full", "fill_", "zero_")
+
+
+# ``_c10d_functional`` ops by the reference's collective names
+_COLLECTIVES = {"all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+                "all_gather_into_tensor": "all-gather",
+                "reduce_scatter_tensor": "reduce-scatter",
+                "all_to_all_single": "all-to-all"}
+
+
+def _wire(kind: str, b: float, g: int) -> float:
+    """Bytes one rank sends for a collective of ``b`` bytes over ``g``
+    ranks (ring algorithms), as the reference's ``hlo._wire``."""
+    if kind == "all-reduce":
+        return 2.0 * (g - 1) / g * b
+    return (g - 1) / g * b
+
+
+def _collective(func, args, kwargs, out):
+    """(kind, bytes, group size) of a functional collective, else None."""
+    if func.namespace != "_c10d_functional" or \
+            func._opname not in _COLLECTIVES:
+        return None
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    group = kwargs.get("group_name", args[-1])
+    if not isinstance(group, dist.ProcessGroup):
+        group = _resolve_process_group(group)
+    tensors = [t for t in tree_leaves((args[0], out))
+               if isinstance(t, torch.Tensor)]
+    return (_COLLECTIVES[func._opname], max(t.nbytes for t in tensors),
+            group.size())
+
+
+def _has_dtensor(types) -> bool:
+    from torch.distributed.tensor import DTensor
+    return any(issubclass(t, DTensor) for t in types)
+
+
+def _propagating(types, args, kwargs) -> bool:
+    """Whether the op is one DTensor runs to work out its placements (on
+    fake tensors, or on meta tensors that carry a ``_spec``), not one of
+    the step's own."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return any(issubclass(t, FakeTensor) for t in types) or any(
+        hasattr(t, "_spec") for t in tree_leaves((args, kwargs))
+        if isinstance(t, torch.Tensor))
 
 
 def _is_view(func) -> bool:
@@ -126,7 +181,14 @@ class FlopCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        if torch._C._dispatch_has_kernel_for_dispatch_key(
+        if _has_dtensor(types):
+            # DTensor runs the op as local ops and collectives, which come
+            # back here
+            return NotImplemented
+        if _propagating(types, args, kwargs):
+            return func(*args, **kwargs)
+        if func.namespace == "aten" and \
+                torch._C._dispatch_has_kernel_for_dispatch_key(
                 func.name(), torch._C.DispatchKey.CompositeImplicitAutograd):
             # an op that reaches the mode whole (as matmul does under
             # inference_mode) counts by the ops it decomposes into
@@ -142,6 +204,17 @@ class FlopCounter(TorchDispatchMode):
         if self._suspended:
             return out
         mult = self._mult
+        coll = _collective(func, args, kwargs, out)
+        if coll is not None:
+            kind, nbytes, g = coll
+            if g > 1:
+                t = self.totals
+                t.collective_bytes[kind] = t.collective_bytes.get(
+                    kind, 0.0) + mult * _wire(kind, nbytes, g)
+                t.collective_calls[kind] = t.collective_calls.get(
+                    kind, 0) + mult
+                t.traffic_bytes += mult * nbytes
+            return out
         count = flop_registry.get(func._overloadpacket)
         if count is not None:
             self.totals.flops += mult * count(*args, **kwargs, out_val=out)

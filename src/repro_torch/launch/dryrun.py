@@ -1,9 +1,11 @@
 """Dry run of the port: one roofline record per (arch x shape) cell on one
-H100 (PyTorch port of ``repro/launch/dryrun.py``).
+H100, or on a mesh of H100s (PyTorch port of ``repro/launch/dryrun.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch minicpm-2b \
         --shape train_4k --out build/dryrun
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out DIR
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch minitron-8b \
+        --shape prefill_32k --dp 1 --tp 8 --ruleset base --out DIR
 
 Each cell builds the full-width, full-depth model on the ``meta`` device
 and runs its step there at the cell's whole global batch, under
@@ -18,10 +20,23 @@ the peak of its live temporaries (an estimate), and the roofline terms
 against ``launch.mesh``'s figures.  ``launch/roofline.py`` turns the
 records into a table.  A cell that does not apply is written as a record
 with its ``skip`` reason.
+
+With ``--dp``/``--tp`` (and ``--multi-pod``: two pods of dp x tp) above one
+card, the cell runs on rank 0 of a fake process group of that many ranks
+(``torch.distributed``'s "fake" backend: its collectives move nothing), on
+a ``DeviceMesh`` ("data", "model") or ("pod", "data", "model"), with the
+params placed by ``--ruleset``, the batch by ``batch_specs`` and the cache
+by ``cache_specs``.  The counts are then one card's: its local FLOPs and
+bytes, the wire bytes of the collectives DTensor emits, its share of the
+arguments; the record's ``mesh`` is e.g. "1x8xH100" and ``chips`` the
+world size.  Serving cells of the dense self-attention decoders only:
+training and the other configs under a mesh are written with a ``skip``
+reason that names the later slice.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -32,21 +47,57 @@ from typing import Any, Dict, Optional, Union
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_arch, get_schedule
+from repro_torch.distributed import sharding
 from repro_torch.distributed.flops import FlopCounter
-from repro_torch.launch.mesh import HBM_BW, NVLINK_BW, PEAK_FLOPS_BF16
+from repro_torch.launch.mesh import (HBM_BW, NVLINK_BW, PEAK_FLOPS_BF16,
+                                     make_production_mesh)
 from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
-                                      make_train_step)
+                                      make_train_step, place_batch)
 from repro_torch.models import registry as R
+from repro_torch.models import transformer as tf
 from repro_torch.models.config import SHAPES_BY_NAME, ShapeSpec, skip_reason
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.tree import tree_leaves
 
 MESH = "1xH100"
 META = torch.device("meta")
+TRAIN_ON_MESH = ("training under a mesh comes in a later slice (the "
+                 "reference's sharded train step)")
+
+
+def mesh_name(dp: int, tp: int, multi_pod: bool) -> str:
+    """"1xH100" for one card, else e.g. "1x8xH100" or "2x4x2xH100"."""
+    if dp * tp == 1 and not multi_pod:
+        return MESH
+    return ("2x" if multi_pod else "") + f"{dp}x{tp}xH100"
+
+
+def _local(t):
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def _nbytes(tree) -> int:
-    return sum(t.nbytes for t in tree_leaves(tree))
+    """The bytes of a tree's tensors on this card (a DTensor's local
+    piece)."""
+    return sum(_local(t).nbytes for t in tree_leaves(tree))
+
+
+@contextlib.contextmanager
+def fake_group(world: int):
+    """The default process group as rank 0 of ``world`` fake ranks, for
+    the duration; raises if a group exists."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group exists; the dry run on a mesh "
+                           "makes its own fake one")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def _batch(cfg, B: int, S: int, train: bool) -> Dict[str, torch.Tensor]:
@@ -70,34 +121,66 @@ def _batch(cfg, B: int, S: int, train: bool) -> Dict[str, torch.Tensor]:
 
 def lower_cell(arch: str, shape: Union[str, ShapeSpec], *,
                accum_steps: int = 1, moe_dispatch: str = "gather",
-               remat: Optional[str] = None) -> Dict[str, Any]:
+               remat: Optional[str] = None, dp: int = 1, tp: int = 1,
+               ruleset: str = "base",
+               multi_pod: bool = False) -> Dict[str, Any]:
     """Count one cell's step on ``meta``; returns the JSON-able record.
 
     ``shape`` is a name of ``SHAPES_BY_NAME`` or a ``ShapeSpec`` of its
-    own."""
+    own.  ``dp``, ``tp``, ``multi_pod``: the mesh (one card by default);
+    ``ruleset``: a name of ``sharding.RULESETS``, read on a mesh."""
     cfg = get_arch(arch)
     if remat is not None:
         cfg = dataclasses.replace(cfg, remat=remat)
     if isinstance(shape, str):
         shape = SHAPES_BY_NAME[shape]
     B, S = shape.global_batch, shape.seq_len
+    chips = dp * tp * (2 if multi_pod else 1)
     rec: Dict[str, Any] = {
         "arch": arch, "shape": shape.name, "kind": shape.kind, "batch": B,
-        "seq_len": S, "n_layers": cfg.n_layers, "mesh": MESH, "chips": 1,
+        "seq_len": S, "n_layers": cfg.n_layers,
+        "mesh": mesh_name(dp, tp, multi_pod), "chips": chips,
         "accum_steps": accum_steps, "moe_dispatch": moe_dispatch,
         "remat": cfg.remat,
     }
     reason = skip_reason(cfg, shape) if shape.name in SHAPES_BY_NAME \
         else None
+    if chips > 1:
+        rec.update(ruleset=ruleset, mesh_dp_tp=[dp, tp],
+                   multi_pod=multi_pod)
+        if reason is None and shape.kind == "train":
+            reason = TRAIN_ON_MESH
+        if reason is None:
+            try:
+                tf.check_mesh_supported(cfg)
+            except NotImplementedError as e:
+                reason = str(e)
     if reason:
         rec["skip"] = reason
         return rec
+    if chips == 1:
+        return _count(rec, cfg, shape, accum_steps, moe_dispatch, None,
+                      None)
+    with fake_group(chips):
+        mesh = make_production_mesh(dp, tp, multi_pod, device_type="cpu")
+        return _count(rec, cfg, shape, accum_steps, moe_dispatch, mesh,
+                      sharding.RULESETS[ruleset])
 
+
+def _count(rec, cfg, shape, accum_steps, moe_dispatch, mesh, rules):
+    """Fill ``rec`` with the counts of the cell's step, on one card or on
+    rank 0 of ``mesh`` with the params placed by ``rules``."""
+    arch, B, S, chips = rec["arch"], rec["batch"], rec["seq_len"], \
+        rec["chips"]
     t0 = time.time()
     train = shape.kind == "train"
     # training keeps float32 master weights; serving cfg.dtype weights
     params = R.init_params(cfg, device=META,
                            param_dtype=torch.float32 if train else None)
+    if mesh is not None:
+        specs = sharding.logical_to_specs(R.logical_axes(cfg), params, mesh,
+                                          rules)
+        params = sharding.distribute_tree(params, specs, mesh)
     memory = {"parameters": _nbytes(params)}
     counter = FlopCounter()
     if train:
@@ -120,17 +203,23 @@ def lower_cell(arch: str, shape: Union[str, ShapeSpec], *,
         tokens = shape.tokens
     elif shape.kind == "prefill":
         batch = _batch(cfg, B, S, train=False)
-        memory["inputs"] = _nbytes(batch)
+        memory["inputs"] = _nbytes(batch if mesh is None
+                                   else place_batch(batch, mesh))
         step = make_prefill_step(cfg, moe_dispatch=moe_dispatch,
-                                 device=META)
+                                 device=META, mesh=mesh)
         with counter, torch.inference_mode():
             step(params, batch)
         tokens = shape.tokens
     else:           # one new token a row against a cache of S positions
         cache = R.init_cache(cfg, B, S, device=META)
         tokens = torch.empty((B, 1), dtype=torch.int32, device=META)
-        memory.update(cache=_nbytes(cache), inputs=tokens.nbytes)
-        step = make_serve_step(cfg, moe_dispatch=moe_dispatch, device=META)
+        if mesh is not None:
+            cache = sharding.distribute_tree(
+                cache, sharding.cache_specs(cache, mesh), mesh)
+        memory.update(cache=_nbytes(cache), inputs=_nbytes(
+            tokens if mesh is None else place_batch({"t": tokens}, mesh)))
+        step = make_serve_step(cfg, moe_dispatch=moe_dispatch, device=META,
+                               mesh=mesh)
         with counter, torch.inference_mode():
             step(params, tokens, S - 1, cache)
         tokens = B
@@ -151,6 +240,10 @@ def lower_cell(arch: str, shape: Union[str, ShapeSpec], *,
         "collective_wire_bytes": dict(tot.collective_bytes),
         "total_wire_bytes": tot.total_wire_bytes,
     }
+    if mesh is not None:
+        rec["counted"]["collective_calls"] = dict(tot.collective_calls)
+    # the terms are one card's: the counts are rank 0's (every rank does
+    # alike), the model's FLOPs its share
     model_fl = R.model_flops(cfg, tokens, train=train)
     compute_s = tot.flops / PEAK_FLOPS_BF16
     memory_s = tot.traffic_bytes / HBM_BW
@@ -160,25 +253,29 @@ def lower_cell(arch: str, shape: Union[str, ShapeSpec], *,
     bound_s = max(terms.values())
     rec["roofline"] = {
         "model_flops": model_fl,
-        "counted_flops_global": tot.flops,
-        "useful_ratio": model_fl / tot.flops if tot.flops else 0.0,
+        "counted_flops_global": tot.flops * chips,
+        "useful_ratio": model_fl / (tot.flops * chips) if tot.flops
+        else 0.0,
         "compute_s": compute_s,
         "memory_s": memory_s,
         "collective_s": collective_s,
         "dominant": max(terms, key=terms.get),
         "bound_s": bound_s,
-        "roofline_frac": (model_fl / PEAK_FLOPS_BF16) / max(bound_s, 1e-12),
+        "roofline_frac": (model_fl / chips / PEAK_FLOPS_BF16) /
+        max(bound_s, 1e-12),
     }
     return rec
 
 
 def run_cell(arch, shape_name, out_dir, suffix: str = "", **kw):
-    name = f"{arch}__{shape_name}__{MESH}" + (f"__{suffix}" if suffix
+    mesh = mesh_name(kw.get("dp", 1), kw.get("tp", 1),
+                     kw.get("multi_pod", False))
+    name = f"{arch}__{shape_name}__{mesh}" + (f"__{suffix}" if suffix
                                               else "")
     try:
         rec = lower_cell(arch, shape_name, **kw)
     except Exception as e:  # a failure here is a fault of the port
-        rec = {"arch": arch, "shape": shape_name, "mesh": MESH,
+        rec = {"arch": arch, "shape": shape_name, "mesh": mesh,
                "error": repr(e), "traceback": traceback.format_exc()}
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
@@ -203,6 +300,12 @@ def main(argv=None):
     ap.add_argument("--moe-dispatch", default="gather",
                     choices=["einsum", "gather"])
     ap.add_argument("--remat", default=None, choices=["full", "dots", "none"])
+    ap.add_argument("--dp", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="two pods of dp x tp ranks")
+    ap.add_argument("--ruleset", default="base",
+                    choices=list(sharding.RULESETS))
     ap.add_argument("--suffix", default="",
                     help="artifact-name suffix for variants")
     ap.add_argument("--out", default="build/dryrun")
@@ -218,7 +321,9 @@ def main(argv=None):
         for s in shapes:
             rec = run_cell(a, s, args.out, args.suffix,
                            accum_steps=args.accum_steps,
-                           moe_dispatch=args.moe_dispatch, remat=args.remat)
+                           moe_dispatch=args.moe_dispatch, remat=args.remat,
+                           dp=args.dp, tp=args.tp, ruleset=args.ruleset,
+                           multi_pod=args.multi_pod)
             n_err += "error" in rec
     print(f"[dryrun] {len(archs) * len(shapes)} cells in "
           f"{time.time() - t0:.1f} s", flush=True)

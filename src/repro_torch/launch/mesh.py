@@ -10,6 +10,8 @@ limit of 700 W; a card set below it runs slower under load, and
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 # NVIDIA H100 SXM data sheet, per card
@@ -37,19 +39,53 @@ def bound(work, dtype):
                                        else "operations"), flops, nbytes
 
 
-def make_local_mesh():
-    """A one-dimensional ``DeviceMesh`` ("data") over the ranks of the
-    default process group, one card each.  Raises without a process group:
-    the caller starts it (``torch.distributed.init_process_group``) with
-    its address, world size and rank."""
+def _process_group_device_type(device_type):
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("no process group; call "
+                           "torch.distributed.init_process_group first")
+    if device_type is not None:
+        return device_type
+    return "cuda" if dist.get_backend() == "nccl" else "cpu"
+
+
+def make_production_mesh(dp: int, tp: int, multi_pod: bool = False, *,
+                         device_type=None):
+    """A ``DeviceMesh`` ("data", "model"), or ("pod", "data", "model") of
+    2 x dp x tp, over the ranks of the default process group, one card
+    each (the reference's production mesh, whose pods are 256 TPU chips;
+    here the sizes are the caller's).  Raises unless the mesh covers the
+    group's world size exactly.  ``device_type`` defaults to "cuda" on an
+    NCCL group and "cpu" on any other."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
-    if not (dist.is_available() and dist.is_initialized()):
-        raise RuntimeError("make_local_mesh: no process group; call "
-                           "torch.distributed.init_process_group first")
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(device_type, (dist.get_world_size(),),
-                            mesh_dim_names=("data",))
+    device_type = _process_group_device_type(device_type)
+    shape = (2, dp, tp) if multi_pod else (dp, tp)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    world = dist.get_world_size()
+    if math.prod(shape) != world:
+        raise ValueError(f"a {'x'.join(map(str, shape))} mesh needs "
+                         f"{math.prod(shape)} ranks, the group has {world}")
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def make_local_mesh(model_axis: int = 1, *, device_type=None):
+    """A ``DeviceMesh`` ("data", "model") of (world // model_axis,
+    model_axis) over the ranks of the default process group, one card
+    each; ``model_axis`` is clipped to [1, world].  Raises without a
+    process group: the caller starts it
+    (``torch.distributed.init_process_group``) with its address, world
+    size and rank.  ``mesh["data"]`` is its one-dimensional data axis."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    device_type = _process_group_device_type(device_type)
+    n = dist.get_world_size()
+    model_axis = max(1, min(model_axis, n))
+    if n % model_axis:
+        raise ValueError(f"{n} ranks do not split into a model axis of "
+                         f"{model_axis}")
+    return init_device_mesh(device_type, (n // model_axis, model_axis),
+                            mesh_dim_names=("data", "model"))
 
 
 def mesh_chips(mesh) -> int:

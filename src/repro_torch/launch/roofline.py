@@ -3,8 +3,9 @@
 
     PYTHONPATH=src python -m repro_torch.launch.roofline --dir build/dryrun
 
-Per (arch x shape) on one H100: the three roofline terms (seconds), the
-dominant one, MODEL_FLOPS / counted FLOPs, the roofline fraction, the
+Per (arch x shape x mesh), on one H100 or per card of a mesh of ``chips``
+H100s: the three roofline terms (seconds), the dominant one, MODEL_FLOPS /
+counted FLOPs (both over every card), the roofline fraction, the
 arguments' and the temporaries' memory and whether they fit the card's
 80 GB, and a what-would-move-the-dominant-term-down note from the cell's
 mix of FLOPs, bytes and collectives.
@@ -64,6 +65,7 @@ def fmt_row(rec: dict) -> Dict[str, str]:
     return {
         "arch": rec["arch"], "shape": rec["shape"],
         "mesh": rec.get("mesh", "1xH100"),
+        "chips": str(rec.get("chips", 1)),
         "compute_s": f"{r['compute_s']:.4f}",
         "memory_s": f"{r['memory_s']:.4f}",
         "collective_s": f"{r['collective_s']:.4f}",

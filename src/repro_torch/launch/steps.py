@@ -20,6 +20,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.convert import decay_mask
+from repro_torch.distributed import sharding
 from repro_torch.models import registry as R
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim import AdamWConfig, adamw_update, make_schedule
@@ -161,23 +162,51 @@ def make_eval_step(cfg: ArchConfig, *, moe_dispatch: str = "einsum",
     return eval_step
 
 
+def place_batch(batch, mesh):
+    """The batch's tensors as DTensors on ``mesh`` by ``batch_specs``
+    (leading dim over the DP axes where it divides); DTensors pass as
+    they are."""
+    from torch.distributed.tensor import DTensor
+
+    def place(t):
+        if isinstance(t, DTensor):
+            return t
+        if not isinstance(t, torch.Tensor):
+            t = torch.as_tensor(t, device=mesh.device_type)
+        return sharding.distribute(t, mesh, sharding.batch_specs([t],
+                                                                 mesh)[0])
+    return {k: place(v) for k, v in batch.items()}
+
+
 def make_prefill_step(cfg: ArchConfig, *, moe_dispatch: str = "einsum",
-                      cache_len: Optional[int] = None, device=None):
-    """(params, batch) -> (last_logits, cache)."""
+                      cache_len: Optional[int] = None, device=None,
+                      mesh=None):
+    """(params, batch) -> (last_logits, cache).  ``mesh``: a
+    ``DeviceMesh`` on which ``params`` lie (``sharding.distribute_tree``);
+    the batch is placed by ``sharding.batch_specs`` and the cache comes
+    back placed by ``sharding.cache_specs``."""
     def prefill_step(params, batch):
+        if mesh is not None:
+            batch = place_batch(batch, mesh)
         return R.prefill(params, cfg, batch, cache_len=cache_len,
-                         moe_dispatch=moe_dispatch, device=device)
+                         moe_dispatch=moe_dispatch, device=device,
+                         mesh=mesh)
     return prefill_step
 
 
 def make_serve_step(cfg: ArchConfig, *, moe_dispatch: str = "einsum",
-                    device=None):
+                    device=None, mesh=None):
     """One decode step: (params, tokens, pos, cache) ->
-    (next_tokens, logits, cache), greedy (argmax) as in the reference."""
+    (next_tokens, logits, cache), greedy (argmax) as in the reference.
+    ``mesh`` as ``make_prefill_step``'s: the tokens are placed by
+    ``sharding.batch_specs``, the cache is the prefill step's, and the
+    next tokens come back as a DTensor that the next step takes."""
     def serve_step(params, tokens, pos, cache):
+        if mesh is not None:
+            tokens = place_batch({"tokens": tokens}, mesh)["tokens"]
         logits, cache = R.decode_step(params, cfg, tokens, pos, cache,
                                       moe_dispatch=moe_dispatch,
-                                      device=device)
+                                      device=device, mesh=mesh)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
         return nxt, logits, cache
     return serve_step

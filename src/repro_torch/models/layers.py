@@ -102,12 +102,28 @@ def gated_mlp(x, p, act: str):
     return dense(h, p["w2"])
 
 
+def split_heads(t, shape):
+    """``t.reshape(shape)``, the last dim split into (heads, Dh).  A
+    DTensor's last dim sharded over a mesh dim that does not divide the
+    heads is gathered first (DTensor splits only a dim whose leading part
+    its shards divide), as the reference's partitioner does."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(t, DTensor):
+        mesh, place = t.device_mesh, list(t.placements)
+        for i, p in enumerate(place):
+            if p.is_shard(t.ndim - 1) and shape[-2] % mesh.size(i):
+                place[i] = Replicate()
+        if place != list(t.placements):
+            t = t.redistribute(mesh, place)
+    return t.reshape(shape)
+
+
 # ---------------------------------------------------------------------------
 # Attention (GQA, causal / sliding-window), plain version
 # ---------------------------------------------------------------------------
 
 def attention(q, k, v, *, causal: bool, window: int = 0, q_offset: int = 0,
-              kv_len: Optional[int] = None):
+              kv_len: Optional[int] = None, return_lse: bool = False):
     """Grouped-query attention, exact softmax.
 
     q: (B, S_q, H, Dh); k, v: (B, S_k, KH, Dh).  H = KH * G.
@@ -115,7 +131,10 @@ def attention(q, k, v, *, causal: bool, window: int = 0, q_offset: int = 0,
     ``window`` > 0 restricts attention to the last ``window`` key positions.
     ``kv_len``: number of valid key slots (decode caches).
     Scores are formed in the input dtype and then upcast, as the JAX
-    reference does.  Returns (B, S_q, H, Dh).
+    reference does.  Returns (B, S_q, H, Dh), and with ``return_lse`` also
+    each row's float32 log-sum-exp of its masked scores, (B, S_q, H): the
+    weight of this block of keys when blocks are combined
+    (``combine_partials``).
     """
     B, Sq, H, Dh = q.shape
     Sk, KH = k.shape[1], k.shape[2]
@@ -139,22 +158,48 @@ def attention(q, k, v, *, causal: bool, window: int = 0, q_offset: int = 0,
             mask &= (k_pos < kv_len)[None, :]
         s = s.masked_fill(~mask, -1e30)
         p = torch.softmax(s, dim=-1).to(v.dtype)
-        return torch.einsum("bkgqs,bskd->bqkgd", p, v)
+        out = torch.einsum("bkgqs,bskd->bqkgd", p, v)
+        if not return_lse:
+            return out
+        # (B, KH, G, bq) -> (B, bq, KH, G)
+        return out, torch.logsumexp(s, dim=-1).permute(0, 3, 1, 2)
 
     q_pos = q_offset + torch.arange(Sq, device=q.device)
     if Sq <= _PLAIN_ATTN_MAX:
-        out = block_out(qg, q_pos)
+        outs = [block_out(qg, q_pos)]
     else:   # bound the (bq, S_k) score block; rows are independent
-        out = torch.cat([block_out(qg[:, i:i + _QBLOCK], q_pos[i:i + _QBLOCK])
-                         for i in range(0, Sq, _QBLOCK)], dim=1)
-    return out.reshape(B, Sq, H, Dh)
+        outs = [block_out(qg[:, i:i + _QBLOCK], q_pos[i:i + _QBLOCK])
+                for i in range(0, Sq, _QBLOCK)]
+    if not return_lse:
+        out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+        return out.reshape(B, Sq, H, Dh)
+    out = torch.cat([o for o, _ in outs], dim=1).reshape(B, Sq, H, Dh)
+    lse = torch.cat([l for _, l in outs], dim=1).reshape(B, Sq, H)
+    return out, lse
+
+
+def combine_partials(out, lse, group):
+    """Attention over keys split across the ranks of ``group``, from each
+    rank's ``attention(..., return_lse=True)`` over its own keys: the
+    outputs weighted by exp(lse - the log-sum-exp over all ranks) and
+    summed, in float32 (flash-decoding's combine).  A rank whose keys are
+    all masked has an lse near -1e30 and weight 0.  With one rank the
+    weight is exactly 1 and ``out`` comes back unchanged.  Returns the
+    combined (B, S_q, H, Dh) in ``out``'s dtype on every rank."""
+    from torch.distributed import _functional_collectives as funcol
+    m = funcol.all_reduce(lse, "max", group)
+    total = m + torch.log(funcol.all_reduce(torch.exp(lse - m), "sum",
+                                            group))
+    w = torch.exp(lse - total)[..., None]
+    return funcol.all_reduce(out.float() * w, "sum", group).to(out.dtype)
 
 
 # ---------------------------------------------------------------------------
 # Decode-path attention with a KV ring-buffer cache
 # ---------------------------------------------------------------------------
 
-def decode_attention_block(x, p, cfg, cache, pos: int, *, window: int = 0):
+def decode_attention_block(x, p, cfg, cache, pos: int, *, window: int = 0,
+                           mesh=None):
     """One-token self-attention against a cache.
 
     cache: {"k","v": (B, S_cache, KH, Dh)}; pos: absolute position (int).
@@ -163,23 +208,82 @@ def decode_attention_block(x, p, cfg, cache, pos: int, *, window: int = 0):
     Without a window a position past the cache writes its last slot, as
     ``lax.dynamic_update_slice`` clamps in the reference.  The cache
     tensors are updated in place (no copy of the cache per token) and
-    returned.
+    returned.  On a ``mesh`` the cache is DTensors placed by
+    ``distributed.sharding.cache_specs``: see ``_decode_attend_on_mesh``.
     """
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     B = h.shape[0]
     H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = dense(h, p["wq"]).reshape(B, 1, H, Dh)
-    k = dense(h, p["wk"]).reshape(B, 1, KH, Dh)
-    v = dense(h, p["wv"]).reshape(B, 1, KH, Dh)
+    q = split_heads(dense(h, p["wq"]), (B, 1, H, Dh))
+    k = split_heads(dense(h, p["wk"]), (B, 1, KH, Dh))
+    v = split_heads(dense(h, p["wv"]), (B, 1, KH, Dh))
     posv = torch.full((1,), pos, device=x.device)
     q = rope(q, posv, cfg.rope_theta)
     k = rope(k, posv, cfg.rope_theta)
     ck, cv = cache["k"], cache["v"]
     S_cache = ck.shape[1]
     slot = pos % S_cache if window else min(max(pos, 0), S_cache - 1)
-    ck[:, slot] = k[:, 0].to(ck.dtype)
-    cv[:, slot] = v[:, 0].to(cv.dtype)
     kv_len = min(pos + 1, S_cache)
-    o = attention(q, ck, cv, causal=False, kv_len=kv_len)
+    if mesh is None:
+        ck[:, slot] = k[:, 0].to(ck.dtype)
+        cv[:, slot] = v[:, 0].to(cv.dtype)
+        o = attention(q, ck, cv, causal=False, kv_len=kv_len)
+    else:
+        o = _decode_attend_on_mesh(q, k, v, ck, cv, slot, kv_len, mesh)
     o = dense(o.reshape(B, 1, H * Dh), p["wo"])
     return x + o, {"k": ck, "v": cv}
+
+
+def _decode_attend_on_mesh(q, k, v, ck, cv, slot: int, kv_len: int, mesh):
+    """Write slot ``slot`` and attend over the first ``kv_len`` slots of a
+    cache that lies on ``mesh``; q, k, v (B, 1, heads, Dh) DTensors.
+
+    Each rank holds all heads of its batch rows (q, k, v are made whole
+    over "model").  A sequence-sharded cache (``cache_specs``' choice for
+    1024 slots or more) is written only by the rank that owns ``slot``,
+    each rank attends over its own slots, and the ranks' outputs are
+    combined across "model" by their log-sum-exps (``combine_partials``).
+    A cache sharded along its feature dim (shorter caches) is written by
+    every rank in its own columns and gathered whole over "model" for the
+    attention, as the reference's partitioner does.  Returns o (B, 1, H,
+    Dh), whole over "model"."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    model = mesh.mesh_dim_names.index("model")
+    rank = mesh.get_coordinate()[model]
+    whole = list(ck.placements)
+    whole[model] = Replicate()
+    q, k, v = (t.redistribute(mesh, whole) for t in (q, k, v))
+    cache_place = tuple(ck.placements)
+    in_place = (tuple(whole),) * 3 + (cache_place,) * 2
+
+    if ck.placements[model] == Shard(1):
+        def attend(q, k, v, ck, cv):
+            L = ck.shape[1]
+            lo = rank * L
+            if lo <= slot < lo + L:
+                ck[:, slot - lo] = k[:, 0].to(ck.dtype)
+                cv[:, slot - lo] = v[:, 0].to(cv.dtype)
+            o, lse = attention(q, ck, cv, causal=False,
+                               kv_len=min(max(kv_len - lo, 0), L),
+                               return_lse=True)
+            return combine_partials(o, lse, (mesh, model))
+        return local_map(attend, out_placements=whole, in_placements=in_place,
+                         device_mesh=mesh)(q, k, v, ck, cv)
+
+    sharded = ck.placements[model] == Shard(3)
+
+    def write_cols(k, v, ck, cv):
+        lo = rank * ck.shape[3] if sharded else 0
+        hi = lo + ck.shape[3]
+        ck[:, slot] = k[:, 0, :, lo:hi].to(ck.dtype)
+        cv[:, slot] = v[:, 0, :, lo:hi].to(cv.dtype)
+        return ck, cv
+    ck, cv = local_map(write_cols, out_placements=(list(cache_place),) * 2,
+                       in_placements=in_place[1:],
+                       device_mesh=mesh)(k, v, ck, cv)
+    ck_all, cv_all = (t.redistribute(mesh, whole) for t in (ck, cv))
+    return local_map(
+        lambda q, ck, cv: attention(q, ck, cv, causal=False, kv_len=kv_len),
+        out_placements=whole, in_placements=(tuple(whole),) * 3,
+        device_mesh=mesh)(q, ck_all, cv_all)

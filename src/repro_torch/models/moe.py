@@ -36,6 +36,15 @@ from repro_torch.models.layers import act_fn, rms_norm
 DISPATCHES = ("einsum", "gather")
 
 
+def moe_ffn_axes():
+    """Logical axes of a MoE layer's leaves (the reference's router and
+    ``init_moe_ffn_axes``: the (E, d, f)/(E, f, d) expert tensors)."""
+    return {"ln": ("embed",), "router": ("embed", None),
+            "w1": ("experts", "embed", "mlp"),
+            "w3": ("experts", "embed", "mlp"),
+            "w2": ("experts", "mlp", "embed")}
+
+
 def router_topk(x, wr, k: int) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """Token->expert routing. Returns (weights (T,k) f32, idx (T,k), aux)."""

@@ -18,6 +18,13 @@ forward_logits = tf.forward_logits
 prefill = tf.prefill
 decode_step = tf.decode_step
 init_cache = tf.init_cache
+logical_axes = tf.logical_axes
+
+
+def params_and_axes(cfg: ArchConfig):
+    """(params on ``meta``, their logical axes): the shapes and the
+    sharding names of a full-size model, without allocation."""
+    return tf.init_params(cfg, device="meta"), tf.logical_axes(cfg)
 
 
 def _numel(tree, cfg: ArchConfig, active_only: bool,

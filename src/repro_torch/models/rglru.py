@@ -52,6 +52,17 @@ def d_rnn(cfg) -> int:
     return cfg.d_model
 
 
+def rglru_axes():
+    """Logical axes of an RG-LRU block's leaves, as the reference's
+    ``init_rglru`` gives them."""
+    return {"ln": ("embed",), "w_x": ("embed", "rnn"),
+            "w_g": ("embed", "rnn"), "conv_w": ("conv", "rnn"),
+            "conv_b": ("rnn",), "lam": ("rnn",),
+            "w_a": ("rnn", "rnn_out"), "b_a": ("rnn",),
+            "w_i": ("rnn", "rnn_out"), "b_i": ("rnn",),
+            "w_out": ("rnn", "embed")}
+
+
 def apply_rglru(x, p, cfg, *, return_state: bool = False):
     """Full-sequence Griffin recurrent block. x: (B, S, d).
 

@@ -40,6 +40,7 @@ it is read only by MoE layers):
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Any, Dict, List, Optional
@@ -51,19 +52,23 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.device import check_on_device, resolve_device, torch_dtype
 from repro_torch.distributed import flops
+from repro_torch.distributed.sharding import (cache_specs, data_axes,
+                                              placements, safe_spec)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.config import (ATTN, SWA, LOCAL, CROSS, MLSTM, SLSTM,
                                        RGLRU, ArchConfig)
 from repro_torch.models.layers import (attention, decode_attention_block,
                                        dense, gated_mlp, is_gated_act,
-                                       rms_norm, rope)
-from repro_torch.models.moe import moe_block
+                                       rms_norm, rope, split_heads)
+from repro_torch.models.moe import moe_block, moe_ffn_axes
 from repro_torch.models.rglru import (RGLRU_C, apply_rglru, d_rnn,
-                                      decode_rglru, init_state_rglru)
+                                      decode_rglru, init_state_rglru,
+                                      rglru_axes)
 from repro_torch.models.xlstm import (CONV_K, apply_mlstm, apply_slstm,
                                       decode_mlstm, decode_slstm,
                                       init_state_mlstm, init_state_slstm,
-                                      mlstm_dims, slstm_dims)
+                                      mlstm_axes, mlstm_dims, slstm_axes,
+                                      slstm_dims)
 
 _SELF_ATTN = (ATTN, SWA, LOCAL)
 _RECURRENT = (RGLRU, MLSTM, SLSTM)
@@ -234,22 +239,166 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
     return params
 
 
+def logical_axes(cfg: ArchConfig) -> Dict[str, Any]:
+    """The logical axis names of each leaf of ``init_params(cfg)``, keyed
+    leaf for leaf like it: the reference's axes tree, each layer's without
+    the leading stacked "layers" dim (``distributed.sharding`` maps them
+    onto a mesh)."""
+    check_supported(cfg)
+    recurrent = {RGLRU: rglru_axes, MLSTM: mlstm_axes, SLSTM: slstm_axes}
+
+    def layer(kind):
+        if kind in (MLSTM, SLSTM):
+            return {"mix": recurrent[kind]()}
+        if kind == RGLRU:
+            p = {"mix": rglru_axes()}
+        else:
+            p = {"mix": {"ln": ("embed",), "wq": ("embed", "heads"),
+                         "wk": ("embed", "kv"), "wv": ("embed", "kv"),
+                         "wo": ("heads", "embed")}}
+            if kind == CROSS:
+                p["mix"]["gate"] = ()
+        if cfg.is_moe:
+            p["ffn"] = moe_ffn_axes()
+        elif cfg.d_ff > 0:
+            p["ffn"] = {"ln": ("embed",), "w1": ("embed", "mlp"),
+                        "w2": ("mlp", "embed")}
+            if is_gated_act(cfg.act):
+                p["ffn"]["w3"] = ("embed", "mlp")
+        return p
+
+    axes: Dict[str, Any] = {}
+    if cfg.modality == "audio":
+        axes["frontend"] = (None, "embed")
+    else:
+        axes["embed"] = ("vocab", "embed")
+    if cfg.modality == "vision":
+        axes["vis_proj"] = (None, "embed")
+    axes["layers"] = [layer(layer_kind(cfg, n)) for n in range(cfg.n_layers)]
+    axes["final_ln"] = ("embed",)
+    if not cfg.tie_embeddings:
+        axes["head"] = ("embed", "vocab")
+    return axes
+
+
 # ---------------------------------------------------------------------------
 # Blocks (full sequence)
 # ---------------------------------------------------------------------------
 
-def _self_attn(x, p, cfg, *, positions, window):
-    """Causal unless the model is encoder-only."""
+# ---------------------------------------------------------------------------
+# On a device mesh (serving the dense decoders)
+# ---------------------------------------------------------------------------
+
+_HEADS_HINT = ("batch", None, "model", None)
+
+
+def check_mesh_supported(cfg: ArchConfig) -> None:
+    """Serving under a mesh covers the dense self-attention decoders."""
+    if cfg.is_moe or cfg.modality != "text" or cfg.encoder_only or \
+            not set(cfg.block_pattern) <= {ATTN, SWA}:
+        raise NotImplementedError(
+            f"{cfg.name}: serving under a mesh covers the dense "
+            f"self-attention decoders; MoE under the ep ruleset, recurrent "
+            f"and xLSTM layers under TP, vision and audio come in a later "
+            f"slice")
+
+
+def _on_mesh(cfg: ArchConfig, mesh):
+    """The context a model call runs in: on a mesh, plain tensors (the
+    positions, masks and constants) join DTensor ops as replicated."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    check_mesh_supported(cfg)
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def shard_hint(x, mesh, dims):
+    """Explicit activation-sharding constraint, the reference's
+    ``shard_hint``.
+
+    ``dims``: one logical name per dim of x — "batch" (DP axes), "model"
+    (TP axis), or None.  Without a mesh, or on a plain tensor, this is a
+    no-op.  On a DTensor it redistributes x to ``safe_spec``'s placements
+    (indivisible dims degrade to replicated), so that the partitioning of
+    batch and heads is the reference's whatever DTensor's op rules would
+    pick."""
+    if mesh is None or not _is_dtensor(x):
+        return x
+    dp = data_axes(mesh)
+    dp_axis = dp if len(dp) > 1 else dp[0]
+    want = [dp_axis if d == "batch" else ("model" if d == "model" else None)
+            for d in dims]
+    place = placements(mesh, safe_spec(x.shape, want, mesh))
+    return x if tuple(x.placements) == place else \
+        _reduce_partials(x).redistribute(mesh, place)
+
+
+def _reduce_partials(x):
+    """A DTensor's partial sums reduced whole (all-reduced) first: DTensor's
+    one-step move from a vocab-sharded lookup's masked partial to a batch
+    shard misreads the mask."""
+    if not any(p.is_partial() for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p.is_partial() else p for p in x.placements])
+
+
+def on_local(fn, mesh, *tensors):
+    """``fn`` on each rank's local pieces of the DTensors ``tensors``
+    (``local_map``); its one output takes the first input's placements."""
+    from torch.distributed.tensor.experimental import local_map
+    return local_map(fn, out_placements=list(tensors[0].placements),
+                     in_placements=tuple(tuple(t.placements)
+                                         for t in tensors),
+                     device_mesh=mesh)(*tensors)
+
+
+def _flash_on_local_heads(q, k, v, mesh, causal: bool, window: int):
+    """The flash kernel on each rank's local heads: q, k, v hinted to
+    ("batch", None, "model", None), so a rank holds H / tp query heads
+    and the KH / tp KV heads they read.  Where ``safe_spec`` leaves the KV
+    heads whole (KH does not divide the "model" axis), the query heads are
+    left whole too, and the kernel runs on all heads."""
+    from torch.distributed.tensor import Replicate
+    q, k, v = (shard_hint(t, mesh, _HEADS_HINT) for t in (q, k, v))
+    model = mesh.mesh_dim_names.index("model")
+    if k.placements[model] != q.placements[model]:
+        place = list(q.placements)
+        place[model] = Replicate()
+        q = q.redistribute(mesh, place)
+    return on_local(functools.partial(flash_attention, causal=causal,
+                                      window=window), mesh, q, k, v)
+
+
+def _self_attn(x, p, cfg, *, positions, window, mesh=None):
+    """Causal unless the model is encoder-only.  On a mesh, q, k, v and o
+    are hinted to ("batch", None, "model", None), where the reference
+    hints them."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     B, S, _ = h.shape
     H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = dense(h, p["wq"]).reshape(B, S, H, Dh)
-    k = dense(h, p["wk"]).reshape(B, S, KH, Dh)
-    v = dense(h, p["wv"]).reshape(B, S, KH, Dh)
+    q = shard_hint(split_heads(dense(h, p["wq"]), (B, S, H, Dh)), mesh,
+                   _HEADS_HINT)
+    k = shard_hint(split_heads(dense(h, p["wk"]), (B, S, KH, Dh)), mesh,
+                   _HEADS_HINT)
+    v = shard_hint(split_heads(dense(h, p["wv"]), (B, S, KH, Dh)), mesh,
+                   _HEADS_HINT)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    # the CUDA kernel on the GPU, its plain version on the CPU
-    o = flash_attention(q, k, v, causal=not cfg.encoder_only, window=window)
+    causal = not cfg.encoder_only
+    if _is_dtensor(q):
+        o = _flash_on_local_heads(q, k, v, mesh, causal, window)
+    else:
+        # the CUDA kernel on the GPU, its plain version on the CPU
+        o = flash_attention(q, k, v, causal=causal, window=window)
+    o = shard_hint(o, mesh, _HEADS_HINT)
     return x + dense(o.reshape(B, S, H * Dh), p["wo"]), (k, v)
 
 
@@ -297,7 +446,7 @@ def _apply_ffn(x, p, cfg, moe_dispatch):
 
 
 def _apply_layer(x, memory, layer, kind, cfg, positions, moe_dispatch,
-                 collect_kv: bool):
+                 collect_kv: bool, mesh=None):
     """Returns (x, aux, (k, v) or recurrent state or None)."""
     if kind in _RECURRENT:
         out = _APPLY_RECURRENT[kind](x, layer["mix"], cfg,
@@ -307,7 +456,7 @@ def _apply_layer(x, memory, layer, kind, cfg, positions, moe_dispatch,
         x, kv = _cross_attn(x, layer["mix"], cfg, memory=memory)
     else:
         x, kv = _self_attn(x, layer["mix"], cfg, positions=positions,
-                           window=_window_for(kind, cfg))
+                           window=_window_for(kind, cfg), mesh=mesh)
     aux = 0.0
     if "ffn" in layer:
         x, aux = _apply_ffn(x, layer["ffn"], cfg, moe_dispatch)
@@ -326,9 +475,11 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 
 def _stack_forward(params, cfg, x, memory, positions, moe_dispatch, *,
-                   collect_kv: bool = False, remat: str = "none"):
+                   collect_kv: bool = False, remat: str = "none",
+                   mesh=None):
     """Runs every layer in depth order; ``memory`` (a vision model's
-    projected patches, else None) feeds the CROSS layers.
+    projected patches, else None) feeds the CROSS layers; ``mesh``, the
+    self-attention layers' hints.
 
     ``remat`` is the reference's ``cfg.remat`` for training: "full" keeps
     only each layer's input and recomputes the layer in the backward,
@@ -345,7 +496,7 @@ def _stack_forward(params, cfg, x, memory, positions, moe_dispatch, *,
     aux = 0.0
     for n, layer in enumerate(params["layers"]):
         args = (x, memory, layer, layer_kind(cfg, n), cfg, positions,
-                moe_dispatch, collect_kv)
+                moe_dispatch, collect_kv, mesh)
         if remat == "none":
             x, a, kv = _apply_layer(*args)
         else:
@@ -369,12 +520,21 @@ _INIT_RECURRENT = {RGLRU: init_state_rglru, MLSTM: init_state_mlstm,
 # ---------------------------------------------------------------------------
 
 def _tokens(tokens, device) -> torch.Tensor:
+    if _is_dtensor(tokens):
+        # placed on a mesh by the caller: made whole for the lookup, which
+        # DTensor takes into a vocab-sharded table only with whole ids
+        from torch.distributed.tensor import Replicate
+        mesh = tokens.device_mesh
+        return tokens.redistribute(mesh, [Replicate()] * mesh.ndim).long()
     return torch.as_tensor(tokens, device=device).long()
 
 
 def _embed_tokens(params, cfg, tokens):
     dt = torch_dtype(cfg.dtype)
-    x = F.embedding(tokens, params["embed"]).to(dt)
+    x = F.embedding(tokens, params["embed"])
+    if _is_dtensor(x):
+        x = _reduce_partials(x)
+    x = x.to(dt)
     if cfg.tie_embeddings:
         # sqrt(d) rounded to the activation dtype first, as the reference
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
@@ -499,16 +659,26 @@ def forward_train(params, cfg: ArchConfig, batch, *,
 
 
 def forward_logits(params, cfg: ArchConfig, batch, *,
-                   moe_dispatch: str = "einsum", device=None):
+                   moe_dispatch: str = "einsum", device=None, mesh=None):
     """Full-sequence logits (no cache): eval, tests, and an audio model's
-    encoding.  batch as ``forward_train``'s, without labels."""
+    encoding.  batch as ``forward_train``'s, without labels.
+
+    ``mesh``: a ``DeviceMesh`` ("data", "model") or ("pod", "data",
+    "model") on which ``params`` lie as DTensors
+    (``distributed.sharding.distribute_tree``); the activations are
+    hinted where the reference hints them, and the logits come back as a
+    DTensor, batch-sharded and whole over the vocabulary.  Dense
+    self-attention decoders only (NotImplementedError for the rest)."""
     device = _prepare(params, cfg, device)
-    x, memory = _embed(params, cfg, batch, device)
-    positions = torch.arange(x.shape[1], device=x.device)
-    x, _, _ = _stack_forward(params, cfg, x, memory, positions,
-                             moe_dispatch)
-    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
-    return _unembed(x, params, cfg)
+    with _on_mesh(cfg, mesh):
+        x, memory = _embed(params, cfg, batch, device)
+        x = shard_hint(x, mesh, ("batch", None, None))
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, _, _ = _stack_forward(params, cfg, x, memory, positions,
+                                 moe_dispatch, mesh=mesh)
+        x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+        return shard_hint(_unembed(x, params, cfg), mesh,
+                          ("batch", None, None))
 
 
 def _cache_len(kind: str, cfg: ArchConfig, ctx_len: int) -> int:
@@ -547,7 +717,7 @@ def init_cache(cfg: ArchConfig, B: int, ctx_len: int, *, device=None):
 
 
 def decode_step(params, cfg: ArchConfig, tokens, pos: int, cache, *,
-                moe_dispatch: str = "einsum", device=None):
+                moe_dispatch: str = "einsum", device=None, mesh=None):
     """One new token against the cache.  tokens: (B, 1); pos: int.
 
     Returns (logits: (B, V), cache).  The cache's tensors, attention k/v
@@ -555,35 +725,45 @@ def decode_step(params, cfg: ArchConfig, tokens, pos: int, cache, *,
     holds the same tensors.  A CROSS layer reads its ``ck``/``cv``, which
     ``prefill`` filled from the patches.  An encoder-only (audio) model
     has no decode step: ValueError, as in the reference.
+
+    ``mesh``: as ``forward_logits``'s; the cache is then ``prefill``'s on
+    that mesh, placed by ``distributed.sharding.cache_specs`` (a cache of
+    1024 slots or more sequence-sharded over "model"), and each
+    attention layer's write and read run on the ranks' own slices
+    (``models.layers.decode_attention_block``).
     """
     if cfg.modality == "audio":
         raise ValueError(f"{cfg.name}: encoder-only arch has no decode step")
     device = _prepare(params, cfg, device)
     pos = int(pos)
-    x = _embed_tokens(params, cfg, _tokens(tokens, device))
-    layers = []
-    for n, layer in enumerate(params["layers"]):
-        kind = layer_kind(cfg, n)
-        if kind in _RECURRENT:
-            x, new = _DECODE_RECURRENT[kind](x, layer["mix"], cfg,
-                                             cache["layers"][n])
-        elif kind == CROSS:
-            x, new = _decode_cross_attn(x, layer["mix"], cfg,
-                                        cache["layers"][n])
-        else:
-            x, new = decode_attention_block(
-                x, layer["mix"], cfg, cache["layers"][n], pos,
-                window=_window_for(kind, cfg))
-        layers.append(new)
-        if "ffn" in layer:
-            x, _ = _apply_ffn(x, layer["ffn"], cfg, moe_dispatch)
-    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
-    return _unembed(x, params, cfg)[:, 0], {"layers": layers}
+    with _on_mesh(cfg, mesh):
+        x = _embed_tokens(params, cfg, _tokens(tokens, device))
+        x = shard_hint(x, mesh, ("batch", None, None))
+        layers = []
+        for n, layer in enumerate(params["layers"]):
+            kind = layer_kind(cfg, n)
+            if kind in _RECURRENT:
+                x, new = _DECODE_RECURRENT[kind](x, layer["mix"], cfg,
+                                                 cache["layers"][n])
+            elif kind == CROSS:
+                x, new = _decode_cross_attn(x, layer["mix"], cfg,
+                                            cache["layers"][n])
+            else:
+                x, new = decode_attention_block(
+                    x, layer["mix"], cfg, cache["layers"][n], pos,
+                    window=_window_for(kind, cfg), mesh=mesh)
+            layers.append(new)
+            if "ffn" in layer:
+                x, _ = _apply_ffn(x, layer["ffn"], cfg, moe_dispatch)
+        x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+        logits = shard_hint(_unembed(x, params, cfg)[:, 0], mesh,
+                            ("batch", None))
+    return logits, {"layers": layers}
 
 
 def prefill(params, cfg: ArchConfig, batch, *,
             cache_len: Optional[int] = None, moe_dispatch: str = "einsum",
-            device=None):
+            device=None, mesh=None):
     """Full-context forward that also materialises the decode cache.
 
     Returns (last_token_logits: (B, V), cache).  Each self-attention
@@ -592,15 +772,26 @@ def prefill(params, cfg: ArchConfig, batch, *,
     keys/values in ``cfg.dtype``; a CROSS layer's holds the patch memory's
     keys and values (``ck``, ``cv``) in ``cfg.dtype``; a recurrent layer's
     is its state after the last token, as the reference keeps it.
+
+    ``mesh``: as ``forward_logits``'s; the cache's tensors are then
+    DTensors placed by ``distributed.sharding.cache_specs``, as
+    ``decode_step`` takes them.
     """
     device = _prepare(params, cfg, device)
+    with _on_mesh(cfg, mesh):
+        return _prefill(params, cfg, batch, cache_len, moe_dispatch, device,
+                        mesh)
+
+
+def _prefill(params, cfg, batch, cache_len, moe_dispatch, device, mesh):
     x, memory = _embed(params, cfg, batch, device)
+    x = shard_hint(x, mesh, ("batch", None, None))
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     x, _, kvs = _stack_forward(params, cfg, x, memory, positions,
-                               moe_dispatch, collect_kv=True)
+                               moe_dispatch, collect_kv=True, mesh=mesh)
     x = rms_norm(x[:, -1], params["final_ln"], cfg.norm_eps)
-    logits = _unembed(x, params, cfg)
+    logits = shard_hint(_unembed(x, params, cfg), mesh, ("batch", None))
 
     L_default = cache_len or S
     dt = torch_dtype(cfg.dtype)
@@ -625,5 +816,17 @@ def prefill(params, cfg: ArchConfig, batch, *,
                            "cv": kv[1].to(dt).contiguous()})
             continue
         L = _cache_len(kind, cfg, L_default)
-        layers.append({"k": fit(kv[0], L), "v": fit(kv[1], L)})
+        if mesh is None:
+            layers.append({"k": fit(kv[0], L), "v": fit(kv[1], L)})
+        else:   # fit each rank's heads (S is whole), then place the cache
+            layers.append({
+                name: _place_cache(on_local(functools.partial(fit, L=L),
+                                            mesh, t), mesh)
+                for name, t in zip(("k", "v"), kv)})
     return logits, {"layers": layers}
+
+
+def _place_cache(t, mesh):
+    """A cache tensor redistributed to ``cache_specs``' placements."""
+    spec = cache_specs([tuple(t.shape)], mesh)[0]
+    return t.redistribute(mesh, placements(mesh, spec))

@@ -210,6 +210,18 @@ def mlstm_dims(cfg):
     return H, inner // H, inner
 
 
+def mlstm_axes():
+    """Logical axes of an mLSTM block's leaves, as the reference's
+    ``init_mlstm`` gives them."""
+    heads = ("kv_heads", None, None)
+    return {"ln": ("embed",), "w_up": ("embed", "rnn"),
+            "conv_w": ("conv", "rnn"), "conv_b": ("rnn",),
+            "wq": heads, "wk": heads, "wv": heads,
+            "w_ig": ("rnn", None), "b_ig": (None,),
+            "w_fg": ("rnn", None), "b_fg": (None,),
+            "skip": ("rnn",), "gn": ("rnn",), "w_down": ("rnn", "embed")}
+
+
 def _mlstm_qkv(x_br, xc, p, B, S, H, Dh):
     """q, k from the convolved branch, v from the unconvolved one."""
     xch = xc.reshape(B, S, H, Dh)
@@ -292,6 +304,20 @@ def slstm_dims(cfg):
     """(heads, head dim, post-MLP width) of the sLSTM block."""
     H = cfg.n_heads
     return H, cfg.d_model // H, int(SLSTM_PF * cfg.d_model)
+
+
+def slstm_axes():
+    """Logical axes of an sLSTM block's leaves, as the reference's
+    ``init_slstm`` gives them."""
+    axes = {"ln": ("embed",), "conv_w": ("conv", "embed"),
+            "conv_b": ("embed",), "gn": ("embed",), "mlp_ln": ("embed",),
+            "w1": ("embed", "mlp"), "w3": ("embed", "mlp"),
+            "w2": ("mlp", "embed")}
+    for g in ("z", "i", "f", "o"):
+        axes.update({f"w_{g}": ("embed", "rnn_out"),
+                     f"r_{g}": ("kv_heads", None, None),
+                     f"b_{g}": ("rnn_out",)})
+    return axes
 
 
 def _slstm_scan(zx, ix, fx, ox, p, H, Dh, init):

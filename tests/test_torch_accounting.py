@@ -186,6 +186,7 @@ def test_local_mesh_needs_a_process_group(tmp_path):
     try:
         m = mesh.make_local_mesh()
         assert mesh.mesh_chips(m) == 1
-        assert m.mesh_dim_names == ("data",)
+        assert m.mesh_dim_names == ("data", "model")
+        assert m["data"].mesh_dim_names == ("data",)
     finally:
         dist.destroy_process_group()

@@ -1,7 +1,7 @@
-"""Worker processes for the port's gloo tests (``test_torch_compression``):
-each joins a gloo group through a file store and writes what it saw to
-``out_dir/rank{r}.pt``.  Imports torch and the port only, so that a
-spawned worker starts quickly."""
+"""Worker processes for the port's gloo tests (``test_torch_compression``,
+``test_torch_sharding_serve``): each joins a gloo group through a file
+store and writes what it saw to ``out_dir/rank{r}.pt``.  Imports torch
+and the port only, so that a spawned worker starts quickly."""
 import os
 
 import numpy as np
@@ -76,4 +76,84 @@ def compressed_step_worker(rank, world, init_file, out_dir):
                    os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         compression.all_reduce_int8_with_ef = reduce
+        dist.destroy_process_group()
+
+
+def sharded_serve_worker(rank, world, init_file, out_dir):
+    """The cases of ``out_dir/cases.pkl`` (``test_torch_sharding_serve``):
+    each case's converted params placed by a ruleset on a 2 x 2
+    ("data", "model") mesh or a 2 x 1 x 2 ("pod", "data", "model") one,
+    then ``forward_logits``, ``make_prefill_step`` and greedy
+    ``make_serve_step`` steps on the mesh; and a checkpoint of the first
+    case restored onto the 2 x 2 mesh through ``place_tree``.  Writes the
+    whole logits, tokens and what was checked to ``rank{r}.pt``."""
+    import pickle
+
+    from repro_torch.checkpoint import store
+    from repro_torch.convert import params_from_jax
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps
+    from repro_torch.models import registry as R
+    # four ranks on a shared CPU: two threads each, or they oversubscribe it
+    torch.set_num_threads(2)
+    _join(rank, world, init_file)
+    try:
+        with open(os.path.join(out_dir, "cases.pkl"), "rb") as f:
+            job = pickle.load(f)
+        meshes = {"2x2": M.make_local_mesh(2),
+                  "2x1x2": M.make_production_mesh(1, 2, multi_pod=True)}
+        out = {"mesh_dims": {k: m.mesh_dim_names for k, m in meshes.items()},
+               "runs": {}}
+        for case in job["cases"]:
+            cfg = case["cfg"]
+            params = params_from_jax(cfg, case["params"])
+            axes = R.logical_axes(cfg)
+            toks = torch.as_tensor(case["tokens"])
+            for ruleset, kind in case["runs"]:
+                mesh = meshes[kind]
+                specs = S.logical_to_specs(axes, params, mesh,
+                                           S.RULESETS[ruleset])
+                placed = S.distribute_tree(params, specs, mesh)
+                prefill = steps.make_prefill_step(
+                    cfg, cache_len=case["cache_len"], device="cpu",
+                    mesh=mesh)
+                serve = steps.make_serve_step(cfg, device="cpu", mesh=mesh)
+                with torch.no_grad():
+                    fwd = R.forward_logits(placed, cfg, {"tokens": toks},
+                                           device="cpu", mesh=mesh)
+                    logits, cache = prefill(placed, {"tokens": toks})
+                    run = {"forward": fwd.full_tensor(),
+                           "prefill": logits.full_tensor(),
+                           # the dim each mesh dim shards, None whole
+                           "cache_placements": [
+                               p.dim if p.is_shard() else None for p in
+                               cache["layers"][0]["k"].placements],
+                           "decode": [], "tokens": []}
+                    tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+                    for i in range(case["steps"]):
+                        run["tokens"].append(tok.full_tensor())
+                        tok, logits, cache = serve(
+                            placed, tok, toks.shape[1] + i, cache)
+                        run["decode"].append(logits.full_tensor())
+                    run["tokens"].append(tok.full_tensor())
+                out["runs"][(case["name"], ruleset, kind)] = run
+        # a checkpoint of the first case's params, written whole, restored
+        # onto the 2 x 2 mesh
+        case, mesh = job["cases"][0], meshes["2x2"]
+        cfg = case["cfg"]
+        params = params_from_jax(cfg, case["params"])
+        specs = S.logical_to_specs(R.logical_axes(cfg), params, mesh,
+                                   S.RULESETS["base"])
+        place = S.map_leaves(lambda s: S.placements(mesh, s), specs)
+        step, trees, _ = store.CheckpointManager(
+            job["ckpt_dir"], cfg).restore_latest(
+                {"params": params}, {"params": place}, mesh)
+        restored = S.map_leaves(
+            lambda t, want, p: (tuple(t.placements) == p and torch.equal(
+                t.to_local(), S.local_shard(want, mesh, p))),
+            trees["params"], params, place)
+        out["checkpoint"] = {"step": step, "leaves": restored}
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
         dist.destroy_process_group()

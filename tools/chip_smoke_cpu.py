@@ -17,7 +17,9 @@ crash and a resume from the journal alone),
 ``train-compressed`` (phase 35, on a one-rank gloo group where the card
 has NCCL), ``train-driver`` (phase 36, the train driver on the CPU),
 ``dryrun`` (phase 12's minicpm-2b step at smoke size, then phase 37's
-count of it on ``meta``) and ``zoo`` (phases 27-34: h2o-danube-3-4b on
+count of it on ``meta``), ``sharded-serve`` (phase 4's minicpm-2b serve,
+then phase 41: its steps on a one-rank gloo mesh beside the same steps
+without one, and one rank of a (1, 4) mesh of fake ranks) and ``zoo`` (phases 27-34: h2o-danube-3-4b on
 prompts past its window, minitron-8b, deepseek-coder-33b and mixtral-8x7b through gather at
 MIXTRAL_SERVE_LAYERS layers, each served, freed, then its float32
 consistency on a model drawn anew at ZOO_CONSIST_LAYERS layers, past the
@@ -66,7 +68,7 @@ PHASES = ("serve-vision", "consistency-vision", "train-audio",
           "pipeline", "pipeline-consistency", "pipeline-engine",
           "pipeline-service", "pipeline-recovery", "zoo",
           "train-compressed",
-          "train-driver", "dryrun")
+          "train-driver", "dryrun", "sharded-serve")
 
 
 def fake_launch(q, k, v, out, *, causal, window, scale=None, lse=None):
@@ -269,6 +271,8 @@ def main(argv=None) -> int:
         "zoo": lambda: cs["phase_zoo"](),
         "train-compressed": lambda: cs["phase_train_compressed"](),
         "train-driver": lambda: cs["phase_train_driver"](),
+        "sharded-serve": lambda: cs["phase_serve_sharded"](
+            *cs["phase_serve"](cs["ARCH"])[:2]),
         "dryrun": lambda: cs["phase_dryrun"](
             "CPU rehearsal", cs["phase_train"](
                 seq=cs["TRAIN_SEQ"], profile=False)[2]),
