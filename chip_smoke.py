@@ -23,7 +23,9 @@ a non-zero exit:
                 llama-3.2-vision's and deepseek-coder-33b's prefill shapes
                 and minicpm's on one rank of phase 41's (1, 4) mesh,
                 h2o-danube-3-4b's past its window (S 5000, beside masked
-                SDPA) and hubert-xlarge's train shape, with kernel / SDPA
+                SDPA), hubert-xlarge's and minicpm-2b's train shapes (B 1,
+                S 4096: 36 heads of 64, the shape phase 12 launches 160
+                times a step), with kernel / SDPA
                 as a factor; at hubert's head dim
                 of 80, which the wrapper pads to 120, also the kernel alone
                 on inputs padded beforehand); bf16 flash
@@ -56,8 +58,10 @@ a non-zero exit:
                 causal, at one microbatch of 4096), each case
                 checked to run on its route and, in bf16, to give the same
                 bits on a second call, the forward's row log-sum-exp
-                against the plain one, and at the three train shapes and
-                minicpm's, granite's and recurrentgemma's prefill shapes the
+                against the plain one, and at the three train shapes,
+                minicpm's train shape on one rank of phase 42's (1, 4) mesh
+                (9 of 36 heads) and minicpm's, granite's and
+                recurrentgemma's prefill shapes the
                 kernel, the plain version and SDPA's backward (with a band
                 mask where the window bites: masked SDPA) timed beside the
                 card's bound; then rglru_scan's backward
@@ -325,6 +329,27 @@ a non-zero exit:
                 the same prefill at 9 of 36 heads a rank, its ms and flash
                 launches, one rank's compute with the collectives skipped
                 (its outputs are not checked)
+42. sharded train  run right after phase 35, on minicpm-2b at full width,
+                COMPRESSED_LAYERS layers, phase 12's recipe (float32
+                masters, bf16 compute, remat "full", 2 microbatches of 1 x
+                4096) and the ``base`` ruleset: (a) on a one-rank NCCL
+                group and a (1, 1) mesh, TRAIN_STEPS steps of
+                ``make_train_step(mesh=)`` beside as many plain steps from
+                the same init on the same batch: step 1's loss and
+                grad_norm within TRAIN_RTOL (the same bits expected), every
+                parameter after step 1 within 2 lr of the plain step's, the
+                loss falling, phase 12's flash forward and backward
+                launches per layer, all on wgmma_bf16 (the counts reset
+                just before the sharded steps and read just after), both
+                steps' ms and the sharded steps' peak memory; (b) on a
+                (1, 1, 1) ("pod", "data", "model") mesh, 2 steps of
+                ``make_train_step_dp_compressed(mesh=)`` beside phase 35's
+                group form from the same init: step 1's loss the same bits,
+                every parameter after step 1 within phase 35's bars; (c)
+                rank 0 of a (1, 4) mesh of a fake process group: a train
+                step at 9 of 36 heads a rank, its ms and its flash forward
+                and backward launches at (1, 4096, 9, 64) (its outputs are
+                not checked)
 
 Earlier serve paths run at full depth; if the run outgrows its time, their
 depth is what gets cut first.
@@ -703,10 +728,13 @@ KERNEL_CASES = [
     # minicpm-2b's prefill on one rank of a (1, SHARDED_TP) mesh (phase 41)
     ("minicpm-rank-prefill", 4, 1000, 36 // SHARDED_TP, 36 // SHARDED_TP,
      64, True, 0),
+    # minicpm-2b's train shape, one microbatch (phase 12 launches the
+    # forward 160 times a step)
+    ("minicpm-train", 1, TRAIN_SEQ, 36, 36, 64, True, 0),
 ]
 TIMED_CASES = ("minicpm-prefill", "granite-prefill", "griffin-prefill",
                "vision-prefill", "hubert-train", "deepseek-prefill",
-               "h2o-long-prefill", "minicpm-rank-prefill")
+               "h2o-long-prefill", "minicpm-rank-prefill", "minicpm-train")
 
 
 def phase_kernel():
@@ -822,9 +850,14 @@ BWD_CASES = [
     ("dh80-non-causal", 2, 63, 4, 4, 80, False, 0),
     ("non-causal-window", 1, 200, 4, 2, 64, False, 40),
     ("hubert-train", 1, TRAIN_SEQ, 16, 16, 80, False, 0),
+    # minicpm-2b's train shape on one rank of a (1, SHARDED_TP) mesh
+    # (phase 42 (c))
+    ("minicpm-rank-train", 1, TRAIN_SEQ, 36 // SHARDED_TP, 36 // SHARDED_TP,
+     64, True, 0),
 ]
 BWD_TIMED_CASES = ("minicpm-train", "griffin-train", "minicpm-prefill",
-                   "granite-prefill", "griffin-prefill", "hubert-train")
+                   "granite-prefill", "griffin-prefill", "hubert-train",
+                   "minicpm-rank-train")
 # the backward's route by dtype, as the port's kernel.BWD_ROUTES must say
 BWD_EXPECTED_ROUTES = {torch.bfloat16: "wgmma_bf16",
                        torch.float32: "scalar_f32"}
@@ -847,9 +880,11 @@ def phase_kernel_bwd():
     """The flash backward against its plain version, and in bf16 against
     itself on a second call (bit for bit); returns the timing at minicpm's
     train shape, with recurrentgemma's and hubert-xlarge's train shapes and
-    minicpm's, granite's and recurrentgemma's prefill shapes under
+    minicpm's, granite's and recurrentgemma's prefill shapes and minicpm's
+    train shape on one rank of phase 42's (1, SHARDED_TP) mesh under
     at_griffin_train_shape, at_hubert_train_shape,
-    at_minicpm_prefill_shape, at_granite_shape and at_griffin_shape."""
+    at_minicpm_prefill_shape, at_granite_shape, at_griffin_shape and
+    at_minicpm_rank_train_shape."""
     from repro_torch.kernels.flash_attention import kernel, ops, ref
     phase("kernel_bwd")
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -924,6 +959,7 @@ def phase_kernel_bwd():
     timing["at_minicpm_prefill_shape"] = result["minicpm-prefill"]
     timing["at_granite_shape"] = result["granite-prefill"]
     timing["at_griffin_shape"] = result["griffin-prefill"]
+    timing["at_minicpm_rank_train_shape"] = result["minicpm-rank-train"]
     return timing
 
 
@@ -2927,20 +2963,32 @@ def phase_train_consistency(arch: str = ARCH, n_layers: int = CONSIST_LAYERS,
 
 
 def record_flash_masks():
-    """Count the flash kernel's launches by (pass, causal) from now on, by
-    wrapping ``kernel.launch`` and ``kernel.launch_bwd`` (which the wrapper
-    and the autograd function call through the module); returns (the
-    {("forward" or "backward", causal): launches} dict, a function that
-    restores both)."""
+    """Count the flash kernel's launches by (pass, causal) from now on;
+    returns (the {("forward" or "backward", causal): launches} dict, a
+    function that stops the count)."""
+    return record_flash(lambda q, kwargs: bool(kwargs["causal"]))
+
+
+def record_flash_shapes():
+    """Count the flash kernel's launches by (pass, q's (B, S, H, Dh)) from
+    now on; returns (the counts, a function that stops the count)."""
+    return record_flash(lambda q, kwargs: tuple(q.shape))
+
+
+def record_flash(what):
+    """Count the flash kernel's launches by (pass, ``what(q, kwargs)``)
+    from now on, by wrapping ``kernel.launch`` and ``kernel.launch_bwd``
+    (which the wrapper and the autograd function call through the
+    module); returns (the counts, a function that restores both)."""
     from repro_torch.kernels.flash_attention import kernel
     counts: dict = {}
     real = {"forward": kernel.launch, "backward": kernel.launch_bwd}
 
     def wrap(name):
-        def launch(*args, **kwargs):
-            key = (name, bool(kwargs["causal"]))
+        def launch(q, *args, **kwargs):
+            key = (name, what(q, kwargs))
             counts[key] = counts.get(key, 0) + 1
-            return real[name](*args, **kwargs)
+            return real[name](q, *args, **kwargs)
         return launch
     kernel.launch, kernel.launch_bwd = wrap("forward"), wrap("backward")
 
@@ -4424,6 +4472,217 @@ def phase_train_compressed():
         torch.cuda.empty_cache()
 
 
+def timed_steps(run, steps: int):
+    """``steps`` calls of ``run`` (a train step), each timed to a
+    synchronise; returns (each step's float metrics, each step's ms)."""
+    metrics, ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in out[-1].items()})
+    return metrics, ms
+
+
+def largest_difference(placed, plain) -> float:
+    """The largest |a - b| over the leaves of a params tree on a mesh and
+    the same tree without one (each rank's pieces against the whole)."""
+    from repro_torch.tree import tree_leaves
+    with torch.no_grad():
+        return max(float((a.full_tensor() - b).abs().max())
+                   for a, b in zip(tree_leaves(placed), tree_leaves(plain)))
+
+
+def phase_train_sharded():
+    """Phase 42 (see the module docstring): minicpm-2b at full width,
+    COMPRESSED_LAYERS layers, phase 12's recipe (float32 masters, bf16
+    compute, remat "full", TRAIN_ACCUM microbatches of 1 x TRAIN_SEQ).
+    (a) ``make_train_step(mesh=)`` on a one-rank NCCL group's (1, 1) mesh
+    beside the plain step from the same init on the same batch; (b) the
+    compressed step with ``mesh=`` on a (1, 1, 1) ("pod", "data", "model")
+    mesh beside phase 35's group form; (c) one train step on rank 0 of a
+    (1, SHARDED_TP) mesh of fake ranks.  Returns ({kernel: (a)'s
+    launches}, {kernel: (a)'s launches by route})."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_arch, get_schedule
+    from repro_torch.data import batch_for
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels.flash_attention.ops import kernel_head_dim
+    from repro_torch.launch import steps
+    from repro_torch.launch.dryrun import fake_group
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import registry as R
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(get_arch(ARCH), n_layers=COMPRESSED_LAYERS)
+    phase(f"sharded train {ARCH} {cfg.n_layers} layers")
+    rules, axes = sharding.RULESETS["base"], R.logical_axes(cfg)
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in batch_for(cfg, shape, seed=0, step=0).items()}
+    ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                       total_steps=TRAIN_STEPS, schedule=get_schedule(ARCH))
+    want = step_launches(cfg, TRAIN_ACCUM, backward=True)
+
+    def init():
+        return R.init_params(cfg, 0, device="cuda", param_dtype=torch.float32)
+
+    def place(params, mesh):
+        return sharding.distribute_tree(
+            params, sharding.logical_to_specs(axes, params, mesh, rules),
+            mesh)
+
+    def clone(tree):
+        return tree_map(lambda p: p.detach().clone(), tree)
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+          f"{R.count_params_analytic(cfg) / 1e9:.3f} B params, the base "
+          f"ruleset; batch {TRAIN_BATCH} x {TRAIN_SEQ} as {TRAIN_ACCUM} "
+          f"microbatches", flush=True)
+
+    # (a) and (b): a one-rank NCCL group
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_local_mesh(1)
+        plain = init()
+        opt_plain = adamw_init(plain)
+        plain_step = steps.make_train_step(cfg, ocfg,
+                                           accum_steps=TRAIN_ACCUM,
+                                           device="cuda")
+        plain_m, plain_ms = timed_steps(
+            lambda: plain_step(plain, opt_plain, batch), 1)
+        after_one = clone(plain)
+        more_m, more_ms = timed_steps(
+            lambda: plain_step(plain, opt_plain, batch), TRAIN_STEPS - 1)
+        plain_m, plain_ms = plain_m + more_m, plain_ms + more_ms
+        del plain, opt_plain
+        placed = place(init(), mesh)
+        opt = adamw_init(placed)
+        step = steps.make_train_step(cfg, ocfg, accum_steps=TRAIN_ACCUM,
+                                     device="cuda", mesh=mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_launches()
+        sharded_m, sharded_ms = timed_steps(
+            lambda: step(placed, opt, batch), 1)
+        d = largest_difference(placed, after_one)
+        more_m, more_ms = timed_steps(lambda: step(placed, opt, batch),
+                                      TRAIN_STEPS - 1)
+        launches, routes = kernel_launches(), kernel_routes()
+        sharded_m, sharded_ms = sharded_m + more_m, sharded_ms + more_ms
+        peak = torch.cuda.max_memory_allocated()
+        del placed, opt, after_one
+        torch.cuda.empty_cache()
+        check(launches == {k: TRAIN_STEPS * v for k, v in want.items()},
+              f"sharded train (a): launches {launches} over {TRAIN_STEPS} "
+              f"steps, expected {want} a step")
+        check_routes(routes, launches, TRAIN_ROUTES, "sharded train (a)")
+        lr = sharded_m[0]["lr"]
+        for k in ("loss", "grad_norm"):
+            a, b = plain_m[0][k], sharded_m[0][k]
+            check(abs(a - b) <= TRAIN_RTOL * abs(a),
+                  f"sharded train (a): step 1's {k} {b!r}, plain {a!r}")
+        check(d <= 2 * lr * (1 + 1e-3), f"sharded train (a): a parameter "
+              f"after step 1 differs by {d} > 2 lr")
+        losses = [m["loss"] for m in sharded_m]
+        check(losses[-1] < losses[0], f"sharded train (a): the loss did "
+              f"not fall: {losses}")
+        same = all(plain_m[0][k] == sharded_m[0][k]
+                   for k in ("loss", "grad_norm"))
+        print(f"  (a) (1, 1) mesh: step 1 loss {sharded_m[0]['loss']!r} "
+              f"grad_norm {sharded_m[0]['grad_norm']!r}, plain "
+              f"{plain_m[0]['loss']!r} {plain_m[0]['grad_norm']!r} "
+              f"({'the same bits' if same else 'not the same bits'}; bar "
+              f"{TRAIN_RTOL}); largest parameter difference after step 1 "
+              f"{d:.3e} (bar 2 lr = {2 * lr:.3e}); losses {losses}",
+              flush=True)
+        print(f"  (a) launches over {TRAIN_STEPS} steps {launches} = "
+              f"{want} a step, by route {routes}; step ms on the mesh "
+              f"{[round(t, 1) for t in sharded_ms]}, median of the last 3 "
+              f"{np.median(sharded_ms[1:]):.1f}; plain "
+              f"{[round(t, 1) for t in plain_ms]}, median "
+              f"{np.median(plain_ms[1:]):.1f} (the difference is DTensor's "
+              f"host cost); peak memory of the sharded steps "
+              f"{peak / 2**30:.2f} GiB", flush=True)
+
+        # (b) the compressed step on a (1, 1, 1) mesh beside its group form
+        pods = init_device_mesh("cuda", (1, 1, 1),
+                                mesh_dim_names=("pod", "data", "model"))
+        group = init()
+        opt_g, err_g = adamw_init(group), steps.init_ef_errors(group)
+        group_step = steps.make_train_step_dp_compressed(
+            cfg, ocfg, accum_steps=TRAIN_ACCUM, device="cuda")
+        placed = place(init(), pods["data", "model"])
+        opt, err = adamw_init(placed), steps.init_ef_errors(placed)
+        mesh_step = steps.make_train_step_dp_compressed(
+            cfg, ocfg, mesh=pods, accum_steps=TRAIN_ACCUM, device="cuda")
+        rows = []
+        for i in range(2):
+            g_m, g_ms = timed_steps(lambda: group_step(group, opt_g, err_g,
+                                                       batch), 1)
+            m_m, m_ms = timed_steps(lambda: mesh_step(placed, opt, err,
+                                                      batch), 1)
+            d = largest_difference(placed, group)
+            rows.append((g_m[0], m_m[0], d, g_ms[0], m_ms[0]))
+        del group, opt_g, err_g, placed, opt, err
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    (g1, m1, d1, _, _), (g2, m2, d2, g_ms, m_ms) = rows
+    check(g1["loss"] == m1["loss"], f"sharded train (b): step 1's loss "
+          f"{m1['loss']!r} on the mesh, {g1['loss']!r} in the group form")
+    bar = min(COMPRESSED_PARAM_TOL, 2 * m1["lr"] * (1 + 1e-3))
+    check(d1 <= bar, f"sharded train (b): a parameter after step 1 "
+          f"differs by {d1} > {bar}")
+    print(f"  (b) compressed step on a (1, 1, 1) (pod, data, model) mesh: "
+          f"step 1 loss {m1['loss']!r} (the same bits as the group form's); "
+          f"largest parameter difference after step 1 {d1:.3e} (bar "
+          f"{bar:.3e}), after step 2 {d2:.3e}; step 2 loss {m2['loss']!r} "
+          f"against {g2['loss']!r}; step 2 ms {m_ms:.1f} on the mesh, "
+          f"{g_ms:.1f} in the group form", flush=True)
+
+    # (c) rank 0 of a (1, SHARDED_TP) mesh of fake ranks on the card
+    with fake_group(SHARDED_TP):
+        mesh = make_local_mesh(SHARDED_TP, device_type="cuda")
+        placed = place(init(), mesh)
+        opt = adamw_init(placed)
+        step = steps.make_train_step(cfg, ocfg, accum_steps=TRAIN_ACCUM,
+                                     device="cuda", mesh=mesh)
+        timed_steps(lambda: step(placed, opt, batch), 1)   # the first
+        reset_kernel_launches()
+        shapes, restore = record_flash_shapes()
+        try:
+            _, rank_ms = timed_steps(lambda: step(placed, opt, batch), 1)
+        finally:
+            restore()
+        rank_launches, rank_routes = kernel_launches(), kernel_routes()
+        del placed, opt
+    torch.cuda.empty_cache()
+    heads = cfg.n_heads // SHARDED_TP
+    local = (TRAIN_BATCH // TRAIN_ACCUM, TRAIN_SEQ, heads,
+             kernel_head_dim(cfg.head_dim))
+    check(shapes == {("forward", local): want["flash_attention"],
+                     ("backward", local): want["flash_attention_bwd"]},
+          f"sharded train (c): flash launches by (pass, q shape) {shapes}, "
+          f"expected {want} at {local}")
+    check_routes(rank_routes, rank_launches, TRAIN_ROUTES,
+                 "sharded train (c)")
+    flash_routes = {k: rank_routes[k] for k in ("flash_attention",
+                                                "flash_attention_bwd")}
+    print(f"  (c) one rank of a (1, {SHARDED_TP}) mesh of fake ranks: a "
+          f"train step at {heads} of {cfg.n_heads} heads a rank "
+          f"{rank_ms[0]:.1f} ms (the second; one rank's compute with the "
+          f"collectives skipped, its outputs not checked); flash launches "
+          f"by (pass, q shape) {shapes}, by route {flash_routes}",
+          flush=True)
+    return launches, routes
+
+
 def phase_train_driver():
     """Phase 36: ``examples/train_e2e_torch.py``'s path through
     ``launch/train.py`` on the card (minicpm-2b -smoke, batch 8 x 128,
@@ -4629,6 +4888,7 @@ def main() -> int:
     zoo_launches, zoo_routes = phase_zoo()
     routes.update(zoo_routes)
     phase_train_compressed()
+    sharded_train, sharded_train_routes = phase_train_sharded()
     phase_train_driver()
     phase_dryrun(card, train_out)
 
@@ -4662,10 +4922,14 @@ def main() -> int:
              **{arch: n["flash_attention"]
                 for arch, n in zoo_launches.items()},
              # phase 41 (a): 3 prefills on a (1, 1) mesh
-             f"{ARCH} sharded": sharded_launches["flash_attention"]},
+             f"{ARCH} sharded": sharded_launches["flash_attention"],
+             # phase 42 (a): 4 train steps on a (1, 1) mesh, 4 layers
+             f"{ARCH} sharded train": sharded_train["flash_attention"]},
          "launches_by_route": {
              **{arch: r["flash_attention"] for arch, r in routes.items()},
              f"{ARCH} train": train_routes["flash_attention"],
+             f"{ARCH} sharded train":
+                 sharded_train_routes["flash_attention"],
              f"{GRIFFIN_ARCH} train": griffin_train_routes["flash_attention"],
              f"{AUDIO_ARCH} train": audio_train_routes["flash_attention"]},
          "at_granite_shape": fa_timing["granite-prefill"],
@@ -4679,7 +4943,9 @@ def main() -> int:
          "at_deepseek_shape": fa_timing["deepseek-prefill"],
          "at_h2o_long_shape": fa_timing["h2o-long-prefill"],
          # minicpm-2b's prefill on one rank of phase 41's (1, 4) mesh
-         "at_minicpm_rank_shape": fa_timing["minicpm-rank-prefill"]},
+         "at_minicpm_rank_shape": fa_timing["minicpm-rank-prefill"],
+         # minicpm-2b's train shape (B 1, S 4096, 36 heads of 64)
+         "at_minicpm_train_shape": fa_timing["minicpm-train"]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention_bwd.cu",
@@ -4690,17 +4956,21 @@ def main() -> int:
          # launches on its path, minicpm-2b training (4 steps and an eval),
          # all on wgmma_bf16 (checked in the train phase); times at that
          # path's shape (B 1, S 4096, 36 heads of 64), and at
-         # recurrentgemma's and hubert-xlarge's train shapes and minicpm's,
-         # granite's and recurrentgemma's prefill shapes
+         # recurrentgemma's and hubert-xlarge's train shapes, minicpm's,
+         # granite's and recurrentgemma's prefill shapes and minicpm's train
+         # shape at one rank's 9 heads
          "launches": train_launches["flash_attention_bwd"],
          "launches_by_route": {
              f"{ARCH} train": train_routes["flash_attention_bwd"],
              f"{GRIFFIN_ARCH} train":
                  griffin_train_routes["flash_attention_bwd"],
              f"{AUDIO_ARCH} train":
-                 audio_train_routes["flash_attention_bwd"]},
+                 audio_train_routes["flash_attention_bwd"],
+             f"{ARCH} sharded train":
+                 sharded_train_routes["flash_attention_bwd"]},
          "launches_by_path": {
              f"{ARCH} train": train_launches["flash_attention_bwd"],
+             f"{ARCH} sharded train": sharded_train["flash_attention_bwd"],
              f"{GRIFFIN_ARCH} train": griffin_train["flash_attention_bwd"],
              f"{AUDIO_ARCH} train": audio_train["flash_attention_bwd"],
              f"{MOE_ARCH} train": moe_train["flash_attention_bwd"],

@@ -59,15 +59,21 @@ def _from_raw(raw: bytes, dtype: str, shape) -> torch.Tensor:
 
 def flatten_trees(cfg: ArchConfig, trees: Dict[str, Any]
                   ) -> Dict[str, torch.Tensor]:
-    """{JAX-layout key: tensor} of {name: params-shaped tree or AdamWState}."""
+    """{JAX-layout key: tensor} of {name: params-shaped tree or AdamWState}.
+    DTensor leaves (a state trained on a mesh) are gathered whole, a
+    collective that every rank of their mesh joins; one of them writes."""
     flat: Dict[str, torch.Tensor] = {}
+
+    def add(tree, key):
+        flat.update(convert.tree_to_jax_flat(
+            cfg, tree_map(sharding.whole, tree), key))
     for name, tree in trees.items():
         if isinstance(tree, AdamWState):
             flat[f"{name}.step"] = tree.step
-            flat.update(convert.tree_to_jax_flat(cfg, tree.m, f"{name}.m"))
-            flat.update(convert.tree_to_jax_flat(cfg, tree.v, f"{name}.v"))
+            add(tree.m, f"{name}.m")
+            add(tree.v, f"{name}.v")
         else:
-            flat.update(convert.tree_to_jax_flat(cfg, tree, name))
+            add(tree, name)
     return flat
 
 
@@ -180,7 +186,12 @@ def place_tree(tree, placements, mesh):
     ``restore_into`` gives them) as a DTensor on ``mesh`` with the
     placements of the same leaf of ``placements`` (a tuple of ``Shard`` /
     ``Replicate`` per mesh dim, as ``sharding.placements`` makes them).
-    Works whatever mesh, or none, the checkpoint was written from."""
+    An AdamWState's moments take the placements of their parameters (its
+    step stays whole).  Works whatever mesh, or none, the checkpoint was
+    written from."""
+    if isinstance(tree, AdamWState):
+        return AdamWState(tree.step, place_tree(tree.m, placements, mesh),
+                          place_tree(tree.v, placements, mesh))
     return sharding.map_leaves(
         lambda t, place: sharding.distribute_placed(t, mesh, tuple(place)),
         tree, placements)

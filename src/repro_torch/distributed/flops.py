@@ -31,7 +31,8 @@ equal the counts of every iteration run.
 On a device mesh the step's tensors are DTensors.  The counter lets
 DTensor turn each op into the ops on this rank's local pieces and the
 collectives between ranks (``_c10d_functional``'s all-gather, all-reduce,
-reduce-scatter and all-to-all), and counts those: the FLOPs and bytes are
+reduce-scatter and all-to-all, and the in-place all-reduce of
+``torch.distributed.all_reduce``), and counts those: the FLOPs and bytes are
 then one card's, and each collective adds its wire bytes per rank to
 ``collective_bytes`` (and its payload to the traffic) by the ring factors
 of the reference's ``_wire``: an all-reduce of b bytes over g ranks sends
@@ -98,7 +99,12 @@ def _wire(kind: str, b: float, g: int) -> float:
 
 
 def _collective(func, args, kwargs, out):
-    """(kind, bytes, group size) of a functional collective, else None."""
+    """(kind, bytes, group size) of a functional collective or of an
+    in-place all-reduce (``torch.distributed.all_reduce``), else None."""
+    if func.namespace == "c10d" and func._opname == "allreduce_":
+        import torch.distributed as dist
+        return ("all-reduce", sum(t.nbytes for t in args[0]),
+                dist.ProcessGroup.unbox(args[1]).size())
     if func.namespace != "_c10d_functional" or \
             func._opname not in _COLLECTIVES:
         return None

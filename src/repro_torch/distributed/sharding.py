@@ -185,15 +185,18 @@ def cache_specs(cache_shapes, mesh) -> Any:
     return map_leaves(one, cache_shapes)
 
 
-def placements(mesh, spec: Spec):
+def placements(mesh, spec: Spec, shape=None):
     """One ``Shard(d)`` or ``Replicate()`` per dim of the ``DeviceMesh``
     ``mesh``, for ``spec``.  A tuple entry shards its tensor dim over
-    several mesh dims, major first, which must be the mesh's order."""
+    several mesh dims, major first, which must be the mesh's order.  With
+    the tensor's ``shape``, a dim of size 1 (which ``safe_spec`` shards
+    only over mesh axes of size 1) stays replicated, as it is in effect:
+    DTensor's reshapes fold such a dim away and refuse a sharded one."""
     from torch.distributed.tensor import Replicate, Shard
     names = list(mesh.mesh_dim_names)
     out = [Replicate() for _ in names]
     for d, axis in enumerate(spec):
-        if axis is None:
+        if axis is None or (shape is not None and shape[d] == 1):
             continue
         flat = axis if isinstance(axis, tuple) else (axis,)
         order = [names.index(a) for a in flat]
@@ -203,6 +206,22 @@ def placements(mesh, spec: Spec):
         for i in order:
             out[i] = Shard(d)
     return tuple(out)
+
+
+def is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's piece on this rank, or the tensor itself."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole on every rank (a collective of its mesh;
+    a replicated one's value as it is), or the tensor itself."""
+    return t.full_tensor() if is_dtensor(t) else t
 
 
 def local_shard(t: torch.Tensor, mesh, place) -> torch.Tensor:
@@ -229,7 +248,19 @@ def distribute_placed(t: torch.Tensor, mesh, place):
 def distribute(t: torch.Tensor, mesh, spec: Spec):
     """``t`` (the whole tensor, the same on every rank) as a DTensor under
     ``spec``."""
-    return distribute_placed(t, mesh, placements(mesh, spec))
+    return distribute_placed(t, mesh, placements(mesh, spec, t.shape))
+
+
+def distribute_batch(t, mesh):
+    """A batch entry (a tensor, or what ``torch.as_tensor`` takes, made on
+    the mesh's device type) as a DTensor placed by ``batch_specs``: its
+    leading dim over the DP axes where it divides; a DTensor passes as it
+    is."""
+    if is_dtensor(t):
+        return t
+    if not isinstance(t, torch.Tensor):
+        t = torch.as_tensor(t, device=mesh.device_type)
+    return distribute(t, mesh, batch_specs([t], mesh)[0])
 
 
 def distribute_tree(tree, specs, mesh):

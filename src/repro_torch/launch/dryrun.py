@@ -28,10 +28,17 @@ a ``DeviceMesh`` ("data", "model") or ("pod", "data", "model"), with the
 params placed by ``--ruleset``, the batch by ``batch_specs`` and the cache
 by ``cache_specs``.  The counts are then one card's: its local FLOPs and
 bytes, the wire bytes of the collectives DTensor emits, its share of the
-arguments; the record's ``mesh`` is e.g. "1x8xH100" and ``chips`` the
-world size.  Serving cells of the dense self-attention decoders only:
-training and the other configs under a mesh are written with a ``skip``
-reason that names the later slice.
+arguments (the float32 parameters, their gradients and the AdamW moments
+of a train cell each its local pieces); the record's ``mesh`` is e.g.
+"1x8xH100" and ``chips`` the world size.  Dense self-attention decoders
+only: the other configs under a mesh are written with a ``skip`` reason
+that names the later slice.
+
+``--dp-compress`` counts a train cell's ``make_train_step_dp_compressed``
+on the multi-pod mesh, the parameters placed on each pod's ("data",
+"model") submesh and the int8 payloads all-reduced as int32 over "pod",
+one a leaf; without ``--multi-pod`` the cell is skipped, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -51,8 +58,10 @@ from repro_torch.distributed import sharding
 from repro_torch.distributed.flops import FlopCounter
 from repro_torch.launch.mesh import (HBM_BW, NVLINK_BW, PEAK_FLOPS_BF16,
                                      make_production_mesh)
-from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
-                                      make_train_step, place_batch)
+from repro_torch.launch.steps import (init_ef_errors, make_prefill_step,
+                                      make_serve_step, make_train_step,
+                                      make_train_step_dp_compressed,
+                                      place_batch)
 from repro_torch.models import registry as R
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import SHAPES_BY_NAME, ShapeSpec, skip_reason
@@ -61,8 +70,7 @@ from repro_torch.tree import tree_leaves
 
 MESH = "1xH100"
 META = torch.device("meta")
-TRAIN_ON_MESH = ("training under a mesh comes in a later slice (the "
-                 "reference's sharded train step)")
+DP_COMPRESS_NEEDS_POD = "dp_compress needs the pod axis"
 
 
 def mesh_name(dp: int, tp: int, multi_pod: bool) -> str:
@@ -72,15 +80,10 @@ def mesh_name(dp: int, tp: int, multi_pod: bool) -> str:
     return ("2x" if multi_pod else "") + f"{dp}x{tp}xH100"
 
 
-def _local(t):
-    from torch.distributed.tensor import DTensor
-    return t.to_local() if isinstance(t, DTensor) else t
-
-
 def _nbytes(tree) -> int:
     """The bytes of a tree's tensors on this card (a DTensor's local
     piece)."""
-    return sum(_local(t).nbytes for t in tree_leaves(tree))
+    return sum(sharding.local(t).nbytes for t in tree_leaves(tree))
 
 
 @contextlib.contextmanager
@@ -122,13 +125,14 @@ def _batch(cfg, B: int, S: int, train: bool) -> Dict[str, torch.Tensor]:
 def lower_cell(arch: str, shape: Union[str, ShapeSpec], *,
                accum_steps: int = 1, moe_dispatch: str = "gather",
                remat: Optional[str] = None, dp: int = 1, tp: int = 1,
-               ruleset: str = "base",
-               multi_pod: bool = False) -> Dict[str, Any]:
+               ruleset: str = "base", multi_pod: bool = False,
+               dp_compress: bool = False) -> Dict[str, Any]:
     """Count one cell's step on ``meta``; returns the JSON-able record.
 
     ``shape`` is a name of ``SHAPES_BY_NAME`` or a ``ShapeSpec`` of its
     own.  ``dp``, ``tp``, ``multi_pod``: the mesh (one card by default);
-    ``ruleset``: a name of ``sharding.RULESETS``, read on a mesh."""
+    ``ruleset``: a name of ``sharding.RULESETS``, read on a mesh;
+    ``dp_compress``: a train cell's step is the compressed one."""
     cfg = get_arch(arch)
     if remat is not None:
         cfg = dataclasses.replace(cfg, remat=remat)
@@ -141,15 +145,16 @@ def lower_cell(arch: str, shape: Union[str, ShapeSpec], *,
         "seq_len": S, "n_layers": cfg.n_layers,
         "mesh": mesh_name(dp, tp, multi_pod), "chips": chips,
         "accum_steps": accum_steps, "moe_dispatch": moe_dispatch,
-        "remat": cfg.remat,
+        "remat": cfg.remat, "dp_compress": dp_compress,
     }
     reason = skip_reason(cfg, shape) if shape.name in SHAPES_BY_NAME \
         else None
+    if reason is None and dp_compress and shape.kind == "train" and \
+            not multi_pod:
+        reason = DP_COMPRESS_NEEDS_POD
     if chips > 1:
         rec.update(ruleset=ruleset, mesh_dp_tp=[dp, tp],
                    multi_pod=multi_pod)
-        if reason is None and shape.kind == "train":
-            reason = TRAIN_ON_MESH
         if reason is None:
             try:
                 tf.check_mesh_supported(cfg)
@@ -158,18 +163,21 @@ def lower_cell(arch: str, shape: Union[str, ShapeSpec], *,
     if reason:
         rec["skip"] = reason
         return rec
+    compressed = dp_compress and shape.kind == "train"
     if chips == 1:
         return _count(rec, cfg, shape, accum_steps, moe_dispatch, None,
-                      None)
+                      None, compressed)
     with fake_group(chips):
         mesh = make_production_mesh(dp, tp, multi_pod, device_type="cpu")
         return _count(rec, cfg, shape, accum_steps, moe_dispatch, mesh,
-                      sharding.RULESETS[ruleset])
+                      sharding.RULESETS[ruleset], compressed)
 
 
-def _count(rec, cfg, shape, accum_steps, moe_dispatch, mesh, rules):
+def _count(rec, cfg, shape, accum_steps, moe_dispatch, mesh, rules,
+           compressed):
     """Fill ``rec`` with the counts of the cell's step, on one card or on
-    rank 0 of ``mesh`` with the params placed by ``rules``."""
+    rank 0 of ``mesh`` with the params placed by ``rules`` (on each pod's
+    ("data", "model") submesh for the ``compressed`` train step)."""
     arch, B, S, chips = rec["arch"], rec["batch"], rec["seq_len"], \
         rec["chips"]
     t0 = time.time()
@@ -178,28 +186,40 @@ def _count(rec, cfg, shape, accum_steps, moe_dispatch, mesh, rules):
     params = R.init_params(cfg, device=META,
                            param_dtype=torch.float32 if train else None)
     if mesh is not None:
-        specs = sharding.logical_to_specs(R.logical_axes(cfg), params, mesh,
+        on = mesh["data", "model"] if compressed else mesh
+        specs = sharding.logical_to_specs(R.logical_axes(cfg), params, on,
                                           rules)
-        params = sharding.distribute_tree(params, specs, mesh)
+        params = sharding.distribute_tree(params, specs, on)
     memory = {"parameters": _nbytes(params)}
     counter = FlopCounter()
     if train:
         opt = adamw_init(params)
         batch = _batch(cfg, B, S, train=True)
-        memory.update(gradients=sum(4 * p.numel()
+        memory.update(gradients=sum(4 * sharding.local(p).numel()
                                     for p in tree_leaves(params)),
                       optimizer=_nbytes([opt.m, opt.v]) + 4,
-                      inputs=_nbytes(batch))
+                      inputs=_nbytes(batch if mesh is None
+                                     else place_batch(batch, mesh)))
         for p in tree_leaves(params):
             # a parameter's gradient is an argument of the step, not a
             # temporary of it
             p.requires_grad_(True).register_post_accumulate_grad_hook(
-                lambda p: counter.exclude(p.grad))
-        step = make_train_step(
-            cfg, AdamWConfig(schedule=get_schedule(arch)),
-            moe_dispatch=moe_dispatch, accum_steps=accum_steps, device=META)
-        with counter:
-            step(params, opt, batch)
+                lambda p: counter.exclude(sharding.local(p.grad)))
+        ocfg = AdamWConfig(schedule=get_schedule(arch))
+        if compressed:
+            errors = init_ef_errors(params)
+            memory["errors"] = _nbytes(errors)
+            step = make_train_step_dp_compressed(
+                cfg, ocfg, mesh=mesh, moe_dispatch=moe_dispatch,
+                accum_steps=accum_steps, device=META)
+            with counter:
+                step(params, opt, errors, batch)
+        else:
+            step = make_train_step(cfg, ocfg, moe_dispatch=moe_dispatch,
+                                   accum_steps=accum_steps, device=META,
+                                   mesh=mesh)
+            with counter:
+                step(params, opt, batch)
         tokens = shape.tokens
     elif shape.kind == "prefill":
         batch = _batch(cfg, B, S, train=False)
@@ -304,6 +324,9 @@ def main(argv=None):
     ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--multi-pod", action="store_true",
                     help="two pods of dp x tp ranks")
+    ap.add_argument("--dp-compress", action="store_true",
+                    help="train cells: the int8 error-feedback all-reduce "
+                         "over the pod axis (needs --multi-pod)")
     ap.add_argument("--ruleset", default="base",
                     choices=list(sharding.RULESETS))
     ap.add_argument("--suffix", default="",
@@ -323,7 +346,8 @@ def main(argv=None):
                            accum_steps=args.accum_steps,
                            moe_dispatch=args.moe_dispatch, remat=args.remat,
                            dp=args.dp, tp=args.tp, ruleset=args.ruleset,
-                           multi_pod=args.multi_pod)
+                           multi_pod=args.multi_pod,
+                           dp_compress=args.dp_compress)
             n_err += "error" in rec
     print(f"[dryrun] {len(archs) * len(shapes)} cells in "
           f"{time.time() - t0:.1f} s", flush=True)

@@ -11,6 +11,15 @@ rank's share of the batch and all-reduces their gradients over a
 ``torch.distributed`` group in int8 with error feedback
 (``optim.compression``), where the reference reduces over its "pod" mesh
 axis.
+
+On a ``DeviceMesh`` (``mesh=``) the parameters and moments are DTensors
+placed by a ruleset (``distributed.sharding``): each microbatch is placed
+by ``sharding.batch_specs`` and runs through ``forward_train`` on the
+mesh, and each gradient is brought to its parameter's placements (the
+data-parallel all-reduce or reduce-scatter) before AdamW.  The compressed
+step on a mesh with a "pod" axis runs this inside each pod's ("data",
+"model") submesh and only the all-reduce across pods in int8, as the
+reference's partial-manual step does.
 """
 from __future__ import annotations
 
@@ -28,12 +37,26 @@ from repro_torch.optim import compression
 from repro_torch.tree import tree_leaves, tree_map
 
 
-def _gradients(params, cfg, batch, moe_dispatch, accum_steps, device):
+def _grad(p):
+    """``p``'s float32 gradient (zeros if it has none); a DTensor's
+    brought to ``p``'s placements (its partial sums over the batch
+    reduced)."""
+    g = p.grad if p.grad is not None else torch.zeros_like(p)
+    if sharding.is_dtensor(g) and \
+            tuple(g.placements) != tuple(p.placements):
+        g = g.redistribute(p.device_mesh, p.placements)
+    return g.float()
+
+
+def _gradients(params, cfg, batch, moe_dispatch, accum_steps, device,
+               mesh=None):
     """The microbatches of ``batch`` (split along its first dim) through
-    ``forward_train`` and its backward, in order.  Returns (the float32
-    gradients of ``params``' leaves and the loss, each summed over the
-    microbatches and divided by ``accum_steps``, the last microbatch's
-    metrics)."""
+    ``forward_train`` and its backward, in order; on ``mesh`` each
+    microbatch is placed by ``place_batch`` (so a microbatch is the same
+    rows as without a mesh).  Returns (the float32 gradients of
+    ``params``' leaves, placed like them, and the loss, each summed over
+    the microbatches and divided by ``accum_steps``, the last
+    microbatch's metrics), metrics and loss plain tensors."""
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
@@ -46,19 +69,22 @@ def _gradients(params, cfg, batch, moe_dispatch, accum_steps, device):
     loss = 0.0
     for i in range(accum_steps):
         micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+        if mesh is not None:
+            micro = place_batch(micro, mesh)
         li, metrics = R.forward_train(params, cfg, micro,
                                       moe_dispatch=moe_dispatch,
-                                      device=device)
+                                      device=device, mesh=mesh)
         # backward() sums each microbatch's gradient into p.grad in
         # place, one parameter at a time: no second copy of the grads
-        li.backward()
-        loss = loss + li.detach()
-    grads = [(p.grad if p.grad is not None else torch.zeros_like(p))
-             .float() for p in leaves]
+        with R.on_mesh(cfg, mesh):
+            li.backward()
+        loss = loss + sharding.whole(li.detach())
+    grads = [_grad(p) for p in leaves]
     for p, g in zip(leaves, grads):
         p.grad = None
         if accum_steps > 1:
             g.div_(accum_steps)       # in place: float32 grads already
+    metrics = {k: sharding.whole(v) for k, v in metrics.items()}
     return grads, loss / accum_steps, metrics
 
 
@@ -76,7 +102,7 @@ def _apply(params, opt_state, grads, loss, metrics, cfg, opt_cfg,
 
 def make_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
                     *, moe_dispatch: str = "einsum", accum_steps: int = 1,
-                    device=None):
+                    device=None, mesh=None):
     """(params, opt_state, batch) -> (params, opt_state, metrics).
 
     ``accum_steps`` > 1 splits the batch along its first dim into that many
@@ -85,13 +111,21 @@ def make_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
     the last microbatch's, as in the reference.  Metrics: loss, nll, aux,
     acc, grad_norm, lr, as 0-dim tensors.  The parameters and the moments
     are updated in place and returned.  Weight decay follows the
-    reference's rule for the parameters' JAX layout (``decay_mask``)."""
+    reference's rule for the parameters' JAX layout (``decay_mask``).
+
+    ``mesh``: a ``DeviceMesh`` ("data", "model") or ("pod", "data",
+    "model") on which ``params`` lie as DTensors
+    (``sharding.distribute_tree``) and the moments with them
+    (``adamw_init``); ``batch`` is whole on every rank, and its
+    microbatches are placed by ``sharding.batch_specs``.  The metrics are
+    plain tensors, the same on every rank.  Dense self-attention decoders
+    only (``check_mesh_supported``)."""
     opt_cfg = opt_cfg or AdamWConfig()
     schedule = make_schedule(opt_cfg)
 
     def train_step(params, opt_state, batch):
         grads, loss, metrics = _gradients(params, cfg, batch, moe_dispatch,
-                                          accum_steps, device)
+                                          accum_steps, device, mesh)
         return _apply(params, opt_state, grads, loss, metrics, cfg, opt_cfg,
                       schedule)
 
@@ -101,18 +135,31 @@ def make_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
 def init_ef_errors(params):
     """The error-feedback state of ``make_train_step_dp_compressed``: a
     float32 zero tree like ``params``, on their device (each rank keeps
-    its own)."""
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    its own).  For params on a pod's submesh it is a tree of DTensors
+    placed like them: each pod's ranks hold their pod's error, and the
+    pods' errors together are the reference's ``init_ef_errors(params,
+    n_pods)``, whose leading pod dim is sharded over "pod"."""
+    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    params)
 
 
 def make_train_step_dp_compressed(cfg: ArchConfig,
                                   opt_cfg: Optional[AdamWConfig] = None, *,
-                                  group=None, moe_dispatch: str = "einsum",
+                                  group=None, mesh=None,
+                                  moe_dispatch: str = "einsum",
                                   accum_steps: int = 1, device=None):
     """Data-parallel train step with the int8 error-feedback all-reduce:
     (params, opt_state, errors, batch) -> (params, opt_state, errors,
     metrics), on each rank of ``group`` (None: the default group).
+
+    ``mesh``: instead of ``group``, a ("pod", "data", "model") mesh
+    (``launch.mesh.make_production_mesh(dp, tp, multi_pod=True)``).  Each
+    pod's ranks form its ``mesh["data", "model"]`` submesh, on which the
+    params, moments and errors lie (placed by a ruleset's specs on that
+    submesh); a pod takes its share of the batch through
+    ``make_train_step``'s sharded path on its submesh, and the int8
+    all-reduce runs over the "pod" dim's group on each rank's local
+    pieces, each leaf quantised with its whole max.
 
     Each rank takes its share of the global ``batch`` (the rank-th of
     world-size equal slices of its first dim) through the same
@@ -125,6 +172,16 @@ def make_train_step_dp_compressed(cfg: ArchConfig,
     own scale."""
     opt_cfg = opt_cfg or AdamWConfig()
     schedule = make_schedule(opt_cfg)
+    pod_mesh = None
+    if mesh is not None:
+        if group is not None:
+            raise ValueError("pass a group or a mesh, not both")
+        if mesh.mesh_dim_names != ("pod", "data", "model"):
+            raise ValueError(f"the compressed step's mesh has axes "
+                             f"{mesh.mesh_dim_names}, not (pod, data, "
+                             f"model): the int8 all-reduce runs over "
+                             f"\"pod\"")
+        group, pod_mesh = mesh.get_group("pod"), mesh["data", "model"]
 
     def train_step(params, opt_state, errors, batch):
         world, rank = dist.get_world_size(group), dist.get_rank(group)
@@ -136,7 +193,7 @@ def make_train_step_dp_compressed(cfg: ArchConfig,
         mine = {k: v[rank * share:(rank + 1) * share]
                 for k, v in batch.items()}
         grads, loss, metrics = _gradients(params, cfg, mine, moe_dispatch,
-                                          accum_steps, device)
+                                          accum_steps, device, pod_mesh)
         grads, new = compression.all_reduce_int8_with_ef(grads, errors,
                                                          group)
         for e, e_new in zip(tree_leaves(errors), new):
@@ -166,16 +223,7 @@ def place_batch(batch, mesh):
     """The batch's tensors as DTensors on ``mesh`` by ``batch_specs``
     (leading dim over the DP axes where it divides); DTensors pass as
     they are."""
-    from torch.distributed.tensor import DTensor
-
-    def place(t):
-        if isinstance(t, DTensor):
-            return t
-        if not isinstance(t, torch.Tensor):
-            t = torch.as_tensor(t, device=mesh.device_type)
-        return sharding.distribute(t, mesh, sharding.batch_specs([t],
-                                                                 mesh)[0])
-    return {k: place(v) for k, v in batch.items()}
+    return {k: sharding.distribute_batch(v, mesh) for k, v in batch.items()}
 
 
 def make_prefill_step(cfg: ArchConfig, *, moe_dispatch: str = "einsum",

@@ -19,6 +19,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import data_axes
+
 _QBLOCK = 512          # query-block rows for long plain attention
 _PLAIN_ATTN_MAX = 2048  # up to this many query rows, one block
 
@@ -27,16 +29,33 @@ _PLAIN_ATTN_MAX = 2048  # up to this many query rows, one block
 # Elementary ops
 # ---------------------------------------------------------------------------
 
+def gathered(w: torch.Tensor) -> torch.Tensor:
+    """A weight as it is used: a DTensor made whole over the mesh's
+    data-parallel axes (the FSDP all-gather at use, whose backward
+    reduce-scatters the gradient), as the reference's partitioner gathers
+    the ruleset's ZeRO shards; left to itself, DTensor would move the
+    batch-sharded activations instead.  Other tensors pass as they are."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(w, DTensor):
+        return w
+    mesh = w.device_mesh
+    dp = data_axes(mesh)
+    place = [Replicate() if name in dp else p
+             for name, p in zip(mesh.mesh_dim_names, w.placements)]
+    return w if place == list(w.placements) else w.redistribute(mesh, place)
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
     dt = x.dtype
     x = x.float()
     x = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps)
-    return (x * (1.0 + w.float())).to(dt)
+    return (x * (1.0 + gathered(w).float())).to(dt)
 
 
 def dense(x: torch.Tensor, w: torch.Tensor):
-    """x @ w with the weight cast to the activation dtype."""
-    return x @ w.to(x.dtype)
+    """x @ w with the weight cast to the activation dtype (and gathered
+    over the data axes on a mesh)."""
+    return x @ gathered(w.to(x.dtype))
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0):
@@ -116,6 +135,20 @@ def split_heads(t, shape):
         if place != list(t.placements):
             t = t.redistribute(mesh, place)
     return t.reshape(shape)
+
+
+def merge_heads(t, shape):
+    """``t.reshape(shape)``, (heads, Dh) merged into the last dim.  On a
+    DTensor the gradient is brought back to the merged tensor's placements
+    (redistribute's backward) before the backward splits it: where
+    ``split_heads`` left the heads whole, the product with ``wo`` hands
+    back a gradient sharded along the merged dim, which DTensor cannot
+    split into heads its shards do not divide."""
+    from torch.distributed.tensor import DTensor
+    out = t.reshape(shape)
+    if isinstance(out, DTensor):
+        out = out.redistribute(out.device_mesh, out.placements)
+    return out
 
 
 # ---------------------------------------------------------------------------

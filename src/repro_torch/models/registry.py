@@ -19,6 +19,7 @@ prefill = tf.prefill
 decode_step = tf.decode_step
 init_cache = tf.init_cache
 logical_axes = tf.logical_axes
+on_mesh = tf.on_mesh
 
 
 def params_and_axes(cfg: ArchConfig):

@@ -37,6 +37,9 @@ it is read only by MoE layers):
   decode_step(params, cfg, tokens, pos, cache, moe_dispatch=, device=)
                                                    -> (logits, cache)
   init_cache(cfg, B, ctx_len, device=)             -> cache (zeros)
+``forward_train``, ``forward_logits``, ``prefill`` and ``decode_step`` also
+take ``mesh=``, a ``DeviceMesh`` on which the params lie as DTensors
+(dense self-attention decoders only: ``check_mesh_supported``).
 """
 from __future__ import annotations
 
@@ -53,13 +56,15 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.device import check_on_device, resolve_device, torch_dtype
 from repro_torch.distributed import flops
 from repro_torch.distributed.sharding import (cache_specs, data_axes,
+                                              distribute_batch, is_dtensor,
                                               placements, safe_spec)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.config import (ATTN, SWA, LOCAL, CROSS, MLSTM, SLSTM,
                                        RGLRU, ArchConfig)
 from repro_torch.models.layers import (attention, decode_attention_block,
-                                       dense, gated_mlp, is_gated_act,
-                                       rms_norm, rope, split_heads)
+                                       dense, gated_mlp, gathered,
+                                       is_gated_act, merge_heads, rms_norm,
+                                       rope, split_heads)
 from repro_torch.models.moe import moe_block, moe_ffn_axes
 from repro_torch.models.rglru import (RGLRU_C, apply_rglru, d_rnn,
                                       decode_rglru, init_state_rglru,
@@ -286,36 +291,36 @@ def logical_axes(cfg: ArchConfig) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 # ---------------------------------------------------------------------------
-# On a device mesh (serving the dense decoders)
+# On a device mesh (serving and training the dense decoders)
 # ---------------------------------------------------------------------------
 
 _HEADS_HINT = ("batch", None, "model", None)
+_STREAM_HINT = ("batch", None, None)
 
 
 def check_mesh_supported(cfg: ArchConfig) -> None:
-    """Serving under a mesh covers the dense self-attention decoders."""
+    """Serving or training under a mesh covers the dense self-attention
+    decoders."""
     if cfg.is_moe or cfg.modality != "text" or cfg.encoder_only or \
             not set(cfg.block_pattern) <= {ATTN, SWA}:
         raise NotImplementedError(
-            f"{cfg.name}: serving under a mesh covers the dense "
+            f"{cfg.name}: serving or training under a mesh covers the dense "
             f"self-attention decoders; MoE under the ep ruleset, recurrent "
             f"and xLSTM layers under TP, vision and audio come in a later "
             f"slice")
 
 
-def _on_mesh(cfg: ArchConfig, mesh):
+def on_mesh(cfg: ArchConfig, mesh):
     """The context a model call runs in: on a mesh, plain tensors (the
-    positions, masks and constants) join DTensor ops as replicated."""
+    positions, masks and constants) join DTensor ops as replicated.  The
+    backward of ``forward_train``'s loss runs in it too: its saved
+    constants meet DTensor gradients there, and its recomputed layers
+    replay the forward."""
     if mesh is None:
         return contextlib.nullcontext()
     check_mesh_supported(cfg)
     from torch.distributed.tensor.experimental import implicit_replication
     return implicit_replication()
-
-
-def _is_dtensor(x) -> bool:
-    from torch.distributed.tensor import DTensor
-    return isinstance(x, DTensor)
 
 
 def shard_hint(x, mesh, dims):
@@ -328,13 +333,13 @@ def shard_hint(x, mesh, dims):
     (indivisible dims degrade to replicated), so that the partitioning of
     batch and heads is the reference's whatever DTensor's op rules would
     pick."""
-    if mesh is None or not _is_dtensor(x):
+    if mesh is None or not is_dtensor(x):
         return x
     dp = data_axes(mesh)
     dp_axis = dp if len(dp) > 1 else dp[0]
     want = [dp_axis if d == "batch" else ("model" if d == "model" else None)
             for d in dims]
-    place = placements(mesh, safe_spec(x.shape, want, mesh))
+    place = placements(mesh, safe_spec(x.shape, want, mesh), x.shape)
     return x if tuple(x.placements) == place else \
         _reduce_partials(x).redistribute(mesh, place)
 
@@ -393,13 +398,13 @@ def _self_attn(x, p, cfg, *, positions, window, mesh=None):
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     causal = not cfg.encoder_only
-    if _is_dtensor(q):
+    if is_dtensor(q):
         o = _flash_on_local_heads(q, k, v, mesh, causal, window)
     else:
         # the CUDA kernel on the GPU, its plain version on the CPU
         o = flash_attention(q, k, v, causal=causal, window=window)
     o = shard_hint(o, mesh, _HEADS_HINT)
-    return x + dense(o.reshape(B, S, H * Dh), p["wo"]), (k, v)
+    return x + dense(merge_heads(o, (B, S, H * Dh)), p["wo"]), (k, v)
 
 
 def _gated_out(x, p, o):
@@ -447,7 +452,11 @@ def _apply_ffn(x, p, cfg, moe_dispatch):
 
 def _apply_layer(x, memory, layer, kind, cfg, positions, moe_dispatch,
                  collect_kv: bool, mesh=None):
-    """Returns (x, aux, (k, v) or recurrent state or None)."""
+    """Returns (x, aux, (k, v) or recurrent state or None).  On a mesh the
+    residual stream is held to ("batch", None, None) after each block:
+    the "model" ranks' partial sums of ``wo`` and ``w2`` are all-reduced
+    there, as Megatron's tensor parallelism does, where DTensor left to
+    itself shards the stream and moves the MLP's wider activations."""
     if kind in _RECURRENT:
         out = _APPLY_RECURRENT[kind](x, layer["mix"], cfg,
                                      return_state=collect_kv)
@@ -457,9 +466,11 @@ def _apply_layer(x, memory, layer, kind, cfg, positions, moe_dispatch,
     else:
         x, kv = _self_attn(x, layer["mix"], cfg, positions=positions,
                            window=_window_for(kind, cfg), mesh=mesh)
+    x = shard_hint(x, mesh, _STREAM_HINT)
     aux = 0.0
     if "ffn" in layer:
         x, aux = _apply_ffn(x, layer["ffn"], cfg, moe_dispatch)
+        x = shard_hint(x, mesh, _STREAM_HINT)
     return x, aux, kv
 
 
@@ -520,7 +531,7 @@ _INIT_RECURRENT = {RGLRU: init_state_rglru, MLSTM: init_state_mlstm,
 # ---------------------------------------------------------------------------
 
 def _tokens(tokens, device) -> torch.Tensor:
-    if _is_dtensor(tokens):
+    if is_dtensor(tokens):
         # placed on a mesh by the caller: made whole for the lookup, which
         # DTensor takes into a vocab-sharded table only with whole ids
         from torch.distributed.tensor import Replicate
@@ -529,11 +540,24 @@ def _tokens(tokens, device) -> torch.Tensor:
     return torch.as_tensor(tokens, device=device).long()
 
 
+def _batch_tensor(t, device, mesh=None) -> torch.Tensor:
+    """A batch entry as a tensor on ``device``; on a mesh a DTensor placed
+    by ``sharding.batch_specs`` (labels and masks stay batch-sharded, as
+    the hidden states are), or as the caller placed it."""
+    if mesh is None:
+        return torch.as_tensor(t, device=device)
+    return distribute_batch(t, mesh)
+
+
 def _embed_tokens(params, cfg, tokens):
     dt = torch_dtype(cfg.dtype)
-    x = F.embedding(tokens, params["embed"])
-    if _is_dtensor(x):
+    x = F.embedding(tokens, gathered(params["embed"]))
+    if is_dtensor(x):
+        # redistribute's backward brings the gradient back whole (its
+        # partial sums over "model" reduced): the masked lookup's backward
+        # takes no partial sums
         x = _reduce_partials(x)
+        x = x.redistribute(x.device_mesh, x.placements)
     x = x.to(dt)
     if cfg.tie_embeddings:
         # sqrt(d) rounded to the activation dtype first, as the reference
@@ -587,13 +611,85 @@ def _head_matrix(params, cfg):
 
 
 def _chunk_loss(xc, head, lc, mc, z_weight: float):
-    logits = (xc @ head).float()
+    return _xent_sums((xc @ head).float(), lc, mc, z_weight)
+
+
+def _xent_sums(logits, lc, mc, z_weight: float):
+    """(summed nll + z-loss, summed weight, summed hits) of a chunk's
+    float32 logits."""
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, lc[..., None])[..., 0]
     nll = (lse - gold) * mc
     zl = z_weight * torch.sum(torch.square(lse) * mc)
     correct = torch.sum((torch.argmax(logits, dim=-1) == lc) * mc)
     return torch.sum(nll) + zl, torch.sum(mc), correct
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """An all-reduce sum over ``group`` of a value that every rank then
+    holds whole: its gradient is the same on every rank and passes
+    through unchanged."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        from torch.distributed import _functional_collectives as funcol
+        return funcol.wait_tensor(funcol.all_reduce(t, "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _vocab_parallel_sums(logits, lc, mc, z_weight: float, group, v0: int,
+                         vocab: int):
+    """``_xent_sums`` of a rank's columns [v0, v0 + local) of a chunk's
+    logits, combined over ``group``, the "model" ranks that hold the
+    others: the row max, the sum of exponentials, the gold logit and the
+    first column of the row max (``argmax``'s tie rule) are reduced over
+    it, so no rank holds a row of the whole vocabulary."""
+    from torch.distributed import _functional_collectives as funcol
+    n = logits.shape[-1]
+    m = funcol.wait_tensor(funcol.all_reduce(logits.detach().amax(-1),
+                                             "max", group))
+    lse = m + torch.log(_SumOverRanks.apply(
+        torch.sum(torch.exp(logits - m[..., None]), -1), group))
+    local = lc - v0
+    here = (local >= 0) & (local < n)
+    gold = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    gold = _SumOverRanks.apply(gold * here, group)
+    first = torch.where(logits.detach().amax(-1) == m,
+                        logits.detach().argmax(-1) + v0, vocab)
+    first = funcol.wait_tensor(funcol.all_reduce(first, "min", group))
+    nll = (lse - gold) * mc
+    zl = z_weight * torch.sum(torch.square(lse) * mc)
+    correct = torch.sum((first == lc) * mc)
+    return torch.sum(nll) + zl, torch.sum(mc), correct
+
+
+def _mesh_chunk_loss(xc, head, lc, mc, z_weight: float):
+    """``_chunk_loss`` on a mesh: the logits batch-sharded and, where the
+    head is, vocab-sharded over "model"; each rank's sums over its rows
+    (``_vocab_parallel_sums`` across the "model" ranks), partial over the
+    batch-sharded mesh dims."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = xc.device_mesh
+    logits = shard_hint((xc @ head).float(), mesh, ("batch", None, "model"))
+    lc, mc = (shard_hint(t, mesh, ("batch", None)) for t in (lc, mc))
+    model = mesh.mesh_dim_names.index("model")
+    fn = functools.partial(_xent_sums, z_weight=z_weight)
+    if logits.placements[model].is_shard() and mesh.size(model) > 1:
+        n = logits.shape[-1] // mesh.size(model)
+        fn = functools.partial(
+            _vocab_parallel_sums, z_weight=z_weight,
+            group=mesh.get_group("model"),
+            v0=mesh.get_local_rank("model") * n, vocab=logits.shape[-1])
+    out = [Partial() if p.is_shard() and i != model else Replicate()
+           for i, p in enumerate(logits.placements)]
+    return local_map(fn, out_placements=(out, out, out),
+                     in_placements=tuple(tuple(t.placements)
+                                         for t in (logits, lc, mc)),
+                     device_mesh=mesh)(logits, lc, mc)
 
 
 def softmax_xent_from_hidden(x, head, labels, mask=None, *,
@@ -610,13 +706,20 @@ def softmax_xent_from_hidden(x, head, labels, mask=None, *,
     B, S, d = x.shape
     chunk = min(chunk, S)
     head = head.to(x.dtype)
+    chunk_loss = _chunk_loss
+    if is_dtensor(x):
+        # the head whole over the data axes (FSDP's gather, once a loss)
+        # and vocab-sharded over "model"
+        head = shard_hint(head, x.device_mesh, (None, "model"))
+        chunk_loss = _mesh_chunk_loss
     labels = labels.long()
-    mask = torch.ones((B, S), device=x.device) if mask is None else \
-        mask.float()
+    # like the labels: batch-sharded on a mesh
+    mask = torch.ones_like(labels, dtype=torch.float32) if mask is None \
+        else mask.float()
     sums = [torch.zeros((), device=x.device)] * 3     # loss, weight, hits
 
     def add(s0, s1):
-        parts = checkpoint(_chunk_loss, x[:, s0:s1], head, labels[:, s0:s1],
+        parts = checkpoint(chunk_loss, x[:, s0:s1], head, labels[:, s0:s1],
                            mask[:, s0:s1], z_weight, use_reentrant=False)
         sums[:] = [a + b for a, b in zip(sums, parts)]
     # the whole chunks (``flops.loop``: one chunk times their number under
@@ -632,7 +735,7 @@ def softmax_xent_from_hidden(x, head, labels, mask=None, *,
 
 def forward_train(params, cfg: ArchConfig, batch, *,
                   moe_dispatch: str = "einsum", aux_weight: float = 0.01,
-                  device=None):
+                  device=None, mesh=None):
     """Training forward: next-token LM loss, or an audio model's masked
     prediction.  batch: tokens and labels (B, S) (plus patches for
     vision), or frames, cluster-id labels and the (B, S) mask of the
@@ -640,20 +743,30 @@ def forward_train(params, cfg: ArchConfig, batch, *,
 
     Layers are recomputed in the backward as ``cfg.remat`` says.  Returns
     (total, {"nll", "aux", "acc"}); total adds ``aux_weight * aux /
-    n_layers`` to the loss for an MoE model, as the reference does."""
+    n_layers`` to the loss for an MoE model, as the reference does.
+
+    ``mesh``: as ``forward_logits``'s, with the batch placed by
+    ``sharding.batch_specs`` (``launch.steps.place_batch``); the hidden
+    states, labels and mask stay batch-sharded, the flash kernel and its
+    backward run on each rank's heads, and the loss and metrics come back
+    as replicated 0-dim DTensors."""
     device = _prepare(params, cfg, device)
-    labels = _tokens(batch["labels"], device)
-    x, memory = _embed(params, cfg, batch, device)
-    positions = torch.arange(x.shape[1], device=x.device)
-    x, aux, _ = _stack_forward(params, cfg, x, memory, positions,
-                               moe_dispatch, remat=cfg.remat)
-    aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
-    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
-    mask = batch.get("mask")
-    if mask is not None:
-        mask = torch.as_tensor(mask, device=x.device)
-    loss, acc = softmax_xent_from_hidden(x, _head_matrix(params, cfg),
-                                         labels, mask)
+    with on_mesh(cfg, mesh):
+        labels = _batch_tensor(batch["labels"], device, mesh).long()
+        x, memory = _embed(params, cfg, batch, device)
+        x = shard_hint(x, mesh, ("batch", None, None))
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, aux, _ = _stack_forward(params, cfg, x, memory, positions,
+                                   moe_dispatch, remat=cfg.remat, mesh=mesh)
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+        x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+        mask = batch.get("mask")
+        if mask is not None:
+            mask = _batch_tensor(mask, x.device, mesh)
+        loss, acc = softmax_xent_from_hidden(x, _head_matrix(params, cfg),
+                                             labels, mask)
+        if mesh is not None:        # the batch's partial sums reduced
+            loss, acc = _reduce_partials(loss), _reduce_partials(acc)
     total = loss + aux_weight * aux / cfg.n_layers if cfg.is_moe else loss
     return total, {"nll": loss, "aux": aux, "acc": acc}
 
@@ -670,7 +783,7 @@ def forward_logits(params, cfg: ArchConfig, batch, *,
     DTensor, batch-sharded and whole over the vocabulary.  Dense
     self-attention decoders only (NotImplementedError for the rest)."""
     device = _prepare(params, cfg, device)
-    with _on_mesh(cfg, mesh):
+    with on_mesh(cfg, mesh):
         x, memory = _embed(params, cfg, batch, device)
         x = shard_hint(x, mesh, ("batch", None, None))
         positions = torch.arange(x.shape[1], device=x.device)
@@ -736,7 +849,7 @@ def decode_step(params, cfg: ArchConfig, tokens, pos: int, cache, *,
         raise ValueError(f"{cfg.name}: encoder-only arch has no decode step")
     device = _prepare(params, cfg, device)
     pos = int(pos)
-    with _on_mesh(cfg, mesh):
+    with on_mesh(cfg, mesh):
         x = _embed_tokens(params, cfg, _tokens(tokens, device))
         x = shard_hint(x, mesh, ("batch", None, None))
         layers = []
@@ -778,7 +891,7 @@ def prefill(params, cfg: ArchConfig, batch, *,
     ``decode_step`` takes them.
     """
     device = _prepare(params, cfg, device)
-    with _on_mesh(cfg, mesh):
+    with on_mesh(cfg, mesh):
         return _prefill(params, cfg, batch, cache_len, moe_dispatch, device,
                         mesh)
 
@@ -829,4 +942,4 @@ def _prefill(params, cfg, batch, cache_len, moe_dispatch, device, mesh):
 def _place_cache(t, mesh):
     """A cache tensor redistributed to ``cache_specs``' placements."""
     spec = cache_specs([tuple(t.shape)], mesh)[0]
-    return t.redistribute(mesh, placements(mesh, spec))
+    return t.redistribute(mesh, placements(mesh, spec, t.shape))

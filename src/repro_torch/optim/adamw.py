@@ -7,6 +7,11 @@ and an int32 ``step``.  Unlike the reference, which returns fresh arrays,
 ``adamw_update`` updates the parameters and the moments in place (the
 reference's train step donates them): at full width each is a copy of the
 model in float32, and in place no second copy is held.
+
+On a device mesh the parameters are DTensors; their moments are DTensors
+placed like them (the reference's ``AdamWState(step=P(), m=pshard,
+v=pshard)``), each rank updates its own pieces, and the clipping norm is
+the whole tree's, the same on every rank.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -40,17 +46,34 @@ class AdamWState(NamedTuple):
 
 
 def adamw_init(params) -> AdamWState:
-    """Zero moments in float32 and step 0, on the parameters' device."""
+    """Zero moments in float32 and step 0, on the parameters' device; a
+    DTensor parameter's moments are DTensors with its placements."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32)
     device = tree_leaves(params)[0].device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
                       m=tree_map(zeros, params), v=tree_map(zeros, params))
 
 
 def global_norm(tree) -> torch.Tensor:
-    sq = sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree))
-    return torch.sqrt(sq)
+    """The norm of all the tree's leaves, as one plain 0-dim tensor.  A
+    DTensor leaf's sum of squares is partial over the mesh dims that shard
+    it: the leaves of one placement are reduced by one all-reduce, and
+    the whole sums are added in the leaves' order."""
+    from torch.distributed.tensor import DTensor
+    sums = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    by_place: dict = {}
+    for i, s in enumerate(sums):
+        if is_dtensor(s):
+            by_place.setdefault((s.device_mesh, tuple(s.placements)),
+                                []).append(i)
+    for (mesh, place), idx in by_place.items():
+        whole = DTensor.from_local(
+            torch.stack([sums[i].to_local() for i in idx]), mesh, place,
+            run_check=False).full_tensor()
+        for j, i in enumerate(idx):
+            sums[i] = whole[j]
+    return torch.sqrt(sum(sums))
 
 
 def _f32(step) -> torch.Tensor:
@@ -103,7 +126,11 @@ def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig,
     (``convert.decay_mask`` gives the reference's rule for a model's
     parameters), says which leaves are decayed; without it, matrices only
     (``ndim >= 2``).  ``params``, ``m`` and ``v`` are updated in place; the
-    returned params and the new state's moments are those same tensors."""
+    returned params and the new state's moments are those same tensors.
+
+    DTensor leaves: a gradient is first brought to its parameter's
+    placements, whose moments must have them too; each rank then updates
+    its local pieces, and ``decay`` reads the global shapes."""
     schedule = schedule or make_schedule(cfg)
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
@@ -133,6 +160,15 @@ def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig,
     for p, g, m, v, d in zip(leaves, tree_leaves(grads),
                              tree_leaves(state.m), tree_leaves(state.v),
                              decays):
+        if is_dtensor(p):
+            place = tuple(p.placements)
+            if tuple(g.placements) != place:
+                g = g.redistribute(p.device_mesh, place)
+            if tuple(m.placements) != place or tuple(v.placements) != place:
+                raise ValueError(f"moments placed {tuple(m.placements)} and "
+                                 f"{tuple(v.placements)}, their parameter "
+                                 f"{place}")
+            p, g, m, v = (t.to_local() for t in (p, g, m, v))
         upd(p, g, m, v, d)
     return params, AdamWState(step, state.m, state.v), {
         "grad_norm": gnorm, "lr": lr}

@@ -7,7 +7,10 @@ unbiased over time: the quantisation residual is added to the next step's
 gradient.  ``quantize_int8``, ``dequantize_int8`` and
 ``ef_compress_update`` are pure functions; ``all_reduce_int8_with_ef``
 is the all-reduce over a ``torch.distributed`` process group that the
-reference runs with ``psum`` over its "pod" mesh axis.
+reference runs with ``psum`` over its "pod" mesh axis.  They take
+DTensor leaves too: the scale is then the whole leaf's max, as the
+reference's body, partitioned over a pod's "data" and "model" axes,
+computes it, and the all-reduce moves each rank's local pieces.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from typing import Any, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.distributed.sharding import local
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -49,17 +53,32 @@ def all_reduce_int8_with_ef(grads: Any, errors: Any, group=None):
     (no overflow below 2**24 ranks) by one ``all_reduce`` a leaf, and the
     scales by one ``all_reduce`` of them all; each sum is dequantised with
     the mean of the ranks' scales, an approximation that is exact when the
-    scales agree and whose residual lands in the errors otherwise."""
+    scales agree and whose residual lands in the errors otherwise.
+
+    DTensor leaves (a pod's pieces, on its ("data", "model") submesh;
+    ``group`` the "pod" dim's): each leaf's scale is its whole max, its
+    int8 pieces are summed with the same pieces of the other pods, and
+    the means and errors come back as DTensors placed like the grads."""
     n = dist.get_world_size(group)
     parts = [ef_compress_update(g, e) for g, e in
              zip(tree_leaves(grads), tree_leaves(errors))]
-    scales = torch.stack([scale for _, scale, _ in parts])
+    scales = torch.stack([local(scale) for _, scale, _ in parts])
     dist.all_reduce(scales, group=group)
     means = []
     for (q, _, _), ssum, g in zip(parts, scales, tree_leaves(grads)):
-        qsum = q.to(torch.int32)
+        qsum = local(q).to(torch.int32)
         dist.all_reduce(qsum, group=group)
-        means.append((qsum.float() * (ssum / n) / n).to(g.dtype))
+        means.append(_like(g, (qsum.float() * (ssum / n) / n).to(g.dtype)))
     means, new = iter(means), iter([e for _, _, e in parts])
     return (tree_map(lambda _: next(means), grads),
             tree_map(lambda _: next(new), grads))
+
+
+def _like(g: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
+    """``local`` as the piece of a tensor placed like ``g``."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(g, DTensor):
+        return local
+    return DTensor.from_local(local, g.device_mesh, g.placements,
+                              run_check=False, shape=g.shape,
+                              stride=g.stride())

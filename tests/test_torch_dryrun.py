@@ -15,6 +15,7 @@ from repro_torch.launch.roofline import (advice, fmt_row, load_records,
                                          markdown_table)
 from repro_torch.models import registry as R
 from repro_torch.models.config import ShapeSpec
+from repro_torch.tree import tree_leaves
 
 ROOFLINE_KEYS = ("model_flops", "counted_flops_global", "useful_ratio",
                  "compute_s", "memory_s", "collective_s", "dominant",
@@ -64,6 +65,66 @@ def test_train_record_counts_the_kernels_and_the_arguments():
     assert parts["optimizer"] == 8 * n + 4
     assert parts["inputs"] == 2 * 4 * 64 * 4          # tokens and labels
     assert rec["roofline"]["model_flops"] == R.model_flops(cfg, 4 * 64)
+
+
+def _train_state_bytes(rec):
+    parts = rec["memory"]["argument_parts"]
+    return parts["parameters"] + parts["gradients"] + parts["optimizer"]
+
+
+def test_train_cell_on_fake_ranks_is_counted_per_card():
+    """A train cell on 2 x 2 fake ranks: a record, each card holding about
+    a quarter of the float32 parameters, their gradients and moments (the
+    norm scales are split over "data" only), and collectives moving
+    bytes; the flash kernel and its backward run on each card's rows and
+    heads."""
+    shape = ShapeSpec("t", 64, 4, "train")
+    one = dryrun.lower_cell("minicpm-2b-smoke", shape)
+    four = dryrun.lower_cell("minicpm-2b-smoke", shape, dp=2, tp=2)
+    assert "skip" not in four and "error" not in four
+    assert four["mesh"] == "2x2xH100" and four["chips"] == 4
+    parts = four["memory"]["argument_parts"]
+    assert parts["gradients"] == parts["parameters"]
+    assert _train_state_bytes(four) / _train_state_bytes(one) == \
+        pytest.approx(0.25, rel=0.02)
+    assert four["counted"]["total_wire_bytes"] > 0
+    assert four["roofline"]["collective_s"] > 0
+    assert {k: v["calls"] for k, v in four["counted"]["kernels"].items()} \
+        == {k: v["calls"] for k, v in one["counted"]["kernels"].items()}
+    fl = {r["chips"]: r["counted"]["kernels"]["flash_attention_bwd"]["flops"]
+          for r in (one, four)}
+    # half the batch at half the heads
+    assert fl[4] * 4 == pytest.approx(fl[1])
+
+
+def test_dp_compress_needs_the_pod_axis(tmp_path):
+    shape = ShapeSpec("t", 64, 4, "train")
+    for kw in ({}, {"dp": 2, "tp": 2}):
+        rec = dryrun.lower_cell("minicpm-2b-smoke", shape, dp_compress=True,
+                                **kw)
+        assert rec["skip"] == "dp_compress needs the pod axis"
+        assert rec["dp_compress"]
+    # with it: the int8 payloads all-reduced as int32 over "pod", each
+    # pod's card holding half of its 1 x 2 submesh's share
+    rec = dryrun.lower_cell("minicpm-2b-smoke", shape, tp=2, multi_pod=True,
+                            dp_compress=True)
+    assert "skip" not in rec and rec["mesh"] == "2x1x2xH100"
+    parts = rec["memory"]["argument_parts"]
+    assert parts["errors"] == parts["gradients"] == parts["parameters"]
+    n_leaves = len(tree_leaves(R.init_params(get_arch("minicpm-2b-smoke"),
+                                             device="meta")))
+    assert rec["counted"]["collective_calls"]["all-reduce"] > n_leaves
+    dryrun.main(["--arch", "minicpm-2b", "--shape", "train_4k",
+                 "--dp-compress", "--out", str(tmp_path)])
+    (path,) = tmp_path.glob("*.json")
+    assert json.loads(path.read_text())["skip"] == \
+        "dp_compress needs the pod axis"
+
+
+def test_moe_train_cell_on_a_mesh_keeps_its_skip():
+    rec = dryrun.lower_cell("granite-moe-3b-a800m-smoke",
+                            ShapeSpec("t", 64, 4, "train"), tp=2)
+    assert "later slice" in rec["skip"]
 
 
 def test_skipped_cells_are_written_as_records(tmp_path):

@@ -1,6 +1,7 @@
 """Worker processes for the port's gloo tests (``test_torch_compression``,
-``test_torch_sharding_serve``): each joins a gloo group through a file
-store and writes what it saw to ``out_dir/rank{r}.pt``.  Imports torch
+``test_torch_sharding_serve``, ``test_torch_sharding_train``): each joins
+a gloo group through a file store and writes what it saw to
+``out_dir/rank{r}.pt``.  Imports torch
 and the port only, so that a spawned worker starts quickly."""
 import os
 
@@ -154,6 +155,161 @@ def sharded_serve_worker(rank, world, init_file, out_dir):
                 t.to_local(), S.local_shard(want, mesh, p))),
             trees["params"], params, place)
         out["checkpoint"] = {"step": step, "leaves": restored}
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _whole(t):
+    """A DTensor gathered whole (a collective of its mesh), or the tensor,
+    detached and copied."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
+    return t.detach().clone()
+
+
+def _whole_tree(tree):
+    from repro_torch.tree import tree_map
+    return tree_map(_whole, tree)
+
+
+def _train_steps(step, params, opt, batches, errors=None):
+    """``step`` over ``batches``; returns (params, opt, errors, each step's
+    metrics as floats)."""
+    metrics = []
+    for batch in batches:
+        if errors is None:
+            params, opt, m = step(params, opt, batch)
+        else:
+            params, opt, errors, m = step(params, opt, errors, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return params, opt, errors, metrics
+
+
+def sharded_train_worker(rank, world, init_file, out_dir):
+    """The cases of ``out_dir/cases.pkl`` (``test_torch_sharding_train``):
+    each case's converted float32 params placed by a ruleset on a 2 x 2
+    ("data", "model") mesh or a 2 x 1 x 2 ("pod", "data", "model") one,
+    with AdamW moments like them, trained by ``make_train_step`` with
+    ``mesh=`` over the case's batches; the compressed step on the 2 x 1 x 2
+    mesh (params on each pod's 1 x 2 submesh) beside its group form over
+    the "pod" dim's group (whole params, two ranks), each leaf's
+    quantisation recorded whole (target, int8 values, scale); and the
+    first run's trained state through the checkpoint store and
+    ``place_tree``.  Writes each run's metrics, whole moments and weights
+    to ``rank{r}.pt``."""
+    import pickle
+
+    from repro_torch.checkpoint import store
+    from repro_torch.convert import params_from_jax
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps
+    from repro_torch.models import registry as R
+    from repro_torch.optim import AdamWConfig, adamw_init, compression
+    from repro_torch.tree import tree_leaves
+    # four ranks on a shared CPU: two threads each, or they oversubscribe it
+    torch.set_num_threads(2)
+    _join(rank, world, init_file)
+    try:
+        with open(os.path.join(out_dir, "cases.pkl"), "rb") as f:
+            job = pickle.load(f)
+        ocfg = AdamWConfig(**job["opt"])
+        meshes = {"2x2": M.make_local_mesh(2),
+                  "2x1x2": M.make_production_mesh(1, 2, multi_pod=True)}
+        out = {"runs": {}}
+        kept = None
+        for case in job["cases"]:
+            cfg = case["cfg"]
+            axes = R.logical_axes(cfg)
+            for ruleset, kind, accum in case["runs"]:
+                mesh = meshes[kind]
+                params = params_from_jax(cfg, case["params"])
+                specs = S.logical_to_specs(axes, params, mesh,
+                                           S.RULESETS[ruleset])
+                placed = S.distribute_tree(params, specs, mesh)
+                opt = adamw_init(placed)
+                step = steps.make_train_step(cfg, ocfg, accum_steps=accum,
+                                             device="cpu", mesh=mesh)
+                placed, opt, _, metrics = _train_steps(
+                    step, placed, opt, case["batches"])
+                out["runs"][(case["name"], ruleset, kind, accum)] = {
+                    "metrics": metrics, "params": _whole_tree(placed),
+                    "m": _whole_tree(opt.m), "v": _whole_tree(opt.v),
+                    "step": int(opt.step),
+                    "moments_placed_like_params": all(
+                        tuple(p.placements) == tuple(m.placements) ==
+                        tuple(v.placements) for p, m, v in zip(
+                            tree_leaves(placed), tree_leaves(opt.m),
+                            tree_leaves(opt.v)))}
+                if kept is None:
+                    kept = (cfg, params, specs, mesh, placed, opt)
+
+        # the compressed step: on the 2 x 1 x 2 mesh, and its group form;
+        # each leaf's quantisation (whole) recorded
+        case = job["cases"][0]
+        cfg, mesh = case["cfg"], meshes["2x1x2"]
+        pod = mesh["data", "model"]
+        seen = []
+        quantize = compression.ef_compress_update
+
+        def recording(grad, error):
+            q, scale, new = quantize(grad, error)
+            seen.append({"target": _whole(grad.float() + error),
+                         "q": _whole(q.to(torch.int32)),
+                         "scale": float(_whole(scale))})
+            return q, scale, new
+        compression.ef_compress_update = recording
+        try:
+            params = params_from_jax(cfg, case["params"])
+            placed = S.distribute_tree(params, S.logical_to_specs(
+                R.logical_axes(cfg), params, pod, S.RULESETS["base"]), pod)
+            step = steps.make_train_step_dp_compressed(
+                cfg, ocfg, mesh=mesh, device="cpu")
+            placed, opt, errors, metrics = _train_steps(
+                step, placed, adamw_init(placed), case["batches"],
+                errors=steps.init_ef_errors(placed))
+            comp = {"mesh": {
+                "metrics": metrics, "params": _whole_tree(placed),
+                "quantised": seen[:], "errors_placed_like_params": all(
+                    tuple(p.placements) == tuple(e.placements)
+                    for p, e in zip(tree_leaves(placed),
+                                    tree_leaves(errors)))}}
+            seen.clear()
+            params = params_from_jax(cfg, case["params"])
+            step = steps.make_train_step_dp_compressed(
+                cfg, ocfg, group=mesh.get_group("pod"), device="cpu")
+            params, opt, errors, metrics = _train_steps(
+                step, params, adamw_init(params), case["batches"],
+                errors=steps.init_ef_errors(params))
+            comp["group"] = {"metrics": metrics, "params": params,
+                             "quantised": seen[:]}
+        finally:
+            compression.ef_compress_update = quantize
+        out["compressed"] = comp
+
+        # the first run's trained state written whole by one rank, then
+        # restored onto its mesh
+        cfg, params, specs, mesh, placed, opt = kept
+        flat = store.flatten_trees(cfg, {"params": placed, "opt": opt})
+        if rank == 0:
+            store.save_checkpoint(job["ckpt_dir"], 2, flat)
+        dist.barrier()
+        place = S.map_leaves(lambda s: S.placements(mesh, s), specs)
+        restored_step, trees, _ = store.CheckpointManager(
+            job["ckpt_dir"], cfg).restore_latest(
+                {"params": params, "opt": adamw_init(params)},
+                {"params": place, "opt": place}, mesh)
+        same = [tuple(a.placements) == tuple(b.placements) and
+                torch.equal(a.to_local(), b.to_local())
+                for got, want in ((trees["params"], placed),
+                                  (trees["opt"].m, opt.m),
+                                  (trees["opt"].v, opt.v))
+                for a, b in zip(tree_leaves(got), tree_leaves(want))]
+        out["checkpoint"] = {"step": restored_step,
+                             "opt_step": int(trees["opt"].step),
+                             "leaves": same}
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()

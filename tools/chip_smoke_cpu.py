@@ -19,7 +19,11 @@ has NCCL), ``train-driver`` (phase 36, the train driver on the CPU),
 ``dryrun`` (phase 12's minicpm-2b step at smoke size, then phase 37's
 count of it on ``meta``), ``sharded-serve`` (phase 4's minicpm-2b serve,
 then phase 41: its steps on a one-rank gloo mesh beside the same steps
-without one, and one rank of a (1, 4) mesh of fake ranks) and ``zoo`` (phases 27-34: h2o-danube-3-4b on
+without one, and one rank of a (1, 4) mesh of fake ranks),
+``sharded-train`` (phase 42: minicpm-2b's train steps on a one-rank gloo
+mesh beside the plain steps, the compressed step on a (1, 1, 1) mesh
+beside its group form, and one train step on rank 0 of a (1, 4) mesh of
+fake ranks) and ``zoo`` (phases 27-34: h2o-danube-3-4b on
 prompts past its window, minitron-8b, deepseek-coder-33b and mixtral-8x7b through gather at
 MIXTRAL_SERVE_LAYERS layers, each served, freed, then its float32
 consistency on a model drawn anew at ZOO_CONSIST_LAYERS layers, past the
@@ -68,7 +72,7 @@ PHASES = ("serve-vision", "consistency-vision", "train-audio",
           "pipeline", "pipeline-consistency", "pipeline-engine",
           "pipeline-service", "pipeline-recovery", "zoo",
           "train-compressed",
-          "train-driver", "dryrun", "sharded-serve")
+          "train-driver", "dryrun", "sharded-serve", "sharded-train")
 
 
 def fake_launch(q, k, v, out, *, causal, window, scale=None, lse=None):
@@ -273,6 +277,7 @@ def main(argv=None) -> int:
         "train-driver": lambda: cs["phase_train_driver"](),
         "sharded-serve": lambda: cs["phase_serve_sharded"](
             *cs["phase_serve"](cs["ARCH"])[:2]),
+        "sharded-train": lambda: cs["phase_train_sharded"](),
         "dryrun": lambda: cs["phase_dryrun"](
             "CPU rehearsal", cs["phase_train"](
                 seq=cs["TRAIN_SEQ"], profile=False)[2]),
