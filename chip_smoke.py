@@ -115,8 +115,11 @@ a non-zero exit:
                 on its fused_bias route, every LOCAL layer the flash kernel
 9. consistency  the same for recurrentgemma-9b in float32, under its own
                 bar (its decode state rounds the conv lag buffer to bf16)
-10. serve       the same for full-width xlstm-1.3b (48 layers: 24 mLSTM, 24
-                sLSTM, d 2048, 4 heads, mLSTM head dim 1024): every mLSTM
+10. serve       the same for full-width xlstm-1.3b, its depth cut to
+                XLSTM_SERVE_LAYERS of 48 layers (12 mLSTM, 12 sLSTM, d 2048,
+                4 heads, mLSTM head dim 1024; its sLSTM loop made it the
+                longest serve phase, and the first cut as the script
+                grew past 880 s): every mLSTM
                 layer of every prefill must have launched mlstm_scan, on its
                 wgmma route, and no other kernel runs; its prefill is
                 profiled at 200 prompt
@@ -350,6 +353,36 @@ a non-zero exit:
                 step at 9 of 36 heads a rank, its ms and its flash forward
                 and backward launches at (1, 4096, 9, 64) (its outputs are
                 not checked)
+43. sharded moe  run right after phase 7, on phase 6's granite-moe
+                (full width and depth, bf16, gather): (a) on a one-rank
+                NCCL group and a (1, 1) mesh, under the ``ep`` ruleset
+                and then ``base``, a prefill of 4 x 1000 tokens three times
+                and MOE_MESH_DECODE greedy decode steps through the steps
+                with ``mesh=``, beside the same steps without one: the
+                same greedy tokens, the logits within SHARDED_LOGITS_BAR,
+                moe_gmm's launches 32 layers x (3 + MOE_MESH_DECODE) and
+                the flash kernel's 32 x 3, each on its bf16 route, none of
+                the others (every count reset just before, read just
+                after), prefill and decode ms both ways; then
+                MOE_MESH_TRAIN_STEPS train steps of granite-moe at
+                MOE_TRAIN_LAYERS layers (phase 12's recipe, gather,
+                ``ep``) beside as many plain
+                steps from the same init: step 1's loss, aux and
+                grad_norm within TRAIN_RTOL, every parameter after step 1
+                within 2 lr, each kernel's launches on its train route,
+                the step ms both ways; (b) rank 0 of a (1, 4) mesh of fake
+                ranks: granite-moe's prefill at 10 of 40 experts a rank
+                (``ep``) and at d_ff 128 of 512 (``base``), and
+                mixtral-8x7b's at all 32 layers under ``ep`` (2 of 8
+                experts a rank, its weights drawn one layer at a time and
+                placed as drawn): every kernel's launches over 3
+                prefills (flash 3 x the layers at the rank's local heads,
+                moe_gmm 3 x the layers, each on its bf16 route); moe_gmm's
+                local shape and CUDA-event ms a launch beside its bound
+                over the live rows, and its first call's own buckets,
+                weights and fills through the kernel again against the
+                plain version at GMM_RTOL; the prefill ms, mixtral's
+                weights a rank and peak memory (the logits not checked)
 
 Earlier serve paths run at full depth; if the run outgrows its time, their
 depth is what gets cut first.
@@ -482,6 +515,7 @@ MOE_ARCH = "granite-moe-3b-a800m"
 GRIFFIN_ARCH = "recurrentgemma-9b"
 XLSTM_ARCH = "xlstm-1.3b"
 XLSTM_PROFILE_LEN = 200     # prompt tokens of the profiled xLSTM prefill
+XLSTM_SERVE_LAYERS = 24     # its served depth, of 48
 SERVE_REQUESTS, SERVE_SLOTS, PROMPT_LEN, GEN = 8, 4, 1000, 16
 # training: minicpm-2b at full width and depth, the reference's train_4k
 # sequence, a global batch of 2 as two microbatches of 1 (its global batch
@@ -538,6 +572,13 @@ ZOO_CONSIST_LAYERS, SWA_CONSIST_SEQ, CPU_CHECK_SEQ = 2, 4200, 128
 # dim; on a one-rank mesh the sharded steps run the unsharded ops on the
 # same whole tensors, so the bar only allows bf16 rounding in another order
 SHARDED_CACHE_LEN, SHARDED_LOGITS_BAR, SHARDED_TP = 1024, 2e-2, 4
+# phase 43: granite-moe on a one-rank mesh decodes MOE_MESH_DECODE greedy
+# steps (DTensor's host cost makes a step ~1 s there) and trains
+# MOE_MESH_TRAIN_STEPS steps of MOE_TRAIN_LAYERS layers; then rank 0 of a
+# (1, SHARDED_TP) mesh of fake ranks prefills granite-moe and mixtral-8x7b
+# at all 32 layers
+MOE_MESH_DECODE, MOE_MESH_TRAIN_STEPS = 4, 2
+MIXTRAL_ARCH = "mixtral-8x7b"
 
 
 _T0 = time.perf_counter()
@@ -1160,6 +1201,15 @@ def routed_fills(E, T, k, gen):
     return counts, int((counts > 0).sum())
 
 
+def live_rows_bound(n_live, touched, d, f, dtype):
+    """``bound`` of the least work of a gated expert FFN over ``n_live``
+    live rows in ``touched`` experts: their weights, the live rows of xe
+    read and of y written."""
+    elem = torch.tensor([], dtype=dtype).element_size()
+    return bound((6.0 * n_live * d * f,
+                  elem * (2 * n_live * d + 3 * touched * d * f)), dtype)
+
+
 def phase_kernel_moe_decode(gen, case):
     """A routed decode case (as GMM_DECODE_ROUTED) in bf16 and float32
     against the plain version, and the bf16 kernel's and plain version's
@@ -1188,14 +1238,8 @@ def phase_kernel_moe_decode(gen, case):
                 xe, p, "swiglu", counts), iters=10)
             all_ms, all_by, _, _ = bound(gmm_cost.work(E, C, d, f, True,
                                                         dtype), dtype)
-            # the least the card could do: the touched experts' weights,
-            # the live rows of xe read and of y written
-            nbytes = 2 * (2 * n_live * d + 3 * touched * d * f)
-            flops = 6.0 * n_live * d * f
-            t_ops = flops / PEAK_FLOPS[dtype]
-            t_bytes = nbytes / HBM_BW
-            bound_ms = max(t_ops, t_bytes) * 1e3
-            bound_by = "bytes" if t_bytes >= t_ops else "operations"
+            bound_ms, bound_by, _, nbytes = live_rows_bound(
+                n_live, touched, d, f, dtype)
             print(f"  timing at {name} (E={E} C={C} d={d} f={f} {dtype}, "
                   f"{n_live} live rows, {touched} experts touched): kernel "
                   f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms; bound over "
@@ -2269,17 +2313,22 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum",
                                    "mlstm_scan": ml_routes}
 
 
-def serve_greedy(cfg, params, toks, mesh=None):
+def serve_greedy(cfg, params, toks, mesh=None, steps=None,
+                 moe_dispatch="einsum"):
     """Prefill ``toks`` (SERVE_SLOTS x PROMPT_LEN) into caches of
-    SHARDED_CACHE_LEN slots three times and decode GEN greedy steps from
-    the last, through ``make_prefill_step`` / ``make_serve_step`` (with
-    ``mesh``, on it).  Returns (prefill ms, median of 3; decode ms a step;
-    the greedy tokens (GEN + 1, B); the logits, prefill's then each
-    step's, float32 on the host; the first layer's k cache)."""
+    SHARDED_CACHE_LEN slots three times and decode ``steps`` (default GEN)
+    greedy steps from the last, through ``make_prefill_step`` /
+    ``make_serve_step`` (with ``mesh``, on it).  Returns (prefill ms,
+    median of 3; decode ms a step; the greedy tokens (steps + 1, B); the
+    logits, prefill's then each step's, float32 on the host; the first
+    layer's k cache)."""
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    steps = GEN if steps is None else steps
     prefill = make_prefill_step(cfg, cache_len=SHARDED_CACHE_LEN,
-                                device="cuda", mesh=mesh)
-    decode = make_serve_step(cfg, device="cuda", mesh=mesh)
+                                moe_dispatch=moe_dispatch, device="cuda",
+                                mesh=mesh)
+    decode = make_serve_step(cfg, moe_dispatch=moe_dispatch, device="cuda",
+                             mesh=mesh)
 
     def whole(t):
         return t.full_tensor() if mesh is not None else t
@@ -2295,12 +2344,12 @@ def serve_greedy(cfg, params, toks, mesh=None):
         tokens, all_logits = [whole(nxt)[:, 0].cpu()], [whole(logits)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for pos in range(PROMPT_LEN, PROMPT_LEN + GEN):
+        for pos in range(PROMPT_LEN, PROMPT_LEN + steps):
             nxt, logits, cache = decode(params, nxt, pos, cache)
             tokens.append(whole(nxt)[:, 0].cpu())
             all_logits.append(whole(logits))
         torch.cuda.synchronize()
-        decode_ms = (time.perf_counter() - t0) / GEN * 1e3
+        decode_ms = (time.perf_counter() - t0) / steps * 1e3
     return (sorted(times)[1] * 1e3, decode_ms, torch.stack(tokens),
             torch.stack([t.float().cpu() for t in all_logits]),
             cache["layers"][0]["k"])
@@ -4495,6 +4544,61 @@ def largest_difference(placed, plain) -> float:
                    for a, b in zip(tree_leaves(placed), tree_leaves(plain)))
 
 
+def train_beside_plain(cfg, ocfg, batch, init, placed, mesh, n: int, want,
+                       what: str, keys, **kw):
+    """``n`` plain train steps of ``cfg`` on ``batch`` from ``init()``,
+    then as many with ``mesh=`` from ``placed()`` (the same init placed on
+    ``mesh``), each kernel's count reset just before the mesh steps and
+    read just after.  Checks the mesh steps' launches (``want`` a step),
+    each on its train route, step 1's ``keys`` metrics within TRAIN_RTOL
+    of the plain step's and every parameter after step 1 within 2 lr.
+    ``kw`` goes to both ``make_train_step`` calls.  Returns the metrics
+    and ms of both, the largest parameter difference after step 1
+    ("d"), the launches, by route, the mesh steps' peak bytes, and
+    whether step 1's ``keys`` are the same bits ("same")."""
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_map
+    kw = dict(accum_steps=TRAIN_ACCUM, device="cuda", **kw)
+    plain = init()
+    opt = adamw_init(plain)
+    step = steps.make_train_step(cfg, ocfg, **kw)
+    plain_m, plain_ms = timed_steps(lambda: step(plain, opt, batch), 1)
+    after_one = tree_map(lambda p: p.detach().clone(), plain)
+    more_m, more_ms = timed_steps(lambda: step(plain, opt, batch), n - 1)
+    plain_m, plain_ms = plain_m + more_m, plain_ms + more_ms
+    del plain, opt
+    params = placed()
+    opt = adamw_init(params)
+    step = steps.make_train_step(cfg, ocfg, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_launches()
+    mesh_m, mesh_ms = timed_steps(lambda: step(params, opt, batch), 1)
+    d = largest_difference(params, after_one)
+    more_m, more_ms = timed_steps(lambda: step(params, opt, batch), n - 1)
+    launches, routes = kernel_launches(), kernel_routes()
+    mesh_m, mesh_ms = mesh_m + more_m, mesh_ms + more_ms
+    peak = torch.cuda.max_memory_allocated()
+    del params, opt, after_one
+    torch.cuda.empty_cache()
+    check(launches == {k: n * v for k, v in want.items()},
+          f"{what}: launches {launches} over {n} steps, expected {want} a "
+          f"step")
+    check_routes(routes, launches, TRAIN_ROUTES, what)
+    for k in keys:
+        a, b = plain_m[0][k], mesh_m[0][k]
+        check(abs(a - b) <= TRAIN_RTOL * abs(a),
+              f"{what}: step 1's {k} {b!r}, plain {a!r}")
+    lr = mesh_m[0]["lr"]
+    check(d <= 2 * lr * (1 + 1e-3), f"{what}: a parameter after step 1 "
+          f"differs by {d} > 2 lr")
+    return {"plain_m": plain_m, "plain_ms": plain_ms, "mesh_m": mesh_m,
+            "mesh_ms": mesh_ms, "d": d, "launches": launches,
+            "routes": routes, "peak": peak,
+            "same": all(plain_m[0][k] == mesh_m[0][k] for k in keys)}
+
+
 def phase_train_sharded():
     """Phase 42 (see the module docstring): minicpm-2b at full width,
     COMPRESSED_LAYERS layers, phase 12's recipe (float32 masters, bf16
@@ -4517,7 +4621,6 @@ def phase_train_sharded():
     from repro_torch.models import registry as R
     from repro_torch.models.config import ShapeSpec
     from repro_torch.optim import AdamWConfig, adamw_init
-    from repro_torch.tree import tree_map
     cfg = dataclasses.replace(get_arch(ARCH), n_layers=COMPRESSED_LAYERS)
     phase(f"sharded train {ARCH} {cfg.n_layers} layers")
     rules, axes = sharding.RULESETS["base"], R.logical_axes(cfg)
@@ -4535,9 +4638,6 @@ def phase_train_sharded():
         return sharding.distribute_tree(
             params, sharding.logical_to_specs(axes, params, mesh, rules),
             mesh)
-
-    def clone(tree):
-        return tree_map(lambda p: p.detach().clone(), tree)
     print(f"  {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
           f"{R.count_params_analytic(cfg) / 1e9:.3f} B params, the base "
           f"ruleset; batch {TRAIN_BATCH} x {TRAIN_SEQ} as {TRAIN_ACCUM} "
@@ -4549,51 +4649,18 @@ def phase_train_sharded():
                             f"{free_port()}", world_size=1, rank=0)
     try:
         mesh = make_local_mesh(1)
-        plain = init()
-        opt_plain = adamw_init(plain)
-        plain_step = steps.make_train_step(cfg, ocfg,
-                                           accum_steps=TRAIN_ACCUM,
-                                           device="cuda")
-        plain_m, plain_ms = timed_steps(
-            lambda: plain_step(plain, opt_plain, batch), 1)
-        after_one = clone(plain)
-        more_m, more_ms = timed_steps(
-            lambda: plain_step(plain, opt_plain, batch), TRAIN_STEPS - 1)
-        plain_m, plain_ms = plain_m + more_m, plain_ms + more_ms
-        del plain, opt_plain
-        placed = place(init(), mesh)
-        opt = adamw_init(placed)
-        step = steps.make_train_step(cfg, ocfg, accum_steps=TRAIN_ACCUM,
-                                     device="cuda", mesh=mesh)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_kernel_launches()
-        sharded_m, sharded_ms = timed_steps(
-            lambda: step(placed, opt, batch), 1)
-        d = largest_difference(placed, after_one)
-        more_m, more_ms = timed_steps(lambda: step(placed, opt, batch),
-                                      TRAIN_STEPS - 1)
-        launches, routes = kernel_launches(), kernel_routes()
-        sharded_m, sharded_ms = sharded_m + more_m, sharded_ms + more_ms
-        peak = torch.cuda.max_memory_allocated()
-        del placed, opt, after_one
-        torch.cuda.empty_cache()
-        check(launches == {k: TRAIN_STEPS * v for k, v in want.items()},
-              f"sharded train (a): launches {launches} over {TRAIN_STEPS} "
-              f"steps, expected {want} a step")
-        check_routes(routes, launches, TRAIN_ROUTES, "sharded train (a)")
+        run = train_beside_plain(cfg, ocfg, batch, init,
+                                 lambda: place(init(), mesh), mesh,
+                                 TRAIN_STEPS, want, "sharded train (a)",
+                                 ("loss", "grad_norm"))
+        plain_m, plain_ms, sharded_m, sharded_ms, d, launches, routes, \
+            peak, same = (run[k] for k in (
+                "plain_m", "plain_ms", "mesh_m", "mesh_ms", "d", "launches",
+                "routes", "peak", "same"))
         lr = sharded_m[0]["lr"]
-        for k in ("loss", "grad_norm"):
-            a, b = plain_m[0][k], sharded_m[0][k]
-            check(abs(a - b) <= TRAIN_RTOL * abs(a),
-                  f"sharded train (a): step 1's {k} {b!r}, plain {a!r}")
-        check(d <= 2 * lr * (1 + 1e-3), f"sharded train (a): a parameter "
-              f"after step 1 differs by {d} > 2 lr")
         losses = [m["loss"] for m in sharded_m]
         check(losses[-1] < losses[0], f"sharded train (a): the loss did "
               f"not fall: {losses}")
-        same = all(plain_m[0][k] == sharded_m[0][k]
-                   for k in ("loss", "grad_norm"))
         print(f"  (a) (1, 1) mesh: step 1 loss {sharded_m[0]['loss']!r} "
               f"grad_norm {sharded_m[0]['grad_norm']!r}, plain "
               f"{plain_m[0]['loss']!r} {plain_m[0]['grad_norm']!r} "
@@ -4681,6 +4748,351 @@ def phase_train_sharded():
           f"by (pass, q shape) {shapes}, by route {flash_routes}",
           flush=True)
     return launches, routes
+
+
+def init_placed(cfg, mesh, rules, seed: int = 0):
+    """``cfg``'s serving weights drawn one layer at a time on the card
+    (``init_params`` of a one-layer model, seed ``seed + n`` for layer n,
+    its wo and w2 scaled to the whole model's output scale) and placed on
+    ``mesh`` by ``rules`` as each is drawn, so that no more than one layer
+    is whole on the card at once.  Needs a one-kind pattern."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models import registry as R
+    check(cfg.pattern_period == 1, f"{cfg.name}: a pattern of one kind")
+    axes = R.logical_axes(cfg)
+    one = dataclasses.replace(cfg, n_layers=1)
+    scale = math.sqrt(one.n_layers / cfg.n_layers)
+
+    def place(tree, tree_axes):
+        return sharding.distribute_tree(tree, sharding.logical_to_specs(
+            tree_axes, tree, mesh, rules), mesh)
+    placed, layers = {}, []
+    for n in range(cfg.n_layers):
+        params = R.init_params(one, seed + n, device="cuda")
+        (layer,) = params.pop("layers")
+        with torch.no_grad():
+            layer["mix"]["wo"].mul_(scale)
+            layer["ffn"]["w2"].mul_(scale)
+        layers.append(place(layer, axes["layers"][n]))
+        if n == 0:
+            placed = {k: place(v, axes[k]) for k, v in params.items()}
+        del params, layer
+    return {k: layers if k == "layers" else placed[k] for k in axes}
+
+
+def record_gmm_calls():
+    """From now on, record each ``moe_gmm.ops.expert_ffn`` call's (xe
+    shape, w1 shape, bucket fills), the first call's arguments, and a pair
+    of CUDA events around each kernel launch; returns (the calls, a list
+    that holds the first call's (xe, weights, act, fills), the event
+    pairs, a function that restores both)."""
+    from repro_torch.kernels.moe_gmm import kernel, ops
+    real_ffn, real_launch = ops.expert_ffn, kernel.launch
+    calls, first, events = [], [], []
+
+    def recording(xe, p, act="swiglu", counts=None):
+        calls.append((tuple(xe.shape), tuple(p["w1"].shape), counts))
+        if not first:
+            first.append((xe, dict(p), act, counts))
+        return real_ffn(xe, p, act, counts)
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        real_launch(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+    ops.expert_ffn, kernel.launch = recording, timed
+
+    def restore():
+        ops.expert_ffn, kernel.launch = real_ffn, real_launch
+    return calls, first, events, restore
+
+
+def local_heads(cfg, tp: int) -> int:
+    """The query heads of a rank's flash launch on a model axis of ``tp``:
+    H / tp where the KV heads divide it, else all H (as
+    ``transformer._flash_on_local_heads`` leaves them)."""
+    if cfg.n_heads % tp == 0 and cfg.n_kv_heads % tp == 0:
+        return cfg.n_heads // tp
+    return cfg.n_heads
+
+
+def serve_routes():
+    """The route of every launch of a bf16 model's serving."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    return {"flash_attention": fa_kernel.ROUTES[torch.bfloat16][1],
+            "moe_gmm": "wgmma_bf16"}
+
+
+def rank_prefill(cfg, placed, mesh, toks, what):
+    """Rank 0's prefill of ``toks`` on ``mesh`` (fake ranks): one untimed,
+    then three timed, with every kernel's launches counted and the flash
+    kernel's q shapes and moe_gmm's calls recorded over those three.  The
+    flash kernel must run 3 x the attention layers at the rank's local
+    heads and moe_gmm 3 x the layers, each on its bf16 route; then the
+    first recorded moe_gmm call's own inputs (the rank's buckets, weights
+    and fills) go through the kernel once more against its plain version
+    at GMM_RTOL.  Returns (prefill ms, median of 3; every kernel's
+    launches; by route; the moe_gmm numbers at this rank's shapes, with
+    the peak memory of the prefills)."""
+    from repro_torch.kernels.flash_attention.ops import kernel_head_dim
+    from repro_torch.launch.steps import make_prefill_step
+    prefill = make_prefill_step(cfg, cache_len=SHARDED_CACHE_LEN,
+                                moe_dispatch="gather", device="cuda",
+                                mesh=mesh)
+    with torch.inference_mode():
+        prefill(placed, {"tokens": toks})           # the first, untimed
+        torch.cuda.synchronize()
+        reset_kernel_launches()
+        calls, first, events, restore = record_gmm_calls()
+        fa_shapes, fa_restore = record_flash_shapes()
+        times = []
+        try:
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                prefill(placed, {"tokens": toks})
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        finally:
+            fa_restore()
+            restore()
+        peak = torch.cuda.max_memory_allocated()
+        launches, routes = kernel_launches(), kernel_routes()
+        n_attn = sum(layer_counts(cfg).get(k, 0) for k in ("attn", "swa"))
+        want = dict.fromkeys(launches, 0)
+        want.update(flash_attention=3 * n_attn, moe_gmm=3 * cfg.n_layers)
+        check(launches == want, f"{what}: launches over 3 prefills "
+              f"{launches}, expected {want}")
+        check_routes(routes, launches, serve_routes(), what)
+        heads = local_heads(cfg, SHARDED_TP)
+        fa_local = (*toks.shape, heads, kernel_head_dim(cfg.head_dim))
+        check(fa_shapes == {("forward", fa_local): 3 * n_attn},
+              f"{what}: flash launches by (pass, q shape) {fa_shapes}, "
+              f"expected {3 * n_attn} at {fa_local}")
+        shapes = {c[:2] for c in calls}
+        check(len(shapes) == 1, f"{what}: moe_gmm shapes {shapes}")
+        (xe_shape, w1_shape), = shapes
+        E_loc, C, d = xe_shape
+        f_loc = w1_shape[2]
+        kernel_ms = float(np.median([a.elapsed_time(b) for a, b in events]))
+        n_live = float(np.mean([int(c[2].sum()) for c in calls]))
+        touched = float(np.mean([int((c[2] > 0).sum()) for c in calls]))
+        # the kernel on the first call's own buckets, weights and fills,
+        # against its plain version (after the path's launches were read)
+        xe, p, act, fill = first[0]
+        err = run_gmm_case(
+            f"{cfg.name} rank", xe, p, act, fill,
+            f"{int(fill.sum())} live rows in {int((fill > 0).sum())} of "
+            f"{E_loc} experts: the first call of {what}'s prefills")
+        del calls, first, xe, p, fill
+    bound_ms, bound_by, _, _ = live_rows_bound(n_live, touched, d, f_loc,
+                                               torch.bfloat16)
+    all_ms, _, _, _ = bound(gmm_cost.work(E_loc, C, d, f_loc, True,
+                                          torch.bfloat16), torch.bfloat16)
+    prefill_ms = sorted(times)[1] * 1e3
+    print(f"  (b) {what}: prefill {SERVE_SLOTS}x{PROMPT_LEN} "
+          f"{prefill_ms:.2f} ms (median of 3; one rank's compute with the "
+          f"collectives skipped, its logits not checked); moe_gmm at "
+          f"(E, C, d, f) = {(E_loc, C, d, f_loc)}: "
+          f"{launches['moe_gmm'] // 3} launches a prefill by route "
+          f"{routes['moe_gmm']}, {kernel_ms:.4f} ms a launch (CUDA events, "
+          f"median), {n_live:.0f} live rows in {touched:.1f} experts on "
+          f"average; bound over them {bound_ms * 1e3:.2f} us by {bound_by}"
+          f", over all {E_loc} x {C} rows {all_ms * 1e3:.2f} us; its "
+          f"first call against the plain version max_abs_err {err:.3e}; "
+          f"flash {launches['flash_attention'] // 3} launches a prefill at "
+          f"q {fa_local} ({heads} of {cfg.n_heads} heads), by route "
+          f"{routes['flash_attention']}", flush=True)
+    return prefill_ms, launches, routes, {
+        "shape": [E_loc, C, d, f_loc], "launches": launches["moe_gmm"],
+        "launches_by_route": routes["moe_gmm"], "ms": kernel_ms,
+        "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_all_rows_ms": all_ms, "live_rows": n_live,
+        "touched_experts": touched, "peak_bytes": peak}
+
+
+def moe_train_on_mesh(mesh):
+    """Phase 43 (a)'s train steps: granite-moe at MOE_TRAIN_LAYERS layers,
+    phase 12's recipe with the gather dispatch and the ``ep`` ruleset,
+    MOE_MESH_TRAIN_STEPS on ``mesh`` beside as many plain steps
+    (``train_beside_plain``).  Returns (the mesh steps' launches, by
+    route)."""
+    from repro_torch.configs import get_arch, get_schedule
+    from repro_torch.data import batch_for
+    from repro_torch.distributed import sharding
+    from repro_torch.models import registry as R
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import AdamWConfig
+    cfg = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in batch_for(cfg, shape, seed=0, step=0).items()}
+    ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                       total_steps=TRAIN_STEPS,
+                       schedule=get_schedule(MOE_ARCH))
+
+    def init():
+        return R.init_params(cfg, 0, device="cuda", param_dtype=torch.float32)
+
+    def placed():
+        params = init()
+        return sharding.distribute_tree(params, sharding.logical_to_specs(
+            R.logical_axes(cfg), params, mesh, sharding.RULESETS["ep"]),
+            mesh)
+    n, keys = MOE_MESH_TRAIN_STEPS, ("loss", "aux", "grad_norm")
+    run = train_beside_plain(
+        cfg, ocfg, batch, init, placed, mesh, n,
+        step_launches(cfg, TRAIN_ACCUM, backward=True,
+                      moe_dispatch="gather"),
+        "sharded moe train", keys, moe_dispatch="gather")
+    mesh_m, plain_m = run["mesh_m"][0], run["plain_m"][0]
+    print(f"  (a) train {cfg.n_layers} layers, ep, gather, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} as {TRAIN_ACCUM} microbatches: step "
+          f"1 {', '.join(f'{k} {mesh_m[k]!r}' for k in keys)}, plain "
+          f"{', '.join(repr(plain_m[k]) for k in keys)} ("
+          f"{'the same bits' if run['same'] else 'not the same bits'}; bar "
+          f"{TRAIN_RTOL}); largest parameter difference after step 1 "
+          f"{run['d']:.3e} (bar 2 lr); launches over {n} steps "
+          f"{run['launches']}, by route {run['routes']}; step ms on the "
+          f"mesh {[round(t, 1) for t in run['mesh_ms']]}, plain "
+          f"{[round(t, 1) for t in run['plain_ms']]}", flush=True)
+    return run["launches"], run["routes"]
+
+
+def phase_moe_sharded(cfg, params):
+    """Phase 43 (see the module docstring): granite-moe's serving (the
+    params of phase 5, full depth, bf16) under the ``ep`` and ``base``
+    rulesets on a one-rank mesh beside the same steps without one, and a
+    4-layer train step there; then rank 0's prefill on a (1, SHARDED_TP)
+    mesh of fake ranks under both rulesets, and mixtral-8x7b's at all its
+    layers under ``ep``.  Every kernel's launches are counted from 0 on
+    each path and checked.  Returns ({path: every kernel's launches},
+    {path: their launches by route}, {path: moe_gmm at one rank's
+    shapes})."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.dryrun import fake_group
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import registry as R
+    from repro_torch.tree import tree_leaves
+    phase(f"sharded moe {cfg.name}")
+    axes = R.logical_axes(cfg)
+    toks = np.random.default_rng(43).integers(
+        1, cfg.vocab_size, size=(SERVE_SLOTS, PROMPT_LEN)).astype(np.int32)
+    launches, routes, at_rank = {}, {}, {}
+    n_attn = sum(layer_counts(cfg).get(k, 0) for k in ("attn", "swa"))
+    rank = f"rank 0 of (1, {SHARDED_TP})"
+
+    def place(params, mesh, ruleset):
+        return sharding.distribute_tree(params, sharding.logical_to_specs(
+            axes, params, mesh, sharding.RULESETS[ruleset]), mesh)
+
+    # (a) a one-rank NCCL group, a (1, 1) mesh
+    plain = serve_greedy(cfg, params, toks, steps=MOE_MESH_DECODE,
+                         moe_dispatch="gather")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_local_mesh(1)
+        for ruleset in ("ep", "base"):
+            placed = place(params, mesh, ruleset)
+            reset_kernel_launches()
+            prefill_ms, decode_ms, tokens, logits, _ = serve_greedy(
+                cfg, placed, toks, mesh, steps=MOE_MESH_DECODE,
+                moe_dispatch="gather")
+            path = f"{MOE_ARCH} sharded {ruleset}"
+            launches[path], routes[path] = kernel_launches(), kernel_routes()
+            del placed
+            # flash in each prefill (decode attends without it), moe_gmm
+            # in each prefill and decode step
+            want = dict.fromkeys(launches[path], 0)
+            want.update(flash_attention=3 * n_attn,
+                        moe_gmm=cfg.n_layers * (3 + MOE_MESH_DECODE))
+            check(launches[path] == want,
+                  f"sharded moe ({ruleset}): launches {launches[path]}, "
+                  f"expected {want}")
+            check_routes(routes[path], launches[path], serve_routes(),
+                         f"sharded moe ({ruleset})")
+            check(torch.equal(plain[2], tokens),
+                  f"sharded moe ({ruleset}): greedy tokens differ from the "
+                  f"unsharded steps': {plain[2].T.tolist()} against "
+                  f"{tokens.T.tolist()}")
+            err = float((plain[3] - logits).abs().max())
+            check(err <= SHARDED_LOGITS_BAR,
+                  f"sharded moe ({ruleset}): logits differ by {err:.3e} > "
+                  f"{SHARDED_LOGITS_BAR}")
+            print(f"  (a) (1, 1) mesh, {ruleset} ruleset, gather: the same "
+                  f"{MOE_MESH_DECODE + 1} greedy tokens a row as the "
+                  f"unsharded steps; logits' largest difference {err:.3e} "
+                  f"(bar {SHARDED_LOGITS_BAR}; "
+                  f"{'the same bits' if err == 0 else 'not the same bits'}"
+                  f"); moe_gmm launches {want['moe_gmm']} = {cfg.n_layers} "
+                  f"layers x (3 prefills + {MOE_MESH_DECODE} decode steps), "
+                  f"by route {routes[path]['moe_gmm']}; flash "
+                  f"{want['flash_attention']} = {n_attn} layers x 3 "
+                  f"prefills, by route {routes[path]['flash_attention']}; "
+                  f"prefill {SERVE_SLOTS}x"
+                  f"{PROMPT_LEN} {prefill_ms:.2f} ms on the mesh, "
+                  f"{plain[0]:.2f} ms without (median of 3); decode "
+                  f"{decode_ms:.3f} ms/step on the mesh, {plain[1]:.3f} "
+                  f"without, at batch {SERVE_SLOTS}", flush=True)
+        launches[f"{MOE_ARCH} sharded train"], \
+            routes[f"{MOE_ARCH} sharded train"] = moe_train_on_mesh(mesh)
+    finally:
+        dist.destroy_process_group()
+
+    # (b) rank 0 of a (1, SHARDED_TP) mesh of fake ranks on the card
+    with fake_group(SHARDED_TP):
+        mesh = make_local_mesh(SHARDED_TP, device_type="cuda")
+        for ruleset in ("ep", "base"):
+            placed = place(params, mesh, ruleset)
+            path = f"{MOE_ARCH} {ruleset} {rank}"
+            _, launches[path], routes[path], at = rank_prefill(
+                cfg, placed, mesh, toks, path)
+            at_rank[f"{MOE_ARCH} {ruleset}"] = at
+            del placed
+            torch.cuda.empty_cache()
+        E_loc, f_loc = (at_rank[f"{MOE_ARCH} {r}"]["shape"][k]
+                        for r, k in (("ep", 0), ("base", 3)))
+        check(E_loc * SHARDED_TP == cfg.n_experts and
+              f_loc * SHARDED_TP == cfg.d_ff,
+              f"sharded moe (b): {E_loc} experts (ep) and d_ff {f_loc} "
+              f"(base) a rank of {cfg.n_experts} and {cfg.d_ff}")
+        mix = get_arch(MIXTRAL_ARCH)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        placed = init_placed(mix, mesh, sharding.RULESETS["ep"])
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        held = sum(sharding.local(t).nbytes for t in tree_leaves(placed))
+        mix_toks = np.random.default_rng(43).integers(
+            1, mix.vocab_size, size=(SERVE_SLOTS, PROMPT_LEN)).astype(
+                np.int32)
+        path = f"{MIXTRAL_ARCH} ep {rank}"
+        prefill_ms, launches[path], routes[path], at = rank_prefill(
+            mix, placed, mesh, mix_toks, path)
+        at_rank[f"{MIXTRAL_ARCH} ep"], peak = at, at["peak_bytes"]
+        del placed
+    torch.cuda.empty_cache()
+    shape = at_rank[f"{MIXTRAL_ARCH} ep"]["shape"]
+    check(shape[0] * SHARDED_TP == mix.n_experts,
+          f"sharded moe (b): mixtral's {shape[0]} experts a rank")
+    at_rank[f"{MIXTRAL_ARCH} ep"].update(prefill_ms=prefill_ms,
+                                         weights_bytes=held)
+    print(f"  (b) {MIXTRAL_ARCH} at all {mix.n_layers} layers on rank 0 of "
+          f"(1, {SHARDED_TP}), ep: {shape[0]} of {mix.n_experts} experts a "
+          f"rank, {held / 1e9:.3f} GB of bf16 weights a rank (drawn layer "
+          f"by layer in {init_s:.1f} s), prefill {SERVE_SLOTS}x{PROMPT_LEN} "
+          f"{prefill_ms:.2f} ms, peak memory {peak / 2**30:.2f} GiB "
+          f"({peak / 1e9:.2f} GB) with phase 6's granite-moe resident",
+          flush=True)
+    return launches, routes, at_rank
 
 
 def phase_train_driver():
@@ -4833,6 +5245,8 @@ def main() -> int:
     cfg, params, moe_launches, routes[MOE_ARCH] = \
         phase_serve(MOE_ARCH, moe_dispatch="gather")
     phase_consistency(cfg, params, moe_dispatch="gather")
+    moe_mesh_launches, moe_mesh_routes, moe_at_rank = \
+        phase_moe_sharded(cfg, params)
     del params
     torch.cuda.empty_cache()
     cfg, params, griffin_launches, routes[GRIFFIN_ARCH] = \
@@ -4841,7 +5255,8 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     cfg, params, xlstm_launches, routes[XLSTM_ARCH] = \
-        phase_serve(XLSTM_ARCH, profile_len=XLSTM_PROFILE_LEN)
+        phase_serve(XLSTM_ARCH, profile_len=XLSTM_PROFILE_LEN,
+                    n_layers=XLSTM_SERVE_LAYERS)
     phase_consistency(cfg, params, tol=XLSTM_CONSISTENCY_RTOL)
     del params
     torch.cuda.empty_cache()
@@ -4924,12 +5339,19 @@ def main() -> int:
              # phase 41 (a): 3 prefills on a (1, 1) mesh
              f"{ARCH} sharded": sharded_launches["flash_attention"],
              # phase 42 (a): 4 train steps on a (1, 1) mesh, 4 layers
-             f"{ARCH} sharded train": sharded_train["flash_attention"]},
+             f"{ARCH} sharded train": sharded_train["flash_attention"],
+             # phase 43: granite-moe's 3 prefills on a (1, 1) mesh under
+             # each ruleset, its 4-layer train steps there, and 3 prefills
+             # on rank 0 of (1, 4) (granite under both, mixtral under ep)
+             **{path: n["flash_attention"]
+                for path, n in moe_mesh_launches.items()}},
          "launches_by_route": {
              **{arch: r["flash_attention"] for arch, r in routes.items()},
              f"{ARCH} train": train_routes["flash_attention"],
              f"{ARCH} sharded train":
                  sharded_train_routes["flash_attention"],
+             **{path: r["flash_attention"]
+                for path, r in moe_mesh_routes.items()},
              f"{GRIFFIN_ARCH} train": griffin_train_routes["flash_attention"],
              f"{AUDIO_ARCH} train": audio_train_routes["flash_attention"]},
          "at_granite_shape": fa_timing["granite-prefill"],
@@ -4967,10 +5389,16 @@ def main() -> int:
              f"{AUDIO_ARCH} train":
                  audio_train_routes["flash_attention_bwd"],
              f"{ARCH} sharded train":
-                 sharded_train_routes["flash_attention_bwd"]},
+                 sharded_train_routes["flash_attention_bwd"],
+             f"{MOE_ARCH} sharded train":
+                 moe_mesh_routes[f"{MOE_ARCH} sharded train"][
+                     "flash_attention_bwd"]},
          "launches_by_path": {
              f"{ARCH} train": train_launches["flash_attention_bwd"],
              f"{ARCH} sharded train": sharded_train["flash_attention_bwd"],
+             f"{MOE_ARCH} sharded train":
+                 moe_mesh_launches[f"{MOE_ARCH} sharded train"][
+                     "flash_attention_bwd"],
              f"{GRIFFIN_ARCH} train": griffin_train["flash_attention_bwd"],
              f"{AUDIO_ARCH} train": audio_train["flash_attention_bwd"],
              f"{MOE_ARCH} train": moe_train["flash_attention_bwd"],
@@ -4997,11 +5425,21 @@ def main() -> int:
              MOE_ARCH: moe_launches["moe_gmm"],
              f"{MOE_ARCH} train": moe_train["moe_gmm"],
              **{arch: n["moe_gmm"] for arch, n in zoo_launches.items()
-                if n["moe_gmm"]}},
+                if n["moe_gmm"]},
+             # phase 43 (a): on a (1, 1) mesh, 3 prefills and
+             # MOE_MESH_DECODE decode steps under each ruleset, and
+             # MOE_MESH_TRAIN_STEPS train steps of 4 layers; (b) 3
+             # prefills on rank 0 of (1, 4)
+             **{path: n["moe_gmm"] for path, n in moe_mesh_launches.items()}},
          "launches_by_route_by_path": {
-             arch: routes[arch]["moe_gmm"] for arch in
-             (MOE_ARCH, *(a for a, n in zoo_launches.items()
-                          if n["moe_gmm"]))},
+             **{arch: routes[arch]["moe_gmm"] for arch in
+                (MOE_ARCH, *(a for a, n in zoo_launches.items()
+                             if n["moe_gmm"]))},
+             **{path: r["moe_gmm"] for path, r in moe_mesh_routes.items()}},
+         # phase 43 (b): rank 0 of a (1, 4) mesh of fake ranks, its local
+         # buckets and weights, launches, route, CUDA-event ms a launch and
+         # the first call's error against the plain version
+         "at_rank_shapes": moe_at_rank,
          "launches_by_route_train": moe_train_routes["moe_gmm"],
          "backward": {"calls": moe_train["moe_gmm_bwd"], **gmm_bwd_timing},
          **gmm_timing},

@@ -141,18 +141,22 @@ class EventSink:
         self._seq = itertools.count()                 # lock: _lock
         self._abandoned = threading.Event()
         self._closed = False                          # lock: _lock
+        # held by ``emit`` from an event's stamp to its enqueue: producers
+        # blocked on a full buffer otherwise enqueue in whichever order a
+        # slot frees for them, and the consumer sees the sequence out of
+        # order; ``close`` so waits for an emit in flight
         self._lock = threading.Lock()
 
     def emit(self, ev: WorkflowEvent):
         with self._lock:
             ev.seq = next(self._seq)
-        ev.t = time.time()
-        while not self._abandoned.is_set():
-            try:
-                self._q.put(ev, timeout=0.05)
-                return
-            except queue.Full:
-                continue
+            ev.t = time.time()
+            while not self._abandoned.is_set():
+                try:
+                    self._q.put(ev, timeout=0.05)
+                    return
+                except queue.Full:
+                    continue
 
     def close(self):
         with self._lock:

@@ -226,13 +226,16 @@ def whole(t: torch.Tensor) -> torch.Tensor:
 
 def local_shard(t: torch.Tensor, mesh, place) -> torch.Tensor:
     """This rank's piece of the whole tensor ``t`` under ``place``: its
-    chunk along each sharded dim, mesh dims in order (major first)."""
+    chunk along each sharded dim, mesh dims in order (major first).  A
+    piece smaller than ``t`` is a copy, so that it does not hold the
+    whole tensor's memory once the caller drops ``t``."""
     from torch.distributed.tensor import Shard
     coord = mesh.get_coordinate()
     for i, p in enumerate(place):
         if isinstance(p, Shard):
             t = t.chunk(mesh.mesh.shape[i], dim=p.dim)[coord[i]]
-    return t.contiguous()
+    t = t.contiguous()
+    return t.clone() if t.untyped_storage().nbytes() > t.nbytes else t
 
 
 def distribute_placed(t: torch.Tensor, mesh, place):

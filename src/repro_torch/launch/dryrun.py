@@ -30,9 +30,11 @@ by ``cache_specs``.  The counts are then one card's: its local FLOPs and
 bytes, the wire bytes of the collectives DTensor emits, its share of the
 arguments (the float32 parameters, their gradients and the AdamW moments
 of a train cell each its local pieces); the record's ``mesh`` is e.g.
-"1x8xH100" and ``chips`` the world size.  Dense self-attention decoders
-only: the other configs under a mesh are written with a ``skip`` reason
-that names the later slice.
+"1x8xH100" and ``chips`` the world size.  Self-attention decoders, dense
+or MoE (``--ruleset ep`` spreads the experts over "model"; the record's
+``moe`` says how many experts and how much of d_ff a card holds): the
+other configs under a mesh are written with a ``skip`` reason that names
+the later slice.
 
 ``--dp-compress`` counts a train cell's ``make_train_step_dp_compressed``
 on the multi-pod mesh, the parameters placed on each pod's ("data",
@@ -190,6 +192,12 @@ def _count(rec, cfg, shape, accum_steps, moe_dispatch, mesh, rules,
         specs = sharding.logical_to_specs(R.logical_axes(cfg), params, on,
                                           rules)
         params = sharding.distribute_tree(params, specs, on)
+    if cfg.is_moe:
+        # the expert FFN's share of one card: (E_loc, d, f_loc) a layer
+        w1 = sharding.local(params["layers"][0]["ffn"]["w1"])
+        rec["moe"] = {"experts": cfg.n_experts, "d_ff": cfg.d_ff,
+                      "experts_per_card": w1.shape[0],
+                      "d_ff_per_card": w1.shape[2]}
     memory = {"parameters": _nbytes(params)}
     counter = FlopCounter()
     if train:

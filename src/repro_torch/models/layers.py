@@ -45,6 +45,24 @@ def gathered(w: torch.Tensor) -> torch.Tensor:
     return w if place == list(w.placements) else w.redistribute(mesh, place)
 
 
+class _SumOverRanks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        from torch.distributed import _functional_collectives as funcol
+        return funcol.wait_tensor(funcol.all_reduce(t, "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_over_ranks(t: torch.Tensor, group) -> torch.Tensor:
+    """An all-reduce sum over ``group`` of a value that every rank then
+    holds whole: its gradient is the same on every rank and passes
+    through unchanged."""
+    return _SumOverRanks.apply(t, group)
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
     dt = x.dtype
     x = x.float()

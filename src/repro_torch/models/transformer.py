@@ -39,7 +39,7 @@ it is read only by MoE layers):
   init_cache(cfg, B, ctx_len, device=)             -> cache (zeros)
 ``forward_train``, ``forward_logits``, ``prefill`` and ``decode_step`` also
 take ``mesh=``, a ``DeviceMesh`` on which the params lie as DTensors
-(dense self-attention decoders only: ``check_mesh_supported``).
+(self-attention decoders, dense or MoE: ``check_mesh_supported``).
 """
 from __future__ import annotations
 
@@ -64,7 +64,7 @@ from repro_torch.models.config import (ATTN, SWA, LOCAL, CROSS, MLSTM, SLSTM,
 from repro_torch.models.layers import (attention, decode_attention_block,
                                        dense, gated_mlp, gathered,
                                        is_gated_act, merge_heads, rms_norm,
-                                       rope, split_heads)
+                                       rope, split_heads, sum_over_ranks)
 from repro_torch.models.moe import moe_block, moe_ffn_axes
 from repro_torch.models.rglru import (RGLRU_C, apply_rglru, d_rnn,
                                       decode_rglru, init_state_rglru,
@@ -291,7 +291,7 @@ def logical_axes(cfg: ArchConfig) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 # ---------------------------------------------------------------------------
-# On a device mesh (serving and training the dense decoders)
+# On a device mesh (serving and training the self-attention decoders)
 # ---------------------------------------------------------------------------
 
 _HEADS_HINT = ("batch", None, "model", None)
@@ -299,15 +299,14 @@ _STREAM_HINT = ("batch", None, None)
 
 
 def check_mesh_supported(cfg: ArchConfig) -> None:
-    """Serving or training under a mesh covers the dense self-attention
-    decoders."""
-    if cfg.is_moe or cfg.modality != "text" or cfg.encoder_only or \
+    """Serving or training under a mesh covers the self-attention
+    decoders, dense or MoE."""
+    if cfg.modality != "text" or cfg.encoder_only or \
             not set(cfg.block_pattern) <= {ATTN, SWA}:
         raise NotImplementedError(
-            f"{cfg.name}: serving or training under a mesh covers the dense "
-            f"self-attention decoders; MoE under the ep ruleset, recurrent "
-            f"and xLSTM layers under TP, vision and audio come in a later "
-            f"slice")
+            f"{cfg.name}: serving or training under a mesh covers the "
+            f"self-attention decoders, dense or MoE; recurrent and xLSTM "
+            f"layers under TP, vision and audio come in a later slice")
 
 
 def on_mesh(cfg: ArchConfig, mesh):
@@ -442,10 +441,12 @@ def _decode_cross_attn(x, p, cfg, cache):
     return _gated_out(x, p, o), cache
 
 
-def _apply_ffn(x, p, cfg, moe_dispatch):
-    """Returns (x, aux): the MoE load-balancing loss, 0.0 for a dense MLP."""
+def _apply_ffn(x, p, cfg, moe_dispatch, mesh=None):
+    """Returns (x, aux): the MoE load-balancing loss, 0.0 for a dense MLP.
+    On a mesh an MoE block's output is left a partial sum over "model",
+    which the caller's stream hint reduces."""
     if cfg.is_moe:
-        return moe_block(x, p, cfg, dispatch=moe_dispatch)
+        return moe_block(x, p, cfg, dispatch=moe_dispatch, mesh=mesh)
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     return x + gated_mlp(h, p, cfg.act), 0.0
 
@@ -469,7 +470,7 @@ def _apply_layer(x, memory, layer, kind, cfg, positions, moe_dispatch,
     x = shard_hint(x, mesh, _STREAM_HINT)
     aux = 0.0
     if "ffn" in layer:
-        x, aux = _apply_ffn(x, layer["ffn"], cfg, moe_dispatch)
+        x, aux = _apply_ffn(x, layer["ffn"], cfg, moe_dispatch, mesh)
         x = shard_hint(x, mesh, _STREAM_HINT)
     return x, aux, kv
 
@@ -625,21 +626,6 @@ def _xent_sums(logits, lc, mc, z_weight: float):
     return torch.sum(nll) + zl, torch.sum(mc), correct
 
 
-class _SumOverRanks(torch.autograd.Function):
-    """An all-reduce sum over ``group`` of a value that every rank then
-    holds whole: its gradient is the same on every rank and passes
-    through unchanged."""
-
-    @staticmethod
-    def forward(ctx, t, group):
-        from torch.distributed import _functional_collectives as funcol
-        return funcol.wait_tensor(funcol.all_reduce(t, "sum", group))
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
 def _vocab_parallel_sums(logits, lc, mc, z_weight: float, group, v0: int,
                          vocab: int):
     """``_xent_sums`` of a rank's columns [v0, v0 + local) of a chunk's
@@ -651,12 +637,12 @@ def _vocab_parallel_sums(logits, lc, mc, z_weight: float, group, v0: int,
     n = logits.shape[-1]
     m = funcol.wait_tensor(funcol.all_reduce(logits.detach().amax(-1),
                                              "max", group))
-    lse = m + torch.log(_SumOverRanks.apply(
+    lse = m + torch.log(sum_over_ranks(
         torch.sum(torch.exp(logits - m[..., None]), -1), group))
     local = lc - v0
     here = (local >= 0) & (local < n)
     gold = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
-    gold = _SumOverRanks.apply(gold * here, group)
+    gold = sum_over_ranks(gold * here, group)
     first = torch.where(logits.detach().amax(-1) == m,
                         logits.detach().argmax(-1) + v0, vocab)
     first = funcol.wait_tensor(funcol.all_reduce(first, "min", group))
@@ -758,7 +744,8 @@ def forward_train(params, cfg: ArchConfig, batch, *,
         positions = torch.arange(x.shape[1], device=x.device)
         x, aux, _ = _stack_forward(params, cfg, x, memory, positions,
                                    moe_dispatch, remat=cfg.remat, mesh=mesh)
-        aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+        if not is_dtensor(aux):     # on a mesh: replicated, from the MoE
+            aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
         x = rms_norm(x, params["final_ln"], cfg.norm_eps)
         mask = batch.get("mask")
         if mask is not None:
@@ -780,8 +767,8 @@ def forward_logits(params, cfg: ArchConfig, batch, *,
     "model") on which ``params`` lie as DTensors
     (``distributed.sharding.distribute_tree``); the activations are
     hinted where the reference hints them, and the logits come back as a
-    DTensor, batch-sharded and whole over the vocabulary.  Dense
-    self-attention decoders only (NotImplementedError for the rest)."""
+    DTensor, batch-sharded and whole over the vocabulary.  Self-attention
+    decoders, dense or MoE (NotImplementedError for the rest)."""
     device = _prepare(params, cfg, device)
     with on_mesh(cfg, mesh):
         x, memory = _embed(params, cfg, batch, device)
@@ -867,7 +854,9 @@ def decode_step(params, cfg: ArchConfig, tokens, pos: int, cache, *,
                     window=_window_for(kind, cfg), mesh=mesh)
             layers.append(new)
             if "ffn" in layer:
-                x, _ = _apply_ffn(x, layer["ffn"], cfg, moe_dispatch)
+                x = shard_hint(x, mesh, _STREAM_HINT)
+                x, _ = _apply_ffn(x, layer["ffn"], cfg, moe_dispatch, mesh)
+                x = shard_hint(x, mesh, _STREAM_HINT)
         x = rms_norm(x, params["final_ln"], cfg.norm_eps)
         logits = shard_hint(_unembed(x, params, cfg)[:, 0], mesh,
                             ("batch", None))

@@ -7,6 +7,7 @@ four unit cases, ``fits`` against the H100's 80 GB."""
 import json
 
 import pytest
+import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.launch import dryrun, roofline
@@ -122,9 +123,96 @@ def test_dp_compress_needs_the_pod_axis(tmp_path):
 
 
 def test_moe_train_cell_on_a_mesh_keeps_its_skip():
+    """What this test holds, whatever its name says: a MoE train cell on a
+    mesh carries no skip and is counted (d_ff split under ``base``), and
+    the configs a later slice brings to a mesh (recurrent, xLSTM) keep
+    their skip, which names that slice.  The name is the one the test had
+    while MoE cells were refused on a mesh."""
     rec = dryrun.lower_cell("granite-moe-3b-a800m-smoke",
                             ShapeSpec("t", 64, 4, "train"), tp=2)
-    assert "later slice" in rec["skip"]
+    assert "skip" not in rec and "error" not in rec
+    assert rec["moe"]["experts_per_card"] == 4     # base: d_ff split
+    assert rec["moe"]["d_ff_per_card"] == rec["moe"]["d_ff"] // 2
+    for arch in ("recurrentgemma-9b-smoke", "xlstm-1.3b-smoke"):
+        rec = dryrun.lower_cell(arch, ShapeSpec("t", 64, 4, "train"), tp=2)
+        assert "later slice" in rec["skip"]
+
+
+MOE_SMOKE = ("granite-moe-3b-a800m-smoke", "mixtral-8x7b-smoke")
+
+
+@pytest.mark.parametrize("arch", MOE_SMOKE)
+@pytest.mark.parametrize("ruleset", ["base", "ep"])
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_no_moe_cell_on_a_mesh_is_skipped(arch, ruleset, kind):
+    rec = dryrun.lower_cell(arch, ShapeSpec("s", 64, 4, kind), dp=2, tp=2,
+                            ruleset=ruleset)
+    assert "skip" not in rec and "error" not in rec, rec.get("skip")
+    assert rec["counted"]["kernels"]["moe_gmm"]["calls"] > 0
+    assert rec["counted"]["total_wire_bytes"] > 0
+
+
+def _bytes_per_card(cfg, mesh, ruleset):
+    """A card's share of the serving weights, from the specs alone: each
+    leaf's bytes over the sizes of the mesh axes its spec names."""
+    from repro_torch.distributed import sharding
+    params = R.init_params(cfg, device="meta")
+    specs = sharding.logical_to_specs(R.logical_axes(cfg), params, mesh,
+                                      sharding.RULESETS[ruleset])
+    sizes = sharding.mesh_shape(mesh)
+
+    def share(spec, p):
+        div = 1
+        for axis in spec:
+            for a in (axis if isinstance(axis, tuple) else (axis,)):
+                div *= sizes[a] if a else 1
+        return p.numel() * p.element_size() // div
+    return sum(tree_leaves(sharding.map_leaves(share, specs, params)))
+
+
+def test_mixtral_at_full_depth_holds_two_experts_a_card_under_ep():
+    """mixtral-8x7b at all 32 layers on rank 0 of a 1 x 4 mesh of fake
+    ranks under ``ep``: 2 of its 8 experts a card, whole (d_ff 14336), and
+    the card's parameters what the specs give it: a quarter of the
+    experts' 87 GiB, with the attention heads and vocabulary split too."""
+    from repro_torch.distributed import sharding
+    cfg = get_arch("mixtral-8x7b")
+    rec = dryrun.lower_cell("mixtral-8x7b", ShapeSpec("p", 64, 4, "prefill"),
+                            tp=4, ruleset="ep")
+    assert "skip" not in rec and rec["n_layers"] == 32 == cfg.n_layers
+    assert rec["moe"] == {"experts": 8, "d_ff": 14336,
+                          "experts_per_card": 2, "d_ff_per_card": 14336}
+    mesh = sharding.abstract_mesh((1, 4), ("data", "model"))
+    parts = rec["memory"]["argument_parts"]
+    assert parts["parameters"] == _bytes_per_card(cfg, mesh, "ep")
+    experts = 32 * 3 * 8 * cfg.d_model * cfg.d_ff * 2
+    assert parts["parameters"] < experts / 4 * 1.1
+    assert rec["counted"]["kernels"]["moe_gmm"]["calls"] == 32
+
+
+@pytest.mark.parametrize("ruleset", ["ep", "base"])
+def test_moe_gmm_is_counted_on_the_local_shapes(ruleset):
+    """granite-moe-3b-a800m's prefill on rank 0 of a 1 x 4 mesh: the
+    counted moe_gmm FLOPs and bytes are ``cost.work`` of each layer's
+    local buckets, (10, C, d, f) under ``ep`` and (40, C, d, f / 4) under
+    ``base``, C the capacity of the global batch."""
+    from repro_torch.kernels.moe_gmm import cost
+    from repro_torch.models.moe import _capacity
+    cfg = get_arch("granite-moe-3b-a800m")
+    B, S = 2, 128
+    rec = dryrun.lower_cell("granite-moe-3b-a800m",
+                            ShapeSpec("p", S, B, "prefill"), tp=4,
+                            ruleset=ruleset)
+    E_loc, f_loc = (10, cfg.d_ff) if ruleset == "ep" else (40, cfg.d_ff // 4)
+    assert (rec["moe"]["experts_per_card"], rec["moe"]["d_ff_per_card"]) == \
+        (E_loc, f_loc)
+    C = _capacity(B * S, cfg.n_experts, cfg.top_k, cfg.capacity_factor)
+    flops, nbytes = cost.work(E_loc, C, cfg.d_model, f_loc, True,
+                              torch.bfloat16)
+    got = rec["counted"]["kernels"]["moe_gmm"]
+    assert got["calls"] == cfg.n_layers
+    assert got["flops"] == cfg.n_layers * flops
+    assert got["bytes"] == cfg.n_layers * nbytes
 
 
 def test_skipped_cells_are_written_as_records(tmp_path):

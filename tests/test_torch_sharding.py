@@ -222,6 +222,18 @@ def test_placements_and_production_meshes(fake_ranks):
         ("data", "model")
     with pytest.raises(ValueError, match="needs 12 ranks"):
         M.make_production_mesh(3, 4)
+
+
+def test_a_rank_piece_holds_only_its_own_memory(fake_ranks):
+    """A sharded piece is a copy the size of the piece, so that dropping
+    the whole tensor frees it (a view would keep the whole model alive on
+    every rank); a replicated leaf is the tensor itself, not a copy."""
+    mesh = M.make_production_mesh(2, 4, device_type="cpu")
+    t = torch.arange(8 * 6.0).reshape(8, 6)
+    piece = S.distribute(t, mesh, ("model",)).to_local()
+    assert torch.equal(piece, t[:2])
+    assert piece.untyped_storage().nbytes() == piece.nbytes == t.nbytes // 4
+    assert S.distribute(t, mesh, ()).to_local().data_ptr() == t.data_ptr()
     with pytest.raises(ValueError, match="do not split"):
         M.make_local_mesh(3)
 
@@ -233,7 +245,13 @@ def test_placements_and_production_meshes(fake_ranks):
                                   "llama-3.2-vision-11b-smoke",
                                   "hubert-xlarge-smoke"])
 def test_other_configs_do_not_serve_on_a_mesh_yet(arch):
+    """The recurrent, xLSTM, vision and audio configs raise on a mesh and
+    name the later slice; the MoE configs pass the check since they serve
+    on a mesh (``test_torch_sharding_moe``)."""
     cfg = get_arch(arch)
+    if cfg.is_moe:
+        tf.check_mesh_supported(cfg)
+        return
     params = R.init_params(cfg, 0, device="cpu")
     batch = {"tokens": np.zeros((1, 8), np.int32)}
     if cfg.modality == "audio":
@@ -277,15 +295,19 @@ def test_dry_run_on_fake_ranks_counts_collectives(tmp_path):
                                tp=2, multi_pod=True)
     assert decode["mesh"] == "2x2x2xH100" and decode["chips"] == 8
     assert decode["counted"]["collective_calls"]["all-reduce"] > 0
-    # training counts its collectives too; the other configs name the
-    # later slice
+    # training counts its collectives too, and so does an MoE cell; the
+    # other configs name the later slice
     train = dryrun.lower_cell("minicpm-2b-smoke",
                               ShapeSpec("t", 64, 4, "train"), tp=2)
     assert "skip" not in train
     assert train["counted"]["collective_calls"]["all-reduce"] > 0
     moe = dryrun.lower_cell("granite-moe-3b-a800m-smoke",
                             ShapeSpec("p", 64, 4, "prefill"), tp=2)
-    assert "later slice" in moe["skip"]
+    assert "skip" not in moe
+    assert moe["counted"]["collective_calls"]["all-reduce"] > 0
+    griffin = dryrun.lower_cell("recurrentgemma-9b-smoke",
+                                ShapeSpec("p", 64, 4, "prefill"), tp=2)
+    assert "later slice" in griffin["skip"]
     import torch.distributed as dist
     assert not dist.is_initialized()
 

@@ -1,5 +1,6 @@
 """Worker processes for the port's gloo tests (``test_torch_compression``,
-``test_torch_sharding_serve``, ``test_torch_sharding_train``): each joins
+``test_torch_sharding_serve``, ``test_torch_sharding_train``,
+``test_torch_sharding_moe``): each joins
 a gloo group through a file store and writes what it saw to
 ``out_dir/rank{r}.pt``.  Imports torch
 and the port only, so that a spawned worker starts quickly."""
@@ -313,3 +314,133 @@ def sharded_train_worker(rank, world, init_file, out_dir):
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
+
+
+def _record_expert_ffn(sink):
+    """Wrap ``moe_gmm.ops.expert_ffn`` (the MoE layers call it through its
+    module) so that each call appends (xe's shape, w1's shape, its bucket
+    fills) to ``sink``; returns a function that restores it."""
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    real = gmm_ops.expert_ffn
+
+    def recording(xe, p, act="swiglu", counts=None):
+        sink.append((tuple(xe.shape), tuple(p["w1"].shape),
+                     None if counts is None else counts.tolist()))
+        return real(xe, p, act, counts)
+    gmm_ops.expert_ffn = recording
+
+    def restore():
+        gmm_ops.expert_ffn = real
+    return restore
+
+
+def sharded_moe_worker(rank, world, init_file, out_dir):
+    """The runs of ``out_dir/cases.pkl`` (``test_torch_sharding_moe``):
+    each case's converted float32 params placed by a ruleset on a 2 x 2
+    ("data", "model") mesh, a 2 x 1 x 2 ("pod", "data", "model") or a
+    1 x 4 one; then ``forward_logits``, the prefill step and greedy serve
+    steps, and ``make_train_step`` over the case's batches, each with its
+    moe dispatch.  Each call of the expert FFN is recorded (its shapes and
+    bucket fills), and after the first train step whether each local
+    expert's first moments are non-zero.  Writes the whole logits,
+    tokens, metrics and moments to ``rank{r}.pt``."""
+    import pickle
+
+    from repro_torch.convert import params_from_jax
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import registry as R
+    from repro_torch.optim import AdamWConfig
+    torch.set_num_threads(2)
+    _join(rank, world, init_file)
+    calls = []
+    restore = _record_expert_ffn(calls)
+    try:
+        with open(os.path.join(out_dir, "cases.pkl"), "rb") as f:
+            job = pickle.load(f)
+        ocfg = AdamWConfig(**job["opt"])
+        meshes = {"2x2": M.make_local_mesh(2),
+                  "2x1x2": M.make_production_mesh(1, 2, multi_pod=True),
+                  "1x4": M.make_local_mesh(4)}
+        out = {"coords": {k: m.get_coordinate() for k, m in meshes.items()},
+               "runs": {}}
+        for case in job["cases"]:
+            cfg = case["cfg"]
+            axes = R.logical_axes(cfg)
+            toks = torch.as_tensor(case["tokens"])
+            for ruleset, kind, dispatch in case["runs"]:
+                mesh = meshes[kind]
+                params = params_from_jax(cfg, case["params"])
+                specs = S.logical_to_specs(axes, params, mesh,
+                                           S.RULESETS[ruleset])
+                placed = S.distribute_tree(params, specs, mesh)
+                run = {}
+                with torch.no_grad():
+                    calls.clear()
+                    run["forward"] = R.forward_logits(
+                        placed, cfg, {"tokens": toks}, moe_dispatch=dispatch,
+                        device="cpu", mesh=mesh).full_tensor()
+                    run["forward_calls"] = calls[:]
+                    if case["steps"]:
+                        _serve_run(run, placed, cfg, toks, case, dispatch,
+                                   mesh)
+                if case["batches"]:
+                    _train_run(run, calls, cfg, case, ruleset, dispatch,
+                               mesh, ocfg)
+                out["runs"][(case["name"], ruleset, kind, dispatch)] = run
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        restore()
+        dist.destroy_process_group()
+
+
+def _serve_run(run, placed, cfg, toks, case, dispatch, mesh):
+    """The prefill step and ``case["steps"]`` greedy serve steps on
+    ``mesh``: their whole logits and tokens into ``run``."""
+    from repro_torch.launch import steps
+    prefill = steps.make_prefill_step(cfg, cache_len=case["cache_len"],
+                                      moe_dispatch=dispatch, device="cpu",
+                                      mesh=mesh)
+    serve = steps.make_serve_step(cfg, moe_dispatch=dispatch, device="cpu",
+                                  mesh=mesh)
+    logits, cache = prefill(placed, {"tokens": toks})
+    run.update(prefill=logits.full_tensor(), decode=[], tokens=[])
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    for i in range(case["steps"]):
+        run["tokens"].append(tok.full_tensor())
+        tok, logits, cache = serve(placed, tok, toks.shape[1] + i, cache)
+        run["decode"].append(logits.full_tensor())
+    run["tokens"].append(tok.full_tensor())
+
+
+def _train_run(run, calls, cfg, case, ruleset, dispatch, mesh, ocfg):
+    """``make_train_step`` on ``mesh`` over ``case["batches"]`` from the
+    case's params: each step's metrics, the whole moments after the last,
+    and after the first each layer's (first local expert, [whether each
+    local expert's w1, w3 and w2 first moments are non-zero]) with the
+    fills of that step's expert FFN calls."""
+    from repro_torch.convert import params_from_jax
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import steps
+    from repro_torch.models import registry as R
+    from repro_torch.optim import adamw_init
+    params = params_from_jax(cfg, case["params"])
+    placed = S.distribute_tree(params, S.logical_to_specs(
+        R.logical_axes(cfg), params, mesh, S.RULESETS[ruleset]), mesh)
+    opt = adamw_init(placed)
+    step = steps.make_train_step(cfg, ocfg, moe_dispatch=dispatch,
+                                 accum_steps=case["accum"], device="cpu",
+                                 mesh=mesh)
+    metrics = []
+    for i, batch in enumerate(case["batches"]):
+        calls.clear()
+        placed, opt, m = step(placed, opt, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            run["step1_calls"] = calls[:]
+            run["step1_moments"] = [
+                {n: (layer["ffn"][n].to_local().flatten(1).abs().amax(1) > 0)
+                 .tolist() for n in ("w1", "w3", "w2")}
+                for layer in opt.m["layers"]]
+    run.update(metrics=metrics, m=_whole_tree(opt.m), v=_whole_tree(opt.v),
+               params=_whole_tree(placed))

@@ -23,7 +23,10 @@ without one, and one rank of a (1, 4) mesh of fake ranks),
 ``sharded-train`` (phase 42: minicpm-2b's train steps on a one-rank gloo
 mesh beside the plain steps, the compressed step on a (1, 1, 1) mesh
 beside its group form, and one train step on rank 0 of a (1, 4) mesh of
-fake ranks) and ``zoo`` (phases 27-34: h2o-danube-3-4b on
+fake ranks), ``sharded-moe`` (phase 5's granite-moe serve, then phase 43:
+its serving under ``ep`` and ``base`` and a train step on a one-rank gloo
+mesh beside the same steps without one, then rank 0's prefills on a (1,
+4) mesh of fake ranks, mixtral-8x7b's among them) and ``zoo`` (phases 27-34: h2o-danube-3-4b on
 prompts past its window, minitron-8b, deepseek-coder-33b and mixtral-8x7b through gather at
 MIXTRAL_SERVE_LAYERS layers, each served, freed, then its float32
 consistency on a model drawn anew at ZOO_CONSIST_LAYERS layers, past the
@@ -72,7 +75,8 @@ PHASES = ("serve-vision", "consistency-vision", "train-audio",
           "pipeline", "pipeline-consistency", "pipeline-engine",
           "pipeline-service", "pipeline-recovery", "zoo",
           "train-compressed",
-          "train-driver", "dryrun", "sharded-serve", "sharded-train")
+          "train-driver", "dryrun", "sharded-serve", "sharded-train",
+          "sharded-moe")
 
 
 def fake_launch(q, k, v, out, *, causal, window, scale=None, lse=None):
@@ -278,6 +282,8 @@ def main(argv=None) -> int:
         "sharded-serve": lambda: cs["phase_serve_sharded"](
             *cs["phase_serve"](cs["ARCH"])[:2]),
         "sharded-train": lambda: cs["phase_train_sharded"](),
+        "sharded-moe": lambda: cs["phase_moe_sharded"](*cs["phase_serve"](
+            cs["MOE_ARCH"], moe_dispatch="gather")[:2]),
         "dryrun": lambda: cs["phase_dryrun"](
             "CPU rehearsal", cs["phase_train"](
                 seq=cs["TRAIN_SEQ"], profile=False)[2]),
