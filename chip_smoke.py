@@ -146,6 +146,9 @@ a non-zero exit:
                 plain versions from the same weights (every norm scale drawn
                 at 0.1 N(0, 1), as in every train consistency phase), with
                 the labels shifted by one position as the negative control
+                (every train consistency phase draws its weights on the
+                card and runs its control there, the CPU taking the one
+                step it is held against)
 14. train       recurrentgemma-9b at full width, depth cut to 2 periods (4
                 RG-LRU, 2 LOCAL layers, 3.41 B params), as phase 12 at
                 2 x 4096: every step 16 rglru_scan and 8 flash forward
@@ -228,8 +231,8 @@ a non-zero exit:
                 slots and decode wraps it; minitron-8b (32 layers, the
                 non-gated relu2 MLP, an untied head of 256000 rows);
                 deepseek-coder-33b (62 layers, 62.1 GiB of bf16 weights,
-                56 query heads over 8 KV heads); mixtral-8x7b cut to 24 of
-                its 32 layers (65.4 GiB) through gather, every MoE call of
+                56 query heads over 8 KV heads); mixtral-8x7b cut to 16 of
+                its 32 layers (43.6 GiB) through gather, every MoE call of
                 every prefill and decode step on moe_gmm's wgmma route.
                 Each served model is freed before its consistency phase,
                 which draws a float32 model of 2 layers at full width
@@ -316,7 +319,8 @@ a non-zero exit:
                 38's result, re-running no journaled invocation, its
                 flash launches those of the re-run counts and seurats
 41. sharded serve  run right after phase 5, on phase 4's minicpm-2b
-                (full width and depth, bf16, seed 0) under the ``base``
+                (full width, its first SHARDED_SERVE_LAYERS = 10 of 40
+                layers, bf16, seed 0) under the ``base``
                 ruleset: (a) on a one-rank NCCL group and a (1, 1)
                 ("data", "model") mesh, a prefill of 4 x 1000 tokens into
                 caches of 1024 slots (sequence-sharded by
@@ -324,7 +328,7 @@ a non-zero exit:
                 ``make_prefill_step`` / ``make_serve_step`` with ``mesh=``,
                 beside the same steps without a mesh: the same greedy
                 tokens, the logits' largest difference under
-                SHARDED_LOGITS_BAR, 40 flash launches a prefill on
+                SHARDED_LOGITS_BAR, 10 flash launches a prefill on
                 wgmma_bf16 (the counts reset just before the sharded steps
                 and read just after), prefill ms (median of 3) and decode
                 ms a step both ways; (b) rank 0 of a (1, 4) mesh of a fake
@@ -383,9 +387,41 @@ a non-zero exit:
                 weights and fills through the kernel again against the
                 plain version at GMM_RTOL; the prefill ms, mixtral's
                 weights a rank and peak memory (the logits not checked)
+44. sharded recurrent  the recurrent blocks on meshes under ``base``, each
+                kernel's launches counted from 0 on each path and checked
+                by route (flash on wgmma_bf16, rglru_scan on fused_bias,
+                mlstm_scan on wgmma_bf16): run right after phase 9, on
+                phase 8's recurrentgemma-9b (full width and depth, bf16),
+                and right after phase 11, on phase 10's xlstm-1.3b cut to
+                its first XLSTM_MESH_LAYERS = 4 layers (2 mLSTM, 2 sLSTM):
+                (a), (c) on a one-rank NCCL group and a (1, 1) mesh, 3
+                prefills of 4 x 1000 tokens and RECURRENT_MESH_DECODE
+                decode steps fed the unsharded steps' greedy tokens,
+                beside them: the logits within SHARDED_LOGITS_BAR, the
+                greedy tokens that agree, one launch a recurrent or LOCAL
+                layer in the prefill and none in decode, prefill and
+                decode ms both ways, the mesh steps' peak memory; (d)
+                rank 0 of a (1, 4) mesh of fake ranks: the prefill,
+                every kernel's launches and the
+                shapes it received (rglru_scan at (4, 1000, 1024), flash
+                at 4 query heads over the one KV head, Dh 256; mlstm_scan
+                at one head of Dh 1024), each kernel's first call there
+                at its shapes, dtypes and parameters (its activations
+                drawn anew: the fake ranks' collectives leave their
+                outputs unwritten) through the kernel again against its
+                plain version and timed beside its bound, the prefill's
+                ms and peak memory
+                (the logits not checked); then (b), after phase 11: on the
+                (1, 1) mesh, a train step of recurrentgemma-9b at 6 layers
+                (2 x 4096) and of xlstm-1.3b at 4 layers (2 x 256), phase
+                12's recipe, beside a plain step from the same init: the
+                loss and the grad norm within TRAIN_RTOL, every parameter
+                after the step within 2 lr, each kernel's forward and backward
+                launches on its train route
 
-Earlier serve paths run at full depth; if the run outgrows its time, their
-depth is what gets cut first.
+Earlier serve paths run at full depth, except where a note above says
+otherwise; if the run outgrows its time, their depth is what gets cut
+first.
 
 It then prints one JSON line of kernel numbers, the card line, and as its
 last line ``{"ok": true, "device": {...}}``.
@@ -554,10 +590,11 @@ AUDIO_CONSIST_LAYERS, AUDIO_CONSIST_SEQ = 2, 512
 # PROMPT_LEN).  h2o-danube-3-4b takes prompts of SWA_PROMPT_LEN tokens,
 # past its window of 4096, so that prefill ring-rotates the cache and
 # decode wraps it.  mixtral-8x7b's 32 layers are 87 GiB of bf16 weights,
-# more than the card: 24 layers are 65.4 GiB.  It serves through gather
-# (einsum's groups do not divide every T)
+# more than the card: 24 layers were 65.4 GiB; 16 since phase 44 came
+# (43.6 GiB), for the call's time.  It serves through gather (einsum's
+# groups do not divide every T)
 SWA_PROMPT_LEN = 5000
-MIXTRAL_SERVE_LAYERS = 24
+MIXTRAL_SERVE_LAYERS = 16
 ZOO_ARCHS = (("h2o-danube-3-4b", None, "einsum", SWA_PROMPT_LEN),
              ("minitron-8b", None, "einsum", None),
              ("deepseek-coder-33b", None, "einsum", None),
@@ -572,6 +609,9 @@ ZOO_CONSIST_LAYERS, SWA_CONSIST_SEQ, CPU_CHECK_SEQ = 2, 4200, 128
 # dim; on a one-rank mesh the sharded steps run the unsharded ops on the
 # same whole tensors, so the bar only allows bf16 rounding in another order
 SHARDED_CACHE_LEN, SHARDED_LOGITS_BAR, SHARDED_TP = 1024, 2e-2, 4
+# ... on the first SHARDED_SERVE_LAYERS of phase 4's 40 layers (since
+# phase 44 came: the whole depth took 30-42 s of the call)
+SHARDED_SERVE_LAYERS = 10
 # phase 43: granite-moe on a one-rank mesh decodes MOE_MESH_DECODE greedy
 # steps (DTensor's host cost makes a step ~1 s there) and trains
 # MOE_MESH_TRAIN_STEPS steps of MOE_TRAIN_LAYERS layers; then rank 0 of a
@@ -579,6 +619,13 @@ SHARDED_CACHE_LEN, SHARDED_LOGITS_BAR, SHARDED_TP = 1024, 2e-2, 4
 # at all 32 layers
 MOE_MESH_DECODE, MOE_MESH_TRAIN_STEPS = 4, 2
 MIXTRAL_ARCH = "mixtral-8x7b"
+# phase 44: recurrentgemma-9b (full depth) and xlstm-1.3b (its first
+# XLSTM_MESH_LAYERS served layers) on a one-rank mesh: three prefills and
+# RECURRENT_MESH_DECODE decode steps fed the unsharded steps' greedy
+# tokens; one train step of each beside a plain one, xlstm-1.3b's at
+# XLSTM_MESH_TRAIN_SEQ (its sLSTM loop made 2 steps at 1024 take 74 s)
+RECURRENT_MESH_DECODE, RECURRENT_MESH_TRAIN_STEPS = 4, 1
+XLSTM_MESH_LAYERS, XLSTM_MESH_TRAIN_SEQ = 4, 256
 
 
 _T0 = time.perf_counter()
@@ -819,12 +866,29 @@ def pad_head_dim(*ts):
     return tuple(F.pad(t, (0, dh - t.shape[3])).contiguous() for t in ts)
 
 
+def sdpa_ms(q, k, v, causal: bool, window: int):
+    """One PyTorch call computing flash's function on (B, S, H, Dh) q, k,
+    v, timed: a yardstick only, which the port never calls.  Where the
+    window bites, is_causal alone would attend beyond it, so SDPA gets the
+    band as a boolean mask (masked SDPA, on another backend), as in
+    ``sdpa_bwd_call``.  Returns (ms, the call's name)."""
+    import torch.nn.functional as F
+    S, H, KH = q.shape[1], q.shape[2], k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if 0 < window < S:
+        band = band_mask(S, window, causal, q.device)
+        return cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=band, enable_gqa=H != KH),
+            iters=5), "masked sdpa"
+    return cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=H != KH)), "sdpa"
+
+
 def time_kernel(q, k, v, causal, window, err):
     """Kernel (through the wrapper, as the model calls it), plain version
     and library times at a model's shape; at a head dim the wrapper pads,
     also the kernel alone on inputs padded beforehand."""
     from repro_torch.kernels.flash_attention import kernel, ops, ref
-    import torch.nn.functional as F
     B, S, H, Dh = q.shape
     KH = k.shape[2]
     kernel_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
@@ -839,21 +903,7 @@ def time_kernel(q, k, v, causal, window, err):
         del qp, kp, vp, out
     plain_ms = cuda_ms(lambda: ref.reference_attention(
         q, k, v, causal=causal, window=window), iters=5)
-    # yardstick only: one PyTorch call computing the same function; the
-    # port never calls it.  Where the window bites, is_causal alone would
-    # attend beyond it, so SDPA gets the band as a boolean mask (masked
-    # SDPA, on another backend), as in sdpa_bwd_call
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    sdpa_name = "sdpa"
-    if 0 < window < S:
-        sdpa_name = "masked sdpa"
-        band = band_mask(S, window, causal, q.device)
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=band, enable_gqa=H != KH), iters=5)
-        del band
-    else:
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=H != KH))
+    library_ms, sdpa_name = sdpa_ms(q, k, v, causal, window)
     bound_ms, bound_by, flops, nbytes = bound(fa_cost.work(
         B, S, H, KH, Dh, causal, window, q.dtype), q.dtype)
     print(f"  timing at B={B} S={S} H={H} KH={KH} Dh={Dh} window={window} "
@@ -2314,14 +2364,15 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum",
 
 
 def serve_greedy(cfg, params, toks, mesh=None, steps=None,
-                 moe_dispatch="einsum"):
+                 moe_dispatch="einsum", repeats: int = 3, feed=None):
     """Prefill ``toks`` (SERVE_SLOTS x PROMPT_LEN) into caches of
-    SHARDED_CACHE_LEN slots three times and decode ``steps`` (default GEN)
-    greedy steps from the last, through ``make_prefill_step`` /
-    ``make_serve_step`` (with ``mesh``, on it).  Returns (prefill ms,
-    median of 3; decode ms a step; the greedy tokens (steps + 1, B); the
-    logits, prefill's then each step's, float32 on the host; the first
-    layer's k cache)."""
+    SHARDED_CACHE_LEN slots ``repeats`` times and decode ``steps`` (default
+    GEN) greedy steps from the last, through ``make_prefill_step`` /
+    ``make_serve_step`` (with ``mesh``, on it); with ``feed`` (greedy
+    tokens of another run, (steps + 1, B)), each decode step takes feed's
+    token instead of its own.  Returns (prefill ms, the median; decode ms
+    a step; the greedy tokens (steps + 1, B); the logits, prefill's then
+    each step's, float32 on the host; the first layer's cache)."""
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     steps = GEN if steps is None else steps
     prefill = make_prefill_step(cfg, cache_len=SHARDED_CACHE_LEN,
@@ -2334,7 +2385,7 @@ def serve_greedy(cfg, params, toks, mesh=None, steps=None,
         return t.full_tensor() if mesh is not None else t
     with torch.inference_mode():
         times = []
-        for _ in range(3):
+        for _ in range(repeats):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             logits, cache = prefill(params, {"tokens": toks})
@@ -2344,15 +2395,18 @@ def serve_greedy(cfg, params, toks, mesh=None, steps=None,
         tokens, all_logits = [whole(nxt)[:, 0].cpu()], [whole(logits)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for pos in range(PROMPT_LEN, PROMPT_LEN + steps):
+        for i, pos in enumerate(range(PROMPT_LEN, PROMPT_LEN + steps)):
+            if feed is not None:
+                nxt = feed[i][:, None].to(device="cuda", dtype=torch.int32)
             nxt, logits, cache = decode(params, nxt, pos, cache)
             tokens.append(whole(nxt)[:, 0].cpu())
             all_logits.append(whole(logits))
         torch.cuda.synchronize()
         decode_ms = (time.perf_counter() - t0) / steps * 1e3
-    return (sorted(times)[1] * 1e3, decode_ms, torch.stack(tokens),
+    return (sorted(times)[len(times) // 2] * 1e3, decode_ms,
+            torch.stack(tokens),
             torch.stack([t.float().cpu() for t in all_logits]),
-            cache["layers"][0]["k"])
+            cache["layers"][0])
 
 
 def phase_serve_sharded(cfg, params):
@@ -2368,7 +2422,10 @@ def phase_serve_sharded(cfg, params):
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import registry as R
-    phase(f"sharded serve {cfg.name}")
+    n = min(SHARDED_SERVE_LAYERS, cfg.n_layers)
+    cfg = dataclasses.replace(cfg, n_layers=n)
+    params = dict(params, layers=params["layers"][:n])
+    phase(f"sharded serve {cfg.name} ({cfg.n_layers} layers)")
     rules = sharding.RULESETS["base"]
     axes = R.logical_axes(cfg)
     toks = np.random.default_rng(41).integers(
@@ -2390,9 +2447,9 @@ def phase_serve_sharded(cfg, params):
         sharded = serve_greedy(cfg, placed, toks, mesh)
         launches = {"flash_attention": fa_kernel.LAUNCHES}
         routes = dict(fa_kernel.LAUNCHES_BY_ROUTE)
-        prefill_ms, decode_ms, tokens, logits, cache_k = sharded
-        cache_place = tuple(cache_k.placements)
-        del placed, sharded, cache_k
+        prefill_ms, decode_ms, tokens, logits, cache0 = sharded
+        cache_place = tuple(cache0["k"].placements)
+        del placed, sharded, cache0
     finally:
         dist.destroy_process_group()
     want = 3 * n_attn
@@ -2931,7 +2988,9 @@ def phase_train_consistency(arch: str = ARCH, n_layers: int = CONSIST_LAYERS,
             cfg, capacity_factor=cfg.n_experts / cfg.top_k)
     phase(f"train consistency {arch}" + (
         f" moe_dispatch={moe_dispatch}" if cfg.is_moe else ""))
-    params = R.init_params(cfg, 0, device="cpu", param_dtype=torch.float32)
+    # drawn on the card (the CPU's generator took tens of seconds for a
+    # vocabulary of 256000 x 4096), copied to the CPU for its step
+    params = R.init_params(cfg, 0, device="cuda", param_dtype=torch.float32)
     draw_norms(params)
     batch = batch_for(cfg, ShapeSpec("consistency", seq, 1, "train"),
                       seed=1)
@@ -2973,7 +3032,9 @@ def phase_train_consistency(arch: str = ARCH, n_layers: int = CONSIST_LAYERS,
     t0 = time.perf_counter()
     loss_cpu, g_cpu = run("cpu", batch)
     cpu_s = time.perf_counter() - t0
-    _, g_bad = run("cpu", bad_batch)
+    # the control on the card: the same step's gradients on a wrong batch
+    # (a CPU step of its own took as long as the CPU step above)
+    _, g_bad = run("cuda", bad_batch)
 
     def rel(got, want):
         top = max(float(w.abs().max()) for w in want.values())
@@ -4537,10 +4598,11 @@ def timed_steps(run, steps: int):
 
 def largest_difference(placed, plain) -> float:
     """The largest |a - b| over the leaves of a params tree on a mesh and
-    the same tree without one (each rank's pieces against the whole)."""
+    the same tree without one (each rank's pieces against the whole, which
+    may lie on the host)."""
     from repro_torch.tree import tree_leaves
     with torch.no_grad():
-        return max(float((a.full_tensor() - b).abs().max())
+        return max(float((a.full_tensor() - b.to(a.device)).abs().max())
                    for a, b in zip(tree_leaves(placed), tree_leaves(plain)))
 
 
@@ -4564,7 +4626,8 @@ def train_beside_plain(cfg, ocfg, batch, init, placed, mesh, n: int, want,
     opt = adamw_init(plain)
     step = steps.make_train_step(cfg, ocfg, **kw)
     plain_m, plain_ms = timed_steps(lambda: step(plain, opt, batch), 1)
-    after_one = tree_map(lambda p: p.detach().clone(), plain)
+    # on the host: recurrentgemma-9b's 6-layer state and steps fill the card
+    after_one = tree_map(lambda p: p.detach().cpu(), plain)
     more_m, more_ms = timed_steps(lambda: step(plain, opt, batch), n - 1)
     plain_m, plain_ms = plain_m + more_m, plain_ms + more_ms
     del plain, opt
@@ -4589,7 +4652,7 @@ def train_beside_plain(cfg, ocfg, batch, init, placed, mesh, n: int, want,
     for k in keys:
         a, b = plain_m[0][k], mesh_m[0][k]
         check(abs(a - b) <= TRAIN_RTOL * abs(a),
-              f"{what}: step 1's {k} {b!r}, plain {a!r}")
+              f"{what}: step 1's {k} {b!r}, plain {a!r} (bar {TRAIN_RTOL})")
     lr = mesh_m[0]["lr"]
     check(d <= 2 * lr * (1 + 1e-3), f"{what}: a parameter after step 1 "
           f"differs by {d} > 2 lr")
@@ -5095,6 +5158,355 @@ def phase_moe_sharded(cfg, params):
     return launches, routes, at_rank
 
 
+def record_kernel_calls():
+    """From now on, record each call of the flash, RG-LRU and mLSTM
+    kernels' wrappers as the blocks make it (``transformer.flash_attention``,
+    ``rglru.rglru_scan``, ``mlstm_scan.ops.mlstm_chunkwise``): its first
+    tensor's shape, and each kernel's first call's arguments.  Returns
+    ({kernel: [shapes]}, {kernel: (args, kwargs)}, a function that restores
+    the three)."""
+    from repro_torch.kernels.mlstm_scan import ops as ml_ops
+    from repro_torch.models import rglru, transformer
+    where = {"flash_attention": (transformer, "flash_attention"),
+             "rglru_scan": (rglru, "rglru_scan"),
+             "mlstm_scan": (ml_ops, "mlstm_chunkwise")}
+    real = {k: getattr(m, n) for k, (m, n) in where.items()}
+    shapes, first = {k: [] for k in where}, {}
+
+    def wrap(name):
+        def call(*args, **kwargs):
+            shapes[name].append(tuple(args[0].shape))
+            first.setdefault(name, (args, kwargs))
+            return real[name](*args, **kwargs)
+        return call
+    for name, (module, attr) in where.items():
+        setattr(module, attr, wrap(name))
+
+    def restore():
+        for name, (module, attr) in where.items():
+            setattr(module, attr, real[name])
+    return shapes, first, restore
+
+
+def check_first_calls(first: dict, what: str) -> dict:
+    """Each kernel's first recorded call (``record_kernel_calls``) through
+    the kernel again, against its plain version on the same inputs, within
+    its bar (KERNEL_TOL absolute for flash; RGLRU_RTOL and MLSTM_RTOL of
+    the plain version's scale); each timed by CUDA events beside its bound,
+    its plain version and, for flash, SDPA (``sdpa_ms``).
+    On fake ranks the collectives leave their outputs unwritten, so the
+    call's activations are drawn anew from a seed at its shapes, dtypes
+    and layout (flash's q, k, v; the RG-LRU's x and gates; the mLSTM's q,
+    k, v and gates), and its parameters (lam, b_a, b_i) and keywords kept.
+    Returns {kernel: {shape, max_abs_err, rel_err, ms, plain_ms,
+    library_ms, bound_ms, bound_by}}."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops, \
+        ref as fa_ref
+    from repro_torch.kernels.mlstm_scan import ops as ml_ops, ref as ml_ref
+    from repro_torch.kernels.rglru_scan import ops as rg_ops, ref as rg_ref
+    gen = torch.Generator(device="cuda").manual_seed(44)
+
+    def drawn(t, shift=0.0):
+        return (torch.randn(t.shape, generator=gen, device=t.device) +
+                shift).to(t.dtype)
+    out = {}
+    with torch.inference_mode():
+        for name, (args, kw) in sorted(first.items()):
+            if name == "rglru_scan":
+                x, lam, ga, gx = args
+                args = (drawn(x), lam, drawn(ga), drawn(gx))
+            else:
+                # the mLSTM's forget gates near the init's biases, 3-6
+                args = tuple(drawn(t, 4.0 if i == 4 else 0.0)
+                             for i, t in enumerate(args))
+            if name == "flash_attention":
+                q, k, v = args
+                run = functools.partial(fa_ops.flash_attention, q, k, v,
+                                        **kw)
+                plain = functools.partial(fa_ref.reference_attention, q, k,
+                                          v, **kw)
+                want = fa_ref.reference_attention(q.float(), k.float(),
+                                                  v.float(), **kw)
+                got = run()
+                err = float((got.float() - want).abs().max())
+                rel, tol, bar = err, KERNEL_TOL[q.dtype], "absolute"
+                B, S, H, Dh = q.shape
+                work = bound(fa_cost.work(B, S, H, k.shape[2], Dh,
+                                          kw["causal"], kw["window"],
+                                          q.dtype), q.dtype)
+            elif name == "rglru_scan":
+                x, lam, ga, gx = args
+                run = functools.partial(rg_ops.rglru, *args, **kw)
+                plain = functools.partial(rg_ref.reference_rglru, *args,
+                                          **kw)
+                (y, h), (wy, wh) = run(), plain()
+                err = max(float((y - wy).abs().max()),
+                          float((h - wh).abs().max()))
+                rel, tol, bar = err / float(wy.abs().max()), RGLRU_RTOL, \
+                    "of max |y|"
+                work = bound(rg_cost.work(*x.shape, x.dtype, ga.dtype, False,
+                                          "b_a" in kw), torch.float32)
+            else:
+                q = args[0]
+                run = functools.partial(ml_ops.mlstm_chunkwise, *args, **kw)
+                plain = functools.partial(ml_ref.reference_mlstm, *args,
+                                          chunk=MLSTM_PLAIN_CHUNK)
+                h, state = run()
+                wh, wstate = plain()
+                err = float((h - wh).abs().max())
+                rel, tol, bar = max(rel_errs((h,) + state,
+                                             (wh,) + wstate).values()), \
+                    MLSTM_RTOL, "of each of h, C, n, m's scale"
+                work = bound(ml_cost.work(*q.shape, q.dtype, False), q.dtype)
+            ms, plain_ms = cuda_ms(run), cuda_ms(plain, iters=5)
+            library_ms = sdpa_ms(*args, kw["causal"], kw["window"])[0] \
+                if name == "flash_attention" else None
+            bound_ms, bound_by, _, _ = work
+            print(f"  {what}: {name}'s first call at {tuple(args[0].shape)} "
+                  f"again against its plain version: max_abs_err {err:.3e}, "
+                  f"{rel:.3e} {bar} (bar {tol:.0e}); {ms:.4f} ms (CUDA "
+                  f"events), plain {plain_ms:.4f} ms"
+                  + (f", sdpa {library_ms:.4f} ms" if library_ms else "")
+                  + f", bound {bound_ms * 1e3:.2f} us by {bound_by}",
+                  flush=True)
+            check(math.isfinite(rel) and rel <= tol,
+                  f"{what}: {name}'s first call differs from its plain "
+                  f"version by {rel} > {tol}")
+            out[name] = {"shape": list(args[0].shape), "max_abs_err": err,
+                         "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
+                         "library_ms": library_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by}
+    return out
+
+
+def recurrent_prefill_launches(cfg, prefills: int) -> dict:
+    """Every kernel's launches over ``prefills`` prefills of a recurrent
+    config: flash once a LOCAL layer, rglru_scan once an RG-LRU layer,
+    mlstm_scan once an mLSTM layer, each a prefill; none in decode."""
+    counts = layer_counts(cfg)
+    want = dict.fromkeys(kernel_launches(), 0)
+    want.update(flash_attention=prefills * counts.get("local", 0),
+                rglru_scan=prefills * counts.get("rglru", 0),
+                mlstm_scan=prefills * counts.get("mlstm", 0))
+    return want
+
+
+def rank_shapes(cfg, tp: int) -> dict:
+    """The first-tensor shapes the kernels receive on a rank of a model
+    axis of ``tp`` in a SERVE_SLOTS x PROMPT_LEN prefill: flash q at H / tp
+    heads (one KV head: the query heads split, ``transformer.
+    _flash_on_local_heads``), rglru x at D / tp channels, mlstm q at H / tp
+    heads (all H where H does not divide tp)."""
+    from repro_torch.kernels.flash_attention.ops import kernel_head_dim
+    from repro_torch.models.xlstm import mlstm_dims
+    B, S = SERVE_SLOTS, PROMPT_LEN
+    kv_split = cfg.n_kv_heads % tp == 0 or cfg.n_kv_heads == 1
+    H = cfg.n_heads // tp if cfg.n_heads % tp == 0 and kv_split \
+        else cfg.n_heads
+    H_ml, Dh_ml, _ = mlstm_dims(cfg)
+    return {"flash_attention": (B, S, H, cfg.head_dim),
+            "rglru_scan": (B, S, cfg.d_model // tp),
+            "mlstm_scan": (B, S, H_ml // tp if H_ml % tp == 0 else H_ml,
+                           Dh_ml)}
+
+
+def phase_recurrent_sharded(cfg, params, n_layers=None):
+    """Phase 44 (a) or (c), and (d) (see the module docstring): ``cfg``'s
+    serving (its serve phase's bf16 params, cut to ``n_layers`` layers if
+    given) on a one-rank mesh under ``base`` beside the same steps without
+    one, the mesh's decode steps fed the unsharded steps' greedy tokens;
+    then rank 0's prefill on a (1, SHARDED_TP) mesh of fake ranks, each
+    kernel's shapes and first call checked.  Every kernel's launches are
+    counted from 0 on each path and checked.  Returns ({path: every
+    kernel's launches}, {path: by route}, {kernel: its numbers at the
+    rank's shapes})."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.dryrun import fake_group
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import registry as R
+    if n_layers is not None:
+        n_layers = min(n_layers, cfg.n_layers)
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        params = dict(params, layers=params["layers"][:n_layers])
+    phase(f"sharded recurrent {cfg.name} ({cfg.n_layers} layers)")
+    axes = R.logical_axes(cfg)
+    rules = sharding.RULESETS["base"]
+    toks = np.random.default_rng(44).integers(
+        1, cfg.vocab_size, size=(SERVE_SLOTS, PROMPT_LEN)).astype(np.int32)
+    routes_want = {"flash_attention": serve_routes()["flash_attention"],
+                   "rglru_scan": "fused_bias", "mlstm_scan": "wgmma_bf16"}
+    launches, routes = {}, {}
+
+    def place(mesh):
+        return sharding.distribute_tree(params, sharding.logical_to_specs(
+            axes, params, mesh, rules), mesh)
+
+    # (a) / (c) a one-rank NCCL group, a (1, 1) mesh
+    plain = serve_greedy(cfg, params, toks, steps=RECURRENT_MESH_DECODE)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        placed = place(make_local_mesh(1))
+        mesh = placed["final_ln"].device_mesh
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_launches()
+        prefill_ms, decode_ms, tokens, logits, _ = serve_greedy(
+            cfg, placed, toks, mesh, steps=RECURRENT_MESH_DECODE,
+            feed=plain[2])
+        path = f"{cfg.name} sharded"
+        launches[path], routes[path] = kernel_launches(), kernel_routes()
+        mesh_peak = torch.cuda.max_memory_allocated()
+        del placed
+    finally:
+        dist.destroy_process_group()
+    want = recurrent_prefill_launches(cfg, 3)
+    check(launches[path] == want, f"sharded recurrent {cfg.name}: launches "
+          f"{launches[path]}, expected {want}")
+    check_routes(routes[path], launches[path], routes_want,
+                 f"sharded recurrent {cfg.name}")
+    err = float((plain[3] - logits).abs().max())
+    check(err <= SHARDED_LOGITS_BAR,
+          f"sharded recurrent {cfg.name}: logits differ by {err:.3e} > "
+          f"{SHARDED_LOGITS_BAR}")
+    agree = int((plain[2] == tokens).sum())
+    print(f"  (1, 1) mesh, base: logits of 3 prefills and "
+          f"{RECURRENT_MESH_DECODE} decode steps fed the unsharded steps' "
+          f"greedy tokens, largest difference {err:.3e} (bar "
+          f"{SHARDED_LOGITS_BAR}; "
+          f"{'the same bits' if err == 0 else 'not the same bits'}); "
+          f"{agree} of {tokens.numel()} greedy tokens the same; launches "
+          f"{ {k: v for k, v in launches[path].items() if v} } by route "
+          f"{ {k: routes[path][k] for k in routes_want} }; prefill "
+          f"{SERVE_SLOTS}x{PROMPT_LEN} {prefill_ms:.2f} ms on the mesh, "
+          f"{plain[0]:.2f} ms without (median of 3); decode "
+          f"{decode_ms:.3f} ms/step on "
+          f"the mesh, {plain[1]:.3f} without, at batch {SERVE_SLOTS}; "
+          f"peak memory on the mesh {mesh_peak / 2**30:.2f} GiB (the "
+          f"weights resident)",
+          flush=True)
+
+    # (d) rank 0 of a (1, SHARDED_TP) mesh of fake ranks on the card
+    rank = f"{cfg.name} rank 0 of (1, {SHARDED_TP})"
+    with fake_group(SHARDED_TP):
+        placed = place(make_local_mesh(SHARDED_TP, device_type="cuda"))
+        mesh = placed["final_ln"].device_mesh
+        prefill = make_prefill_step(cfg, cache_len=SHARDED_CACHE_LEN,
+                                    device="cuda", mesh=mesh)
+        with torch.inference_mode():
+            prefill(placed, {"tokens": toks})       # the first, untimed
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_kernel_launches()
+            shapes, first, restore = record_kernel_calls()
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                prefill(placed, {"tokens": toks})
+                torch.cuda.synchronize()
+                rank_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                restore()
+            launches[rank], routes[rank] = kernel_launches(), kernel_routes()
+        peak = torch.cuda.max_memory_allocated()
+        want = recurrent_prefill_launches(cfg, 1)
+        check(launches[rank] == want, f"{rank}: launches {launches[rank]}, "
+              f"expected {want}")
+        check_routes(routes[rank], launches[rank], routes_want, rank)
+        local = rank_shapes(cfg, SHARDED_TP)
+        for name, got in shapes.items():
+            check(got == [local[name]] * want[name],
+                  f"{rank}: {name} received {sorted(set(got))} "
+                  f"({len(got)} calls), expected {want[name]} at "
+                  f"{local[name]}")
+        at_rank = check_first_calls(first, rank)
+        for name in at_rank:
+            at_rank[name]["launches"] = want[name]
+        del placed, first
+    torch.cuda.empty_cache()
+    print(f"  (d) {rank}: prefill {SERVE_SLOTS}x{PROMPT_LEN} "
+          f"{rank_ms:.2f} ms (one rank's compute with the collectives "
+          f"skipped, its logits not checked), peak memory "
+          f"{peak / 2**30:.2f} GiB; kernels at "
+          f"{ {k: local[k] for k in at_rank} }", flush=True)
+    return launches, routes, at_rank
+
+
+def phase_recurrent_sharded_train():
+    """Phase 44 (b): recurrentgemma-9b at GRIFFIN_TRAIN_LAYERS layers (at
+    TRAIN_SEQ) and xlstm-1.3b at XLSTM_TRAIN_LAYERS (at
+    XLSTM_MESH_TRAIN_SEQ),
+    phase 12's recipe and the ``base`` ruleset, RECURRENT_MESH_TRAIN_STEPS
+    steps each on a one-rank mesh beside as many plain steps from the same
+    init (``train_beside_plain``): the rglru and mlstm backwards under a
+    mesh.  Returns ({path: launches}, {path: by route})."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch, get_schedule
+    from repro_torch.data import batch_for
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import registry as R
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import AdamWConfig
+    phase("sharded recurrent train")
+    launches, routes = {}, {}
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_local_mesh(1)
+        for arch, n_layers, seq in ((GRIFFIN_ARCH, GRIFFIN_TRAIN_LAYERS,
+                                     TRAIN_SEQ),
+                                    (XLSTM_ARCH, XLSTM_TRAIN_LAYERS,
+                                     XLSTM_MESH_TRAIN_SEQ)):
+            cfg = dataclasses.replace(get_arch(arch), n_layers=n_layers)
+            shape = ShapeSpec("train", seq, TRAIN_BATCH, "train")
+            batch = {k: torch.as_tensor(v, device="cuda") for k, v in
+                     batch_for(cfg, shape, seed=0, step=0).items()}
+            ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                               total_steps=TRAIN_STEPS,
+                               schedule=get_schedule(arch))
+
+            def init(cfg=cfg):
+                return R.init_params(cfg, 0, device="cuda",
+                                     param_dtype=torch.float32)
+
+            def placed(cfg=cfg):
+                params = init()
+                return sharding.distribute_tree(
+                    params, sharding.logical_to_specs(
+                        R.logical_axes(cfg), params, mesh,
+                        sharding.RULESETS["base"]), mesh)
+            n, keys = RECURRENT_MESH_TRAIN_STEPS, ("loss", "grad_norm")
+            path = f"{arch} sharded train"
+            run = train_beside_plain(
+                cfg, ocfg, batch, init, placed, mesh, n,
+                step_launches(cfg, TRAIN_ACCUM, backward=True),
+                path, keys)
+            launches[path], routes[path] = run["launches"], run["routes"]
+            mesh_m, plain_m = run["mesh_m"][0], run["plain_m"][0]
+            print(f"  (b) {arch}, {n_layers} layers, base, batch "
+                  f"{TRAIN_BATCH} x {seq} as {TRAIN_ACCUM} microbatches: "
+                  f"step 1 {', '.join(f'{k} {mesh_m[k]!r}' for k in keys)}"
+                  f", plain {', '.join(repr(plain_m[k]) for k in keys)} ("
+                  f"{'the same bits' if run['same'] else 'not the same bits'}"
+                  f"; bar {TRAIN_RTOL}); "
+                  f"largest parameter difference after "
+                  f"step 1 {run['d']:.3e} (bar 2 lr); launches over {n} "
+                  f"steps { {k: v for k, v in run['launches'].items() if v} }"
+                  f"; step ms on the mesh "
+                  f"{[round(t, 1) for t in run['mesh_ms']]}, plain "
+                  f"{[round(t, 1) for t in run['plain_ms']]}; peak "
+                  f"{run['peak'] / 2**30:.2f} GiB", flush=True)
+            del batch
+    finally:
+        dist.destroy_process_group()
+    return launches, routes
+
+
 def phase_train_driver():
     """Phase 36: ``examples/train_e2e_torch.py``'s path through
     ``launch/train.py`` on the card (minicpm-2b -smoke, batch 8 x 128,
@@ -5252,14 +5664,23 @@ def main() -> int:
     cfg, params, griffin_launches, routes[GRIFFIN_ARCH] = \
         phase_serve(GRIFFIN_ARCH)
     phase_consistency(cfg, params, tol=GRIFFIN_CONSISTENCY_RTOL)
+    rec_mesh_launches, rec_mesh_routes, griffin_at_rank = \
+        phase_recurrent_sharded(cfg, params)
     del params
     torch.cuda.empty_cache()
     cfg, params, xlstm_launches, routes[XLSTM_ARCH] = \
         phase_serve(XLSTM_ARCH, profile_len=XLSTM_PROFILE_LEN,
                     n_layers=XLSTM_SERVE_LAYERS)
     phase_consistency(cfg, params, tol=XLSTM_CONSISTENCY_RTOL)
+    more, more_routes, xlstm_at_rank = phase_recurrent_sharded(
+        cfg, params, XLSTM_MESH_LAYERS)
+    rec_mesh_launches.update(more)
+    rec_mesh_routes.update(more_routes)
     del params
     torch.cuda.empty_cache()
+    more, more_routes = phase_recurrent_sharded_train()
+    rec_mesh_launches.update(more)
+    rec_mesh_routes.update(more_routes)
     train_launches, train_routes, train_out = phase_train()
     phase_train_consistency()
     griffin_train, griffin_train_routes, _ = phase_train(
@@ -5336,7 +5757,8 @@ def main() -> int:
              "pipeline recovery": recovery["launches"]["flash_attention"],
              **{arch: n["flash_attention"]
                 for arch, n in zoo_launches.items()},
-             # phase 41 (a): 3 prefills on a (1, 1) mesh
+             # phase 41 (a): 3 prefills of its first 10 layers on a (1, 1)
+             # mesh
              f"{ARCH} sharded": sharded_launches["flash_attention"],
              # phase 42 (a): 4 train steps on a (1, 1) mesh, 4 layers
              f"{ARCH} sharded train": sharded_train["flash_attention"],
@@ -5344,7 +5766,13 @@ def main() -> int:
              # each ruleset, its 4-layer train steps there, and 3 prefills
              # on rank 0 of (1, 4) (granite under both, mixtral under ep)
              **{path: n["flash_attention"]
-                for path, n in moe_mesh_launches.items()}},
+                for path, n in moe_mesh_launches.items()},
+             # phase 44: recurrentgemma-9b's prefill on a (1, 1) mesh and
+             # on rank 0 of (1, 4) (4 of 16 query heads over its one KV
+             # head), its 6-layer train steps there
+             **{path: n["flash_attention"]
+                for path, n in rec_mesh_launches.items()
+                if n["flash_attention"]}},
          "launches_by_route": {
              **{arch: r["flash_attention"] for arch, r in routes.items()},
              f"{ARCH} train": train_routes["flash_attention"],
@@ -5352,6 +5780,9 @@ def main() -> int:
                  sharded_train_routes["flash_attention"],
              **{path: r["flash_attention"]
                 for path, r in moe_mesh_routes.items()},
+             **{path: r["flash_attention"]
+                for path, r in rec_mesh_routes.items()
+                if rec_mesh_launches[path]["flash_attention"]},
              f"{GRIFFIN_ARCH} train": griffin_train_routes["flash_attention"],
              f"{AUDIO_ARCH} train": audio_train_routes["flash_attention"]},
          "at_granite_shape": fa_timing["granite-prefill"],
@@ -5366,6 +5797,9 @@ def main() -> int:
          "at_h2o_long_shape": fa_timing["h2o-long-prefill"],
          # minicpm-2b's prefill on one rank of phase 41's (1, 4) mesh
          "at_minicpm_rank_shape": fa_timing["minicpm-rank-prefill"],
+         # phase 44 (d): recurrentgemma-9b's first call on rank 0 of (1, 4)
+         # (4 query heads over 1 KV head, Dh 256) against the plain version
+         "at_griffin_rank_shape": griffin_at_rank["flash_attention"],
          # minicpm-2b's train shape (B 1, S 4096, 36 heads of 64)
          "at_minicpm_train_shape": fa_timing["minicpm-train"]},
         {"name": "flash_attention_bwd", "route": "cuda",
@@ -5453,7 +5887,17 @@ def main() -> int:
          "launches_by_route": routes[GRIFFIN_ARCH]["rglru_scan"],
          "launches_by_path": {
              GRIFFIN_ARCH: griffin_launches["rglru_scan"],
-             f"{GRIFFIN_ARCH} train": griffin_train["rglru_scan"]},
+             f"{GRIFFIN_ARCH} train": griffin_train["rglru_scan"],
+             # phase 44: a prefill on a (1, 1) mesh and on rank 0 of
+             # (1, 4), 2 train steps of 6 layers on the (1, 1) mesh
+             **{path: n["rglru_scan"] for path, n in
+                rec_mesh_launches.items() if n["rglru_scan"]}},
+         "launches_by_route_by_path": {
+             path: r["rglru_scan"] for path, r in rec_mesh_routes.items()
+             if rec_mesh_launches[path]["rglru_scan"]},
+         # phase 44 (d): its first call on rank 0 of (1, 4), (4, 1000,
+         # 1024), against the plain version and timed beside its bound
+         "at_rank_shape": griffin_at_rank["rglru_scan"],
          **rg_timing},
         {"name": "rglru_scan_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/rglru_scan/csrc/"
@@ -5467,6 +5911,11 @@ def main() -> int:
          # that path's shape (B 1, S 4096, D 4096, bf16)
          "launches": griffin_train["rglru_scan_bwd"],
          "launches_by_route": griffin_train_routes["rglru_scan_bwd"],
+         # phase 44 (b): 2 train steps of 6 layers on a (1, 1) mesh
+         "launches_by_path": {
+             f"{GRIFFIN_ARCH} train": griffin_train["rglru_scan_bwd"],
+             f"{GRIFFIN_ARCH} sharded train": rec_mesh_launches[
+                 f"{GRIFFIN_ARCH} sharded train"]["rglru_scan_bwd"]},
          **rg_bwd_timing},
         {"name": "mlstm_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/mlstm_scan/csrc/mlstm_scan.cu",
@@ -5478,7 +5927,17 @@ def main() -> int:
          "launches_by_route": routes[XLSTM_ARCH]["mlstm_scan"],
          "launches_by_path": {
              XLSTM_ARCH: xlstm_launches["mlstm_scan"],
-             f"{XLSTM_ARCH} train": xlstm_train["mlstm_scan"]},
+             f"{XLSTM_ARCH} train": xlstm_train["mlstm_scan"],
+             # phase 44: a prefill of 4 layers on a (1, 1) mesh and on rank
+             # 0 of (1, 4), 2 train steps of 4 layers on the (1, 1) mesh
+             **{path: n["mlstm_scan"] for path, n in
+                rec_mesh_launches.items() if n["mlstm_scan"]}},
+         "launches_by_route_by_path": {
+             path: r["mlstm_scan"] for path, r in rec_mesh_routes.items()
+             if rec_mesh_launches[path]["mlstm_scan"]},
+         # phase 44 (d): its first call on rank 0 of (1, 4), one head of
+         # Dh 1024, against the plain version and timed beside its bound
+         "at_rank_shape": xlstm_at_rank["mlstm_scan"],
          **ml_timing},
         {"name": "mlstm_scan_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/mlstm_scan/csrc/"
@@ -5493,6 +5952,11 @@ def main() -> int:
          # with each pass and the scalar bf16 route beside them
          "launches": xlstm_train["mlstm_scan_bwd"],
          "launches_by_route": xlstm_train_routes["mlstm_scan_bwd"],
+         # phase 44 (b): 2 train steps of 4 layers on a (1, 1) mesh
+         "launches_by_path": {
+             f"{XLSTM_ARCH} train": xlstm_train["mlstm_scan_bwd"],
+             f"{XLSTM_ARCH} sharded train": rec_mesh_launches[
+                 f"{XLSTM_ARCH} sharded train"]["mlstm_scan_bwd"]},
          **ml_bwd_timing},
     ]
     for k in kernels:

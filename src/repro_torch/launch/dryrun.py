@@ -30,11 +30,13 @@ by ``cache_specs``.  The counts are then one card's: its local FLOPs and
 bytes, the wire bytes of the collectives DTensor emits, its share of the
 arguments (the float32 parameters, their gradients and the AdamW moments
 of a train cell each its local pieces); the record's ``mesh`` is e.g.
-"1x8xH100" and ``chips`` the world size.  Self-attention decoders, dense
-or MoE (``--ruleset ep`` spreads the experts over "model"; the record's
-``moe`` says how many experts and how much of d_ff a card holds): the
-other configs under a mesh are written with a ``skip`` reason that names
-the later slice.
+"1x8xH100" and ``chips`` the world size.  The text decoders: self-attention,
+dense or MoE (``--ruleset ep`` spreads the experts over "model"; the
+record's ``moe`` says how many experts and how much of d_ff a card holds),
+and the RG-LRU and xLSTM blocks (each kernel counted at a rank's channels
+or heads, the sLSTM's steps through ``flops.loop``): vision and audio
+under a mesh are written with a ``skip`` reason that names the later
+slice.
 
 ``--dp-compress`` counts a train cell's ``make_train_step_dp_compressed``
 on the multi-pod mesh, the parameters placed on each pod's ("data",

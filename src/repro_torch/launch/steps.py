@@ -118,8 +118,9 @@ def make_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
     (``sharding.distribute_tree``) and the moments with them
     (``adamw_init``); ``batch`` is whole on every rank, and its
     microbatches are placed by ``sharding.batch_specs``.  The metrics are
-    plain tensors, the same on every rank.  Self-attention decoders,
-    dense or MoE (``check_mesh_supported``)."""
+    plain tensors, the same on every rank.  The text decoders:
+    self-attention, dense or MoE, and the RG-LRU and xLSTM blocks
+    (``check_mesh_supported``)."""
     opt_cfg = opt_cfg or AdamWConfig()
     schedule = make_schedule(opt_cfg)
 

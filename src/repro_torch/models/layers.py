@@ -19,7 +19,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import data_axes
+from repro_torch.distributed.sharding import (data_axes, is_dtensor,
+                                              placements, safe_spec)
 
 _QBLOCK = 512          # query-block rows for long plain attention
 _PLAIN_ATTN_MAX = 2048  # up to this many query rows, one block
@@ -63,10 +64,145 @@ def sum_over_ranks(t: torch.Tensor, group) -> torch.Tensor:
     return _SumOverRanks.apply(t, group)
 
 
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        from torch.distributed import _functional_collectives as funcol
+        ctx.group = group
+        return funcol.wait_tensor(funcol.all_reduce(t, "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed import _functional_collectives as funcol
+        return funcol.wait_tensor(funcol.all_reduce(g, "sum", ctx.group)), \
+            None
+
+
+def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """An all-reduce sum over ``group`` of a value that each rank then uses
+    in its own way (a norm over a width the ranks split): its gradient is
+    the sum of every rank's, all-reduced in the backward too."""
+    return _AllReduceSum.apply(t, group)
+
+
+# ---------------------------------------------------------------------------
+# On a device mesh: hints and each rank's local pieces
+# ---------------------------------------------------------------------------
+
+def shard_hint(x, mesh, dims):
+    """Explicit activation-sharding constraint, the reference's
+    ``shard_hint``.
+
+    ``dims``: one logical name per dim of x — "batch" (DP axes), "model"
+    (TP axis), or None.  Without a mesh, or on a plain tensor, this is a
+    no-op.  On a DTensor it redistributes x to ``safe_spec``'s placements
+    (indivisible dims degrade to replicated), so that the partitioning of
+    batch and heads is the reference's whatever DTensor's op rules would
+    pick."""
+    if mesh is None or not is_dtensor(x):
+        return x
+    dp = data_axes(mesh)
+    dp_axis = dp if len(dp) > 1 else dp[0]
+    want = [dp_axis if d == "batch" else ("model" if d == "model" else None)
+            for d in dims]
+    place = placements(mesh, safe_spec(x.shape, want, mesh), x.shape)
+    return x if tuple(x.placements) == place else \
+        reduce_partials(x).redistribute(mesh, place)
+
+
+def reduce_partials(x):
+    """A DTensor's partial sums reduced whole (all-reduced) first: DTensor's
+    one-step move from a vocab-sharded lookup's masked partial to a batch
+    shard misreads the mask."""
+    if not any(p.is_partial() for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p.is_partial() else p for p in x.placements])
+
+
+def local_call(fn, mesh, args, out, grads=None):
+    """``fn`` on each rank's local pieces (``local_map``): a DTensor of
+    ``args`` is passed as its local tensor, anything else as it is.
+    ``out``: a list of placements for one output, a tuple of lists for
+    several.  ``grads``: for each arg the placements of its gradient, or
+    None for its own (a weight used on a rank's batch rows has a partial
+    gradient: ``rows_grad``)."""
+    from torch.distributed.tensor.experimental import local_map
+    ins = tuple(tuple(a.placements) if is_dtensor(a) else None
+                for a in args)
+    if grads is not None:
+        grads = tuple(i if g is None else tuple(g)
+                      for g, i in zip(grads, ins))
+    return local_map(fn, out_placements=out, in_placements=ins,
+                     in_grad_placements=grads, device_mesh=mesh)(*args)
+
+
+def rows_grad(x, w):
+    """The placements of the gradient of ``w`` (a DTensor whole over the
+    data axes) that each rank takes on its batch rows of ``x``: partial
+    over the mesh dims that split x's batch, w's own elsewhere."""
+    from torch.distributed.tensor import Partial
+    return tuple(Partial() if xp.is_shard(0) else wp
+                 for xp, wp in zip(x.placements, w.placements))
+
+
+def model_dim(mesh) -> int:
+    return mesh.mesh_dim_names.index("model")
+
+
+def over_model(t, mesh, dim: Optional[int]):
+    """The DTensor ``t`` split along ``dim`` over "model" (a local slice
+    where it was whole), or whole over "model" for ``dim`` None (an
+    all-gather where it was split, an all-reduce where it was partial);
+    its other mesh dims as they are."""
+    from torch.distributed.tensor import Replicate, Shard
+    place = list(t.placements)
+    place[model_dim(mesh)] = Replicate() if dim is None else Shard(dim)
+    return t if tuple(place) == tuple(t.placements) else \
+        t.redistribute(mesh, place)
+
+
+def model_rank(t, mesh) -> int:
+    """This rank's piece of the DTensor ``t``'s split over "model" (0
+    where it is whole)."""
+    if not t.placements[model_dim(mesh)].is_shard():
+        return 0
+    return mesh.get_local_rank("model")
+
+
+def model_group(t, mesh):
+    """The "model" group for a collective over the ranks that split ``t``,
+    or None where it is whole over "model"."""
+    return (mesh, model_dim(mesh)) if t.placements[model_dim(mesh)] \
+        .is_shard() else None
+
+
+def gather_last(t: torch.Tensor, group) -> torch.Tensor:
+    """A local piece all-gathered along its last dim over ``group`` (no
+    gradient: decode steps), or ``t`` for group None."""
+    if group is None:
+        return t
+    from torch.distributed import _functional_collectives as funcol
+    # all_gather_single is all_gather_tensor's newer name
+    gather = getattr(funcol, "all_gather_single", None) or \
+        funcol.all_gather_tensor
+    return funcol.wait_tensor(gather(t.contiguous(), t.dim() - 1, group))
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
+             group=None):
+    """RMS norm over the last dim.  ``group``: a (mesh, mesh dim) whose
+    ranks hold equal pieces of that dim (x is a rank's columns inside a
+    ``local_map``); the sums of squares are all-reduced over it."""
     dt = x.dtype
     x = x.float()
-    x = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps)
+    if group is None:
+        ms = x.square().mean(-1, keepdim=True)
+    else:
+        ms = all_reduce_sum(x.square().sum(-1, keepdim=True), group) / (
+            x.shape[-1] * group[0].size(group[1]))
+    x = x * torch.rsqrt(ms + eps)
     return (x * (1.0 + gathered(w).float())).to(dt)
 
 

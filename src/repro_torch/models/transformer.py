@@ -39,7 +39,8 @@ it is read only by MoE layers):
   init_cache(cfg, B, ctx_len, device=)             -> cache (zeros)
 ``forward_train``, ``forward_logits``, ``prefill`` and ``decode_step`` also
 take ``mesh=``, a ``DeviceMesh`` on which the params lie as DTensors
-(self-attention decoders, dense or MoE: ``check_mesh_supported``).
+(the text decoders, self-attention, MoE, RG-LRU and xLSTM:
+``check_mesh_supported``).
 """
 from __future__ import annotations
 
@@ -55,16 +56,19 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.device import check_on_device, resolve_device, torch_dtype
 from repro_torch.distributed import flops
-from repro_torch.distributed.sharding import (cache_specs, data_axes,
+from repro_torch.distributed.sharding import (cache_specs,
                                               distribute_batch, is_dtensor,
-                                              placements, safe_spec)
+                                              placements)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.config import (ATTN, SWA, LOCAL, CROSS, MLSTM, SLSTM,
                                        RGLRU, ArchConfig)
 from repro_torch.models.layers import (attention, decode_attention_block,
                                        dense, gated_mlp, gathered,
-                                       is_gated_act, merge_heads, rms_norm,
-                                       rope, split_heads, sum_over_ranks)
+                                       is_gated_act, local_call, merge_heads,
+                                       model_dim, over_model,
+                                       reduce_partials, rms_norm, rope,
+                                       shard_hint, split_heads,
+                                       sum_over_ranks)
 from repro_torch.models.moe import moe_block, moe_ffn_axes
 from repro_torch.models.rglru import (RGLRU_C, apply_rglru, d_rnn,
                                       decode_rglru, init_state_rglru,
@@ -291,7 +295,7 @@ def logical_axes(cfg: ArchConfig) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 # ---------------------------------------------------------------------------
-# On a device mesh (serving and training the self-attention decoders)
+# On a device mesh (serving and training the text decoders)
 # ---------------------------------------------------------------------------
 
 _HEADS_HINT = ("batch", None, "model", None)
@@ -299,14 +303,16 @@ _STREAM_HINT = ("batch", None, None)
 
 
 def check_mesh_supported(cfg: ArchConfig) -> None:
-    """Serving or training under a mesh covers the self-attention
-    decoders, dense or MoE."""
+    """Serving or training under a mesh covers the text decoders: the
+    self-attention blocks (ATTN, SWA, LOCAL), dense or MoE, and the
+    recurrent ones (RGLRU, MLSTM, SLSTM)."""
     if cfg.modality != "text" or cfg.encoder_only or \
-            not set(cfg.block_pattern) <= {ATTN, SWA}:
+            not set(cfg.block_pattern) <= set(_SELF_ATTN + _RECURRENT):
         raise NotImplementedError(
-            f"{cfg.name}: serving or training under a mesh covers the "
-            f"self-attention decoders, dense or MoE; recurrent and xLSTM "
-            f"layers under TP, vision and audio come in a later slice")
+            f"{cfg.name}: serving or training under a mesh covers the text "
+            f"decoders (self-attention, MoE, RG-LRU and xLSTM blocks); "
+            f"vision (cross-attention) and audio (encoder-only) come in a "
+            f"later slice")
 
 
 def on_mesh(cfg: ArchConfig, mesh):
@@ -322,63 +328,27 @@ def on_mesh(cfg: ArchConfig, mesh):
     return implicit_replication()
 
 
-def shard_hint(x, mesh, dims):
-    """Explicit activation-sharding constraint, the reference's
-    ``shard_hint``.
-
-    ``dims``: one logical name per dim of x — "batch" (DP axes), "model"
-    (TP axis), or None.  Without a mesh, or on a plain tensor, this is a
-    no-op.  On a DTensor it redistributes x to ``safe_spec``'s placements
-    (indivisible dims degrade to replicated), so that the partitioning of
-    batch and heads is the reference's whatever DTensor's op rules would
-    pick."""
-    if mesh is None or not is_dtensor(x):
-        return x
-    dp = data_axes(mesh)
-    dp_axis = dp if len(dp) > 1 else dp[0]
-    want = [dp_axis if d == "batch" else ("model" if d == "model" else None)
-            for d in dims]
-    place = placements(mesh, safe_spec(x.shape, want, mesh), x.shape)
-    return x if tuple(x.placements) == place else \
-        _reduce_partials(x).redistribute(mesh, place)
-
-
-def _reduce_partials(x):
-    """A DTensor's partial sums reduced whole (all-reduced) first: DTensor's
-    one-step move from a vocab-sharded lookup's masked partial to a batch
-    shard misreads the mask."""
-    if not any(p.is_partial() for p in x.placements):
-        return x
-    from torch.distributed.tensor import Replicate
-    return x.redistribute(x.device_mesh, [
-        Replicate() if p.is_partial() else p for p in x.placements])
-
-
-def on_local(fn, mesh, *tensors):
-    """``fn`` on each rank's local pieces of the DTensors ``tensors``
-    (``local_map``); its one output takes the first input's placements."""
-    from torch.distributed.tensor.experimental import local_map
-    return local_map(fn, out_placements=list(tensors[0].placements),
-                     in_placements=tuple(tuple(t.placements)
-                                         for t in tensors),
-                     device_mesh=mesh)(*tensors)
-
-
 def _flash_on_local_heads(q, k, v, mesh, causal: bool, window: int):
     """The flash kernel on each rank's local heads: q, k, v hinted to
     ("batch", None, "model", None), so a rank holds H / tp query heads
-    and the KH / tp KV heads they read.  Where ``safe_spec`` leaves the KV
-    heads whole (KH does not divide the "model" axis), the query heads are
-    left whole too, and the kernel runs on all heads."""
-    from torch.distributed.tensor import Replicate
+    and the KH / tp KV heads they read.  One KV head (recurrentgemma's
+    MQA) does not split: a rank runs its H / tp query heads against it
+    whole, as the reference's partitioner places them, and its gradient
+    is each rank's partial sum over "model".  Where ``safe_spec`` leaves
+    more KV heads whole (KH does not divide the "model" axis), the query
+    heads are left whole too, and the kernel runs on all heads."""
+    from torch.distributed.tensor import Partial
     q, k, v = (shard_hint(t, mesh, _HEADS_HINT) for t in (q, k, v))
-    model = mesh.mesh_dim_names.index("model")
+    model = model_dim(mesh)
+    fn = functools.partial(flash_attention, causal=causal, window=window)
     if k.placements[model] != q.placements[model]:
-        place = list(q.placements)
-        place[model] = Replicate()
-        q = q.redistribute(mesh, place)
-    return on_local(functools.partial(flash_attention, causal=causal,
-                                      window=window), mesh, q, k, v)
+        if k.shape[2] == 1:
+            kv_grad = list(k.placements)
+            kv_grad[model] = Partial()
+            return local_call(fn, mesh, (q, k, v), list(q.placements),
+                              grads=(None, kv_grad, kv_grad))
+        q = over_model(q, mesh, None)
+    return local_call(fn, mesh, (q, k, v), list(q.placements))
 
 
 def _self_attn(x, p, cfg, *, positions, window, mesh=None):
@@ -460,7 +430,7 @@ def _apply_layer(x, memory, layer, kind, cfg, positions, moe_dispatch,
     itself shards the stream and moves the MLP's wider activations."""
     if kind in _RECURRENT:
         out = _APPLY_RECURRENT[kind](x, layer["mix"], cfg,
-                                     return_state=collect_kv)
+                                     return_state=collect_kv, mesh=mesh)
         x, kv = out if collect_kv else (out, None)
     elif kind == CROSS:
         x, kv = _cross_attn(x, layer["mix"], cfg, memory=memory)
@@ -557,7 +527,7 @@ def _embed_tokens(params, cfg, tokens):
         # redistribute's backward brings the gradient back whole (its
         # partial sums over "model" reduced): the masked lookup's backward
         # takes no partial sums
-        x = _reduce_partials(x)
+        x = reduce_partials(x)
         x = x.redistribute(x.device_mesh, x.placements)
     x = x.to(dt)
     if cfg.tie_embeddings:
@@ -753,7 +723,7 @@ def forward_train(params, cfg: ArchConfig, batch, *,
         loss, acc = softmax_xent_from_hidden(x, _head_matrix(params, cfg),
                                              labels, mask)
         if mesh is not None:        # the batch's partial sums reduced
-            loss, acc = _reduce_partials(loss), _reduce_partials(acc)
+            loss, acc = reduce_partials(loss), reduce_partials(acc)
     total = loss + aux_weight * aux / cfg.n_layers if cfg.is_moe else loss
     return total, {"nll": loss, "aux": aux, "acc": acc}
 
@@ -767,8 +737,9 @@ def forward_logits(params, cfg: ArchConfig, batch, *,
     "model") on which ``params`` lie as DTensors
     (``distributed.sharding.distribute_tree``); the activations are
     hinted where the reference hints them, and the logits come back as a
-    DTensor, batch-sharded and whole over the vocabulary.  Self-attention
-    decoders, dense or MoE (NotImplementedError for the rest)."""
+    DTensor, batch-sharded and whole over the vocabulary.  The text
+    decoders: self-attention, MoE, RG-LRU and xLSTM blocks
+    (NotImplementedError for vision and audio)."""
     device = _prepare(params, cfg, device)
     with on_mesh(cfg, mesh):
         x, memory = _embed(params, cfg, batch, device)
@@ -844,7 +815,8 @@ def decode_step(params, cfg: ArchConfig, tokens, pos: int, cache, *,
             kind = layer_kind(cfg, n)
             if kind in _RECURRENT:
                 x, new = _DECODE_RECURRENT[kind](x, layer["mix"], cfg,
-                                                 cache["layers"][n])
+                                                 cache["layers"][n],
+                                                 mesh=mesh)
             elif kind == CROSS:
                 x, new = _decode_cross_attn(x, layer["mix"], cfg,
                                             cache["layers"][n])
@@ -853,8 +825,8 @@ def decode_step(params, cfg: ArchConfig, tokens, pos: int, cache, *,
                     x, layer["mix"], cfg, cache["layers"][n], pos,
                     window=_window_for(kind, cfg), mesh=mesh)
             layers.append(new)
+            x = shard_hint(x, mesh, _STREAM_HINT)
             if "ffn" in layer:
-                x = shard_hint(x, mesh, _STREAM_HINT)
                 x, _ = _apply_ffn(x, layer["ffn"], cfg, moe_dispatch, mesh)
                 x = shard_hint(x, mesh, _STREAM_HINT)
         x = rms_norm(x, params["final_ln"], cfg.norm_eps)
@@ -910,8 +882,9 @@ def _prefill(params, cfg, batch, cache_len, moe_dispatch, device, mesh):
     layers = []
     for n, kv in enumerate(kvs):
         kind = layer_kind(cfg, n)
-        if kind in _RECURRENT:
-            layers.append(kv)           # recurrent state dict, verbatim
+        if kind in _RECURRENT:          # the state dict, verbatim
+            layers.append(kv if mesh is None else {
+                name: _place_cache(t, mesh) for name, t in kv.items()})
             continue
         if kind == CROSS:
             layers.append({"ck": kv[0].to(dt).contiguous(),
@@ -922,8 +895,9 @@ def _prefill(params, cfg, batch, cache_len, moe_dispatch, device, mesh):
             layers.append({"k": fit(kv[0], L), "v": fit(kv[1], L)})
         else:   # fit each rank's heads (S is whole), then place the cache
             layers.append({
-                name: _place_cache(on_local(functools.partial(fit, L=L),
-                                            mesh, t), mesh)
+                name: _place_cache(local_call(functools.partial(fit, L=L),
+                                              mesh, (t,),
+                                              list(t.placements)), mesh)
                 for name, t in zip(("k", "v"), kv)})
     return logits, {"layers": layers}
 

@@ -85,13 +85,15 @@ def init_model(cfg: ArchConfig, chain: int, device=None):
 
 
 def train_shard(params, shard: np.ndarray, cfg: ArchConfig,
-                train_steps: int, batch: int, device=None
+                train_steps: int, batch: int, device=None, cancel=None
                 ) -> Tuple[dict, List[float]]:
     """The count step's training: ``train_steps`` AdamW steps (lr 1e-3,
     5 warmup steps, cosine over ``train_steps``) on windows of ``batch``
     rows of ``shard`` ((rows, seq + 1) int32), as the reference's
     ``_jitted_train_step`` runs them.  Updates ``params`` in place; returns
-    them and the per-step losses."""
+    them and the per-step losses.  ``cancel``: the invocation's cancel
+    event (``threading.Event``), read before each step: once it is set the
+    training raises instead of launching the next step."""
     device = resolve_device(device)
     ocfg = AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=train_steps,
                        schedule="cosine")
@@ -100,6 +102,9 @@ def train_shard(params, shard: np.ndarray, cfg: ArchConfig,
     losses = []
     rows = shard.shape[0]
     for s in range(train_steps):
+        if cancel is not None and cancel.is_set():
+            raise RuntimeError(f"training cancelled after {s} of "
+                               f"{train_steps} steps")
         lo = (s * batch) % max(rows - batch, 1)
         blk = torch.as_tensor(shard[lo: lo + batch], device=device)
         params, opt, metrics = step(
@@ -112,8 +117,10 @@ def _count_fn(chain: int, cfg: ArchConfig, train_steps: int, batch: int,
               device=None):
     def fn(inputs: Dict, ctx) -> Dict:
         params = init_model(cfg, chain, device)
+        # the executor's cancel event for this invocation, where it runs one
+        cancel = ((ctx or {}).get("environment") or {}).get("__cancel__")
         params, losses = train_shard(params, inputs["shard"], cfg,
-                                     train_steps, batch, device)
+                                     train_steps, batch, device, cancel)
         return {f"model{chain}": params_to_jax(cfg, params),
                 f"stats{chain}": {"losses": losses}}
     return fn

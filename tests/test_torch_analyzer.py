@@ -10,6 +10,7 @@ document.  The property tests draw their examples with
 ``derandomize=True``, so every run checks the same pipelines.
 """
 import copy
+import dataclasses
 
 import pytest
 from hypothesis import given, settings, strategies as st
@@ -21,6 +22,7 @@ from repro_torch.core.analyzer import (AnalyzeConfig, WorkflowAnalysisError,
                                        analyze, gate)
 from repro_torch.core.checker import WorkflowCheckError
 from repro_torch.core.executor import StreamFlowExecutor
+from repro_torch.core.fault import FaultConfig
 from repro_torch.core.streamflow_file import load
 from repro_torch.core.topology import (MANAGEMENT, TopologyGraph,
                                        UnroutableError)
@@ -271,8 +273,64 @@ def test_analyzer_never_flags_completing_plans(width, r_a, r_b, split_site):
     report = analyze_both(doc)
     assert "SF300" not in _codes(report)
     assert not report.errors(), [str(d) for d in report.errors()]
-    res = _run(load(doc), deadlock_timeout_s=2.0)
+    # speculation off: a straggler's twin is a timeline row of its own,
+    # and a loaded machine makes stragglers (C38;
+    # test_a_straggler_twin_adds_a_timeline_row holds the twin)
+    cfg = load(doc)
+    fault = dataclasses.replace(FaultConfig.from_dict(cfg.fault),
+                                speculative=False)
+    res = _run(cfg, deadlock_timeout_s=2.0, fault=fault)
     assert len(res.timeline_rows()) == width + 2
+    _assert_each_completed_once(res, width + 2)
+
+
+def _assert_each_completed_once(res, n_invocations):
+    """Each of the run's ``n_invocations`` invocations has exactly one
+    completed timeline row.  A straggler's twin adds a row of its own,
+    whose loser is abandoned or a duplicate."""
+    done = [row[0] for row in res.timeline_rows() if row[4] == "completed"]
+    assert len(done) == len(set(done)) == n_invocations, \
+        res.timeline_rows()
+
+
+def test_a_straggler_twin_adds_a_timeline_row():
+    """Straggler speculation on its own: an invocation that runs past
+    ``straggler_factor`` times its service's median gets a twin on another
+    replica, and both are timeline rows, one of them completed.  Held with
+    events, not a sleep: the primary waits until its twin has started, and
+    the twin lets it go."""
+    import threading
+
+    from repro_torch.core import Binding, ModelSpec
+    from repro_torch.core.workflow import Step, Workflow
+    twin_started, lock, calls = threading.Event(), threading.Lock(), []
+
+    def fast(inputs, ctx):
+        return {"o": inputs["x"]}
+
+    def slow(inputs, ctx):
+        with lock:
+            calls.append(ctx)
+            primary = len(calls) == 1
+        if primary:
+            assert twin_started.wait(timeout=60), "no twin was launched"
+        else:
+            twin_started.set()
+        return {"out": inputs["a"] + inputs["b"]}
+    wf = Workflow("straggler")
+    wf.add_step(Step("/a", lambda i, c: {"a": fast(i, c)["o"]}, {"x": "x"},
+                     ("a",)))
+    wf.add_step(Step("/b", lambda i, c: {"b": fast(i, c)["o"]}, {"x": "x"},
+                     ("b",)))
+    wf.add_step(Step("/slow", slow, {"a": "a", "b": "b"}, ("out",)))
+    models = {"site": ModelSpec("site", "local",
+                                {"services": {"svc": {"replicas": 2}}})}
+    ex = StreamFlowExecutor(models, fault=FaultConfig(speculative=True))
+    res = ex.run(wf, [Binding("/", "site", "svc")], {"x": 1})
+    assert res.outputs["out"] == 2 and len(calls) == 2
+    rows = res.timeline_rows()
+    assert len(rows) == 4 and [r[6] for r in rows].count(True) == 1
+    _assert_each_completed_once(res, 3)
 
 
 @settings(max_examples=8, deadline=None, derandomize=True)

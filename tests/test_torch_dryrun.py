@@ -125,15 +125,15 @@ def test_dp_compress_needs_the_pod_axis(tmp_path):
 def test_moe_train_cell_on_a_mesh_keeps_its_skip():
     """What this test holds, whatever its name says: a MoE train cell on a
     mesh carries no skip and is counted (d_ff split under ``base``), and
-    the configs a later slice brings to a mesh (recurrent, xLSTM) keep
-    their skip, which names that slice.  The name is the one the test had
-    while MoE cells were refused on a mesh."""
+    the configs a later slice brings to a mesh (vision, audio) keep their
+    skip, which names that slice.  The name is the one the test had while
+    MoE cells were refused on a mesh."""
     rec = dryrun.lower_cell("granite-moe-3b-a800m-smoke",
                             ShapeSpec("t", 64, 4, "train"), tp=2)
     assert "skip" not in rec and "error" not in rec
     assert rec["moe"]["experts_per_card"] == 4     # base: d_ff split
     assert rec["moe"]["d_ff_per_card"] == rec["moe"]["d_ff"] // 2
-    for arch in ("recurrentgemma-9b-smoke", "xlstm-1.3b-smoke"):
+    for arch in ("llama-3.2-vision-11b-smoke", "hubert-xlarge-smoke"):
         rec = dryrun.lower_cell(arch, ShapeSpec("t", 64, 4, "train"), tp=2)
         assert "later slice" in rec["skip"]
 
@@ -150,6 +150,55 @@ def test_no_moe_cell_on_a_mesh_is_skipped(arch, ruleset, kind):
     assert "skip" not in rec and "error" not in rec, rec.get("skip")
     assert rec["counted"]["kernels"]["moe_gmm"]["calls"] > 0
     assert rec["counted"]["total_wire_bytes"] > 0
+
+
+RECURRENT_SMOKE = ("recurrentgemma-9b-smoke", "xlstm-1.3b-smoke")
+
+
+def _kinds(cfg):
+    return [cfg.block_pattern[n % cfg.pattern_period]
+            for n in range(cfg.n_layers)]
+
+
+@pytest.mark.parametrize("arch", RECURRENT_SMOKE)
+@pytest.mark.parametrize("kind,mesh", [("prefill", dict(tp=8)),
+                                       ("decode", dict(tp=8)),
+                                       ("train", dict(dp=4, tp=4))])
+def test_recurrent_cells_on_a_mesh_are_counted(arch, kind, mesh):
+    """The RG-LRU and xLSTM cells on fake ranks carry no skip: the scan
+    kernel once a recurrent layer in a forward (and its backward once in a
+    train step: no remat at smoke size), none in decode, and collectives
+    on the wire."""
+    cfg = get_arch(arch)
+    rec = dryrun.lower_cell(arch, ShapeSpec("s", 64, 4, kind), **mesh)
+    assert "skip" not in rec and "error" not in rec, rec.get("skip")
+    kinds = _kinds(cfg)
+    name = "rglru_scan" if "rglru" in kinds else "mlstm_scan"
+    layers = kinds.count(name.split("_")[0])
+    kernels = {k: v["calls"] for k, v in rec["counted"]["kernels"].items()}
+    if kind == "decode":
+        assert name not in kernels
+    else:
+        assert kernels[name] == layers
+        assert kernels.get(name + "_bwd", 0) == (layers if kind == "train"
+                                                 else 0)
+    assert rec["counted"]["total_wire_bytes"] > 0
+
+
+@pytest.mark.parametrize("arch,tp,split", [
+    ("recurrentgemma-9b-smoke", 2, 2), ("xlstm-1.3b-smoke", 2, 2),
+    # 4 mLSTM heads do not split over 8 ranks: whole on every card
+    ("xlstm-1.3b-smoke", 8, 1)])
+def test_recurrent_kernels_count_a_cards_share(arch, tp, split):
+    """Each scan kernel is counted at a rank's shapes: its FLOPs on a card
+    of a tp-way mesh are 1 / ``split`` of one card's, D / tp channels of
+    the RG-LRU, H / tp heads of the mLSTM (all H where H does not divide
+    tp)."""
+    name = "rglru_scan" if arch.startswith("recurrent") else "mlstm_scan"
+    shape = ShapeSpec("p", 64, 4, "prefill")
+    one, sharded = (dryrun.lower_cell(arch, shape, **kw)["counted"]
+                    ["kernels"][name]["flops"] for kw in ({}, {"tp": tp}))
+    assert sharded * split == pytest.approx(one)
 
 
 def _bytes_per_card(cfg, mesh, ruleset):

@@ -363,6 +363,45 @@ def test_cancel_mid_scatter_journal_is_resumable(tmp_path):
     assert repr(res.outputs["summary"]) == repr(ref.outputs["summary"])
 
 
+def test_cancel_stops_the_count_bodies_launching(monkeypatch):
+    """A cancelled run's count bodies read their invocation's cancel event
+    before each train step (``pipeline.train_shard``) and raise: no train
+    step starts once ``run`` has raised RunCancelled, and the bodies stop
+    long before their steps run out.  Each step's start is recorded by
+    wrapping the train step the bodies make."""
+    starts, lock = [], threading.Lock()
+    real = pipeline.make_train_step
+
+    def recording(*args, **kw):
+        step = real(*args, **kw)
+
+        def run(*a):
+            with lock:
+                starts.append(time.monotonic())
+            return step(*a)
+        return run
+    monkeypatch.setattr(pipeline, "make_train_step", recording)
+    train_steps, n_samples = 400, 2
+    wf = pipeline.build_scatter_workflow(**dict(
+        SCATTER, n_samples=n_samples, train_steps=train_steps))
+    ex = StreamFlowExecutor(MODELS, fault=FaultConfig(speculative=False))
+
+    def hook(tick, completed):
+        with lock:
+            if len(starts) >= 2 * n_samples:
+                ex.cancel()
+    ex.tick_hook = hook
+    with pytest.raises(RunCancelled):
+        ex.run(wf, BIND, {"seed": 7})
+    returned = time.monotonic()
+    time.sleep(1.0)
+    with lock:
+        late = [t - returned for t in starts if t > returned]
+        n = len(starts)
+    assert late == []
+    assert 2 * n_samples <= n < n_samples * train_steps // 2
+
+
 # --------------------------------------- the deployment manager's races
 
 def test_lease_blocks_idle_eviction():

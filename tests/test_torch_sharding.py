@@ -245,11 +245,13 @@ def test_a_rank_piece_holds_only_its_own_memory(fake_ranks):
                                   "llama-3.2-vision-11b-smoke",
                                   "hubert-xlarge-smoke"])
 def test_other_configs_do_not_serve_on_a_mesh_yet(arch):
-    """The recurrent, xLSTM, vision and audio configs raise on a mesh and
-    name the later slice; the MoE configs pass the check since they serve
-    on a mesh (``test_torch_sharding_moe``)."""
+    """What this test holds, whatever its name says: the vision and audio
+    configs raise on a mesh and name the later slice; the MoE, RG-LRU and
+    xLSTM configs pass the check since they serve on a mesh
+    (``test_torch_sharding_moe``, ``test_torch_sharding_recurrent``).  The
+    name is the one the test had while all of them were refused."""
     cfg = get_arch(arch)
-    if cfg.is_moe:
+    if cfg.modality == "text":
         tf.check_mesh_supported(cfg)
         return
     params = R.init_params(cfg, 0, device="cpu")
@@ -295,8 +297,8 @@ def test_dry_run_on_fake_ranks_counts_collectives(tmp_path):
                                tp=2, multi_pod=True)
     assert decode["mesh"] == "2x2x2xH100" and decode["chips"] == 8
     assert decode["counted"]["collective_calls"]["all-reduce"] > 0
-    # training counts its collectives too, and so does an MoE cell; the
-    # other configs name the later slice
+    # training counts its collectives too, and so do an MoE and an RG-LRU
+    # cell; vision names the later slice
     train = dryrun.lower_cell("minicpm-2b-smoke",
                               ShapeSpec("t", 64, 4, "train"), tp=2)
     assert "skip" not in train
@@ -307,7 +309,11 @@ def test_dry_run_on_fake_ranks_counts_collectives(tmp_path):
     assert moe["counted"]["collective_calls"]["all-reduce"] > 0
     griffin = dryrun.lower_cell("recurrentgemma-9b-smoke",
                                 ShapeSpec("p", 64, 4, "prefill"), tp=2)
-    assert "later slice" in griffin["skip"]
+    assert "skip" not in griffin
+    assert griffin["counted"]["collective_calls"]["reduce-scatter"] > 0
+    vision = dryrun.lower_cell("llama-3.2-vision-11b-smoke",
+                               ShapeSpec("p", 64, 4, "prefill"), tp=2)
+    assert "later slice" in vision["skip"]
     import torch.distributed as dist
     assert not dist.is_initialized()
 

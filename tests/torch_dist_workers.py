@@ -1,6 +1,6 @@
 """Worker processes for the port's gloo tests (``test_torch_compression``,
 ``test_torch_sharding_serve``, ``test_torch_sharding_train``,
-``test_torch_sharding_moe``): each joins
+``test_torch_sharding_moe``, ``test_torch_sharding_recurrent``): each joins
 a gloo group through a file store and writes what it saw to
 ``out_dir/rank{r}.pt``.  Imports torch
 and the port only, so that a spawned worker starts quickly."""
@@ -444,3 +444,156 @@ def _train_run(run, calls, cfg, case, ruleset, dispatch, mesh, ocfg):
                 for layer in opt.m["layers"]]
     run.update(metrics=metrics, m=_whole_tree(opt.m), v=_whole_tree(opt.v),
                params=_whole_tree(placed))
+
+
+def _record_recurrent_kernels(sink):
+    """Wrap the RG-LRU and mLSTM kernels' wrappers (as the blocks call
+    them) and the sLSTM's loop over time: each call appends (its name, its
+    first input's shape, whether that is a DTensor) to ``sink``; the loop
+    also the DTensor ops that ran while it ran (a dispatch mode sees each
+    op on a DTensor before DTensor does).  Returns a function that
+    restores them."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.kernels.mlstm_scan import ops as mlstm_ops
+    from repro_torch.models import rglru, xlstm
+
+    class DTensorOps(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                self.ops.append(str(func))
+                return NotImplemented
+            return func(*args, **(kwargs or {}))
+
+    real = (rglru.rglru_scan, mlstm_ops.mlstm_chunkwise, xlstm._slstm_scan)
+
+    def rg(x, *args, **kw):
+        sink.append(("rglru_scan", tuple(x.shape), isinstance(x, DTensor)))
+        return real[0](x, *args, **kw)
+
+    def ml(q, *args, **kw):
+        sink.append(("mlstm_scan", tuple(q.shape), isinstance(q, DTensor)))
+        return real[1](q, *args, **kw)
+
+    def loop(zx, *args, **kw):
+        with DTensorOps() as seen:
+            out = real[2](zx, *args, **kw)
+        sink.append(("slstm_loop", tuple(zx.shape), isinstance(zx, DTensor),
+                     seen.ops))
+        return out
+    rglru.rglru_scan, mlstm_ops.mlstm_chunkwise, xlstm._slstm_scan = \
+        rg, ml, loop
+
+    def probe(t):
+        """The DTensor ops the loop's mode sees in ``t + 1`` (a control)."""
+        with DTensorOps() as seen:
+            t + 1
+        return seen.ops
+
+    def restore():
+        rglru.rglru_scan, mlstm_ops.mlstm_chunkwise, xlstm._slstm_scan = \
+            real
+    return restore, probe
+
+
+def sharded_recurrent_worker(rank, world, init_file, out_dir):
+    """The runs of ``out_dir/cases.pkl`` (``test_torch_sharding_recurrent``):
+    each case's converted params placed by a ruleset on a 2 x 2 ("data",
+    "model") mesh or a 1 x 4 one; then ``forward_logits`` (each recurrent
+    kernel's call and the sLSTM loop recorded), the prefill step and
+    greedy serve steps, and ``make_train_step`` over the case's batches;
+    and the compressed step of the ``compressed`` case on a 2 x 1 x 2
+    ("pod", "data", "model") mesh beside its group form over "pod".
+    Writes the whole logits, tokens, metrics, moments and weights to
+    ``rank{r}.pt``."""
+    import pickle
+
+    from repro_torch.convert import params_from_jax
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps
+    from repro_torch.models import registry as R
+    from repro_torch.optim import AdamWConfig, adamw_init
+    torch.set_num_threads(2)
+    _join(rank, world, init_file)
+    calls = []
+    restore, probe = _record_recurrent_kernels(calls)
+    try:
+        with open(os.path.join(out_dir, "cases.pkl"), "rb") as f:
+            job = pickle.load(f)
+        ocfg = AdamWConfig(**job["opt"])
+        meshes = {"2x2": M.make_local_mesh(2), "1x4": M.make_local_mesh(4),
+                  "2x1x2": M.make_production_mesh(1, 2, multi_pod=True)}
+        out = {"runs": {}}
+        for case in job["cases"]:
+            cfg = case["cfg"]
+            axes = R.logical_axes(cfg)
+            toks = torch.as_tensor(case["tokens"])
+            for ruleset, kind in case["runs"]:
+                mesh = meshes[kind]
+
+                def placed_params():
+                    params = params_from_jax(cfg, case["params"])
+                    return S.distribute_tree(params, S.logical_to_specs(
+                        axes, params, mesh, S.RULESETS[ruleset]), mesh)
+                placed = placed_params()
+                run = {}
+                with torch.no_grad():
+                    calls.clear()
+                    run["forward"] = R.forward_logits(
+                        placed, cfg, {"tokens": toks}, device="cpu",
+                        mesh=mesh).full_tensor()
+                    run["forward_calls"] = calls[:]
+                    if "probe" not in out:
+                        out["probe"] = probe(placed["final_ln"])
+                    _serve_run(run, placed, cfg, toks, case, "einsum", mesh)
+                placed = placed_params()
+                opt = adamw_init(placed)
+                step = steps.make_train_step(cfg, ocfg, device="cpu",
+                                             mesh=mesh)
+                placed, opt, _, run["metrics"] = _train_steps(
+                    step, placed, opt, case["batches"])
+                run.update(m=_whole_tree(opt.m), v=_whole_tree(opt.v),
+                           params=_whole_tree(placed))
+                out["runs"][(case["name"], ruleset, kind)] = run
+        case = next(c for c in job["cases"] if c["name"] == job["compressed"])
+        out["compressed"] = _compressed_runs(case, meshes["2x1x2"], ocfg)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        restore()
+        dist.destroy_process_group()
+
+
+def _compressed_runs(case, mesh, ocfg):
+    """``make_train_step_dp_compressed`` over ``case["batches"]`` on the
+    ("pod", "data", "model") ``mesh`` (params on each pod's submesh), and
+    its group form over the "pod" dim's group: each's metrics and whole
+    weights."""
+    from repro_torch.convert import params_from_jax
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import steps
+    from repro_torch.models import registry as R
+    from repro_torch.optim import adamw_init
+    cfg, pod = case["cfg"], mesh["data", "model"]
+    params = params_from_jax(cfg, case["params"])
+    placed = S.distribute_tree(params, S.logical_to_specs(
+        R.logical_axes(cfg), params, pod, S.RULESETS["base"]), pod)
+    step = steps.make_train_step_dp_compressed(cfg, ocfg, mesh=mesh,
+                                               device="cpu")
+    placed, _, _, metrics = _train_steps(
+        step, placed, adamw_init(placed), case["batches"],
+        errors=steps.init_ef_errors(placed))
+    runs = {"mesh": {"metrics": metrics, "params": _whole_tree(placed)}}
+    params = params_from_jax(cfg, case["params"])
+    step = steps.make_train_step_dp_compressed(
+        cfg, ocfg, group=mesh.get_group("pod"), device="cpu")
+    params, _, _, metrics = _train_steps(
+        step, params, adamw_init(params), case["batches"],
+        errors=steps.init_ef_errors(params))
+    runs["group"] = {"metrics": metrics, "params": _whole_tree(params)}
+    return runs

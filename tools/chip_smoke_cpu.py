@@ -26,7 +26,12 @@ beside its group form, and one train step on rank 0 of a (1, 4) mesh of
 fake ranks), ``sharded-moe`` (phase 5's granite-moe serve, then phase 43:
 its serving under ``ep`` and ``base`` and a train step on a one-rank gloo
 mesh beside the same steps without one, then rank 0's prefills on a (1,
-4) mesh of fake ranks, mixtral-8x7b's among them) and ``zoo`` (phases 27-34: h2o-danube-3-4b on
+4) mesh of fake ranks, mixtral-8x7b's among them), ``sharded-recurrent``
+(phases 8 and 10's recurrentgemma-9b and xlstm-1.3b serves, then phase 44:
+each one's serving on a one-rank gloo mesh beside the same steps without
+one and rank 0's prefill on a (1, 4) mesh of fake ranks with each
+kernel's first call checked, then both train steps on the one-rank mesh)
+and ``zoo`` (phases 27-34: h2o-danube-3-4b on
 prompts past its window, minitron-8b, deepseek-coder-33b and mixtral-8x7b through gather at
 MIXTRAL_SERVE_LAYERS layers, each served, freed, then its float32
 consistency on a model drawn anew at ZOO_CONSIST_LAYERS layers, past the
@@ -35,15 +40,14 @@ of them.  The script runs a copy of chip_smoke.py with every
 ``"cuda"`` made ``"cpu"`` and ``torch.cuda``'s memory and synchronisation
 calls stubbed, every architecture replaced by its ``-smoke`` config (remat
 "full", as the train phases require) and the serving and encode sizes cut.
-The flash kernel's ``launch`` and ``launch_bwd``, and moe_gmm's
-``launch``, are replaced by functions that fill their outputs from the
-plain versions (``ref``) and count their launches by route (through
-``kernels.counters``, as the engine's threads launch at once), and CPU
-tensors are routed through the wrappers' kernel paths and their autograd
-functions, so that every launch check of these phases runs as it does on
-the card.  Phases that launch rglru_scan or mlstm_scan are not rehearsed
-here.  The pipeline's tools, made without a device, and the engine's mesh
-sites, given none, run on the CPU.
+The flash, rglru_scan and mlstm_scan kernels' ``launch`` and
+``launch_bwd``, and moe_gmm's ``launch``, are replaced by functions that
+fill their outputs from the plain versions (``ref``) and count their
+launches by route (through ``kernels.counters``, as the engine's threads
+launch at once), and CPU tensors are routed through the wrappers' kernel
+paths and their autograd functions, so that every launch check of these
+phases runs as it does on the card.  The pipeline's tools, made without a
+device, and the engine's mesh sites, given none, run on the CPU.
 Timings are CPU times and mean nothing.
 """
 from __future__ import annotations
@@ -63,11 +67,17 @@ from repro_torch import configs, pipeline  # noqa: E402
 from repro_torch.core.connectors import mesh  # noqa: E402
 from repro_torch.kernels import counters  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel, ops, ref  # noqa: E402
+from repro_torch.kernels.mlstm_scan import kernel as ml_kernel  # noqa: E402
+from repro_torch.kernels.mlstm_scan import ops as ml_ops  # noqa: E402
+from repro_torch.kernels.mlstm_scan import ref as ml_ref  # noqa: E402
+from repro_torch.kernels.rglru_scan import kernel as rg_kernel  # noqa: E402
+from repro_torch.kernels.rglru_scan import ops as rg_ops  # noqa: E402
+from repro_torch.kernels.rglru_scan import ref as rg_ref  # noqa: E402
 from repro_torch.kernels.moe_gmm import kernel as gmm_kernel  # noqa: E402
 from repro_torch.kernels.moe_gmm import ops as gmm_ops  # noqa: E402
 from repro_torch.kernels.moe_gmm import ref as gmm_ref  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import rglru, transformer  # noqa: E402
 
 PHASES = ("serve-vision", "consistency-vision", "train-audio",
           "train-consistency-audio", "train-consistency", "kernel-bwd-moe",
@@ -76,7 +86,7 @@ PHASES = ("serve-vision", "consistency-vision", "train-audio",
           "pipeline-service", "pipeline-recovery", "zoo",
           "train-compressed",
           "train-driver", "dryrun", "sharded-serve", "sharded-train",
-          "sharded-moe")
+          "sharded-moe", "sharded-recurrent")
 
 
 def fake_launch(q, k, v, out, *, causal, window, scale=None, lse=None):
@@ -143,6 +153,92 @@ def gmm_on_the_cpu(xe, p, act="swiglu", counts=None):
     return gmm_ops._forward(xe, w1, w3, w2, counts, act)
 
 
+def fake_rglru_launch(x, lam, ga, gx, b_a, b_i, h0, y, h_last):
+    wy, wh = rg_ref.reference_rglru(x, lam, ga, gx, h0, b_a=b_a, b_i=b_i)
+    y.copy_(wy)
+    h_last.copy_(wh)
+    counters.bump(vars(rg_kernel), "LAUNCHES", rg_kernel.LAUNCHES_BY_ROUTE,
+                  "gates" if b_a is None else "fused_bias")
+
+
+def fake_rglru_launch_bwd(x, lam, ga, gx, b_a, b_i, h0, y, dy, dh_last, dx,
+                          dga, dgx, dlam, db_a, db_i, dh0):
+    got = rg_ref.reference_rglru_bwd(x, lam, ga, gx, y, dy, h0, dh_last,
+                                     b_a=b_a, b_i=b_i)
+    for out, g in zip((dx, dlam, dga, dgx, dh0, db_a, db_i), got):
+        if out is not None:
+            out.copy_(g)
+    counters.bump(vars(rg_kernel), "BWD_LAUNCHES",
+                  rg_kernel.BWD_LAUNCHES_BY_ROUTE,
+                  "gates" if b_a is None else "fused_bias")
+
+
+REAL_RGLRU = rg_ops.rglru
+
+
+def rglru_on_the_cpu(x, lam, ga, gx, h0=None, *, b_a=None, b_i=None):
+    """``ops.rglru`` without its CPU branch and device checks."""
+    if x.device.type == "meta":
+        return REAL_RGLRU(x, lam, ga, gx, h0, b_a=b_a, b_i=b_i)
+    rg_ops._check_shapes(x, lam, ga, gx, h0, b_a, b_i)
+    lam = lam.float()
+    h0 = None if h0 is None else h0.float()
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, lam, ga, gx, h0, b_a, b_i)):
+        return rg_ops.RGLRUScanFunction.apply(x, lam, ga, gx, h0, b_a, b_i)
+    return rg_ops._forward(x, lam, ga, gx, h0, b_a, b_i)
+
+
+def fake_mlstm_launch(q, k, v, ig, fg, init, h, C, n, m, route, stats=None):
+    wh, state = ml_ref.reference_mlstm(q, k, v, ig, fg, init_state=init)
+    for out, w in zip((h, C, n, m), (wh, *state)):
+        out.copy_(w)
+    if stats is not None:
+        for out, w in zip(stats, ml_ref.reference_mlstm_stats(
+                q, k, v, ig, fg, init_state=init)):
+            out.copy_(w)
+    counters.bump(vars(ml_kernel), "LAUNCHES", ml_kernel.LAUNCHES_BY_ROUTE,
+                  route)
+
+
+def fake_mlstm_launch_bwd(q, k, v, ig, fg, init, h, stats, dh, dq, dk, dv,
+                          dig, rows, route):
+    full = ml_ref.reference_mlstm_stats(q, k, v, ig, fg, init_state=init)
+    gq, gk, gv, gig, gfg = ml_ref.reference_mlstm_bwd(
+        q, k, v, ig, fg, h, full, dh, init_state=init)
+    for out, g in zip((dq, dk, dv, dig), (gq, gk, gv, gig)):
+        out.copy_(g)
+    # rows such that ops.fg_grad(fg, dig, rows) gives gfg: the reverse
+    # cumulative sum of rows - dig, times sigmoid(-fg), is gfg
+    dlf = gfg / torch.sigmoid(-fg)
+    rows.copy_(gig + dlf - torch.cat([dlf[:, 1:], torch.zeros_like(
+        dlf[:, :1])], dim=1))
+    counters.bump(vars(ml_kernel), "BWD_LAUNCHES",
+                  ml_kernel.BWD_LAUNCHES_BY_ROUTE, route)
+
+
+REAL_MLSTM = ml_ops.mlstm_chunkwise
+
+
+def mlstm_on_the_cpu(q, k, v, ig, fg, *, chunk=64, init_state=None):
+    """``ops.mlstm_chunkwise`` without its CPU branch and device checks."""
+    if q.device.type == "meta":
+        return REAL_MLSTM(q, k, v, ig, fg, chunk=chunk,
+                          init_state=init_state)
+    ml_ops._check_shapes(q, k, v, ig, fg, chunk, init_state)
+    ig, fg = ig.float(), fg.float()
+    route = ml_ops.kernel_route(q, k, v)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, ig, fg)):
+        h, C, n, m = ml_ops.MLSTMScanFunction.apply(
+            q, k, v, ig, fg, *(init_state or (None, None, None)), route)
+        return h, (C, n, m)
+    h, state, _ = ml_ops._forward(q, k, v, ig, fg, init_state, route,
+                                  with_stats=False)
+    return h, state
+
+
 class CPUEvent:
     """``torch.cuda.Event`` on the host's clock."""
 
@@ -164,6 +260,12 @@ def load_chip_smoke():
     kernel.launch, kernel.launch_bwd = fake_launch, fake_launch_bwd
     ops.flash_attention = transformer.flash_attention = flash_on_the_cpu
     gmm_kernel.launch = fake_gmm_launch
+    rg_kernel.launch, rg_kernel.launch_bwd = fake_rglru_launch, \
+        fake_rglru_launch_bwd
+    rg_ops.rglru = rglru.rglru_scan = rglru_on_the_cpu
+    ml_kernel.launch, ml_kernel.launch_bwd = fake_mlstm_launch, \
+        fake_mlstm_launch_bwd
+    ml_ops.mlstm_chunkwise = mlstm_on_the_cpu
     gmm_ops.check_kernel_args = lambda *a, **k: None
     gmm_ops.expert_ffn = gmm_on_the_cpu
     pipeline.resolve_device = train.resolve_device = mesh.resolve_device = \
@@ -236,6 +338,16 @@ def rehearse_recovery(cs):
     return cs["phase_pipeline_recovery"](own, doc_own)
 
 
+def rehearse_recurrent(cs):
+    """Phase 44 after the serves it reuses, as main() orders them."""
+    cfg, params = cs["phase_serve"](cs["GRIFFIN_ARCH"])[:2]
+    cs["phase_recurrent_sharded"](cfg, params)
+    cfg, params = cs["phase_serve"](
+        cs["XLSTM_ARCH"], n_layers=cs["XLSTM_SERVE_LAYERS"])[:2]
+    cs["phase_recurrent_sharded"](cfg, params, cs["XLSTM_MESH_LAYERS"])
+    return cs["phase_recurrent_sharded_train"]()
+
+
 def main(argv=None) -> int:
     which = (argv if argv is not None else sys.argv[1:]) or list(PHASES)
     unknown = sorted(set(which) - set(PHASES))
@@ -284,6 +396,7 @@ def main(argv=None) -> int:
         "sharded-train": lambda: cs["phase_train_sharded"](),
         "sharded-moe": lambda: cs["phase_moe_sharded"](*cs["phase_serve"](
             cs["MOE_ARCH"], moe_dispatch="gather")[:2]),
+        "sharded-recurrent": lambda: rehearse_recurrent(cs),
         "dryrun": lambda: cs["phase_dryrun"](
             "CPU rehearsal", cs["phase_train"](
                 seq=cs["TRAIN_SEQ"], profile=False)[2]),
