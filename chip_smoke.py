@@ -418,6 +418,33 @@ a non-zero exit:
                 loss and the grad norm within TRAIN_RTOL, every parameter
                 after the step within 2 lr, each kernel's forward and backward
                 launches on its train route
+45. sharded vision and audio  under ``base``, each kernel's launches
+                counted from 0 on each path and checked: run right after
+                phase 18, on its llama-3.2-vision-11b (full width and
+                depth, bf16, gates 0.5): (a) on a one-rank NCCL group and a
+                (1, 1) mesh, 3 prefills of 4 x 1000 tokens with 1600
+                patches a row (the CROSS layers' ck/cv sequence-sharded by
+                ``cache_specs``, so that decode combines them) and
+                VISION_MESH_DECODE greedy decode steps, beside the same
+                steps without a mesh: the same greedy tokens, the logits
+                within SHARDED_LOGITS_BAR, 32 flash launches a prefill, all
+                causal on wgmma_bf16, none in decode, prefill and decode ms
+                both ways; (b) rank 0 of a (1, 4) mesh of fake ranks: a
+                prefill at 8 query heads over 2 KV heads a rank, the CROSS
+                caches at 400 patches a rank, the weights a rank holds and
+                the peak memory, the first flash call at its shapes against
+                its plain version; then right after phase 21, on
+                hubert-xlarge at full width and depth: (c) on a (1, 1)
+                mesh, an encode of 1 x 4096 frames (bf16 weights) and
+                AUDIO_MESH_TRAIN_STEPS train steps of phase 12's recipe,
+                each beside the same without a mesh: the logits within
+                SHARDED_LOGITS_BAR, step 1's loss and grad norm within
+                TRAIN_RTOL, every parameter after step 1 within 2 lr, the
+                flash forward and backward launches, none causal, on
+                wgmma_bf16; (d) rank 0 of a (1, 4) mesh of fake ranks: a
+                train step, the flash forward and backward at (1, 4096, 4,
+                80) (padded to 120 in the kernel), the first call's forward
+                and backward at its shapes against their plain versions
 
 Earlier serve paths run at full depth, except where a note above says
 otherwise; if the run outgrows its time, their depth is what gets cut
@@ -626,6 +653,12 @@ MIXTRAL_ARCH = "mixtral-8x7b"
 # XLSTM_MESH_TRAIN_SEQ (its sLSTM loop made 2 steps at 1024 take 74 s)
 RECURRENT_MESH_DECODE, RECURRENT_MESH_TRAIN_STEPS = 4, 1
 XLSTM_MESH_LAYERS, XLSTM_MESH_TRAIN_SEQ = 4, 256
+# phase 45: llama-3.2-vision-11b (phase 18's weights, full depth) on a
+# one-rank mesh: three prefills of 4 x 1000 tokens with 1600 patches a row
+# and VISION_MESH_DECODE greedy decode steps; hubert-xlarge at full depth
+# there: an encode of 1 x TRAIN_SEQ frames and AUDIO_MESH_TRAIN_STEPS train
+# steps, each beside the same without a mesh
+VISION_MESH_DECODE, AUDIO_MESH_TRAIN_STEPS = 4, 2
 
 
 _T0 = time.perf_counter()
@@ -2364,15 +2397,17 @@ def phase_serve(arch: str, moe_dispatch: str = "einsum",
 
 
 def serve_greedy(cfg, params, toks, mesh=None, steps=None,
-                 moe_dispatch="einsum", repeats: int = 3, feed=None):
+                 moe_dispatch="einsum", repeats: int = 3, feed=None,
+                 extra=None):
     """Prefill ``toks`` (SERVE_SLOTS x PROMPT_LEN) into caches of
     SHARDED_CACHE_LEN slots ``repeats`` times and decode ``steps`` (default
     GEN) greedy steps from the last, through ``make_prefill_step`` /
     ``make_serve_step`` (with ``mesh``, on it); with ``feed`` (greedy
     tokens of another run, (steps + 1, B)), each decode step takes feed's
-    token instead of its own.  Returns (prefill ms, the median; decode ms
-    a step; the greedy tokens (steps + 1, B); the logits, prefill's then
-    each step's, float32 on the host; the first layer's cache)."""
+    token instead of its own; ``extra``: more entries of the prefill's
+    batch (a vision model's "patches").  Returns (prefill ms, the median;
+    decode ms a step; the greedy tokens (steps + 1, B); the logits,
+    prefill's then each step's, float32 on the host; the cache)."""
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     steps = GEN if steps is None else steps
     prefill = make_prefill_step(cfg, cache_len=SHARDED_CACHE_LEN,
@@ -2388,7 +2423,7 @@ def serve_greedy(cfg, params, toks, mesh=None, steps=None,
         for _ in range(repeats):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            logits, cache = prefill(params, {"tokens": toks})
+            logits, cache = prefill(params, {"tokens": toks, **(extra or {})})
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
@@ -2406,7 +2441,7 @@ def serve_greedy(cfg, params, toks, mesh=None, steps=None,
     return (sorted(times)[len(times) // 2] * 1e3, decode_ms,
             torch.stack(tokens),
             torch.stack([t.float().cpu() for t in all_logits]),
-            cache["layers"][0])
+            cache)
 
 
 def phase_serve_sharded(cfg, params):
@@ -2447,9 +2482,9 @@ def phase_serve_sharded(cfg, params):
         sharded = serve_greedy(cfg, placed, toks, mesh)
         launches = {"flash_attention": fa_kernel.LAUNCHES}
         routes = dict(fa_kernel.LAUNCHES_BY_ROUTE)
-        prefill_ms, decode_ms, tokens, logits, cache0 = sharded
-        cache_place = tuple(cache0["k"].placements)
-        del placed, sharded, cache0
+        prefill_ms, decode_ms, tokens, logits, cache = sharded
+        cache_place = tuple(cache["layers"][0]["k"].placements)
+        del placed, sharded, cache
     finally:
         dist.destroy_process_group()
     want = 3 * n_attn
@@ -3279,7 +3314,8 @@ def phase_serve_vision(arch: str = VISION_ARCH):
     from the prefill, GEN - 1 from decode steps.  Every prefill must
     launch the flash kernel once per ATTN layer, causal, on its wgmma
     route, and no decode step any; the CROSS layers compute on plain
-    PyTorch.  Returns (launches, {kernel: launches by route})."""
+    PyTorch.  Returns (cfg, params, launches, {kernel: launches by route},
+    the serve's numbers); the caller drops the params."""
     from repro_torch.configs import get_arch
     from repro_torch.data.frontends import vision_patches
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -3395,12 +3431,9 @@ def phase_serve_vision(arch: str = VISION_ARCH):
             lambda: decode(params, nxt, ctx_len - 1, cache)))
         del cache
     cross = cross_attention_ms(cfg, params, patches[0], prefill_ms)
-    del params
-    torch.cuda.empty_cache()
-    return launches, routes, {"prefill_ms": prefill_ms,
-                              "decode_ms": decode_ms,
-                              "tokens_per_s": n_tok / wall,
-                              "peak_bytes": peak, "cross": cross}
+    return cfg, params, launches, routes, {
+        "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+        "tokens_per_s": n_tok / wall, "peak_bytes": peak, "cross": cross}
 
 
 def phase_consistency_vision(arch: str = VISION_ARCH,
@@ -5507,6 +5540,382 @@ def phase_recurrent_sharded_train():
     return launches, routes
 
 
+def cross_cache_pieces(cache) -> list:
+    """Each CROSS layer's ck: (its placements, this rank's piece's
+    shape)."""
+    return [(tuple(layer["ck"].placements),
+             tuple(layer["ck"].to_local().shape))
+            for layer in cache["layers"] if "ck" in layer]
+
+
+def cross_cache_piece(cfg, tp: int):
+    """What ``cache_specs`` makes of a CROSS layer's ck (SERVE_SLOTS, P,
+    KH, Dh) on a rank of a (1, tp) mesh: sequence-sharded from 1024
+    patches on (P / tp a rank), else along Dh."""
+    from torch.distributed.tensor import Shard
+    P, KH, Dh = cfg.n_patches, cfg.n_kv_heads, cfg.head_dim
+    if P >= 1024:
+        return (Shard(0), Shard(1)), (SERVE_SLOTS, P // tp, KH, Dh)
+    return (Shard(0), Shard(3)), (SERVE_SLOTS, P, KH, Dh // tp)
+
+
+def phase_vision_sharded(cfg, params):
+    """Phase 45 (a) and (b) (see the module docstring): llama-3.2-vision's
+    serving (phase 18's bf16 weights, full depth) on a one-rank mesh under
+    ``base`` beside the same steps without one, the patch memory's ck/cv
+    of n_patches sequence-sharded by ``cache_specs``; then rank 0's
+    prefill on a (1, SHARDED_TP) mesh of fake ranks.  Every kernel's
+    launches are counted from 0 on each path and checked.  Returns
+    ({path: every kernel's launches}, {path: by route}, flash's numbers at
+    the rank's shapes)."""
+    import torch.distributed as dist
+    from repro_torch.data.frontends import vision_patches
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels.flash_attention.ops import kernel_head_dim
+    from repro_torch.launch.dryrun import fake_group
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import registry as R
+    from repro_torch.tree import tree_leaves
+    phase(f"sharded vision and audio: {cfg.name} ({cfg.n_layers} layers)")
+    axes = R.logical_axes(cfg)
+    rules = sharding.RULESETS["base"]
+    toks = np.random.default_rng(45).integers(
+        1, cfg.vocab_size, size=(SERVE_SLOTS, PROMPT_LEN)).astype(np.int32)
+    extra = {"patches": vision_patches(SERVE_SLOTS, cfg.n_patches,
+                                       cfg.frontend_dim, seed=45)}
+    n_attn = layer_counts(cfg).get("attn", 0)
+    n_cross = layer_counts(cfg).get("cross", 0)
+    fa_route = {"flash_attention": serve_routes()["flash_attention"]}
+    launches, routes = {}, {}
+
+    def place(mesh):
+        return sharding.distribute_tree(params, sharding.logical_to_specs(
+            axes, params, mesh, rules), mesh)
+
+    # (a) a one-rank NCCL group, a (1, 1) mesh
+    plain = serve_greedy(cfg, params, toks, steps=VISION_MESH_DECODE,
+                         extra=extra)[:4]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        placed = place(make_local_mesh(1))
+        mesh = placed["final_ln"].device_mesh
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_launches()
+        masks, restore = record_flash_masks()
+        try:
+            prefill_ms, decode_ms, tokens, logits, cache = serve_greedy(
+                cfg, placed, toks, mesh, steps=VISION_MESH_DECODE,
+                extra=extra)
+        finally:
+            restore()
+        path = f"{cfg.name} sharded"
+        launches[path], routes[path] = kernel_launches(), kernel_routes()
+        mesh_peak = torch.cuda.max_memory_allocated()
+        one_rank_cross = cross_cache_pieces(cache)
+        del placed, cache
+    finally:
+        dist.destroy_process_group()
+    want = dict.fromkeys(launches[path], 0)
+    want["flash_attention"] = 3 * n_attn
+    check(launches[path] == want, f"sharded {cfg.name}: launches "
+          f"{launches[path]} over 3 prefills and {VISION_MESH_DECODE} decode "
+          f"steps, expected {want}: {n_attn} a prefill, none in decode")
+    check(masks == {("forward", True): 3 * n_attn},
+          f"sharded {cfg.name}: flash launches by (pass, causal) {masks}")
+    check_routes(routes[path], launches[path], fa_route,
+                 f"sharded {cfg.name}")
+    check(one_rank_cross == [cross_cache_piece(cfg, 1)] * n_cross,
+          f"sharded {cfg.name}: the CROSS caches {one_rank_cross}")
+    err = float((plain[3] - logits).abs().max())
+    check(err <= SHARDED_LOGITS_BAR,
+          f"sharded {cfg.name}: logits differ by {err:.3e} > "
+          f"{SHARDED_LOGITS_BAR}")
+    check(torch.equal(plain[2], tokens),
+          f"sharded {cfg.name}: greedy tokens {tokens.tolist()}, without "
+          f"a mesh {plain[2].tolist()}")
+    print(f"  (a) (1, 1) mesh, base: 3 prefills of {SERVE_SLOTS}x"
+          f"{PROMPT_LEN} tokens with {cfg.n_patches} patches a row and "
+          f"{VISION_MESH_DECODE} greedy decode steps beside the same steps "
+          f"without a mesh: the same greedy tokens, logits' largest "
+          f"difference {err:.3e} (bar {SHARDED_LOGITS_BAR}; "
+          f"{'the same bits' if err == 0 else 'not the same bits'}); "
+          f"flash {launches[path]['flash_attention']} launches = {n_attn} "
+          f"ATTN layers x 3 prefills, all causal, by route "
+          f"{routes[path]['flash_attention']}, none in decode; the "
+          f"{n_cross} CROSS caches {one_rank_cross[0]} (decode through "
+          f"the combine where sequence-sharded); prefill {prefill_ms:.2f} ms on the "
+          f"mesh, {plain[0]:.2f} ms without (median of 3); decode "
+          f"{decode_ms:.3f} ms/step on the mesh, {plain[1]:.3f} without, "
+          f"at batch {SERVE_SLOTS}; peak memory on the mesh "
+          f"{mesh_peak / 2**30:.2f} GiB (the weights resident)", flush=True)
+
+    # (b) rank 0 of a (1, SHARDED_TP) mesh of fake ranks on the card
+    rank = f"{cfg.name} rank 0 of (1, {SHARDED_TP})"
+    with fake_group(SHARDED_TP):
+        placed = place(make_local_mesh(SHARDED_TP, device_type="cuda"))
+        mesh = placed["final_ln"].device_mesh
+        held = sum(sharding.local(t).nbytes for t in tree_leaves(placed))
+        prefill = make_prefill_step(cfg, cache_len=SHARDED_CACHE_LEN,
+                                    device="cuda", mesh=mesh)
+        batch = {"tokens": toks, **extra}
+        with torch.inference_mode():
+            prefill(placed, batch)                  # the first, untimed
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_kernel_launches()
+            fa_shapes, fa_restore = record_flash_shapes()
+            shapes, first, restore = record_kernel_calls()
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, cache = prefill(placed, batch)
+                torch.cuda.synchronize()
+                rank_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                restore()
+                fa_restore()
+            launches[rank], routes[rank] = kernel_launches(), kernel_routes()
+            rank_cross = cross_cache_pieces(cache)
+            del cache
+        peak = torch.cuda.max_memory_allocated()
+        want = dict.fromkeys(launches[rank], 0)
+        want["flash_attention"] = n_attn
+        check(launches[rank] == want, f"{rank}: launches {launches[rank]}, "
+              f"expected {want}")
+        check_routes(routes[rank], launches[rank], fa_route, rank)
+        heads = local_heads(cfg, SHARDED_TP)
+        local = (SERVE_SLOTS, PROMPT_LEN, heads, cfg.head_dim)
+        got = shapes["flash_attention"]
+        check(got == [local] * n_attn, f"{rank}: flash received "
+              f"{sorted(set(got))}, expected {n_attn} calls at {local}")
+        padded = local[:3] + (kernel_head_dim(cfg.head_dim),)
+        check(fa_shapes == {("forward", padded): n_attn},
+              f"{rank}: flash launches by (pass, q shape) {fa_shapes}")
+        rank_piece = cross_cache_piece(cfg, SHARDED_TP)
+        check(rank_cross == [rank_piece] * n_cross,
+              f"{rank}: the CROSS caches {rank_cross}, expected "
+              f"{rank_piece}")
+        at_rank = check_first_calls(first, rank)["flash_attention"]
+        at_rank["launches"] = n_attn
+        del placed, first
+    torch.cuda.empty_cache()
+    kv_heads = cfg.n_kv_heads * heads // cfg.n_heads
+    print(f"  (b) {rank}: prefill {SERVE_SLOTS}x{PROMPT_LEN} with "
+          f"{cfg.n_patches} patches {rank_ms:.2f} ms (one rank's compute "
+          f"with the collectives skipped, its logits not checked); weights "
+          f"a rank {held / 1e9:.3f} GB; peak memory {peak / 2**30:.2f} GiB "
+          f"(phase 18's whole weights resident beside them); flash at q "
+          f"{local} ({heads} of {cfg.n_heads} heads over {kv_heads} KV "
+          f"heads); the CROSS caches {rank_piece}", flush=True)
+    return launches, routes, at_rank
+
+
+def check_flash_bwd_at(args, kw, what):
+    """The flash backward at the shapes and dtype of a recorded forward
+    call (its q, k, v and dO drawn anew from a seed: on fake ranks the
+    collectives leave activations unwritten), through the wrapper's
+    autograd function against the plain backward at BWD_TOL, timed beside
+    its bound (``time_kernel_bwd``)."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(45)
+    q, k, v = (torch.randn(t.shape, generator=gen, device="cuda")
+               .to(t.dtype).requires_grad_() for t in args)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    o = ops.flash_attention(q, k, v, **kw)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    qd, kd, vd = (t.detach() for t in (q, k, v))
+    lse = ref.reference_attention_lse(qd, kd, **kw)
+    want = ref.reference_attention_bwd(qd, kd, vd, o.detach(), lse, do, **kw)
+    errs, abs_err = bwd_errors(grads, want, False)
+    tol = BWD_TOL[q.dtype]
+    print(f"  {what}: the flash backward at {tuple(q.shape)} {kw} against "
+          f"its plain version: rel err dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
+          f"{errs[2]:.3e} (bar {tol:.0e})", flush=True)
+    check(all(math.isfinite(e) and e <= tol for e in errs),
+          f"{what}: flash backward errors {errs} > {tol}")
+    del grads, want, o
+    timing = time_kernel_bwd(qd, kd, vd, do, kw["causal"], kw["window"],
+                             abs_err)
+    return {"shape": list(q.shape), "rel_err": max(errs), **timing}
+
+
+def phase_audio_sharded():
+    """Phase 45 (c) and (d) (see the module docstring): hubert-xlarge at
+    full width and depth under ``base``.  (c) on a one-rank mesh, an
+    encode of 1 x TRAIN_SEQ frames beside the same without one (bf16
+    weights), then AUDIO_MESH_TRAIN_STEPS train steps of phase 12's recipe
+    beside as many plain ones (``train_beside_plain``); (d) rank 0 of a
+    (1, SHARDED_TP) mesh of fake ranks: a train step, the flash calls'
+    shapes, and the first call's forward and backward at its shapes
+    against the plain versions.  Returns ({path: launches}, {path: by
+    route}, {"forward", "backward": flash's numbers at the rank's
+    shapes})."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch, get_schedule
+    from repro_torch.data import batch_for
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels.flash_attention.ops import kernel_head_dim
+    from repro_torch.launch import steps
+    from repro_torch.launch.dryrun import fake_group
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import registry as R
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cfg = get_arch(AUDIO_ARCH)
+    phase(f"sharded vision and audio: {cfg.name} ({cfg.n_layers} layers)")
+    axes, rules = R.logical_axes(cfg), sharding.RULESETS["base"]
+    launches, routes = {}, {}
+
+    def place(params, mesh):
+        return sharding.distribute_tree(params, sharding.logical_to_specs(
+            axes, params, mesh, rules), mesh)
+
+    def init():
+        return R.init_params(cfg, 0, device="cuda", param_dtype=torch.float32)
+    frames = torch.as_tensor(batch_for(cfg, ShapeSpec(
+        "encode", TRAIN_SEQ, 1, "train"), seed=3)["frames"], device="cuda")
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch_for(
+        cfg, ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train"), seed=0,
+        step=0).items()}
+    ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                       total_steps=TRAIN_STEPS,
+                       schedule=get_schedule(AUDIO_ARCH))
+    want_step = step_launches(cfg, TRAIN_ACCUM, backward=True)
+
+    def encode(params, mesh=None):
+        """The first, untimed, then the median of 3; (ms, logits)."""
+        times = []
+        with torch.inference_mode():
+            for i in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = R.forward_logits(params, cfg, {"frames": frames},
+                                       device="cuda", mesh=mesh)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            out = out.full_tensor() if mesh is not None else out
+        return sorted(times[1:])[1] * 1e3, out.float()
+
+    # (c) a one-rank NCCL group, a (1, 1) mesh
+    p16 = R.init_params(cfg, 0, device="cuda")
+    plain_ms, plain_out = encode(p16)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_local_mesh(1)
+        placed16 = place(p16, mesh)
+        reset_kernel_launches()
+        masks, restore = record_flash_masks()
+        try:
+            mesh_ms, mesh_out = encode(placed16, mesh)
+        finally:
+            restore()
+        enc = f"{cfg.name} sharded encode"
+        launches[enc], routes[enc] = kernel_launches(), kernel_routes()
+        del placed16
+        train_masks, restore = record_flash_masks()
+        path = f"{cfg.name} sharded train"
+        try:
+            run = train_beside_plain(
+                cfg, ocfg, batch, init, lambda: place(init(), mesh), mesh,
+                AUDIO_MESH_TRAIN_STEPS, want_step, path,
+                ("loss", "grad_norm"))
+        finally:
+            restore()
+        launches[path], routes[path] = run["launches"], run["routes"]
+    finally:
+        dist.destroy_process_group()
+    del p16
+    want = dict.fromkeys(launches[enc], 0)
+    want["flash_attention"] = 4 * cfg.n_layers
+    check(launches[enc] == want, f"{enc}: launches {launches[enc]}, "
+          f"expected {want}")
+    check(masks == {("forward", False): 4 * cfg.n_layers},
+          f"{enc}: flash launches by (pass, causal) {masks}")
+    check_routes(routes[enc], launches[enc],
+                 {"flash_attention": TRAIN_ROUTES["flash_attention"]}, enc)
+    check(set(train_masks) == {("forward", False), ("backward", False)},
+          f"{path}: flash launches by (pass, causal) {train_masks}: none "
+          f"causal")
+    err = float((plain_out - mesh_out).abs().max())
+    check(err <= SHARDED_LOGITS_BAR,
+          f"{enc}: logits differ by {err:.3e} > {SHARDED_LOGITS_BAR}")
+    keys = ("loss", "grad_norm")
+    mesh_m, plain_m = run["mesh_m"][0], run["plain_m"][0]
+    print(f"  (c) (1, 1) mesh, base: encode 1 x {TRAIN_SEQ} frames, bf16 "
+          f"weights: logits' largest difference {err:.3e} (bar "
+          f"{SHARDED_LOGITS_BAR}; "
+          f"{'the same bits' if err == 0 else 'not the same bits'}), "
+          f"{mesh_ms:.2f} ms on the mesh, {plain_ms:.2f} ms without (median "
+          f"of 3), flash {cfg.n_layers} launches a call, not causal, by "
+          f"route {routes[enc]['flash_attention']}; {AUDIO_MESH_TRAIN_STEPS}"
+          f" train steps at batch {TRAIN_BATCH} x {TRAIN_SEQ} as "
+          f"{TRAIN_ACCUM} microbatches: step 1 "
+          f"{', '.join(f'{k} {mesh_m[k]!r}' for k in keys)}, plain "
+          f"{', '.join(repr(plain_m[k]) for k in keys)} ("
+          f"{'the same bits' if run['same'] else 'not the same bits'}; bar "
+          f"{TRAIN_RTOL}); largest parameter difference after step 1 "
+          f"{run['d']:.3e} (bar 2 lr); launches "
+          f"{ {k: v for k, v in run['launches'].items() if v} } by (pass, "
+          f"causal) {train_masks} (plain and mesh steps); step ms on the "
+          f"mesh {[round(t, 1) for t in run['mesh_ms']]}, plain "
+          f"{[round(t, 1) for t in run['plain_ms']]}; peak "
+          f"{run['peak'] / 2**30:.2f} GiB", flush=True)
+
+    # (d) rank 0 of a (1, SHARDED_TP) mesh of fake ranks on the card
+    rank = f"{cfg.name} rank 0 of (1, {SHARDED_TP}) train"
+    with fake_group(SHARDED_TP):
+        mesh = make_local_mesh(SHARDED_TP, device_type="cuda")
+        placed = place(init(), mesh)
+        opt = adamw_init(placed)
+        step = steps.make_train_step(cfg, ocfg, accum_steps=TRAIN_ACCUM,
+                                     device="cuda", mesh=mesh)
+        timed_steps(lambda: step(placed, opt, batch), 1)   # the first
+        reset_kernel_launches()
+        fa_shapes, fa_restore = record_flash_shapes()
+        shapes, first, restore = record_kernel_calls()
+        try:
+            _, rank_ms = timed_steps(lambda: step(placed, opt, batch), 1)
+        finally:
+            restore()
+            fa_restore()
+        launches[rank], routes[rank] = kernel_launches(), kernel_routes()
+        del placed, opt
+        torch.cuda.empty_cache()
+        heads = local_heads(cfg, SHARDED_TP)
+        local = (TRAIN_BATCH // TRAIN_ACCUM, TRAIN_SEQ, heads, cfg.head_dim)
+        padded = local[:3] + (kernel_head_dim(cfg.head_dim),)
+        check(launches[rank] == want_step, f"{rank}: launches "
+              f"{launches[rank]}, expected {want_step}")
+        check_routes(routes[rank], launches[rank], TRAIN_ROUTES, rank)
+        check(fa_shapes == {("forward", padded):
+                            want_step["flash_attention"],
+                            ("backward", padded):
+                            want_step["flash_attention_bwd"]},
+              f"{rank}: flash launches by (pass, q shape) {fa_shapes}")
+        check(set(shapes["flash_attention"]) == {local},
+              f"{rank}: flash received {set(shapes['flash_attention'])}")
+        at_rank = {"forward": check_first_calls(first, rank)[
+            "flash_attention"]}
+        args, kw = first["flash_attention"]
+        at_rank["backward"] = check_flash_bwd_at(args, kw, rank)
+        at_rank["forward"]["launches"] = want_step["flash_attention"]
+        at_rank["backward"]["launches"] = want_step["flash_attention_bwd"]
+        del first, args
+    torch.cuda.empty_cache()
+    print(f"  (d) {rank}: a train step {rank_ms[0]:.1f} ms (the second; "
+          f"one rank's compute with the collectives skipped, its outputs "
+          f"not checked); flash at q {local} ({heads} of {cfg.n_heads} "
+          f"heads, Dh {cfg.head_dim} padded to {padded[3]}), launches by "
+          f"(pass, q shape) {fa_shapes}", flush=True)
+    return launches, routes, at_rank
+
+
 def phase_train_driver():
     """Phase 36: ``examples/train_e2e_torch.py``'s path through
     ``launch/train.py`` on the card (minicpm-2b -smoke, batch 8 x 128,
@@ -5691,12 +6100,20 @@ def main() -> int:
         XLSTM_ARCH, XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_SEQ, profile=False)
     phase_train_consistency(XLSTM_ARCH, XLSTM_CONSIST_LAYERS,
                             RECURRENT_CONSIST_SEQ)
-    vision_launches, routes[VISION_ARCH], _ = phase_serve_vision()
+    cfg, params, vision_launches, routes[VISION_ARCH], _ = \
+        phase_serve_vision()
+    modal_launches, modal_routes, vision_at_rank = \
+        phase_vision_sharded(cfg, params)
+    del params
+    torch.cuda.empty_cache()
     phase_consistency_vision()
     audio_train, audio_train_routes, _ = phase_train(AUDIO_ARCH,
                                                      extra=time_encode)
     phase_train_consistency(AUDIO_ARCH, AUDIO_CONSIST_LAYERS,
                             AUDIO_CONSIST_SEQ)
+    more, more_routes, hubert_at_rank = phase_audio_sharded()
+    modal_launches.update(more)
+    modal_routes.update(more_routes)
     phase_train_moe_dispatches()
     moe_train, moe_train_routes, _ = phase_train_moe_full()
     phase_train_consistency(MOE_ARCH, MOE_CONSIST_LAYERS, MOE_CONSIST_SEQ,
@@ -5772,7 +6189,13 @@ def main() -> int:
              # head), its 6-layer train steps there
              **{path: n["flash_attention"]
                 for path, n in rec_mesh_launches.items()
-                if n["flash_attention"]}},
+                if n["flash_attention"]},
+             # phase 45: llama-3.2-vision's 3 prefills on a (1, 1) mesh and
+             # one on rank 0 of (1, 4); hubert-xlarge's 4 encodes and 2
+             # train steps on the (1, 1) mesh, a train step on rank 0 of
+             # (1, 4)
+             **{path: n["flash_attention"]
+                for path, n in modal_launches.items()}},
          "launches_by_route": {
              **{arch: r["flash_attention"] for arch, r in routes.items()},
              f"{ARCH} train": train_routes["flash_attention"],
@@ -5783,6 +6206,8 @@ def main() -> int:
              **{path: r["flash_attention"]
                 for path, r in rec_mesh_routes.items()
                 if rec_mesh_launches[path]["flash_attention"]},
+             **{path: r["flash_attention"]
+                for path, r in modal_routes.items()},
              f"{GRIFFIN_ARCH} train": griffin_train_routes["flash_attention"],
              f"{AUDIO_ARCH} train": audio_train_routes["flash_attention"]},
          "at_granite_shape": fa_timing["granite-prefill"],
@@ -5800,6 +6225,12 @@ def main() -> int:
          # phase 44 (d): recurrentgemma-9b's first call on rank 0 of (1, 4)
          # (4 query heads over 1 KV head, Dh 256) against the plain version
          "at_griffin_rank_shape": griffin_at_rank["flash_attention"],
+         # phase 45 (b), (d): the first call on rank 0 of (1, 4) of
+         # llama-3.2-vision's prefill (8 query heads over 2 KV heads, Dh
+         # 128) and of hubert-xlarge's train step (4 heads of Dh 80, not
+         # causal) against the plain version
+         "at_vision_rank_shape": vision_at_rank,
+         "at_hubert_rank_shape": hubert_at_rank["forward"],
          # minicpm-2b's train shape (B 1, S 4096, 36 heads of 64)
          "at_minicpm_train_shape": fa_timing["minicpm-train"]},
         {"name": "flash_attention_bwd", "route": "cuda",
@@ -5826,7 +6257,10 @@ def main() -> int:
                  sharded_train_routes["flash_attention_bwd"],
              f"{MOE_ARCH} sharded train":
                  moe_mesh_routes[f"{MOE_ARCH} sharded train"][
-                     "flash_attention_bwd"]},
+                     "flash_attention_bwd"],
+             **{path: r["flash_attention_bwd"]
+                for path, r in modal_routes.items()
+                if modal_launches[path]["flash_attention_bwd"]}},
          "launches_by_path": {
              f"{ARCH} train": train_launches["flash_attention_bwd"],
              f"{ARCH} sharded train": sharded_train["flash_attention_bwd"],
@@ -5841,7 +6275,15 @@ def main() -> int:
              "pipeline service":
                  service["launches"]["flash_attention_bwd"],
              "pipeline recovery":
-                 recovery["launches"]["flash_attention_bwd"]},
+                 recovery["launches"]["flash_attention_bwd"],
+             # phase 45 (c), (d): hubert-xlarge's 2 train steps on a (1, 1)
+             # mesh and one on rank 0 of (1, 4)
+             **{path: n["flash_attention_bwd"]
+                for path, n in modal_launches.items()
+                if n["flash_attention_bwd"]}},
+         # phase 45 (d): at the first call's shapes on rank 0 of (1, 4) of
+         # hubert-xlarge's train step (4 heads of Dh 80, not causal)
+         "at_hubert_rank_shape": hubert_at_rank["backward"],
          **bwd_timing},
         {"name": "moe_gmm", "route": "cuda",
          "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",

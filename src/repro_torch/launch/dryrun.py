@@ -30,13 +30,15 @@ by ``cache_specs``.  The counts are then one card's: its local FLOPs and
 bytes, the wire bytes of the collectives DTensor emits, its share of the
 arguments (the float32 parameters, their gradients and the AdamW moments
 of a train cell each its local pieces); the record's ``mesh`` is e.g.
-"1x8xH100" and ``chips`` the world size.  The text decoders: self-attention,
-dense or MoE (``--ruleset ep`` spreads the experts over "model"; the
-record's ``moe`` says how many experts and how much of d_ff a card holds),
-and the RG-LRU and xLSTM blocks (each kernel counted at a rank's channels
-or heads, the sLSTM's steps through ``flops.loop``): vision and audio
-under a mesh are written with a ``skip`` reason that names the later
-slice.
+"1x8xH100" and ``chips`` the world size.  Every config runs on a mesh:
+the text decoders, self-attention, dense or MoE (``--ruleset ep`` spreads
+the experts over "model"; the record's ``moe`` says how many experts and
+how much of d_ff a card holds), and the RG-LRU and xLSTM blocks (each
+kernel counted at a rank's channels or heads, the sLSTM's steps through
+``flops.loop``); llama-3.2-vision (the flash kernel at a card's local
+heads, each CROSS layer's decode over its sequence-sharded patch cache
+combined by all-reduces) and hubert-xlarge (whose decode cells keep their
+encoder-only skip).
 
 ``--dp-compress`` counts a train cell's ``make_train_step_dp_compressed``
 on the multi-pod mesh, the parameters placed on each pod's ("data",
@@ -67,7 +69,6 @@ from repro_torch.launch.steps import (init_ef_errors, make_prefill_step,
                                       make_train_step_dp_compressed,
                                       place_batch)
 from repro_torch.models import registry as R
-from repro_torch.models import transformer as tf
 from repro_torch.models.config import SHAPES_BY_NAME, ShapeSpec, skip_reason
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.tree import tree_leaves
@@ -159,11 +160,6 @@ def lower_cell(arch: str, shape: Union[str, ShapeSpec], *,
     if chips > 1:
         rec.update(ruleset=ruleset, mesh_dp_tp=[dp, tp],
                    multi_pod=multi_pod)
-        if reason is None:
-            try:
-                tf.check_mesh_supported(cfg)
-            except NotImplementedError as e:
-                reason = str(e)
     if reason:
         rec["skip"] = reason
         return rec

@@ -76,7 +76,7 @@ def _gradients(params, cfg, batch, moe_dispatch, accum_steps, device,
                                       device=device, mesh=mesh)
         # backward() sums each microbatch's gradient into p.grad in
         # place, one parameter at a time: no second copy of the grads
-        with R.on_mesh(cfg, mesh):
+        with R.on_mesh(mesh):
             li.backward()
         loss = loss + sharding.whole(li.detach())
     grads = [_grad(p) for p in leaves]
@@ -118,9 +118,9 @@ def make_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
     (``sharding.distribute_tree``) and the moments with them
     (``adamw_init``); ``batch`` is whole on every rank, and its
     microbatches are placed by ``sharding.batch_specs``.  The metrics are
-    plain tensors, the same on every rank.  The text decoders:
-    self-attention, dense or MoE, and the RG-LRU and xLSTM blocks
-    (``check_mesh_supported``)."""
+    plain tensors, the same on every rank.  Every config: the text
+    decoders, the vision model (a batch with "patches") and the audio
+    encoder (a batch with "frames" and "mask")."""
     opt_cfg = opt_cfg or AdamWConfig()
     schedule = make_schedule(opt_cfg)
 

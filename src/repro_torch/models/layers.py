@@ -396,7 +396,7 @@ def decode_attention_block(x, p, cfg, cache, pos: int, *, window: int = 0,
     ``lax.dynamic_update_slice`` clamps in the reference.  The cache
     tensors are updated in place (no copy of the cache per token) and
     returned.  On a ``mesh`` the cache is DTensors placed by
-    ``distributed.sharding.cache_specs``: see ``_decode_attend_on_mesh``.
+    ``distributed.sharding.cache_specs``: see ``decode_attend_on_mesh``.
     """
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     B = h.shape[0]
@@ -416,59 +416,65 @@ def decode_attention_block(x, p, cfg, cache, pos: int, *, window: int = 0,
         cv[:, slot] = v[:, 0].to(cv.dtype)
         o = attention(q, ck, cv, causal=False, kv_len=kv_len)
     else:
-        o = _decode_attend_on_mesh(q, k, v, ck, cv, slot, kv_len, mesh)
+        o = decode_attend_on_mesh(q, k, v, ck, cv, slot, kv_len, mesh)
     o = dense(o.reshape(B, 1, H * Dh), p["wo"])
     return x + o, {"k": ck, "v": cv}
 
 
-def _decode_attend_on_mesh(q, k, v, ck, cv, slot: int, kv_len: int, mesh):
+def decode_attend_on_mesh(q, k, v, ck, cv, slot: Optional[int],
+                          kv_len: Optional[int], mesh):
     """Write slot ``slot`` and attend over the first ``kv_len`` slots of a
-    cache that lies on ``mesh``; q, k, v (B, 1, heads, Dh) DTensors.
+    cache that lies on ``mesh``; q, k, v (B, 1, heads, Dh) DTensors.  Read
+    only (a CROSS layer's patch memory): k, v, ``slot`` and ``kv_len``
+    None, nothing written and every slot attended.
 
     Each rank holds all heads of its batch rows (q, k, v are made whole
     over "model").  A sequence-sharded cache (``cache_specs``' choice for
     1024 slots or more) is written only by the rank that owns ``slot``,
     each rank attends over its own slots, and the ranks' outputs are
     combined across "model" by their log-sum-exps (``combine_partials``).
-    A cache sharded along its feature dim (shorter caches) is written by
-    every rank in its own columns and gathered whole over "model" for the
-    attention, as the reference's partitioner does.  Returns o (B, 1, H,
-    Dh), whole over "model"."""
+    A cache sharded along its feature dim (shorter caches), or whole over
+    "model", is written by every rank in its own columns and gathered
+    whole over "model" for the attention, as the reference's partitioner
+    does.  Returns o (B, 1, H, Dh), whole over "model"."""
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
-    model = mesh.mesh_dim_names.index("model")
+    model = model_dim(mesh)
     rank = mesh.get_coordinate()[model]
     whole = list(ck.placements)
     whole[model] = Replicate()
-    q, k, v = (t.redistribute(mesh, whole) for t in (q, k, v))
+    new = () if slot is None else (k, v)
+    q, *new = (t.redistribute(mesh, whole) for t in (q, *new))
     cache_place = tuple(ck.placements)
-    in_place = (tuple(whole),) * 3 + (cache_place,) * 2
+    in_place = (tuple(whole),) + (cache_place,) * 2 + \
+        (tuple(whole),) * len(new)
 
     if ck.placements[model] == Shard(1):
-        def attend(q, k, v, ck, cv):
+        def attend(q, ck, cv, *new):
             L = ck.shape[1]
             lo = rank * L
-            if lo <= slot < lo + L:
-                ck[:, slot - lo] = k[:, 0].to(ck.dtype)
-                cv[:, slot - lo] = v[:, 0].to(cv.dtype)
-            o, lse = attention(q, ck, cv, causal=False,
-                               kv_len=min(max(kv_len - lo, 0), L),
+            if new and lo <= slot < lo + L:
+                ck[:, slot - lo] = new[0][:, 0].to(ck.dtype)
+                cv[:, slot - lo] = new[1][:, 0].to(cv.dtype)
+            n = None if kv_len is None else min(max(kv_len - lo, 0), L)
+            o, lse = attention(q, ck, cv, causal=False, kv_len=n,
                                return_lse=True)
             return combine_partials(o, lse, (mesh, model))
         return local_map(attend, out_placements=whole, in_placements=in_place,
-                         device_mesh=mesh)(q, k, v, ck, cv)
+                         device_mesh=mesh)(q, ck, cv, *new)
 
-    sharded = ck.placements[model] == Shard(3)
+    if new:
+        sharded = ck.placements[model] == Shard(3)
 
-    def write_cols(k, v, ck, cv):
-        lo = rank * ck.shape[3] if sharded else 0
-        hi = lo + ck.shape[3]
-        ck[:, slot] = k[:, 0, :, lo:hi].to(ck.dtype)
-        cv[:, slot] = v[:, 0, :, lo:hi].to(cv.dtype)
-        return ck, cv
-    ck, cv = local_map(write_cols, out_placements=(list(cache_place),) * 2,
-                       in_placements=in_place[1:],
-                       device_mesh=mesh)(k, v, ck, cv)
+        def write_cols(ck, cv, k, v):
+            lo = rank * ck.shape[3] if sharded else 0
+            hi = lo + ck.shape[3]
+            ck[:, slot] = k[:, 0, :, lo:hi].to(ck.dtype)
+            cv[:, slot] = v[:, 0, :, lo:hi].to(cv.dtype)
+            return ck, cv
+        ck, cv = local_map(write_cols, out_placements=(list(cache_place),) * 2,
+                           in_placements=in_place[1:],
+                           device_mesh=mesh)(ck, cv, *new)
     ck_all, cv_all = (t.redistribute(mesh, whole) for t in (ck, cv))
     return local_map(
         lambda q, ck, cv: attention(q, ck, cv, causal=False, kv_len=kv_len),

@@ -38,9 +38,9 @@ it is read only by MoE layers):
                                                    -> (logits, cache)
   init_cache(cfg, B, ctx_len, device=)             -> cache (zeros)
 ``forward_train``, ``forward_logits``, ``prefill`` and ``decode_step`` also
-take ``mesh=``, a ``DeviceMesh`` on which the params lie as DTensors
-(the text decoders, self-attention, MoE, RG-LRU and xLSTM:
-``check_mesh_supported``).
+take ``mesh=``, a ``DeviceMesh`` on which the params lie as DTensors, for
+every config: the text decoders, the vision model's gated
+cross-attention and the audio encoder.
 """
 from __future__ import annotations
 
@@ -62,12 +62,12 @@ from repro_torch.distributed.sharding import (cache_specs,
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.config import (ATTN, SWA, LOCAL, CROSS, MLSTM, SLSTM,
                                        RGLRU, ArchConfig)
-from repro_torch.models.layers import (attention, decode_attention_block,
-                                       dense, gated_mlp, gathered,
-                                       is_gated_act, local_call, merge_heads,
-                                       model_dim, over_model,
-                                       reduce_partials, rms_norm, rope,
-                                       shard_hint, split_heads,
+from repro_torch.models.layers import (attention, decode_attend_on_mesh,
+                                       decode_attention_block, dense,
+                                       gated_mlp, gathered, is_gated_act,
+                                       local_call, merge_heads, model_dim,
+                                       over_model, reduce_partials, rms_norm,
+                                       rope, shard_hint, split_heads,
                                        sum_over_ranks)
 from repro_torch.models.moe import moe_block, moe_ffn_axes
 from repro_torch.models.rglru import (RGLRU_C, apply_rglru, d_rnn,
@@ -295,27 +295,14 @@ def logical_axes(cfg: ArchConfig) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 # ---------------------------------------------------------------------------
-# On a device mesh (serving and training the text decoders)
+# On a device mesh (serving and training every config)
 # ---------------------------------------------------------------------------
 
 _HEADS_HINT = ("batch", None, "model", None)
 _STREAM_HINT = ("batch", None, None)
 
 
-def check_mesh_supported(cfg: ArchConfig) -> None:
-    """Serving or training under a mesh covers the text decoders: the
-    self-attention blocks (ATTN, SWA, LOCAL), dense or MoE, and the
-    recurrent ones (RGLRU, MLSTM, SLSTM)."""
-    if cfg.modality != "text" or cfg.encoder_only or \
-            not set(cfg.block_pattern) <= set(_SELF_ATTN + _RECURRENT):
-        raise NotImplementedError(
-            f"{cfg.name}: serving or training under a mesh covers the text "
-            f"decoders (self-attention, MoE, RG-LRU and xLSTM blocks); "
-            f"vision (cross-attention) and audio (encoder-only) come in a "
-            f"later slice")
-
-
-def on_mesh(cfg: ArchConfig, mesh):
+def on_mesh(mesh):
     """The context a model call runs in: on a mesh, plain tensors (the
     positions, masks and constants) join DTensor ops as replicated.  The
     backward of ``forward_train``'s loss runs in it too: its saved
@@ -323,24 +310,25 @@ def on_mesh(cfg: ArchConfig, mesh):
     replay the forward."""
     if mesh is None:
         return contextlib.nullcontext()
-    check_mesh_supported(cfg)
     from torch.distributed.tensor.experimental import implicit_replication
     return implicit_replication()
 
 
-def _flash_on_local_heads(q, k, v, mesh, causal: bool, window: int):
-    """The flash kernel on each rank's local heads: q, k, v hinted to
-    ("batch", None, "model", None), so a rank holds H / tp query heads
-    and the KH / tp KV heads they read.  One KV head (recurrentgemma's
-    MQA) does not split: a rank runs its H / tp query heads against it
-    whole, as the reference's partitioner places them, and its gradient
-    is each rank's partial sum over "model".  Where ``safe_spec`` leaves
-    more KV heads whole (KH does not divide the "model" axis), the query
-    heads are left whole too, and the kernel runs on all heads."""
+def _on_local_heads(fn, q, k, v, mesh):
+    """``fn(q, k, v)``, an attention over (B, S, heads, Dh), on each
+    rank's local heads: q, k, v hinted to ("batch", None, "model", None),
+    so a rank holds H / tp query heads and the KH / tp KV heads they read.
+    One KV head (recurrentgemma's MQA) does not split: a rank runs its
+    H / tp query heads against it whole, as the reference's partitioner
+    places them, and its gradient is each rank's partial sum over
+    "model".  Where ``safe_spec`` leaves more KV heads whole (KH does not
+    divide the "model" axis), the query heads are left whole too, and
+    ``fn`` runs on all heads.  The flash kernel (self-attention) and the
+    plain ``attention`` (a CROSS layer's, keys from the patch memory) both
+    run here."""
     from torch.distributed.tensor import Partial
     q, k, v = (shard_hint(t, mesh, _HEADS_HINT) for t in (q, k, v))
     model = model_dim(mesh)
-    fn = functools.partial(flash_attention, causal=causal, window=window)
     if k.placements[model] != q.placements[model]:
         if k.shape[2] == 1:
             kv_grad = list(k.placements)
@@ -366,48 +354,63 @@ def _self_attn(x, p, cfg, *, positions, window, mesh=None):
                    _HEADS_HINT)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    causal = not cfg.encoder_only
-    if is_dtensor(q):
-        o = _flash_on_local_heads(q, k, v, mesh, causal, window)
-    else:
-        # the CUDA kernel on the GPU, its plain version on the CPU
-        o = flash_attention(q, k, v, causal=causal, window=window)
+    # the CUDA kernel on the GPU, its plain version on the CPU
+    fn = functools.partial(flash_attention, causal=not cfg.encoder_only,
+                           window=window)
+    o = _on_local_heads(fn, q, k, v, mesh) if is_dtensor(q) else fn(q, k, v)
     o = shard_hint(o, mesh, _HEADS_HINT)
     return x + dense(merge_heads(o, (B, S, H * Dh)), p["wo"]), (k, v)
 
 
 def _gated_out(x, p, o):
-    """x + tanh(gate) * (o @ wo), the gate cast to x's dtype first."""
-    B, S = o.shape[:2]
-    o = dense(o.reshape(B, S, -1), p["wo"])
+    """x + tanh(gate) * (o @ wo), the gate cast to x's dtype first.  On a
+    mesh the scalar gate is replicated; its gradient, a sum over every
+    rank's rows, is reduced over them where the train step brings it to
+    the gate's placements."""
+    B, S, H, Dh = o.shape
+    o = dense(merge_heads(o, (B, S, H * Dh)), p["wo"])
     return x + torch.tanh(p["gate"].to(x.dtype)) * o
 
 
-def _cross_attn(x, p, cfg, *, memory):
+def _cross_attn(x, p, cfg, *, memory, mesh=None):
     """Gated cross-attention: queries from the normed x, keys and values
     from ``memory`` (B, P, d), no mask and no rotary embedding.  The plain
     ``attention`` computes it (the flash kernel takes S_k = S_q only), as
-    the reference computes it outside its Pallas kernel.  Returns (x,
-    (k, v)), the memory's keys and values for the decode cache."""
+    the reference computes it outside its Pallas kernel; on a mesh on each
+    rank's local heads (``_on_local_heads``), q, k and v hinted as
+    ``_self_attn`` hints them.  Returns (x, (k, v)), the memory's keys and
+    values for the decode cache."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     B, S, _ = h.shape
     H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     P = memory.shape[1]
-    q = dense(h, p["wq"]).reshape(B, S, H, Dh)
-    k = dense(memory, p["wk"]).reshape(B, P, KH, Dh)
-    v = dense(memory, p["wv"]).reshape(B, P, KH, Dh)
-    return _gated_out(x, p, attention(q, k, v, causal=False)), (k, v)
+    q = shard_hint(split_heads(dense(h, p["wq"]), (B, S, H, Dh)), mesh,
+                   _HEADS_HINT)
+    k = shard_hint(split_heads(dense(memory, p["wk"]), (B, P, KH, Dh)),
+                   mesh, _HEADS_HINT)
+    v = shard_hint(split_heads(dense(memory, p["wv"]), (B, P, KH, Dh)),
+                   mesh, _HEADS_HINT)
+    fn = functools.partial(attention, causal=False)
+    o = _on_local_heads(fn, q, k, v, mesh) if is_dtensor(q) else fn(q, k, v)
+    o = shard_hint(o, mesh, _HEADS_HINT)
+    return _gated_out(x, p, o), (k, v)
 
 
-def _decode_cross_attn(x, p, cfg, cache):
+def _decode_cross_attn(x, p, cfg, cache, mesh=None):
     """One token's cross-attention against the cached memory keys and
     values (cast to x's dtype, as the reference does); the cache is
-    read only."""
+    read only.  On a mesh, ``decode_attend_on_mesh`` in its read-only
+    mode: over a sequence-sharded cache (``cache_specs``' choice from 1024
+    patches) each rank attends its own patches with all heads and the
+    partials are combined; a feature-sharded one is gathered whole."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     B = h.shape[0]
-    q = dense(h, p["wq"]).reshape(B, 1, cfg.n_heads, cfg.head_dim)
-    o = attention(q, cache["ck"].to(x.dtype), cache["cv"].to(x.dtype),
-                  causal=False)
+    q = split_heads(dense(h, p["wq"]), (B, 1, cfg.n_heads, cfg.head_dim))
+    ck, cv = (cache[name].to(x.dtype) for name in ("ck", "cv"))
+    if mesh is None:
+        o = attention(q, ck, cv, causal=False)
+    else:
+        o = decode_attend_on_mesh(q, None, None, ck, cv, None, None, mesh)
     return _gated_out(x, p, o), cache
 
 
@@ -433,7 +436,7 @@ def _apply_layer(x, memory, layer, kind, cfg, positions, moe_dispatch,
                                      return_state=collect_kv, mesh=mesh)
         x, kv = out if collect_kv else (out, None)
     elif kind == CROSS:
-        x, kv = _cross_attn(x, layer["mix"], cfg, memory=memory)
+        x, kv = _cross_attn(x, layer["mix"], cfg, memory=memory, mesh=mesh)
     else:
         x, kv = _self_attn(x, layer["mix"], cfg, positions=positions,
                            window=_window_for(kind, cfg), mesh=mesh)
@@ -461,7 +464,7 @@ def _stack_forward(params, cfg, x, memory, positions, moe_dispatch, *,
                    mesh=None):
     """Runs every layer in depth order; ``memory`` (a vision model's
     projected patches, else None) feeds the CROSS layers; ``mesh``, the
-    self-attention layers' hints.
+    layers' hints and local pieces.
 
     ``remat`` is the reference's ``cfg.remat`` for training: "full" keeps
     only each layer's input and recomputes the layer in the backward,
@@ -536,24 +539,29 @@ def _embed_tokens(params, cfg, tokens):
     return x
 
 
-def _project(inputs, w, dt, device):
+def _project(inputs, w, dt, device, mesh=None):
     """Frontend embeddings (B, n, frontend_dim) @ w, in the activation
-    dtype (inputs rounded to it first, as the reference does)."""
-    return dense(torch.as_tensor(inputs, device=device).to(dt), w)
+    dtype (inputs rounded to it first, as the reference does).  On a mesh
+    the inputs are placed by ``sharding.batch_specs`` (or as the caller
+    placed them), ``w`` is gathered over the data axes at use
+    (``dense``), and the product is hinted to ("batch", None, None)."""
+    x = _batch_tensor(inputs, device, mesh).to(dt)
+    return shard_hint(dense(x, w), mesh, _STREAM_HINT)
 
 
-def _embed(params, cfg, batch, device):
+def _embed(params, cfg, batch, device, mesh=None):
     """(x: (B, S, d) activations, memory: (B, P, d) or None) of a batch:
     audio frames through the frontend, else tokens through the embedding;
     a vision model's patches through ``vis_proj``."""
     dt = torch_dtype(cfg.dtype)
     if cfg.modality == "audio":
-        x = _project(batch["frames"], params["frontend"], dt, device)
+        x = _project(batch["frames"], params["frontend"], dt, device, mesh)
     else:
         x = _embed_tokens(params, cfg, _tokens(batch["tokens"], device))
     memory = None
     if cfg.modality == "vision":
-        memory = _project(batch["patches"], params["vis_proj"], dt, device)
+        memory = _project(batch["patches"], params["vis_proj"], dt, device,
+                          mesh)
     return x, memory
 
 
@@ -707,9 +715,9 @@ def forward_train(params, cfg: ArchConfig, batch, *,
     backward run on each rank's heads, and the loss and metrics come back
     as replicated 0-dim DTensors."""
     device = _prepare(params, cfg, device)
-    with on_mesh(cfg, mesh):
+    with on_mesh(mesh):
         labels = _batch_tensor(batch["labels"], device, mesh).long()
-        x, memory = _embed(params, cfg, batch, device)
+        x, memory = _embed(params, cfg, batch, device, mesh)
         x = shard_hint(x, mesh, ("batch", None, None))
         positions = torch.arange(x.shape[1], device=x.device)
         x, aux, _ = _stack_forward(params, cfg, x, memory, positions,
@@ -738,11 +746,12 @@ def forward_logits(params, cfg: ArchConfig, batch, *,
     (``distributed.sharding.distribute_tree``); the activations are
     hinted where the reference hints them, and the logits come back as a
     DTensor, batch-sharded and whole over the vocabulary.  The text
-    decoders: self-attention, MoE, RG-LRU and xLSTM blocks
-    (NotImplementedError for vision and audio)."""
+    decoders, the vision model (its patch memory batch-sharded, each CROSS
+    layer on a rank's local heads) and the audio encoder (its frames
+    batch-sharded, the flash kernel not causal)."""
     device = _prepare(params, cfg, device)
-    with on_mesh(cfg, mesh):
-        x, memory = _embed(params, cfg, batch, device)
+    with on_mesh(mesh):
+        x, memory = _embed(params, cfg, batch, device, mesh)
         x = shard_hint(x, mesh, ("batch", None, None))
         positions = torch.arange(x.shape[1], device=x.device)
         x, _, _ = _stack_forward(params, cfg, x, memory, positions,
@@ -801,13 +810,14 @@ def decode_step(params, cfg: ArchConfig, tokens, pos: int, cache, *,
     that mesh, placed by ``distributed.sharding.cache_specs`` (a cache of
     1024 slots or more sequence-sharded over "model"), and each
     attention layer's write and read run on the ranks' own slices
-    (``models.layers.decode_attention_block``).
+    (``models.layers.decode_attention_block``); a CROSS layer reads its
+    ck/cv there without writing (``decode_attend_on_mesh``).
     """
     if cfg.modality == "audio":
         raise ValueError(f"{cfg.name}: encoder-only arch has no decode step")
     device = _prepare(params, cfg, device)
     pos = int(pos)
-    with on_mesh(cfg, mesh):
+    with on_mesh(mesh):
         x = _embed_tokens(params, cfg, _tokens(tokens, device))
         x = shard_hint(x, mesh, ("batch", None, None))
         layers = []
@@ -819,7 +829,7 @@ def decode_step(params, cfg: ArchConfig, tokens, pos: int, cache, *,
                                                  mesh=mesh)
             elif kind == CROSS:
                 x, new = _decode_cross_attn(x, layer["mix"], cfg,
-                                            cache["layers"][n])
+                                            cache["layers"][n], mesh=mesh)
             else:
                 x, new = decode_attention_block(
                     x, layer["mix"], cfg, cache["layers"][n], pos,
@@ -852,13 +862,13 @@ def prefill(params, cfg: ArchConfig, batch, *,
     ``decode_step`` takes them.
     """
     device = _prepare(params, cfg, device)
-    with on_mesh(cfg, mesh):
+    with on_mesh(mesh):
         return _prefill(params, cfg, batch, cache_len, moe_dispatch, device,
                         mesh)
 
 
 def _prefill(params, cfg, batch, cache_len, moe_dispatch, device, mesh):
-    x, memory = _embed(params, cfg, batch, device)
+    x, memory = _embed(params, cfg, batch, device, mesh)
     x = shard_hint(x, mesh, ("batch", None, None))
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
@@ -887,8 +897,9 @@ def _prefill(params, cfg, batch, cache_len, moe_dispatch, device, mesh):
                 name: _place_cache(t, mesh) for name, t in kv.items()})
             continue
         if kind == CROSS:
-            layers.append({"ck": kv[0].to(dt).contiguous(),
-                           "cv": kv[1].to(dt).contiguous()})
+            ck, cv = (t.to(dt).contiguous() for t in kv)
+            layers.append({"ck": ck, "cv": cv} if mesh is None else {
+                "ck": _place_cache(ck, mesh), "cv": _place_cache(cv, mesh)})
             continue
         L = _cache_len(kind, cfg, L_default)
         if mesh is None:

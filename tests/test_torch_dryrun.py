@@ -4,6 +4,7 @@
 as the step launches them, skipped cells written as records, the CLI on a
 full-size cell; and the port's versions of ``tests/test_roofline.py``'s
 four unit cases, ``fits`` against the H100's 80 GB."""
+import dataclasses
 import json
 
 import pytest
@@ -125,9 +126,9 @@ def test_dp_compress_needs_the_pod_axis(tmp_path):
 def test_moe_train_cell_on_a_mesh_keeps_its_skip():
     """What this test holds, whatever its name says: a MoE train cell on a
     mesh carries no skip and is counted (d_ff split under ``base``), and
-    the configs a later slice brings to a mesh (vision, audio) keep their
-    skip, which names that slice.  The name is the one the test had while
-    MoE cells were refused on a mesh."""
+    so are the vision and audio train cells, each with the flash kernel's
+    forward and backward.  The name is the one the test had while MoE
+    cells were refused on a mesh."""
     rec = dryrun.lower_cell("granite-moe-3b-a800m-smoke",
                             ShapeSpec("t", 64, 4, "train"), tp=2)
     assert "skip" not in rec and "error" not in rec
@@ -135,7 +136,10 @@ def test_moe_train_cell_on_a_mesh_keeps_its_skip():
     assert rec["moe"]["d_ff_per_card"] == rec["moe"]["d_ff"] // 2
     for arch in ("llama-3.2-vision-11b-smoke", "hubert-xlarge-smoke"):
         rec = dryrun.lower_cell(arch, ShapeSpec("t", 64, 4, "train"), tp=2)
-        assert "later slice" in rec["skip"]
+        assert "skip" not in rec and "error" not in rec
+        kernels = rec["counted"]["kernels"]
+        assert kernels["flash_attention"]["calls"] > 0
+        assert kernels["flash_attention_bwd"]["calls"] > 0
 
 
 MOE_SMOKE = ("granite-moe-3b-a800m-smoke", "mixtral-8x7b-smoke")
@@ -199,6 +203,96 @@ def test_recurrent_kernels_count_a_cards_share(arch, tp, split):
     one, sharded = (dryrun.lower_cell(arch, shape, **kw)["counted"]
                     ["kernels"][name]["flops"] for kw in ({}, {"tp": tp}))
     assert sharded * split == pytest.approx(one)
+
+
+MODAL_SMOKE = ("llama-3.2-vision-11b-smoke", "hubert-xlarge-smoke")
+
+
+def _attn_layers(cfg):
+    return _kinds(cfg).count("attn")
+
+
+@pytest.mark.parametrize("arch,kind", [(a, k) for a in MODAL_SMOKE
+                                       for k in ("prefill", "decode",
+                                                 "train")
+                                       if not (a.startswith("hubert") and
+                                               k == "decode")])
+@pytest.mark.parametrize("ruleset", ["base", "tp_only"])
+def test_modal_cells_on_a_mesh_are_counted(arch, kind, ruleset):
+    """The vision and audio cells on fake ranks carry no skip: the flash
+    kernel once a self-attention layer in a forward, not in decode, its
+    backward once a layer in a train step (no remat at smoke size), and
+    collectives on the wire."""
+    cfg = get_arch(arch)
+    rec = dryrun.lower_cell(arch, ShapeSpec("s", 64, 4, kind), dp=2, tp=2,
+                            ruleset=ruleset)
+    assert "skip" not in rec and "error" not in rec, rec.get("skip")
+    kernels = {k: v["calls"] for k, v in rec["counted"]["kernels"].items()}
+    layers = _attn_layers(cfg)
+    want = {} if kind == "decode" else {"flash_attention": layers}
+    if kind == "train":
+        want["flash_attention_bwd"] = layers
+    assert kernels == want
+    assert rec["counted"]["total_wire_bytes"] > 0
+
+
+@pytest.mark.parametrize("arch", MODAL_SMOKE)
+def test_modal_compressed_train_cells_are_counted(arch):
+    """``--dp-compress`` on the multi-pod mesh: the vision and audio train
+    cells' int8 payloads all-reduced over "pod", one a leaf at least."""
+    rec = dryrun.lower_cell(arch, ShapeSpec("t", 64, 4, "train"), tp=2,
+                            multi_pod=True, dp_compress=True)
+    assert "skip" not in rec and "error" not in rec
+    assert rec["mesh"] == "2x1x2xH100" and rec["dp_compress"]
+    n_leaves = len(tree_leaves(R.init_params(get_arch(arch),
+                                             device="meta")))
+    assert rec["counted"]["collective_calls"]["all-reduce"] > n_leaves
+    assert rec["counted"]["kernels"]["flash_attention_bwd"]["calls"] > 0
+
+
+def test_audio_decode_on_a_mesh_keeps_its_encoder_only_skip(tmp_path):
+    rec = dryrun.run_cell("hubert-xlarge", "decode_32k", str(tmp_path),
+                          dp=2, tp=4)
+    assert rec["skip"] == "encoder-only: no decode step"
+    assert rec["mesh"] == "2x4xH100" and "counted" not in rec
+
+
+@pytest.mark.parametrize("arch", MODAL_SMOKE)
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+def test_flash_is_counted_at_a_cards_local_heads(arch, kind):
+    """The flash kernel's FLOPs (and its backward's) on a card of a 1 x 4
+    mesh are a quarter of one card's: H / 4 heads of the vision model's
+    and the encoder's, not causal for the encoder."""
+    shape = ShapeSpec("s", 64, 4, kind)
+    one, sharded = (dryrun.lower_cell(arch, shape, **kw)["counted"]
+                    ["kernels"] for kw in ({}, {"tp": 4}))
+    assert set(one) == set(sharded)
+    for name in one:
+        assert sharded[name]["flops"] * 4 == pytest.approx(one[name]["flops"])
+
+
+def test_cross_decode_over_a_sequence_sharded_patch_cache_all_reduces(
+        monkeypatch):
+    """A decode step of the reduced vision model on a 1 x 4 mesh: with
+    1024 patches each CROSS layer's ck / cv are sequence-sharded over
+    "model" and its attention's partials are combined by three
+    all-reduces (the row max, the sum of exponentials, the weighted
+    outputs); with 16 patches the cache is feature-sharded and gathered
+    whole instead."""
+    from repro_torch.launch import dryrun as D
+    base = get_arch("llama-3.2-vision-11b-smoke")
+    n_cross = _kinds(base).count("cross")
+    calls = {}
+    for n_patches in (16, 1024):
+        cfg = dataclasses.replace(base, n_patches=n_patches)
+        monkeypatch.setattr(D, "get_arch", lambda name, cfg=cfg: cfg)
+        rec = D.lower_cell("llama-3.2-vision-11b-smoke",
+                           ShapeSpec("d", 64, 4, "decode"), tp=4)
+        assert "skip" not in rec and "error" not in rec
+        calls[n_patches] = rec["counted"]["collective_calls"]
+    assert calls[1024]["all-reduce"] - calls[16]["all-reduce"] == \
+        3 * n_cross
+    assert calls[16]["all-gather"] > calls[1024]["all-gather"]
 
 
 def _bytes_per_card(cfg, mesh, ruleset):

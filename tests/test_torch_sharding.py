@@ -7,8 +7,9 @@ through ``convert._jax_location`` (a scanned leaf's spec without its
 leading "layers" entry); the port's versions of ``tests/test_sharding.py``'s
 cases; placements on a ``DeviceMesh`` and the production meshes of a fake
 process group; the dry run of a cell on a mesh of fake ranks (collective
-bytes counted, per-card terms); and the configs that do not serve on a
-mesh yet."""
+bytes counted, per-card terms); and every other config's serving on a
+one-rank mesh."""
+import dataclasses
 import functools
 
 import jax
@@ -28,6 +29,7 @@ from repro_torch.launch import mesh as M
 from repro_torch.models import registry as R
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ShapeSpec
+from repro_torch.tree import tree_leaves
 
 MESHES = {"16x16": ((16, 16), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
@@ -238,32 +240,60 @@ def test_a_rank_piece_holds_only_its_own_memory(fake_ranks):
         M.make_local_mesh(3)
 
 
+@pytest.fixture
+def one_rank():
+    """The default group as one gloo rank of this process, and its (1, 1)
+    ("data", "model") mesh."""
+    import torch.distributed as dist
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield M.make_local_mesh(1)
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m-smoke",
                                   "mixtral-8x7b-smoke",
                                   "recurrentgemma-9b-smoke",
                                   "xlstm-1.3b-smoke",
                                   "llama-3.2-vision-11b-smoke",
                                   "hubert-xlarge-smoke"])
-def test_other_configs_do_not_serve_on_a_mesh_yet(arch):
-    """What this test holds, whatever its name says: the vision and audio
-    configs raise on a mesh and name the later slice; the MoE, RG-LRU and
-    xLSTM configs pass the check since they serve on a mesh
-    (``test_torch_sharding_moe``, ``test_torch_sharding_recurrent``).  The
-    name is the one the test had while all of them were refused."""
-    cfg = get_arch(arch)
-    if cfg.modality == "text":
-        tf.check_mesh_supported(cfg)
-        return
+def test_other_configs_do_not_serve_on_a_mesh_yet(arch, one_rank):
+    """What this test holds, whatever its name says: each of these
+    configs, vision and audio among them, runs ``forward_logits`` and
+    ``prefill`` on a one-rank (1, 1) mesh under ``base`` and gives the
+    unsharded port's logits and cache (float32, other op order: within
+    1e-5).  The name is the one the test had while they were refused on a
+    mesh; ``test_torch_sharding_moe``, ``test_torch_sharding_recurrent``
+    and ``test_torch_sharding_modal`` hold them on four ranks."""
+    cfg = dataclasses.replace(get_arch(arch), dtype="float32")
     params = R.init_params(cfg, 0, device="cpu")
-    batch = {"tokens": np.zeros((1, 8), np.int32)}
+    placed = S.distribute_tree(params, S.logical_to_specs(
+        R.logical_axes(cfg), params, one_rank, S.RULESETS["base"]), one_rank)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 8), np.int32)}
     if cfg.modality == "audio":
-        batch = {"frames": np.zeros((1, 8, cfg.frontend_dim), np.float32)}
+        batch = {"frames": rng.standard_normal((2, 8, cfg.frontend_dim),
+                                               np.float32)}
     elif cfg.modality == "vision":
-        batch["patches"] = np.zeros((1, cfg.n_patches, cfg.frontend_dim),
-                                    np.float32)
-    for call in (R.forward_logits, R.prefill):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            call(params, cfg, batch, device="cpu", mesh=object())
+        batch["patches"] = rng.standard_normal(
+            (2, cfg.n_patches, cfg.frontend_dim), np.float32)
+    dispatch = "gather" if cfg.is_moe else "einsum"
+    with torch.no_grad():
+        for call in (R.forward_logits, R.prefill):
+            want = call(params, cfg, batch, moe_dispatch=dispatch,
+                        device="cpu")
+            got = call(placed, cfg, batch, moe_dispatch=dispatch,
+                       device="cpu", mesh=one_rank)
+            if call is R.prefill:
+                (want, cache), (got, got_cache) = want, got
+                for a, b in zip(tree_leaves(got_cache), tree_leaves(cache)):
+                    assert S.is_dtensor(a)
+                    torch.testing.assert_close(a.full_tensor(), b, rtol=0,
+                                               atol=1e-5)
+            torch.testing.assert_close(got.full_tensor(), want, rtol=0,
+                                       atol=1e-5)
 
 
 def test_shard_hint_without_a_mesh_is_the_identity():
@@ -297,8 +327,8 @@ def test_dry_run_on_fake_ranks_counts_collectives(tmp_path):
                                tp=2, multi_pod=True)
     assert decode["mesh"] == "2x2x2xH100" and decode["chips"] == 8
     assert decode["counted"]["collective_calls"]["all-reduce"] > 0
-    # training counts its collectives too, and so do an MoE and an RG-LRU
-    # cell; vision names the later slice
+    # training counts its collectives too, and so do an MoE, an RG-LRU, a
+    # vision and an audio cell
     train = dryrun.lower_cell("minicpm-2b-smoke",
                               ShapeSpec("t", 64, 4, "train"), tp=2)
     assert "skip" not in train
@@ -311,9 +341,11 @@ def test_dry_run_on_fake_ranks_counts_collectives(tmp_path):
                                 ShapeSpec("p", 64, 4, "prefill"), tp=2)
     assert "skip" not in griffin
     assert griffin["counted"]["collective_calls"]["reduce-scatter"] > 0
-    vision = dryrun.lower_cell("llama-3.2-vision-11b-smoke",
-                               ShapeSpec("p", 64, 4, "prefill"), tp=2)
-    assert "later slice" in vision["skip"]
+    for arch in ("llama-3.2-vision-11b-smoke", "hubert-xlarge-smoke"):
+        rec = dryrun.lower_cell(arch, ShapeSpec("p", 64, 4, "prefill"),
+                                tp=2)
+        assert "skip" not in rec and "error" not in rec
+        assert rec["counted"]["collective_calls"]["all-reduce"] > 0
     import torch.distributed as dist
     assert not dist.is_initialized()
 

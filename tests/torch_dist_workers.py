@@ -1,6 +1,7 @@
 """Worker processes for the port's gloo tests (``test_torch_compression``,
 ``test_torch_sharding_serve``, ``test_torch_sharding_train``,
-``test_torch_sharding_moe``, ``test_torch_sharding_recurrent``): each joins
+``test_torch_sharding_moe``, ``test_torch_sharding_recurrent``,
+``test_torch_sharding_modal``): each joins
 a gloo group through a file store and writes what it saw to
 ``out_dir/rank{r}.pt``.  Imports torch
 and the port only, so that a spawned worker starts quickly."""
@@ -597,3 +598,160 @@ def _compressed_runs(case, mesh, ocfg):
         errors=steps.init_ef_errors(params))
     runs["group"] = {"metrics": metrics, "params": _whole_tree(params)}
     return runs
+
+
+def _record_attention_calls(sink):
+    """Wrap the flash kernel's wrapper and the plain ``attention`` as the
+    blocks call them (``transformer.flash_attention``, which self-attention
+    calls, and ``transformer.attention``, which only a CROSS layer's
+    full-sequence path calls) and ``layers.combine_partials`` (decode over
+    a sequence-sharded cache): each call appends (its name, q's or out's
+    shape, k's shape, whether q is a DTensor, its ``causal``) to
+    ``sink``.  Returns a function that restores them."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models import layers, transformer
+    real = (transformer.flash_attention, transformer.attention,
+            layers.combine_partials)
+
+    def flash(q, k, v, **kw):
+        sink.append(("flash_attention", tuple(q.shape), tuple(k.shape),
+                     isinstance(q, DTensor), kw["causal"]))
+        return real[0](q, k, v, **kw)
+
+    def cross(q, k, v, **kw):
+        sink.append(("cross_attention", tuple(q.shape), tuple(k.shape),
+                     isinstance(q, DTensor), kw["causal"]))
+        return real[1](q, k, v, **kw)
+
+    def combine(out, lse, group):
+        sink.append(("combine_partials", tuple(out.shape), None,
+                     isinstance(out, DTensor), None))
+        return real[2](out, lse, group)
+    transformer.flash_attention, transformer.attention, \
+        layers.combine_partials = flash, cross, combine
+
+    def restore():
+        transformer.flash_attention, transformer.attention, \
+            layers.combine_partials = real
+    return restore
+
+
+def _record_loss_branches(sink):
+    """Count the loss's per-chunk sums by branch (``_vocab_parallel_sums``
+    on vocab-sharded logits, ``_xent_sums`` on whole ones) into ``sink``;
+    returns a function that restores them."""
+    from repro_torch.models import transformer
+    real = (transformer._xent_sums, transformer._vocab_parallel_sums)
+
+    def count(name, fn):
+        def call(*args, **kw):
+            sink[name] = sink.get(name, 0) + 1
+            return fn(*args, **kw)
+        return call
+    transformer._xent_sums = count("whole", real[0])
+    transformer._vocab_parallel_sums = count("vocab_parallel", real[1])
+
+    def restore():
+        transformer._xent_sums, transformer._vocab_parallel_sums = real
+    return restore
+
+
+def sharded_modal_worker(rank, world, init_file, out_dir):
+    """The runs of ``out_dir/cases.pkl`` (``test_torch_sharding_modal``):
+    each case's converted params placed by a ruleset on a 2 x 2 ("data",
+    "model") mesh or a 1 x 4 one; then ``forward_logits`` on the case's
+    inputs (tokens and patches, or frames; the attention calls recorded),
+    for a served case the prefill step (its whole cache and the CROSS
+    layers' placements and local shapes kept) and greedy serve steps (the
+    combines recorded), and ``make_train_step`` over the case's batches
+    (the loss's branches counted); and the compressed step of the
+    ``compressed`` case on a 2 x 1 x 2 ("pod", "data", "model") mesh
+    beside its group form over "pod".  Writes the whole logits, caches,
+    tokens, metrics, moments and weights to ``rank{r}.pt``."""
+    import pickle
+
+    from repro_torch.convert import params_from_jax
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps
+    from repro_torch.models import registry as R
+    from repro_torch.optim import AdamWConfig, adamw_init
+    torch.set_num_threads(2)
+    _join(rank, world, init_file)
+    calls, branches = [], {}
+    restore = [_record_attention_calls(calls),
+               _record_loss_branches(branches)]
+    try:
+        with open(os.path.join(out_dir, "cases.pkl"), "rb") as f:
+            job = pickle.load(f)
+        ocfg = AdamWConfig(**job["opt"])
+        meshes = {"2x2": M.make_local_mesh(2), "1x4": M.make_local_mesh(4),
+                  "2x1x2": M.make_production_mesh(1, 2, multi_pod=True)}
+        out = {"runs": {}}
+        for case in job["cases"]:
+            cfg = case["cfg"]
+            axes = R.logical_axes(cfg)
+            inputs = {k: torch.as_tensor(v)
+                      for k, v in case["inputs"].items()}
+            for ruleset, kind in case["runs"]:
+                mesh = meshes[kind]
+
+                def placed_params():
+                    params = params_from_jax(cfg, case["params"])
+                    return S.distribute_tree(params, S.logical_to_specs(
+                        axes, params, mesh, S.RULESETS[ruleset]), mesh)
+                placed = placed_params()
+                run = {}
+                with torch.no_grad():
+                    calls.clear()
+                    run["forward"] = R.forward_logits(
+                        placed, cfg, inputs, device="cpu",
+                        mesh=mesh).full_tensor()
+                    run["forward_calls"] = calls[:]
+                    if case["serve"]:
+                        _modal_serve_run(run, calls, placed, cfg, inputs,
+                                         case, mesh)
+                placed = placed_params()
+                opt = adamw_init(placed)
+                step = steps.make_train_step(cfg, ocfg, device="cpu",
+                                             mesh=mesh)
+                branches.clear()
+                placed, opt, _, run["metrics"] = _train_steps(
+                    step, placed, opt, case["batches"])
+                run.update(loss_branches=dict(branches), m=_whole_tree(opt.m),
+                           v=_whole_tree(opt.v), params=_whole_tree(placed))
+                out["runs"][(case["name"], ruleset, kind)] = run
+        case = next(c for c in job["cases"] if c["name"] == job["compressed"])
+        out["compressed"] = _compressed_runs(case, meshes["2x1x2"], ocfg)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        for undo in restore:
+            undo()
+        dist.destroy_process_group()
+
+
+def _modal_serve_run(run, calls, placed, cfg, inputs, case, mesh):
+    """The prefill step on ``inputs`` (its whole logits and cache, and
+    each CROSS layer's cache placements and local shape) and
+    ``case["steps"]`` greedy serve steps (their whole logits and tokens,
+    and the calls recorded while they ran) into ``run``."""
+    from repro_torch.launch import steps
+    prefill = steps.make_prefill_step(cfg, cache_len=case["cache_len"],
+                                      device="cpu", mesh=mesh)
+    serve = steps.make_serve_step(cfg, device="cpu", mesh=mesh)
+    logits, cache = prefill(placed, inputs)
+    run.update(prefill=logits.full_tensor(), cache=_whole_tree(cache),
+               cross_cache=[(tuple(map(repr, layer["ck"].placements)),
+                             tuple(layer["ck"].to_local().shape))
+                            for layer in cache["layers"] if "ck" in layer],
+               decode=[], tokens=[])
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    calls.clear()
+    for i in range(case["steps"]):
+        run["tokens"].append(tok.full_tensor())
+        tok, logits, cache = serve(placed, tok,
+                                   inputs["tokens"].shape[1] + i, cache)
+        run["decode"].append(logits.full_tensor())
+    run["tokens"].append(tok.full_tensor())
+    run["decode_calls"] = calls[:]

@@ -30,8 +30,13 @@ mesh beside the same steps without one, then rank 0's prefills on a (1,
 (phases 8 and 10's recurrentgemma-9b and xlstm-1.3b serves, then phase 44:
 each one's serving on a one-rank gloo mesh beside the same steps without
 one and rank 0's prefill on a (1, 4) mesh of fake ranks with each
-kernel's first call checked, then both train steps on the one-rank mesh)
-and ``zoo`` (phases 27-34: h2o-danube-3-4b on
+kernel's first call checked, then both train steps on the one-rank mesh),
+``sharded-modal`` (phase 18's llama-3.2-vision serve, then phase 45: its
+serving on a one-rank gloo mesh beside the same steps without one and
+rank 0's prefill on a (1, 4) mesh of fake ranks; hubert-xlarge's encode
+and train steps on the one-rank mesh beside plain ones and a train step
+on rank 0 of (1, 4), each flash call's first checked forward and
+backward) and ``zoo`` (phases 27-34: h2o-danube-3-4b on
 prompts past its window, minitron-8b, deepseek-coder-33b and mixtral-8x7b through gather at
 MIXTRAL_SERVE_LAYERS layers, each served, freed, then its float32
 consistency on a model drawn anew at ZOO_CONSIST_LAYERS layers, past the
@@ -57,6 +62,7 @@ import math
 import os
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -86,7 +92,7 @@ PHASES = ("serve-vision", "consistency-vision", "train-audio",
           "pipeline-service", "pipeline-recovery", "zoo",
           "train-compressed",
           "train-driver", "dryrun", "sharded-serve", "sharded-train",
-          "sharded-moe", "sharded-recurrent")
+          "sharded-moe", "sharded-recurrent", "sharded-modal")
 
 
 def fake_launch(q, k, v, out, *, causal, window, scale=None, lse=None):
@@ -281,6 +287,9 @@ def load_chip_smoke():
                  "set_device"):
         setattr(torch.cuda, name, lambda *a, **k: None)
     torch.cuda.Event = CPUEvent
+    # the H100's 132 SMs, which the flash backward's timing reads
+    torch.cuda.get_device_properties = lambda *a, **k: \
+        types.SimpleNamespace(multi_processor_count=132)
     torch.cuda.max_memory_allocated = lambda *a, **k: 0
     torch.cuda.memory_allocated = lambda *a, **k: 0
 
@@ -348,6 +357,13 @@ def rehearse_recurrent(cs):
     return cs["phase_recurrent_sharded_train"]()
 
 
+def rehearse_modal(cs):
+    """Phase 45 after the vision serve it reuses, as main() orders them."""
+    cfg, params = cs["phase_serve_vision"]()[:2]
+    cs["phase_vision_sharded"](cfg, params)
+    return cs["phase_audio_sharded"]()
+
+
 def main(argv=None) -> int:
     which = (argv if argv is not None else sys.argv[1:]) or list(PHASES)
     unknown = sorted(set(which) - set(PHASES))
@@ -397,6 +413,7 @@ def main(argv=None) -> int:
         "sharded-moe": lambda: cs["phase_moe_sharded"](*cs["phase_serve"](
             cs["MOE_ARCH"], moe_dispatch="gather")[:2]),
         "sharded-recurrent": lambda: rehearse_recurrent(cs),
+        "sharded-modal": lambda: rehearse_modal(cs),
         "dryrun": lambda: cs["phase_dryrun"](
             "CPU rehearsal", cs["phase_train"](
                 seq=cs["TRAIN_SEQ"], profile=False)[2]),
