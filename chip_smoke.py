@@ -632,6 +632,8 @@ ZOO_ARCHS = (("h2o-danube-3-4b", None, "einsum", SWA_PROMPT_LEN),
 # past the window; then its forward_logits on the card against the CPU's
 # at B 1, CPU_CHECK_SEQ
 ZOO_CONSIST_LAYERS, SWA_CONSIST_SEQ, CPU_CHECK_SEQ = 2, 4200, 128
+# phase 37: the auto mesh's cell is counted on a node of this many cards
+AUTO_MESH_CHIPS = 8
 # phase 41: caches of 1024 slots, so that cache_specs shards their sequence
 # dim; on a one-rank mesh the sharded steps run the unsharded ops on the
 # same whole tensors, so the bar only allows bf16 rounding in another order
@@ -5998,11 +6000,15 @@ def phase_dryrun(card: str, train_out: dict):
     FLOPs and their ratio, each kernel's counted calls (which must equal
     the launches phase 12 checked each step), the predicted memory of the
     step's arguments, beside phase 12's measured step time and peak
-    memory, and model FLOPs over (step seconds x the card's bf16 peak)."""
+    memory, and model FLOPs over (step seconds x the card's bf16 peak).
+    Then the mesh that ``distributed.meshselect.preferred_mesh`` picks for
+    minicpm-2b's train_4k on a node of AUTO_MESH_CHIPS cards, counted on
+    as many fake ranks at accum 1: its split and the record's bound."""
     from repro_torch.configs import get_arch
+    from repro_torch.distributed.meshselect import preferred_mesh
     from repro_torch.launch.dryrun import lower_cell
     from repro_torch.launch.mesh import PEAK_FLOPS_BF16
-    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.config import SHAPES_BY_NAME, ShapeSpec
     phase(f"dryrun {ARCH}")
     cfg = get_arch(ARCH)
     t0 = time.perf_counter()
@@ -6032,7 +6038,27 @@ def phase_dryrun(card: str, train_out: dict):
     print(f"  phase 12's step {step_s:.4f} s (median after the first): "
           f"model FLOPs / (step s x {PEAK_FLOPS_BF16:.3e}) = {share:.2%} "
           f"on {card}", flush=True)
+    shape = SHAPES_BY_NAME["train_4k"]
+    dp, tp, rules = preferred_mesh(cfg, shape, AUTO_MESH_CHIPS)
+    check(dp * tp == AUTO_MESH_CHIPS, f"dryrun: preferred_mesh gave dp {dp} "
+          f"x tp {tp} for {AUTO_MESH_CHIPS} cards")
+    t0 = time.perf_counter()
+    auto = lower_cell(ARCH, shape, dp=dp, tp=tp, ruleset=rules)
+    check("error" not in auto and "skip" not in auto,
+          f"dryrun: the auto mesh's cell gave "
+          f"{auto.get('error') or auto.get('skip')}")
+    auto_ro, auto_mem = auto["roofline"], auto["memory"]
+    auto_gb = (auto_mem["argument_size_in_bytes"] +
+               auto_mem["temp_size_in_bytes"]) / 1e9
+    print(f"  auto mesh: {ARCH} {shape.name} on {AUTO_MESH_CHIPS} cards -> "
+          f"dp {dp} x tp {tp}, {rules} (meshselect's table, predicted by "
+          f"the dry run); counted on {auto['mesh']} fake ranks in "
+          f"{time.perf_counter() - t0:.1f} s at accum 1: bound "
+          f"{auto_ro['bound_s']:.6g} s by {auto_ro['dominant']}, arguments "
+          f"+ temporaries {auto_gb:.1f} GB a card", flush=True)
     return {"step_s": step_s, "model_flops": ro["model_flops"],
+            "auto_mesh": {"dp": dp, "tp": tp, "ruleset": rules,
+                          "bound_s": auto_ro["bound_s"]},
             "counted_flops": ro["counted_flops_global"],
             "useful_ratio": ro["useful_ratio"], "share_of_peak": share,
             "argument_bytes": mem["argument_size_in_bytes"],

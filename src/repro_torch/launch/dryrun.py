@@ -45,6 +45,14 @@ on the multi-pod mesh, the parameters placed on each pod's ("data",
 "model") submesh and the int8 payloads all-reduced as int32 over "pod",
 one a leaf; without ``--multi-pod`` the cell is skipped, as in the
 reference.
+
+``--auto-mesh`` takes each cell's dp, tp and ruleset from
+``distributed.meshselect.preferred_mesh`` for ``--chips`` cards (8 by
+default, a node); ``--both-meshes`` runs each cell on the single mesh and
+on two pods of it.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mixtral-8x7b \
+        --shape train_4k --auto-mesh --chips 8 --both-meshes --out DIR
 """
 from __future__ import annotations
 
@@ -62,6 +70,7 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_arch, get_schedule
 from repro_torch.distributed import sharding
 from repro_torch.distributed.flops import FlopCounter
+from repro_torch.distributed.meshselect import CARDS_PER_NODE, preferred_mesh
 from repro_torch.launch.mesh import (HBM_BW, NVLINK_BW, PEAK_FLOPS_BF16,
                                      make_production_mesh)
 from repro_torch.launch.steps import (init_ef_errors, make_prefill_step,
@@ -302,7 +311,8 @@ def run_cell(arch, shape_name, out_dir, suffix: str = "", **kw):
         rec = lower_cell(arch, shape_name, **kw)
     except Exception as e:  # a failure here is a fault of the port
         rec = {"arch": arch, "shape": shape_name, "mesh": mesh,
-               "error": repr(e), "traceback": traceback.format_exc()}
+               "multi_pod": kw.get("multi_pod", False), "error": repr(e),
+               "traceback": traceback.format_exc()}
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, name + ".json"), "w") as f:
@@ -335,6 +345,15 @@ def main(argv=None):
                          "over the pod axis (needs --multi-pod)")
     ap.add_argument("--ruleset", default="base",
                     choices=list(sharding.RULESETS))
+    ap.add_argument("--auto-mesh", action="store_true",
+                    help="each cell's dp, tp and ruleset from the mesh "
+                         "selection table for --chips cards "
+                         "(distributed/meshselect.py)")
+    ap.add_argument("--chips", type=int, default=CARDS_PER_NODE,
+                    help="the cards --auto-mesh splits (a power of two)")
+    ap.add_argument("--both-meshes", action="store_true",
+                    help="each cell on the single mesh and on two pods "
+                         "of it (--multi-pod)")
     ap.add_argument("--suffix", default="",
                     help="artifact-name suffix for variants")
     ap.add_argument("--out", default="build/dryrun")
@@ -344,18 +363,24 @@ def main(argv=None):
         else [args.arch]
     shapes = (list(SHAPES_BY_NAME) if (args.all or args.shape in
                                        (None, "all")) else [args.shape])
+    meshes = [False, True] if args.both_meshes else [args.multi_pod]
     t0 = time.time()
     n_err = 0
-    for a in archs:
-        for s in shapes:
-            rec = run_cell(a, s, args.out, args.suffix,
-                           accum_steps=args.accum_steps,
-                           moe_dispatch=args.moe_dispatch, remat=args.remat,
-                           dp=args.dp, tp=args.tp, ruleset=args.ruleset,
-                           multi_pod=args.multi_pod,
-                           dp_compress=args.dp_compress)
-            n_err += "error" in rec
-    print(f"[dryrun] {len(archs) * len(shapes)} cells in "
+    for mp in meshes:
+        for a in archs:
+            for s in shapes:
+                dp, tp, rules = args.dp, args.tp, args.ruleset
+                if args.auto_mesh:
+                    dp, tp, rules = preferred_mesh(
+                        get_arch(a), SHAPES_BY_NAME[s], args.chips)
+                rec = run_cell(a, s, args.out, args.suffix,
+                               accum_steps=args.accum_steps,
+                               moe_dispatch=args.moe_dispatch,
+                               remat=args.remat, dp=dp, tp=tp,
+                               ruleset=rules, multi_pod=mp,
+                               dp_compress=args.dp_compress)
+                n_err += "error" in rec
+    print(f"[dryrun] {len(meshes) * len(archs) * len(shapes)} cells in "
           f"{time.time() - t0:.1f} s", flush=True)
     if n_err:
         raise SystemExit(f"{n_err} cell(s) failed")

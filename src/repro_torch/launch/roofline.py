@@ -8,7 +8,9 @@ H100s: the three roofline terms (seconds), the dominant one, MODEL_FLOPS /
 counted FLOPs (both over every card), the roofline fraction, the
 arguments' and the temporaries' memory and whether they fit the card's
 80 GB, and a what-would-move-the-dominant-term-down note from the cell's
-mix of FLOPs, bytes and collectives.
+mix of FLOPs, bytes and collectives.  ``--pod`` keeps the single mesh's
+records (``pod1``, the default), the two pods' of ``--multi-pod``
+(``pod2``), or ``both``.
 """
 from __future__ import annotations
 
@@ -57,6 +59,19 @@ def advice(rec: dict) -> str:
     return "near compute roof — tune block shapes / overlap collectives"
 
 
+def footprint(rec: dict) -> int:
+    """A cell's bytes on a card: its arguments plus its temporaries."""
+    mem = rec.get("memory", {})
+    return mem.get("argument_size_in_bytes", 0) + \
+        mem.get("temp_size_in_bytes", 0)
+
+
+def fits(rec: dict) -> bool:
+    """Whether a counted cell's arguments and temporaries fit a card's
+    80 GB."""
+    return footprint(rec) <= HBM_BYTES
+
+
 def fmt_row(rec: dict) -> Dict[str, str]:
     r = rec["roofline"]
     mem = rec.get("memory", {})
@@ -74,7 +89,7 @@ def fmt_row(rec: dict) -> Dict[str, str]:
         "frac": f"{r['roofline_frac']:.4f}",
         "arg_GB": f"{arg / 1e9:.1f}",
         "temp_GB": f"{temp / 1e9:.1f}",
-        "fits": "Y" if arg + temp <= HBM_BYTES else "OVER",
+        "fits": "Y" if fits(rec) else "OVER",
     }
 
 
@@ -94,12 +109,17 @@ def main(argv=None):
     ap.add_argument("--dir", default="build/dryrun")
     ap.add_argument("--suffix", default="",
                     help="variant suffix")
+    ap.add_argument("--pod", choices=["pod1", "pod2", "both"], default="pod1",
+                    help="the single mesh's records, the two pods', or both")
     ap.add_argument("--advice", action="store_true")
     ap.add_argument("--json-out", default=None)
     args = ap.parse_args(argv)
 
     rows, skips, errors = [], [], []
     for rec in load_records(args.dir, args.suffix):
+        tag = "pod2" if rec.get("multi_pod") else "pod1"
+        if args.pod != "both" and tag != args.pod:
+            continue
         if "skip" in rec:
             skips.append((rec["arch"], rec["shape"], rec["skip"]))
         elif "error" in rec:
@@ -109,7 +129,7 @@ def main(argv=None):
             if args.advice:
                 row["next_move"] = advice(rec)
             rows.append(row)
-    rows.sort(key=lambda r: (r["arch"], r["shape"]))
+    rows.sort(key=lambda r: (r["arch"], r["shape"], r["mesh"]))
     print(markdown_table(rows))
     if skips:
         print("\nSkipped cells:")

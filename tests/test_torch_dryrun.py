@@ -385,6 +385,55 @@ def test_cli_and_aggregator_on_a_full_size_cell(tmp_path, capsys):
     assert rec["memory"]["argument_parts"]["cache"] > 0
 
 
+# a cell whose 4-card entry is not the square split (2, 2)
+AUTO_MESH_CELL = ("h2o-danube-3-4b", "decode_32k")
+
+
+def test_cli_auto_mesh_takes_the_preferred_mesh(tmp_path):
+    """``--auto-mesh --chips 4``: the record's split and ruleset are
+    ``preferred_mesh``'s for 4 cards."""
+    from repro_torch.distributed.meshselect import preferred_mesh
+    from repro_torch.models.config import SHAPES_BY_NAME
+    arch, shape = AUTO_MESH_CELL
+    dp, tp, rules = preferred_mesh(get_arch(arch), SHAPES_BY_NAME[shape], 4)
+    assert (dp, tp) != (2, 2)
+    dryrun.main(["--arch", arch, "--shape", shape, "--auto-mesh", "--chips",
+                 "4", "--out", str(tmp_path)])
+    (path,) = tmp_path.glob("*.json")
+    rec = json.loads(path.read_text())
+    assert "error" not in rec and "skip" not in rec
+    assert rec["mesh_dp_tp"] == [dp, tp] and rec["ruleset"] == rules
+    assert rec["chips"] == 4 and path.name == \
+        f"{arch}__{shape}__{dryrun.mesh_name(dp, tp, False)}.json"
+
+
+def test_cli_both_meshes_and_the_roofline_by_pod(tmp_path, capsys):
+    """``--both-meshes`` writes each cell on the single mesh and on two
+    pods of it; the roofline's ``--pod`` keeps the one, the other or
+    both."""
+    dryrun.main(["--arch", "h2o-danube-3-4b", "--shape", "decode_32k",
+                 "--tp", "2", "--both-meshes", "--out", str(tmp_path)])
+    recs = {r["mesh"]: r for r in load_records(str(tmp_path))}
+    assert set(recs) == {"1x2xH100", "2x1x2xH100"}
+    assert not recs["1x2xH100"]["multi_pod"]
+    assert recs["2x1x2xH100"]["multi_pod"]
+    assert recs["2x1x2xH100"]["chips"] == 4
+    for pod, want in (("pod1", ["1x2xH100"]), ("pod2", ["2x1x2xH100"]),
+                      ("both", ["1x2xH100", "2x1x2xH100"])):
+        rows = roofline.main(["--dir", str(tmp_path), "--pod", pod])
+        assert [r["mesh"] for r in rows] == want
+    assert "2x1x2xH100" in capsys.readouterr().out
+
+
+def test_roofline_pod_filters_skips_and_errors_too(tmp_path, capsys):
+    for mp in (False, True):
+        dryrun.run_cell("hubert-xlarge", "decode_32k", str(tmp_path), tp=2,
+                        multi_pod=mp)
+    roofline.main(["--dir", str(tmp_path), "--pod", "pod2"])
+    out = capsys.readouterr().out
+    assert out.count("hubert-xlarge x decode_32k") == 1
+
+
 # the port's versions of tests/test_roofline.py's four unit cases
 def _rec(**kw):
     base = {

@@ -1,10 +1,10 @@
 """The port stands alone: no module of ``src/repro_torch``, not
-``chip_smoke.py`` and no example twin (``examples/*_torch.py``) imports
-JAX or the JAX package, or names one of its modules in a string (which a
-later ``import_module`` could load); the port's StreamFlow engine imports,
-loads a dict document and runs it where neither JAX, the JAX package nor
-PyYAML can be imported; and the smoke script refuses to run without a
-GPU."""
+``chip_smoke.py``, not ``tools/meshselect_sweep.py`` and no example twin
+(``examples/*_torch.py``) imports JAX or the JAX package, or names one of
+its modules in a string (which a later ``import_module`` could load); the
+port's StreamFlow engine imports, loads a dict document and runs it
+where neither JAX, the JAX package nor PyYAML can be imported; and the
+smoke script refuses to run without a GPU."""
 import ast
 import os
 import pathlib
@@ -16,7 +16,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py"))
+    [ROOT / "chip_smoke.py", ROOT / "tools" / "meshselect_sweep.py"] + \
+    sorted((ROOT / "examples").glob("*_torch.py"))
 
 
 def _imported_modules(path):
