@@ -85,15 +85,18 @@ a non-zero exit:
                 to it), with each pass of the wgmma route and the scalar
                 bf16 route's total beside it; and moe_gmm under grad
                 (kernel_bwd moe_gmm: ``ExpertFFNFunction``, the kernel's
-                forward and plain grouped products as its backward) on
-                every route, gated and not, bucket fills with pads that
-                hold data and an expert no token reached, at granite-moe's
-                train shape (E 40, C 1024, d 1536, f 512, a routing's
-                32768 live rows) and prefill shape: dxe, dw1, dw3, dw2
-                against the plain backward and autograd of the plain
-                forward, dxe 0 on the pads; the train shape timed (the
-                function's forward and backward, its backward, plain
-                autograd's forward and backward) beside the bound
+                forward and the backward kernel of ``csrc/moe_gmm_bwd.cu``
+                on the same route, one launch each and no call of the
+                plain backward) on every route, gated and not, bucket fills
+                with pads that hold data (NaN in two cases) and an expert
+                no token reached, at granite-moe's train shape (E 40, C
+                1024, d 1536, f 512, a routing's 32768 live rows) and
+                prefill shape: dxe, dw1, dw3, dw2 against the plain
+                backward and autograd of the plain forward, dxe exactly 0
+                on the pads; at the train shape the kernel repeated bit
+                for bit and timed in turns with the plain backward, beside
+                the function's forward and backward, plain autograd's and
+                the bound
 4. serve        full-width minicpm-2b (40 layers, bf16, random weights from a
                 seed) serves 8 requests of 1000 prompt tokens through
                 ``repro_torch.launch.serve.serve``; every prefill layer must
@@ -194,17 +197,17 @@ a non-zero exit:
                 their losses within MOE_DISPATCH_RTOL of each other step by
                 step, both falling; every gather step 16 moe_gmm launches
                 (4 layers x 2 microbatches x forward and recompute, on
-                wgmma_bf16), 8 backward calls and 16 flash forward
-                launches, no moe_gmm launch on einsum; after step 1 every
-                expert of every layer and every router column has a
-                non-zero gradient
+                wgmma_bf16), 8 backward launches (wgmma_bf16) and 16
+                flash forward launches, no moe_gmm launch on einsum;
+                after step 1 every expert of every layer and every router
+                column has a non-zero gradient
 23. train       granite-moe-3b-a800m at full width and depth (32 layers,
                 3.374 B params) through the gather dispatch at its
                 config's capacity factor: the loss after step 4 below
                 step 1's, and the batch nll (each microbatch's, evaluated
                 before and after the steps) falling; step times, tokens/s,
                 peak memory, and a profiled step with the moe_gmm
-                forward's and the plain backward's shares; then the
+                forward's and backward kernel's shares; then the
                 einsum dispatch from the same init, its curves beside
 24. train consistency  granite-moe, 2 layers, float32, S 512, capacity
                 factor E / k: the gather step on the card against the
@@ -693,7 +696,8 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 # the port's kernels, by a part of their CUDA function names; a kernel
 # counts under the first entry whose part it holds
 PORT_KERNELS = (("flash_attention_bwd", "flash_bwd"),
-                ("flash_attention", "flash_fwd"), ("moe_gmm", "gmm_"),
+                ("flash_attention", "flash_fwd"), ("moe_gmm_bwd", "gmm_bwd"),
+                ("moe_gmm", "gmm_"),
                 ("rglru_scan_bwd", "rglru_bwd"), ("rglru_scan", "rglru_scan"),
                 ("mlstm_scan_bwd", "mlstm_bwd"), ("mlstm_scan", "mlstm_"))
 
@@ -2069,13 +2073,14 @@ def time_mlstm_bwd(xs, h, stats, dh, err, route):
             "scalar_bf16_ms": scalar_ms}
 
 
-# moe_gmm's autograd function (the kernel's forward, plain grouped products
-# as its backward) against the backward by formula in float32 on the same
-# upcast inputs, and against autograd of the plain forward, each gradient
-# relative to the plain one's max |.| (floored at 1e-3 of the largest):
-#  * bf16: the function's products round a1, a3, dh and every output to
-#    bf16 (2**-9 of the value each), ~7e-3 of the scale in all; 2e-2 is
-#    the bar, as for the forward;
+# moe_gmm's autograd function (the kernel's forward, the backward kernel of
+# csrc/moe_gmm_bwd.cu on the same route) against the backward by formula in
+# float32 on the same upcast inputs, and against autograd of the plain
+# forward, each gradient relative to the plain one's max |.| (floored at
+# 1e-3 of the largest):
+#  * bf16: the kernel rounds h, da1, da3 and every output to bf16 (2**-9 of
+#    the value each), ~4e-3 of the scale in its CPU emulation; 2e-2 is the
+#    bar, as for the forward;
 #  * float32: summation order only (no TF32); 1e-4.
 GMM_BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # (name, E, C, d, f, act, gated, tokens): the fills of a seeded top-8
@@ -2083,7 +2088,8 @@ GMM_BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # microbatch of 4096 tokens at capacity factor 1.25, and its prefill of
 # 4 x 1000), or, with None, random fills with an empty bucket, a full one
 # and an expert no token reached; the rows past each fill hold data (the
-# function's contract lets a pad row hold anything)
+# function's contract lets a pad row hold anything), NaN in the cases of
+# GMM_BWD_NAN_PADS
 GMM_BWD_CASES = [
     ("granite-train", 40, 1024, 1536, 512, "swiglu", True, 4096),
     ("granite-prefill", 40, 1000, 1536, 512, "swiglu", True, 4000),
@@ -2092,7 +2098,10 @@ GMM_BWD_CASES = [
     ("geglu-200", 8, 200, 200, 328, "geglu", True, None),
     ("relu2-no-w3", 6, 130, 136, 72, "relu2", False, None),
     ("gelu-no-w3", 5, 40, 64, 64, "gelu", False, None),
+    ("nan-pads", 6, 130, 256, 384, "swiglu", True, None),
+    ("nan-pads-odd", 3, 100, 211, 333, "geglu", True, None),
 ]
+GMM_BWD_NAN_PADS = {"nan-pads", "nan-pads-odd"}
 
 
 def random_fills(E, C, gen):
@@ -2103,12 +2112,21 @@ def random_fills(E, C, gen):
 
 
 def phase_kernel_moe_bwd():
-    """moe_gmm under grad: ``ExpertFFNFunction``'s gradients against the
-    plain backward and autograd of the plain forward on every route, pads
-    with data in them; granite's train shape timed.  Returns the timing."""
+    """moe_gmm under grad: ``ExpertFFNFunction``'s gradients (its forward
+    kernel and its backward kernel, one launch each on the route the
+    inputs pick, no call of the plain backward) against the plain backward
+    and autograd of the plain forward on every route, pads with data in
+    them (NaN in two cases); granite's train shape timed.  Returns the
+    timing."""
     from repro_torch.kernels.moe_gmm import kernel, ops, ref
     phase("kernel_bwd moe_gmm")
     gen = torch.Generator(device="cuda").manual_seed(4)
+    real_plain = ref.reference_expert_ffn_bwd
+    plain_calls = []
+
+    def counted_plain(*args, **kwargs):
+        plain_calls.append(1)
+        return real_plain(*args, **kwargs)
     result = None
     for name, E, C, d, f, act, gated, tokens in GMM_BWD_CASES:
         if tokens is None:
@@ -2126,34 +2144,51 @@ def phase_kernel_moe_bwd():
                                     device="cuda") / math.sqrt(d)
         dy32 = torch.randn((E, C, d), generator=gen, device="cuda")
         pads = ~ref.live_rows(x32, counts)
+        if name in GMM_BWD_NAN_PADS:
+            x32[pads] = float("nan")
+            dy32[pads] = float("nan")
         names = ["w1", "w3", "w2"] if gated else ["w1", "w2"]
         for dtype in (torch.bfloat16, torch.float32):
             xe = x32.to(dtype).requires_grad_()
             masters = {k: w.clone().requires_grad_() for k, w in p32.items()}
             dy = dy32.to(dtype)
             route = gmm_route(dtype, d, f)
-            before = kernel.LAUNCHES_BY_ROUTE[route], kernel.BWD_CALLS
-            y = ops.expert_ffn(xe, masters, act, counts)
-            check(y.grad_fn is not None,
-                  f"moe_gmm {name}: no grad_fn under grad")
-            got = torch.autograd.grad(y, [xe] + [masters[k] for k in names],
-                                      dy)
-            torch.cuda.synchronize()
-            check((kernel.LAUNCHES_BY_ROUTE[route], kernel.BWD_CALLS) ==
-                  (before[0] + 1, before[1] + 1),
-                  f"moe_gmm {name} {dtype}: not one launch on {route} and "
-                  f"one backward call")
-            # both references in float32 on the inputs the function saw
+            before = (kernel.LAUNCHES_BY_ROUTE[route],
+                      kernel.BWD_LAUNCHES_BY_ROUTE[route],
+                      kernel.BWD_LAUNCHES)
+            plain_calls.clear()
+            ref.reference_expert_ffn_bwd = counted_plain
+            try:
+                y = ops.expert_ffn(xe, masters, act, counts)
+                check(y.grad_fn is not None,
+                      f"moe_gmm {name}: no grad_fn under grad")
+                got = torch.autograd.grad(
+                    y, [xe] + [masters[k] for k in names], dy)
+                torch.cuda.synchronize()
+            finally:
+                ref.reference_expert_ffn_bwd = real_plain
+            check((kernel.LAUNCHES_BY_ROUTE[route],
+                   kernel.BWD_LAUNCHES_BY_ROUTE[route],
+                   kernel.BWD_LAUNCHES) ==
+                  (before[0] + 1, before[1] + 1, before[2] + 1)
+                  and not plain_calls,
+                  f"moe_gmm {name} {dtype}: not one forward and one "
+                  f"backward launch on {route}, or {len(plain_calls)} calls "
+                  f"of the plain backward")
+            # both references in float32 on the inputs the function saw;
+            # autograd's on the pads zeroed (its products would carry a
+            # NaN there into every weight's gradient)
             x_in = xe.detach().float()
             p_in = {k: w.to(dtype).float() for k, w in p32.items()}
-            dxe, dw1, dw3, dw2 = ref.reference_expert_ffn_bwd(
-                x_in, p_in, dy.float(), act, counts)
+            dxe, dw1, dw3, dw2 = real_plain(x_in, p_in, dy.float(), act,
+                                            counts)
             want = [dxe, dw1] + ([dw3] if gated else []) + [dw2]
             leaves = {k: w.clone().requires_grad_() for k, w in p_in.items()}
-            x_auto = x_in.clone().requires_grad_()
+            x_auto = x_in.masked_fill(pads[..., None], 0.0).requires_grad_()
             auto = torch.autograd.grad(
                 ref.reference_expert_ffn(x_auto, leaves, act, counts),
-                [x_auto] + [leaves[k] for k in names], dy.float())
+                [x_auto] + [leaves[k] for k in names],
+                dy.float().masked_fill(pads[..., None], 0.0))
             errs = grad_errors(got, want)
             errs_auto = grad_errors(got, auto)
             err = max(float((g.float() - w).abs().max())
@@ -2162,10 +2197,12 @@ def phase_kernel_moe_bwd():
             rels = " ".join(f"d{k} {e:.2e}"
                             for k, e in zip(["xe"] + names, errs))
             print(f"  {name:16s} {str(dtype):15s} E={E} C={C} d={d} f={f} "
-                  f"{act}{'' if gated else ' no w3'}, {n_live} live rows "
-                  f"({route} forward, plain backward): rel errs {rels} "
-                  f"against the plain backward, max {max(errs_auto):.2e} "
-                  f"against autograd (tol {tol:.0e})", flush=True)
+                  f"{act}{'' if gated else ' no w3'}, {n_live} live rows"
+                  f"{', NaN in the pads' if name in GMM_BWD_NAN_PADS else ''}"
+                  f" ({route}, forward and backward kernels): rel errs "
+                  f"{rels} against the plain backward, max "
+                  f"{max(errs_auto):.2e} against autograd (tol {tol:.0e})",
+                  flush=True)
             check(all(math.isfinite(e) and e <= tol
                       for e in errs + errs_auto),
                   f"moe_gmm backward {name} {dtype}: errors {errs}, "
@@ -2182,45 +2219,69 @@ def phase_kernel_moe_bwd():
 
 
 def time_moe_bwd(xe, p32, dy, act, counts, n_live, err):
-    """At granite's train shape in bf16: the function's forward and
-    backward, its backward alone, the kernel's forward alone, and plain
-    autograd's forward and backward, by CUDA events in this call, beside
-    the bound of the backward (six products over the live rows at the bf16
-    rate, or its bytes) and of forward and backward (nine)."""
+    """At granite's train shape in bf16: the backward kernel and the plain
+    backward in turns (plain, kernel, kernel, plain), the kernel repeated
+    bit for bit; the function's forward and backward, the kernel's forward
+    alone, and plain autograd's forward and backward, by CUDA events in
+    this call, beside the bound of the backward (six products over the live
+    rows at the bf16 rate, or its bytes), of the kernel's own work (eight:
+    a1 and a3 recomputed) and of forward and backward (nine)."""
     from repro_torch.kernels.moe_gmm import ops, ref
     E, C, d = xe.shape
     f = p32["w1"].shape[-1]
     w = {k: t.to(xe.dtype).requires_grad_() for k, t in p32.items()}
     x = xe.requires_grad_()
     leaves = [x, w["w1"], w["w3"], w["w2"]]
+    wd = {k: t.detach() for k, t in w.items()}
+
+    def kernel_bwd():
+        return ops.expert_ffn_bwd(x.detach(), wd["w1"], wd["w3"], wd["w2"],
+                                  dy, counts, act)
+
+    def plain_bwd():
+        return ref.reference_expert_ffn_bwd(x.detach(), wd, dy, act, counts)
+    first, again = kernel_bwd(), kernel_bwd()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          "moe_gmm backward: two calls on the same inputs differ")
+    del first, again
+    plain_ms = [cuda_ms(plain_bwd, iters=10)]
+    kernel_ms = [cuda_ms(kernel_bwd, iters=10) for _ in range(2)]
+    plain_ms.append(cuda_ms(plain_bwd, iters=10))
     fn_ms = cuda_ms(lambda: torch.autograd.grad(
         ops.expert_ffn(x, w, act, counts), leaves, dy), iters=10)
-    bwd_ms = cuda_ms(lambda: ref.reference_expert_ffn_bwd(
-        x.detach(), w, dy, act, counts), iters=10)
     with torch.no_grad():
         fwd_ms = cuda_ms(lambda: ops.expert_ffn(x, w, act, counts),
                          iters=10)
-    plain_ms = cuda_ms(lambda: torch.autograd.grad(
+    plain_fb_ms = cuda_ms(lambda: torch.autograd.grad(
         ref.reference_expert_ffn(x, w, act, counts), leaves, dy), iters=10)
     elem = xe.element_size()
     bound_ms, bound_by, flops, nbytes = bound(gmm_cost.bwd_work(
         n_live, E, d, f, True, xe.dtype), xe.dtype)
     t_ops = flops / PEAK_FLOPS[xe.dtype]
+    own_ms = max(t_ops * 8 / 6, nbytes / HBM_BW) * 1e3
     fb_bound_ms = max(1.5 * t_ops, (nbytes + elem * (2 * n_live * d + 3 * E
                                                      * d * f))
                       / HBM_BW) * 1e3
+    ms = min(kernel_ms)
     print(f"  timing at granite's train shape (E={E} C={C} d={d} f={f} "
-          f"{xe.dtype}, {n_live} live rows): the function forward + "
-          f"backward {fn_ms:.4f} ms (its backward, plain grouped products "
-          f"with h recomputed, {bwd_ms:.4f} ms; the kernel's forward "
-          f"{fwd_ms:.4f} ms); plain autograd forward + backward "
-          f"{plain_ms:.4f} ms; bound of the backward {bound_ms:.4f} ms by "
-          f"{bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), of "
-          f"forward + backward {fb_bound_ms:.4f} ms", flush=True)
-    return {"route": "plain torch.bmm (cuBLAS), h recomputed",
-            "max_abs_err": err, "ms": bwd_ms, "fwd_bwd_ms": fn_ms,
-            "kernel_fwd_ms": fwd_ms, "plain_fwd_bwd_ms": plain_ms,
+          f"{xe.dtype}, {n_live} live rows): the backward kernel "
+          f"(wgmma_bf16) {kernel_ms[0]:.4f}, {kernel_ms[1]:.4f} ms, the "
+          f"plain backward (grouped torch.bmm, h recomputed) "
+          f"{plain_ms[0]:.4f}, {plain_ms[1]:.4f} ms ({min(plain_ms) / ms:.2f}"
+          f"x); the function forward + backward {fn_ms:.4f} ms (the "
+          f"kernel's forward {fwd_ms:.4f} ms); plain autograd forward + "
+          f"backward {plain_fb_ms:.4f} ms; bound of the backward "
+          f"{bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.2f} MB; {bound_ms / ms:.1%} of it reached), of "
+          f"the kernel's eight products {own_ms:.4f} ms, of forward + "
+          f"backward {fb_bound_ms:.4f} ms", flush=True)
+    return {"kernel_route": "wgmma_bf16", "max_abs_err": err, "ms": ms,
+            "kernel_ms_runs": kernel_ms, "plain_ms": min(plain_ms),
+            "plain_ms_runs": plain_ms, "fwd_bwd_ms": fn_ms,
+            "kernel_fwd_ms": fwd_ms, "plain_fwd_bwd_ms": plain_fb_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "eight_products_bound_ms": own_ms,
             "fwd_bwd_bound_ms": fb_bound_ms, "library_ms": None,
             "live_rows": n_live}
 
@@ -2758,12 +2819,12 @@ def _kernel_modules():
 
 
 def kernel_launches() -> dict:
-    """Every kernel's launch count, each backward apart (moe_gmm's: the
-    calls of its autograd function's backward, plain grouped products)."""
+    """Every kernel's launch count, each backward apart."""
     fa, gmm, rg, ml = _kernel_modules()
     return {"flash_attention": fa.LAUNCHES,
             "flash_attention_bwd": fa.BWD_LAUNCHES, "moe_gmm": gmm.LAUNCHES,
-            "moe_gmm_bwd": gmm.BWD_CALLS, "rglru_scan": rg.LAUNCHES, "rglru_scan_bwd": rg.BWD_LAUNCHES,
+            "moe_gmm_bwd": gmm.BWD_LAUNCHES, "rglru_scan": rg.LAUNCHES,
+            "rglru_scan_bwd": rg.BWD_LAUNCHES,
             "mlstm_scan": ml.LAUNCHES, "mlstm_scan_bwd": ml.BWD_LAUNCHES}
 
 
@@ -2773,6 +2834,7 @@ def kernel_routes() -> dict:
     return {"flash_attention": dict(fa.LAUNCHES_BY_ROUTE),
             "flash_attention_bwd": dict(fa.BWD_LAUNCHES_BY_ROUTE),
             "moe_gmm": dict(gmm.LAUNCHES_BY_ROUTE),
+            "moe_gmm_bwd": dict(gmm.BWD_LAUNCHES_BY_ROUTE),
             "rglru_scan": dict(rg.LAUNCHES_BY_ROUTE),
             "rglru_scan_bwd": dict(rg.BWD_LAUNCHES_BY_ROUTE),
             "mlstm_scan": dict(ml.LAUNCHES_BY_ROUTE),
@@ -2810,11 +2872,13 @@ def step_launches(cfg, microbatches: int, backward: bool,
 # the route every launch of a bf16 model's train step takes
 TRAIN_ROUTES = {"flash_attention": "wgmma_bf16",
                 "flash_attention_bwd": "wgmma_bf16", "moe_gmm": "wgmma_bf16",
+                "moe_gmm_bwd": "wgmma_bf16",
                 "rglru_scan": "fused_bias", "rglru_scan_bwd": "fused_bias",
                 "mlstm_scan": "wgmma_bf16", "mlstm_scan_bwd": "wgmma_bf16"}
 # the routes of the float32 consistency step
 CONSIST_ROUTES = {"flash_attention": "scalar_f32",
                   "flash_attention_bwd": "scalar_f32", "moe_gmm": "scalar_f32",
+                  "moe_gmm_bwd": "scalar_f32",
                   "rglru_scan": "fused_bias", "rglru_scan_bwd": "fused_bias",
                   "mlstm_scan": "scalar_f32", "mlstm_scan_bwd": "scalar_f32"}
 
@@ -2979,9 +3043,9 @@ def phase_train(arch: str = ARCH, n_layers=None, seq: int = TRAIN_SEQ,
         print_profile("train step", wall, busy, top, port)
         if bwd_events:
             bwd_ms = sum(a.elapsed_time(b) for a, b in bwd_events)
-            print(f"    the expert FFN's backward (plain grouped products, "
-                  f"CUDA events): {bwd_ms:.3f} ms over {len(bwd_events)} "
-                  f"calls, {bwd_ms / busy:.1%} of device busy", flush=True)
+            print(f"    the expert FFN's backward kernel (CUDA events): "
+                  f"{bwd_ms:.3f} ms over {len(bwd_events)} launches, "
+                  f"{bwd_ms / busy:.1%} of device busy", flush=True)
     restore_bwd()
     out = {"steps": history, "eval": ev, "eval_ms": eval_ms,
            "peak_bytes": peak}
@@ -3199,12 +3263,12 @@ def check_expert_moments(cfg, params, opt, routed) -> dict:
 
 
 def time_expert_bwd():
-    """Record a pair of CUDA events around each call of the expert FFN's
-    backward from now on (``ref.reference_expert_ffn_bwd``, which the
-    autograd function calls through its module); returns (the list of
-    (start, end) pairs it appends to, a function that restores it)."""
-    from repro_torch.kernels.moe_gmm import ref
-    real = ref.reference_expert_ffn_bwd
+    """Record a pair of CUDA events around each launch of the expert FFN's
+    backward kernel from now on (``kernel.launch_bwd``, which the autograd
+    function calls through its module); returns (the list of (start, end)
+    pairs it appends to, a function that restores it)."""
+    from repro_torch.kernels.moe_gmm import kernel
+    real = kernel.launch_bwd
     events: list = []
 
     def timed(*args, **kwargs):
@@ -3215,10 +3279,10 @@ def time_expert_bwd():
         end.record()
         events.append((start, end))
         return out
-    ref.reference_expert_ffn_bwd = timed
+    kernel.launch_bwd = timed
 
     def restore():
-        ref.reference_expert_ffn_bwd = real
+        kernel.launch_bwd = real
     return events, restore
 
 
@@ -6318,9 +6382,7 @@ def main() -> int:
          # its serve phase); times at its prefill shape with every row live,
          # and in "at_decode_routed" at its decode with a routing's fills
          # (mixtral-8x7b's in "at_mixtral_decode_routed"); under grad it
-         # runs in ExpertFFNFunction, whose backward is plain grouped
-         # products ("backward": its calls in full-depth gather
-         # training and its times at granite's train shape)
+         # runs in ExpertFFNFunction, whose backward is moe_gmm_bwd below
          "launches": moe_launches["moe_gmm"],
          "launches_by_route": routes[MOE_ARCH]["moe_gmm"],
          "launches_by_path": {
@@ -6343,8 +6405,26 @@ def main() -> int:
          # the first call's error against the plain version
          "at_rank_shapes": moe_at_rank,
          "launches_by_route_train": moe_train_routes["moe_gmm"],
-         "backward": {"calls": moe_train["moe_gmm_bwd"], **gmm_bwd_timing},
          **gmm_timing},
+        {"name": "moe_gmm_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm_bwd.cu",
+         # the gradient of the TPU kernel above, which has none of its own:
+         # the reference differentiates its plain einsums with jax.grad
+         "replaces": "src/repro/kernels/moe_gmm/kernel.py:55",
+         # launches on its path, granite-moe-3b-a800m's full-depth training
+         # through the gather dispatch (4 steps and an eval), all on
+         # wgmma_bf16 (checked in the train phase); times at that path's
+         # shape (E 40, C 1024, d 1536, f 512, a routing's live rows) beside
+         # the plain backward from the same call
+         "launches": moe_train["moe_gmm_bwd"],
+         "launches_by_route": moe_train_routes["moe_gmm_bwd"],
+         "launches_by_path": {
+             f"{MOE_ARCH} train": moe_train["moe_gmm_bwd"],
+             # phase 43 (a): MOE_MESH_TRAIN_STEPS train steps of 4 layers
+             # on a (1, 1) mesh under each ruleset
+             **{path: n["moe_gmm_bwd"] for path, n in
+                moe_mesh_launches.items() if n["moe_gmm_bwd"]}},
+         **gmm_bwd_timing},
         {"name": "rglru_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan/kernel.py:55",
@@ -6428,6 +6508,8 @@ def main() -> int:
          **ml_bwd_timing},
     ]
     for k in kernels:
+        check(k["route"] in ("cuda", "triton"),
+              f"{k['name']}: route {k['route']!r} in the kernels line")
         # the same numbers again under short names (bound in microseconds)
         k.update(max_err=k["max_abs_err"], kernel_ms=k["ms"],
                  bound_us=k["bound_ms"] * 1e3)

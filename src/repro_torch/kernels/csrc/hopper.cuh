@@ -1,18 +1,20 @@
 // Hopper primitives shared by the port's CUDA kernels (sm_90a).
 //
-// Included by flash_attention.cu, flash_attention_bwd.cu, mlstm_scan.cu and
-// moe_gmm.cu, each of which is its own translation unit of the one nvcc
-// call (build.py), so everything here has internal linkage.  Two sections:
+// Included by flash_attention.cu, flash_attention_bwd.cu, mlstm_scan.cu,
+// moe_gmm.cu and moe_gmm_bwd.cu, each of which is its own translation unit
+// of the one nvcc call (build.py), so everything here has internal linkage.
+// Two sections:
 //  * inline PTX: mbarriers, TMA loads and stores, named barriers,
 //    `setmaxnreg` and `wgmma` (m64n64k16 and m64n128k16 with A and a
 //    K-major B from shared memory, m64n64/128/256k16 with A and an MN-major
 //    B from shared memory (`wgmma_ss_mn`: B stored N innermost, as the
-//    expert weights are), m64n64/128/256k16 with A from registers, bf16 in,
-//    float32 accumulators).  All of the kernels' inline PTX lives in these
-//    small functions, so that the kernels' indexing can be checked on a
-//    CPU against stand-ins that compute the same products in the same
-//    fragment layouts (the section between the two markers is what they
-//    replace).
+//    expert weights are), m64n128k16 with both MN-major (`wgmma_tt`: A
+//    transposed, for products that reduce over rows), m64n64/128/256k16
+//    with A from registers, bf16 in, float32 accumulators).  All of the
+//    kernels' inline PTX lives in these small functions, so that the
+//    kernels' indexing can be checked on a CPU against stand-ins that
+//    compute the same products in the same fragment layouts (the section
+//    between the two markers is what they replace).
 //  * plain helpers: the `wgmma` descriptor of a 128-byte-swizzled tile,
 //    bf16 packing, and the host code that encodes a TMA tensor map.
 #pragma once
@@ -336,6 +338,45 @@ __device__ __forceinline__ void wgmma_ss_mn(float (&d)[128], uint64_t da,
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 128, float32) += A (64 x 16, MN-major: M innermost, as a 16-row
+// slab of a (K x M) panel) * B (16 x 128, MN-major: N innermost, 64-column
+// panels `lead_bytes` of the descriptor apart), both bf16 in shared memory
+// through descriptors (A transposed: `imm-trans-a`); D is overwritten when
+// accumulate is 0.
+__device__ __forceinline__ void wgmma_tt(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 

@@ -23,7 +23,9 @@ def bwd_work(n_live, E, d, f, gated, dtype):
     two products per forward product (six with a gate: dh, dw2, the two
     input gradients and the two up-projections' weight gradients); xe, dy
     and dxe over the live rows, the weights read and their gradients
-    written once."""
+    written once.  The function's least work: the kernel
+    (csrc/moe_gmm_bwd.cu) also recomputes a1 and a3 (two more products)
+    and moves h, da1 and da3 through a workspace."""
     n_up = 2 if gated else 1
     flops = 2 * (n_up + 1) * 2.0 * n_live * d * f
     elem = torch.tensor([], dtype=dtype).element_size()

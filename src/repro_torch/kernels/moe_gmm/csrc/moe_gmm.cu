@@ -58,15 +58,12 @@
 // later pass reads those rows of h) and the down launch writes its zeros.
 // So an expert that no token reached streams none of its weights.  Rows
 // of a partly filled tile are computed and their results masked to 0.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <mma.h>
-#include <math.h>
-#include <stdint.h>
 
-// Hopper primitives (inline PTX for wgmma, TMA, mbarriers) and the tensor-map
-// encoder, shared with the other kernels
-#include "../../csrc/hopper.cuh"
+// Hopper primitives (inline PTX for wgmma, TMA, mbarriers), the tensor-map
+// encoder, and the activations, fills and tiling helpers shared with the
+// backward (moe_gmm_bwd.cu)
+#include "moe_gmm.cuh"
 
 namespace {
 
@@ -80,39 +77,6 @@ constexpr int AS = BM + 4;  // A tile row stride: float4-aligned, fewer
                             // bank conflicts on the transposing store
 static_assert(BM == 16 * TM && BN == 16 * TN, "16 x 16 threads cover a tile");
 static_assert(BM * BK % NT == 0 && BK * BN % NT == 0, "tiles split evenly");
-
-enum Act { kSilu = 0, kGeluTanh = 1, kRelu2 = 2 };
-enum Route { kScalarF32 = 0, kWmmaBf16 = 1, kWgmmaBf16 = 2 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to()
-}
-
-__device__ __forceinline__ float activate(int act, float x) {
-  if (act == kSilu) return x / (1.f + expf(-x));
-  if (act == kGeluTanh) {
-    const float c = 0.7978845608028654f;  // sqrt(2 / pi)
-    return 0.5f * x * (1.f + tanhf(c * (x + 0.044715f * x * x * x)));
-  }
-  const float r = fmaxf(x, 0.f);
-  return r * r;
-}
-
-// live rows of expert e's bucket of M: the first counts[e] (all without
-// counts)
-__device__ __forceinline__ int live_rows(const int* counts, int e, int M) {
-  return counts == nullptr ? M : min(max(counts[e], 0), M);
-}
 
 // float32.  For expert blockIdx.z: acc_b = A (M x K) @ B_b (K x N), b < NB,
 // all row-major and contiguous per expert.  UP: out = act(acc_0) [* acc_1];
@@ -385,10 +349,6 @@ gmm_wmma_kernel(const __nv_bfloat16* __restrict__ A,
 //    the rest of the warpgroup after that wait).
 // ------------------------------------------------------------------------
 
-constexpr int WG = 128;                   // threads of a warpgroup
-constexpr int BOX = 64;                   // rows of every TMA box
-constexpr int BOX_BYTES = BOX * ROW_BYTES;  // one panel of 64 x 64 bf16
-
 // A tile shape: CONSUMERS warpgroups of 64 rows, BN output columns, STAGES
 // stages in the ring, MIN_BLOCKS CTAs an SM, a persistent grid (PERSISTENT)
 // or a CTA a tile; NB weight matrices (2 for the gated gate/up launch)
@@ -427,37 +387,6 @@ using PrefillUpTile = Tile<2, 128, 4, 1, true>;
 using PrefillDownTile = Tile<2, 256, 3, 1, true>;
 using DecodeUpTile = Tile<1, 64, 4, 2, false>;
 using DecodeDownTile = Tile<1, 64, 4, 2, false>;
-
-// output tile `tile` of n_tiles_m x n_tiles_n tiles an expert: its expert,
-// first row and first column, along the longer side first
-__device__ __forceinline__ void tile_at(int tile, int n_tiles_m,
-                                        int n_tiles_n, int BM, int BN,
-                                        int& e, int& m0, int& n0) {
-  const int per_expert = n_tiles_m * n_tiles_n;
-  const int i = tile % per_expert;
-  e = tile / per_expert;
-  if (n_tiles_n > n_tiles_m) {  // rows fastest
-    m0 = i % n_tiles_m * BM;
-    n0 = i / n_tiles_m * BN;
-  } else {                      // columns fastest
-    n0 = i % n_tiles_n * BN;
-    m0 = i / n_tiles_n * BM;
-  }
-}
-
-// stores zeros over rows [m0, min(m0 + rows, M)) and columns [n0, min(n0 +
-// cols, N)) of the (M x N) bf16 matrix out (N % 8 == 0, out 16-byte
-// aligned), from `threads` threads
-__device__ __forceinline__ void zero_tile(__nv_bfloat16* out, int m0, int M,
-                                          int n0, int N, int rows, int cols,
-                                          int tid, int threads) {
-  for (int v = tid; v < rows * (cols / 8); v += threads) {
-    const int r = m0 + v / (cols / 8), c = n0 + v % (cols / 8) * 8;
-    if (r < M && c < N)
-      *reinterpret_cast<uint4*>(out + (long long)r * N + c) =
-          make_uint4(0u, 0u, 0u, 0u);
-  }
-}
 
 template <class G, int NB, bool UP>
 __global__ void __launch_bounds__(G::NT, G::MIN_BLOCKS)
@@ -624,30 +553,6 @@ gmm_wgmma(const __grid_constant__ CUtensorMap ta,
       tma_store_wait();
     }
   }
-}
-
-// 4-D bf16 tensor map over a contiguous (E, rows, inner) tensor, with boxes
-// of 64 x 64 (inner, rows) and the 128-byte swizzle; cells outside the
-// tensor read as zeros and are not written.
-bool make_map(CUtensorMap* map, const void* base, int E, int rows,
-              int inner) {
-  const cuuint64_t row = (cuuint64_t)inner * 2;  // bytes
-  return make_bf16_map_4d(
-      map, base, {(cuuint64_t)inner, (cuuint64_t)rows, (cuuint64_t)E, 1},
-      {row, row * rows, row * rows * E},
-      {(cuuint32_t)PANEL, (cuuint32_t)BOX, 1, 1});
-}
-
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      n = 0;
-  }
-  return n;
 }
 
 // one launch of gmm_wgmma<G, NB, UP> over all its tiles

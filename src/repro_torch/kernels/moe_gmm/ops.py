@@ -17,11 +17,13 @@ catching an error:
 * other bf16 takes ``wmma_bf16``, WMMA fragments on plain loads.
 
 Under grad mode, with an input that requires grad, the kernel runs inside
-``ExpertFFNFunction``, whose backward is ``ref.reference_expert_ffn_bwd``:
-grouped products (cuBLAS ``bmm``) on the buckets with h recomputed, as the
-JAX package differentiates its plain einsums (its Pallas kernel has no
-gradient).  The weights are cast to ``xe.dtype`` outside the function, so
-autograd carries their gradient back to float32 master weights.
+``ExpertFFNFunction``, whose backward on CUDA tensors is the CUDA kernel of
+``csrc/moe_gmm_bwd.cu`` (``expert_ffn_bwd``) on the forward's route, over
+each bucket's live rows with a1 and a3 recomputed, as the JAX package
+differentiates its plain einsums (its Pallas kernel has no gradient); on
+CPU tensors it is the plain version, ``ref.reference_expert_ffn_bwd``.
+The weights are cast to ``xe.dtype`` outside the function, so autograd
+carries their gradient back to float32 master weights.
 Otherwise (serving, under ``no_grad`` or ``inference_mode``) the kernel
 runs on its own.
 
@@ -38,7 +40,6 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch.distributed import flops
-from repro_torch.kernels import counters
 from repro_torch.kernels.moe_gmm import cost, kernel, ref
 
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
@@ -114,9 +115,39 @@ def _forward(xe, w1, w3, w2, counts, act):
     return y
 
 
+def expert_ffn_bwd(xe, w1, w3, w2, dy, counts, act: str):
+    """(dxe, dw1, dw3, dw2) of the expert FFN for the output gradient dy,
+    by the backward kernel on CUDA tensors of one dtype (dw3 None without
+    w3), on the route ``kernel_route`` gives the forward on these tensors."""
+    check_kernel_args(xe, w1, w3, w2, counts)
+    route = kernel_route(xe, w1, w3, w2)
+    # autograd may hand over a strided or offset dy; TMA needs 16 bytes
+    dy = dy.to(xe.dtype).contiguous()
+    if dy.data_ptr() % 16:
+        dy = dy.clone()
+    E, C, _ = xe.shape
+    # fresh allocations: 16-byte aligned, as TMA needs
+    ws = torch.empty((2 if w3 is None else 3, E, C, w1.shape[2]),
+                     dtype=xe.dtype, device=xe.device)
+    dxe, dw1, dw2 = (torch.empty_like(t) for t in (xe, w1, w2))
+    dw3 = None if w3 is None else torch.empty_like(w3)
+    kernel.launch_bwd(xe, w1, w3, w2, dy, dxe, dw1, dw3, dw2, ws, counts,
+                      act=act, route=route)
+    return dxe, dw1, dw3, dw2
+
+
+def _backward(xe, w1, w3, w2, dy, counts, act: str):
+    """ExpertFFNFunction's gradients: the kernel on CUDA tensors, the
+    plain version on CPU ones."""
+    if xe.device.type == "cpu":
+        return ref.reference_expert_ffn_bwd(
+            xe, {"w1": w1, "w3": w3, "w2": w2}, dy, act, counts)
+    return expert_ffn_bwd(xe, w1, w3, w2, dy, counts, act)
+
+
 class ExpertFFNFunction(torch.autograd.Function):
-    """The kernel's forward, and the plain grouped products as its
-    backward, on xe and weights of one dtype (w3 may be None)."""
+    """The kernel's forward and the backward kernel on its route, on xe
+    and weights of one dtype (w3 may be None)."""
 
     @staticmethod
     def forward(ctx, xe, w1, w3, w2, counts, act: str):
@@ -129,12 +160,11 @@ class ExpertFFNFunction(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dy):
         xe, w1, w3, w2, counts = ctx.saved_tensors
-        counters.bump(vars(kernel), "BWD_CALLS")
         E, C, d = xe.shape
         with flops.recorded("moe_gmm_bwd", lambda: cost.bwd_work(
                 E * C, E, d, w1.shape[2], w3 is not None, xe.dtype)):
-            dxe, dw1, dw3, dw2 = ref.reference_expert_ffn_bwd(
-                xe, {"w1": w1, "w3": w3, "w2": w2}, dy, ctx.act, counts)
+            dxe, dw1, dw3, dw2 = _backward(xe, w1, w3, w2, dy, counts,
+                                           ctx.act)
         return dxe, dw1, dw3, dw2, None, None
 
 

@@ -16,7 +16,6 @@ from repro_torch.kernels import build, counters
 from repro_torch.kernels.flash_attention import kernel as fa
 from repro_torch.kernels.mlstm_scan import kernel as ml
 from repro_torch.kernels.moe_gmm import kernel as gmm
-from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.kernels.rglru_scan import kernel as rg
 
 THREADS, EACH = 16, 1000
@@ -103,9 +102,6 @@ def stubbed_launches(monkeypatch):
         if hasattr(module, "_bwd_kernel_fn"):
             monkeypatch.setattr(module, "_bwd_kernel_fn", lambda: ok)
         module.reset_launches()
-    monkeypatch.setattr(gmm_ops, "check_kernel_args", lambda *a, **k: None)
-    monkeypatch.setattr(gmm_ops.ref, "reference_expert_ffn_bwd",
-                        lambda *a: (None,) * 4)
     monkeypatch.setattr(rg, "bwd_workspace_bytes", lambda *a: 16)
     monkeypatch.setattr(ml, "workspace_bytes", lambda *a: 16)
     monkeypatch.setattr(ml, "bwd_workspace_bytes", lambda *a: 16)
@@ -142,12 +138,10 @@ def _gmm(i):
 
 
 def _gmm_bwd(i):
-    """The autograd function's backward (its forward saved these; its
-    plain grouped products stubbed)."""
-    ctx = types.SimpleNamespace(saved_tensors=(
-        _t(1, 2, 4), _t(1, 4, 4), _t(1, 4, 4), _t(1, 4, 4), None),
-        act="swiglu")
-    gmm_ops.ExpertFFNFunction.backward(ctx, _t(1, 2, 4))
+    xe, w = _t(2, 4, 8), _t(2, 8, 16)
+    gmm.launch_bwd(xe, w, w, _t(2, 16, 8), xe, _t(2, 4, 8), _t(2, 8, 16),
+                   _t(2, 8, 16), _t(2, 16, 8), _t(3, 2, 4, 16), None,
+                   act="swiglu", route=("scalar_f32", "wgmma_bf16")[i % 2])
 
 
 def _rglru(i):
@@ -185,7 +179,9 @@ PATHS = {
                             ["scalar_f32"]),
     "moe_gmm": (_gmm, lambda: gmm.LAUNCHES, lambda: gmm.LAUNCHES_BY_ROUTE,
                 ["scalar_f32", "wgmma_bf16"]),
-    "moe_gmm_bwd": (_gmm_bwd, lambda: gmm.BWD_CALLS, None, None),
+    "moe_gmm_bwd": (_gmm_bwd, lambda: gmm.BWD_LAUNCHES,
+                    lambda: gmm.BWD_LAUNCHES_BY_ROUTE,
+                    ["scalar_f32", "wgmma_bf16"]),
     "rglru_scan": (_rglru, lambda: rg.LAUNCHES,
                    lambda: rg.LAUNCHES_BY_ROUTE, ["fused_bias", "gates"]),
     "rglru_scan_bwd": (_rglru_bwd, lambda: rg.BWD_LAUNCHES,

@@ -1008,28 +1008,29 @@ def test_moe_gmm_under_grad_has_a_grad_fn_and_serves_without_it():
     for t in (xe, p["w1"]):
         t.requires_grad_()
     for mode in (torch.no_grad, torch.inference_mode):
-        before = gmm_kernel.LAUNCHES, gmm_kernel.BWD_CALLS
+        before = gmm_kernel.LAUNCHES, gmm_kernel.BWD_LAUNCHES
         with mode():
             y = gmm_ops.expert_ffn(xe, p, "swiglu")
         assert y.grad_fn is None
-        assert (gmm_kernel.LAUNCHES, gmm_kernel.BWD_CALLS) == \
+        assert (gmm_kernel.LAUNCHES, gmm_kernel.BWD_LAUNCHES) == \
             (before[0] + 1, before[1])
-    before = gmm_kernel.LAUNCHES, gmm_kernel.BWD_CALLS
+    before = gmm_kernel.LAUNCHES, gmm_kernel.BWD_LAUNCHES
     y = gmm_ops.expert_ffn(xe, p, "swiglu")
     assert y.grad_fn is not None
     y.float().sum().backward()
     torch.cuda.synchronize()
-    assert (gmm_kernel.LAUNCHES, gmm_kernel.BWD_CALLS) == \
+    assert (gmm_kernel.LAUNCHES, gmm_kernel.BWD_LAUNCHES) == \
         (before[0] + 1, before[1] + 1)
     assert xe.grad is not None and p["w1"].grad is not None
     assert p["w2"].grad is None          # not a leaf that requires grad
 
 
-# ExpertFFNFunction's gradients against the plain backward by formula in
-# float32 on the same (upcast) inputs, each relative to the plain one's max
-# |.|: bf16 rounds a1, a3, dh and each product's output to bf16 (2**-9 of
-# the value each; ~7e-3 of the scale measured in CPU bf16 at these
-# shapes); float32 differs in summation order only.
+# ExpertFFNFunction's gradients (the backward kernel) against the plain
+# backward by formula in float32 on the same (upcast) inputs, each relative
+# to the plain one's max |.|: bf16 rounds h, da1, da3 and each output to
+# bf16 (2**-9 of the value each; ~4e-3 of the scale in the CPU emulation of
+# the kernel, tools/cuda_emu/moe_gmm_bwd_emu.py); float32 differs in
+# summation order only.
 GMM_BWD_RTOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
 
@@ -1044,8 +1045,9 @@ def test_moe_gmm_grads_match_the_plain_backward(E, C, d, f, act, gated,
                                                 dtype):
     """Through expert_ffn under grad: float32 masters cast to the input's
     dtype, bucket fills with an empty and a full bucket, data left in the
-    pad rows; the gradients against ``reference_expert_ffn_bwd`` in
-    float32, dxe exactly 0 on the pads."""
+    pad rows; one forward and one backward launch on the route; the
+    gradients against ``reference_expert_ffn_bwd`` in float32, dxe exactly
+    0 on the pads."""
     _need_cuda()
     counts = _bucket_counts(E, C, seed=E * C)
     xe, p = _gmm_inputs(E, C, d, f, gated, torch.float32, seed=C)
@@ -1056,13 +1058,15 @@ def test_moe_gmm_grads_match_the_plain_backward(E, C, d, f, act, gated,
                                  masters["w3"].to(dtype) if gated else None,
                                  masters["w2"].to(dtype))
     assert route == _gmm_route(dtype, d, f)
-    before = gmm_kernel.LAUNCHES_BY_ROUTE[route], gmm_kernel.BWD_CALLS
+    before = (gmm_kernel.LAUNCHES_BY_ROUTE[route],
+              gmm_kernel.BWD_LAUNCHES_BY_ROUTE[route])
     y = gmm_ops.expert_ffn(x, masters, act, counts)
     dy = torch.randn(y.shape, device="cuda",
                      generator=torch.Generator(device="cuda").manual_seed(1))
     y.backward(dy.to(dtype))
     torch.cuda.synchronize()
-    assert (gmm_kernel.LAUNCHES_BY_ROUTE[route], gmm_kernel.BWD_CALLS) == \
+    assert (gmm_kernel.LAUNCHES_BY_ROUTE[route],
+            gmm_kernel.BWD_LAUNCHES_BY_ROUTE[route]) == \
         (before[0] + 1, before[1] + 1)
     want = gmm_ref.reference_expert_ffn_bwd(
         x.detach().float(), {k: w.to(dtype).float() for k, w in p.items()},
@@ -1077,6 +1081,96 @@ def test_moe_gmm_grads_match_the_plain_backward(E, C, d, f, act, gated,
             assert rel <= GMM_BWD_RTOL[dtype], (name, rel)
     assert masters["w1"].grad.dtype == torch.float32
     assert not x.grad[pads].any()
+
+
+# (dtype, d, f) of each backward route: wgmma_bf16 (d, f multiples of 8, not
+# of 64), wmma_bf16 (bf16 that TMA cannot address: scalar FMAs), scalar_f32
+GMM_BWD_ROUTE_SHAPES = {"wgmma_bf16": (torch.bfloat16, 136, 72),
+                        "wmma_bf16": (torch.bfloat16, 211, 100),
+                        "scalar_f32": (torch.float32, 136, 72)}
+
+
+def _gmm_bwd_run(route, counts, C, act="swiglu", gated=True, nan_pads=False,
+                 seed=0):
+    """``ops.expert_ffn_bwd`` on ``route`` at (E, C) = (len(counts), C):
+    ((dxe, dw1, dw3, dw2), the plain backward's in float32, the pads);
+    checks one backward launch on the route and none elsewhere."""
+    dtype, d, f = GMM_BWD_ROUTE_SHAPES[route]
+    E = counts.shape[0]
+    xe, p = _gmm_inputs(E, C, d, f, gated, torch.float32, seed=seed)
+    dy = torch.randn((E, C, d), device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(7))
+    pads = ~gmm_ref.live_rows(xe, counts)
+    if nan_pads:
+        xe[pads] = float("nan")
+        dy[pads] = float("nan")
+    xe, dy = xe.to(dtype), dy.to(dtype)
+    p = {k: w.to(dtype) for k, w in p.items()}
+    assert gmm_ops.kernel_route(xe, p["w1"], p.get("w3"), p["w2"]) == route
+    before = dict(gmm_kernel.BWD_LAUNCHES_BY_ROUTE)
+    got = gmm_ops.expert_ffn_bwd(xe, p["w1"], p.get("w3"), p["w2"], dy,
+                                 counts, act)
+    torch.cuda.synchronize()
+    assert gmm_kernel.BWD_LAUNCHES_BY_ROUTE == {
+        r: n + (r == route) for r, n in before.items()}
+    want = gmm_ref.reference_expert_ffn_bwd(
+        xe.float(), {k: w.float() for k, w in p.items()}, dy.float(), act,
+        counts)
+    return got, want, pads
+
+
+def _gmm_bwd_check(got, want, pads, dtype):
+    """Every gradient finite and within GMM_BWD_RTOL of the plain one's max
+    |.|; dxe exactly 0 on the pads."""
+    for name, g, w in zip(("dxe", "dw1", "dw3", "dw2"), got, want):
+        assert (g is None) == (w is None), name
+        if w is not None:
+            assert torch.isfinite(g).all(), name
+            rel = float((g.float() - w).abs().max() / w.abs().max())
+            assert rel <= GMM_BWD_RTOL[dtype], (name, rel)
+    assert not got[0][pads].any()
+
+
+@pytest.mark.parametrize("live", [63, 64, 65, 127, 128, 129])
+@pytest.mark.parametrize("route", sorted(GMM_BWD_ROUTE_SHAPES))
+def test_moe_gmm_bwd_kernel_at_live_row_edges(route, live):
+    """The backward kernel on each route with a bucket filled to the
+    wgmma route's 64- and 128-row edges, beside an empty bucket and a full
+    one (C 130): against the plain backward, the empty expert's weight
+    gradients exactly 0."""
+    _need_cuda()
+    counts = torch.tensor([live, 0, 130], dtype=torch.int32, device="cuda")
+    got, want, pads = _gmm_bwd_run(route, counts, 130, seed=live)
+    _gmm_bwd_check(got, want, pads, GMM_BWD_ROUTE_SHAPES[route][0])
+    for g in got[1:]:
+        assert not g[1].any()
+
+
+@pytest.mark.parametrize("act,gated", [("geglu", True), ("relu2", False),
+                                       ("gelu", False)])
+@pytest.mark.parametrize("route", sorted(GMM_BWD_ROUTE_SHAPES))
+def test_moe_gmm_bwd_kernel_ignores_nan_in_pad_rows(route, act, gated):
+    """NaN in the pad rows of x and dy: every gradient finite and within
+    the bar, dxe exactly 0 there (the pads add nothing to the weights)."""
+    _need_cuda()
+    counts = torch.tensor([100, 0, 37, 200, 1], dtype=torch.int32,
+                          device="cuda")
+    got, want, pads = _gmm_bwd_run(route, counts, 200, act, gated,
+                                   nan_pads=True)
+    assert pads.any()
+    _gmm_bwd_check(got, want, pads, GMM_BWD_ROUTE_SHAPES[route][0])
+
+
+@pytest.mark.parametrize("route", sorted(GMM_BWD_ROUTE_SHAPES))
+def test_moe_gmm_bwd_kernel_is_deterministic(route):
+    """Two calls on the same inputs give bitwise-equal gradients: the
+    weight gradients are summed over the rows in one fixed order."""
+    _need_cuda()
+    counts = _bucket_counts(9, 300, seed=3)
+    first, _, _ = _gmm_bwd_run(route, counts, 300, seed=5)
+    second, _, _ = _gmm_bwd_run(route, counts, 300, seed=5)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 # --------------------------------------------------------------------------

@@ -116,14 +116,27 @@ def test_plain_expert_ffn_bwd_matches_jax_vjp(act, gated):
 
 def test_expert_ffn_function_wiring(monkeypatch):
     """ExpertFFNFunction on CPU tensors, its launch filled from the plain
-    version: the forward launches once, the backward counts one call and
-    hands each input its gradient (through the weights' cast to xe's dtype,
-    autograd carries them to float32 masters); no gradient for counts."""
+    version: the forward launches once; the backward computes through the
+    plain backward (on CPU tensors the backward kernel is not launched)
+    and hands each input its gradient (through the weights' cast to xe's
+    dtype, autograd carries them to float32 masters); no gradient for
+    counts."""
     def launch(xe, w1, w3, w2, h, y, counts, *, act, route):
         y.copy_(gmm_ref.reference_expert_ffn(
             xe, {"w1": w1, "w3": w3, "w2": w2}, act, counts))
         gmm_kernel.LAUNCHES += 1
+    plain_calls = []
+
+    def plain_bwd(*args):
+        plain_calls.append(args)
+        return real_plain_bwd(*args)
+
+    def launch_bwd(*args, **kwargs):
+        raise AssertionError("the backward kernel launched on CPU tensors")
+    real_plain_bwd = gmm_ref.reference_expert_ffn_bwd
     monkeypatch.setattr(gmm_kernel, "launch", launch)
+    monkeypatch.setattr(gmm_kernel, "launch_bwd", launch_bwd)
+    monkeypatch.setattr(gmm_ref, "reference_expert_ffn_bwd", plain_bwd)
     monkeypatch.setattr(gmm_ops, "check_kernel_args", lambda *a: None)
     xe, p, dy = _inputs(True, seed=2)
     counts = _fills("partial")
@@ -135,17 +148,18 @@ def test_expert_ffn_function_wiring(monkeypatch):
     y = gmm_ops.ExpertFFNFunction.apply(
         x, *(masters[k].float() for k in ("w1", "w3", "w2")), counts,
         "swiglu")
-    assert (gmm_kernel.LAUNCHES, gmm_kernel.BWD_CALLS) == (1, 0)
-    assert y.grad_fn is not None
+    assert (gmm_kernel.LAUNCHES, gmm_kernel.BWD_LAUNCHES) == (1, 0)
+    assert y.grad_fn is not None and not plain_calls
     y.backward(torch.from_numpy(dy))
-    assert (gmm_kernel.LAUNCHES, gmm_kernel.BWD_CALLS) == (1, 1)
+    assert (gmm_kernel.LAUNCHES, gmm_kernel.BWD_LAUNCHES) == (1, 0)
+    assert len(plain_calls) == 1
     got = (x.grad, masters["w1"].grad, masters["w3"].grad,
            masters["w2"].grad)
     for g, w in zip(got, want):
         assert _rel(g.float(), w) <= BWD_RTOL
     assert masters["w1"].grad.dtype == torch.float64
     gmm_kernel.reset_launches()
-    assert gmm_kernel.BWD_CALLS == 0
+    assert gmm_kernel.LAUNCHES == 0 and gmm_kernel.BWD_LAUNCHES == 0
 
 
 def _moe_configs(cf):

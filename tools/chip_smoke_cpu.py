@@ -46,13 +46,14 @@ of them.  The script runs a copy of chip_smoke.py with every
 calls stubbed, every architecture replaced by its ``-smoke`` config (remat
 "full", as the train phases require) and the serving and encode sizes cut.
 The flash, rglru_scan and mlstm_scan kernels' ``launch`` and
-``launch_bwd``, and moe_gmm's ``launch``, are replaced by functions that
-fill their outputs from the plain versions (``ref``) and count their
-launches by route (through ``kernels.counters``, as the engine's threads
-launch at once), and CPU tensors are routed through the wrappers' kernel
-paths and their autograd functions, so that every launch check of these
-phases runs as it does on the card.  The pipeline's tools, made without a
-device, and the engine's mesh sites, given none, run on the CPU.
+``launch_bwd``, and moe_gmm's ``launch`` and ``launch_bwd``, are replaced
+by functions that fill their outputs from the plain versions (``ref``) and
+count their launches by route (through ``kernels.counters``, as the
+engine's threads launch at once), and CPU tensors are routed through the
+wrappers' kernel paths and their autograd functions, so that every launch
+check of these phases runs as it does on the card.  The pipeline's tools,
+made without a device, and the engine's mesh sites, given none, run on the
+CPU.
 Timings are CPU times and mean nothing.
 """
 from __future__ import annotations
@@ -146,6 +147,22 @@ def fake_gmm_launch(xe, w1, w3, w2, h, y, counts, *, act, route):
         xe, {"w1": w1, "w3": w3, "w2": w2}, act, counts))
     counters.bump(vars(gmm_kernel), "LAUNCHES", gmm_kernel.LAUNCHES_BY_ROUTE,
                   route)
+
+
+PLAIN_GMM_BWD = gmm_ref.reference_expert_ffn_bwd
+
+
+def fake_gmm_launch_bwd(xe, w1, w3, w2, dy, dxe, dw1, dw3, dw2, ws, counts,
+                        *, act, route):
+    """The plain backward (bound here, so that a phase counting the calls
+    of ``ref.reference_expert_ffn_bwd`` sees none from the launch)."""
+    grads = PLAIN_GMM_BWD(xe, {"w1": w1, "w3": w3, "w2": w2}, dy, act,
+                          counts)
+    for out, g in zip((dxe, dw1, dw3, dw2), grads):
+        if out is not None:
+            out.copy_(g)
+    counters.bump(vars(gmm_kernel), "BWD_LAUNCHES",
+                  gmm_kernel.BWD_LAUNCHES_BY_ROUTE, route)
 
 
 def gmm_on_the_cpu(xe, p, act="swiglu", counts=None):
@@ -265,7 +282,10 @@ def load_chip_smoke():
     """chip_smoke.py's namespace, rewritten for the CPU at smoke size."""
     kernel.launch, kernel.launch_bwd = fake_launch, fake_launch_bwd
     ops.flash_attention = transformer.flash_attention = flash_on_the_cpu
-    gmm_kernel.launch = fake_gmm_launch
+    gmm_kernel.launch, gmm_kernel.launch_bwd = fake_gmm_launch, \
+        fake_gmm_launch_bwd
+    # the backward kernel's path on CPU tensors too
+    gmm_ops._backward = gmm_ops.expert_ffn_bwd
     rg_kernel.launch, rg_kernel.launch_bwd = fake_rglru_launch, \
         fake_rglru_launch_bwd
     rg_ops.rglru = rglru.rglru_scan = rglru_on_the_cpu
@@ -315,7 +335,8 @@ def load_chip_smoke():
         ("granite-train", 8, 48, 64, 32, "swiglu", True, 96),
         ("ragged-36", 4, 36, 64, 128, "swiglu", True, None),
         ("odd-d-f", 3, 20, 21, 33, "geglu", True, None),
-        ("relu2-no-w3", 6, 30, 40, 24, "relu2", False, None)]
+        ("relu2-no-w3", 6, 30, 40, 24, "relu2", False, None),
+        ("nan-pads", 5, 30, 40, 24, "swiglu", True, None)]
     return ns
 
 

@@ -24,6 +24,7 @@
 #define __restrict__
 #define __grid_constant__
 #define __launch_bounds__(...)
+#define __align__(n) __attribute__((aligned(n)))
 #define CUDART_VERSION 12050
 
 struct dim3 {
@@ -39,7 +40,14 @@ inline long long min(long long a, long long b) { return a < b ? a : b; }
 inline long long max(long long a, long long b) { return a > b ? a : b; }
 
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorMisalignedAddress = 716 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidDevice = 101,
+       cudaErrorMisalignedAddress = 716 };
+// a card of EMU_SMS multiprocessors: few, so that persistent CTAs walk
+// several tiles each
+inline int EMU_SMS = 3;
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* dev) { *dev = 0; return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = EMU_SMS; return cudaSuccess; }
 typedef void* cudaStream_t;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <class T> cudaError_t cudaFuncSetAttribute(T, cudaFuncAttribute, int v) {

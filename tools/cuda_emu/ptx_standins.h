@@ -112,13 +112,14 @@ inline void emu_rc(int i, int& row, int& col) {
   row = 16 * w + lane / 4 + 8 * ((i / 2) % 2);
   col = 8 * (i / 4) + 2 * (lane % 4) + i % 2;
 }
-template <int NH, bool BMN>
+template <int NH, bool BMN, bool AMN = false>
 inline void emu_ss(float (&d)[NH], uint64_t da, uint64_t db, int acc) {
   const Desc a = dec(da), b = dec(db);
   for (int i = 0; i < NH; ++i) {
     int r, c; emu_rc(i, r, c);
     float s = acc ? d[i] : 0.f;
-    for (int k = 0; k < 16; ++k) s += kmaj(a, r, k) * (BMN ? mnmaj(b, k, c) : kmaj(b, c, k));
+    for (int k = 0; k < 16; ++k)
+      s += (AMN ? mnmaj(a, k, r) : kmaj(a, r, k)) * (BMN ? mnmaj(b, k, c) : kmaj(b, c, k));
     d[i] = s;
   }
 }
@@ -127,6 +128,7 @@ inline void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int acc) { emu_ss
 inline void wgmma_ss_mn(float (&d)[32], uint64_t da, uint64_t db, int acc) { emu_ss<32, true>(d, da, db, acc); }
 inline void wgmma_ss_mn(float (&d)[64], uint64_t da, uint64_t db, int acc) { emu_ss<64, true>(d, da, db, acc); }
 inline void wgmma_ss_mn(float (&d)[128], uint64_t da, uint64_t db, int acc) { emu_ss<128, true>(d, da, db, acc); }
+inline void wgmma_tt(float (&d)[64], uint64_t da, uint64_t db, int acc) { emu_ss<64, true, true>(d, da, db, acc); }
 inline float frag_val(const uint32_t* f, int row, int k) {
   // A (64 x 16) from the warpgroup's fragments: thread (row r, quad c)
   const int w = row / 16, rr = row % 16, lane = (rr % 8) * 4 + (k % 8) / 2;
