@@ -1,0 +1,13 @@
+"""device_idle.train: the share of the traced training steps in which no
+operation ran on the card, in %.  Layer: device (H100)."""
+
+LAYER = "device"
+UNIT = "%"
+MOVES = "train_tokens_per_s"
+
+
+def read(ctx):
+    tr = ctx.trace
+    if tr.window_s <= 0 or tr.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - tr.busy_s / tr.window_s)
